@@ -1,0 +1,47 @@
+"""The PyTorch/CUDA port stands alone: importing every one of its modules
+(and chip_smoke.py) pulls in neither JAX nor the JAX package."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "raytracingweekend_tpu_torch"
+
+
+def _port_modules():
+    pkg_dir = os.path.join(REPO, PKG)
+    mods = [PKG]
+    for info in pkgutil.walk_packages([pkg_dir], prefix=PKG + "."):
+        mods.append(info.name)
+    return sorted(mods)
+
+
+def test_port_module_list_is_complete():
+    mods = _port_modules()
+    for expected in ("models.builder", "models.convert", "models.scenes",
+                     "models.scene_types", "ops._build", "ops.camera",
+                     "ops.integrator", "ops.megakernel", "render",
+                     "utils.config", "utils.detrng", "utils.image"):
+        assert f"{PKG}.{expected}" in mods, mods
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_port_modules()!r} + ['chip_smoke']\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'raytracingweekend_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
