@@ -7,11 +7,14 @@ Run from the root of a checkout:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, checks the renderer
-against the reference oracle's golden images, and drives the main path
-(book-1 `random_balls` at 1200x800, 64 spp per launch, max_depth 50)
-through `render()`, printing one line per phase. Any failure exits
-non-zero; without a CUDA device it exits non-zero before printing any
-result. The last line is one JSON object naming the device.
+against the reference oracle's golden images, and drives the port's two
+paths through `render()`: book-1 `random_balls` at 1200x800, 64 spp per
+launch, max_depth 50 (kernel K1), and the Cornell path, `cornell_box` then
+`cornell_smoke` at 400x400, 256 spp in launches of 64, max_depth 50
+(kernels K2 and K3: rects, lights with one-sample MIS, emission, constant
+media). It prints one line per phase. Any failure exits non-zero; without a
+CUDA device it exits non-zero before printing any result. The last line is
+one JSON object naming the device.
 """
 from __future__ import annotations
 
@@ -38,12 +41,153 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 # kernel vs plain version: the replay gate of tests/test_mega_grad.py
 RTOL, ATOL = 1e-3, 5e-5
 MIN_SAME = 0.99       # fraction of lanes / pixels that must agree
-NX, NY, SPP, DEPTH = 1200, 800, 64, 50   # the main path (bench.py)
+NX, NY, SPP, DEPTH = 1200, 800, 64, 50   # the book-1 path (bench.py)
+# the Cornell path: tools/bench_all.py:24-25 (400x400, 256 spp, depth 50)
+CNX, CNY, CSPP, CLAUNCH, CDEPTH = 400, 400, 256, 64, 50
+CORNELL_PATH = ("cornell_box", "cornell_smoke")
 SEED = 20240601
+
+# FP32 operations of a path segment, counted from csrc/megakernel.cu (add,
+# sub, mul, div, sqrt, rsqrt, log, exp = 1, FMA = 2; compares, min / max,
+# selects and the integer RNG hash not counted). A segment pays the
+# closest-hit search, the floor, and the shading of what it hit; the mix
+# of what segments hit is measured in this run (`segment_mix`).
+OPS_SLOT_STATIC = 20          # sweep slot: co 3, nb 5, cc 6, disc 2, rsqrt,
+#                               sq, tn / tf 2
+OPS_SLOT_MOVING = 6           # 3 motion FMAs
+OPS_SLOT_SHUTTER = 2          # per-slot motion fraction (no uniform shutter)
+OPS_RECT = 6                  # (k - o_n) * 1/d_n, two plane-point FMAs
+OPS_GROUP = {0: 0, 1: 17, 2: 3, 3: 17}   # object-space ray per transform
+#                               group (rotated | translated << 1)
+OPS_MEDIUM = {0: 38, 1: 32}   # sphere / box medium boundary, with log and
+#                               FMA of the scatter distance (rotated form)
+OPS_RECIPROCALS = 3           # 1/d of a surfaces segment
+OPS_FLOOR = 32                # count 1, hit point 6, ddn + mirror 12,
+#                               normalise 9, throughput 3, depth 1
+OPS_SPHERE_NORMAL = 6         # (p - c) / r (+ 8 with moving centres)
+OPS_SHADE = {"lambertian": 70,  # cosine sample 5, cossin2pi 31, ONB 19,
+             #                    direction 15
+             "metal": 50,       # ball 44 (cossin2pi, exp(log / 3)), fuzz 6
+             "dielectric": 47,  # Schlick, exit cosine, refraction
+             "light": 6,        # one-sided emission
+             "medium": 44,      # isotropic: the ball sample
+             "miss": 0}         # black sky (+ 6 for the gradient)
+OPS_MIS = 24                  # pick 1, mixture direction 15, pdf_val 4,
+#                               weight 4
+OPS_LIGHT_DIR = {0: 9, 1: 89}     # rect / sphere light sample
+OPS_LIGHT_PDF = {0: 10, 1: 27}    # rect / sphere light pdf, with the sum
+OPS_REGEN = 34                # new camera ray, per path end
+FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
+MATERIALS = ("lambertian", "metal", "dielectric", "light")
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def ops_per_segment(plan, mix: dict) -> float:
+    """The FP32 operations of an average path segment of `plan` whose
+    hits are distributed as `mix` (fractions of segments: miss, medium,
+    sphere, and the material of each surface hit; ends = paths ended per
+    segment)."""
+    ops = float(OPS_FLOOR)
+    if plan.has_spheres:
+        slot = OPS_SLOT_STATIC
+        if plan.moving or any(plan.moving_axes):
+            slot += OPS_SLOT_MOVING
+            if not plan.uniform_time:
+                slot += OPS_SLOT_SHUTTER
+        ops += plan.S * slot
+        ops += mix["sphere"] * (OPS_SPHERE_NORMAL + 8 * plan.moving)
+    if plan.surfaces:
+        ops += OPS_RECIPROCALS + plan.R * OPS_RECT
+        groups = {c >> 4: (c >> 2) & 3 for c in plan.rect_codes}
+        ops += sum(OPS_GROUP[g] for g in groups.values())
+        ops += sum(OPS_MEDIUM[c & 1] for c in plan.med_codes)
+    for kind, n in OPS_SHADE.items():
+        ops += mix[kind] * n
+    ops += mix["miss"] * 6 * plan.bg_gradient
+    if plan.L:
+        kinds = [c & 1 for c in plan.light_codes]
+        ops += mix["lambertian"] * (
+            OPS_MIS + sum(OPS_LIGHT_DIR[k] for k in kinds) / plan.L
+            + sum(OPS_LIGHT_PDF[k] for k in kinds))
+    return ops + mix["ends"] * OPS_REGEN
+
+
+def segment_mix(scene) -> dict:
+    """What path segments hit, as fractions of all segments: one kernel
+    launch in exact-spp mode (64x64, 8 spp, depth 50) and its winner tape,
+    decoded with the scene's tables."""
+    _, plan = mk.make_plan(scene, 64, 64, 8, max_depth=DEPTH, exact=True)
+    args, _ = mk.device_inputs(scene, plan, "cuda")
+    out = mk.mega_kernel(*args, SEED, plan)
+    attr_tab, rect_tab = args[3], args[4]
+    tape = out[:, mk.OUT_ROWS:, :]                   # (tiles, iters, T)
+    it = torch.arange(tape.shape[1], device=tape.device)[None, :, None]
+    code = tape[it < out[:, 4:5, :]].long()          # each lane's own
+    n = code.numel()
+    S, R = plan.S, plan.R
+    sph = (code >= 0) & (code < S)
+    rec = (code >= S) & (code < S + R)
+    mtype = torch.full_like(code, -1)
+    mtype[sph] = attr_tab[mk.A_MTYPE, code[sph]].long()
+    mtype[rec] = rect_tab[code[rec] - S, mk.RT_MTYPE].long()
+    mix = {kind: (mtype == m).sum().item() / n
+           for m, kind in enumerate(MATERIALS)}
+    mix.update(miss=(code < 0).sum().item() / n,
+               medium=(code >= S + R).sum().item() / n,
+               sphere=sph.sum().item() / n,
+               ends=out[:, 5, :].sum().item() / out[:, 3, :].sum().item())
+    return mix
+
+
+def bound_ms(plan, segments: float, mix: dict) -> float:
+    """Least time of a launch that traced `segments` path segments: their
+    FP32 operations over the card's FP32 peak. Bytes do not bound it: every
+    table sits in shared memory, and a launch reads 16 B and writes 32 B
+    per lane."""
+    return ops_per_segment(plan, mix) * segments / FP32_PEAK * 1e3
+
+
+def _kernel_name(mangled: str):
+    """'<kMoving,kUniformTime>' or 'surfaces<kMoving,kUniformTime>' of a
+    mangled mega_kernel / mega_kernel_surfaces instantiation, else None."""
+    m = re.search(r"mega_kernel(_surfaces)?ILb(\d)ELb(\d)E", mangled)
+    if not m:
+        return None
+    return f"{'surfaces' if m.group(1) else ''}<{m.group(2)},{m.group(3)}>"
+
+
+def sweep_sass(lib: str) -> dict:
+    """SASS instructions per sphere slot of each kernel instantiation's
+    sweep loop (`cuobjdump -sass` of the built library): the innermost
+    loop with the most MUFU.RSQ (one per slot; nvcc unrolls the sweep),
+    from its branch target to its backward branch. Returns {name:
+    (instructions, slots)}."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = _kernel_name(func.split(None, 1)[0])
+        if name is None:
+            continue
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
+        addr = {a: k for k, (a, _) in enumerate(ins)}
+        loops = []
+        for k, (a, op) in enumerate(ins):
+            br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
+            if br and int(br.group(1), 16) <= a:
+                loops.append((addr[int(br.group(1), 16)], k))
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)]
+        best = max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
+                     b - a + 1) for a, b in inner), default=(0, 0))
+        out[name] = (best[1], best[0])
+    return out
 
 
 def phase_device() -> None:
@@ -64,11 +208,22 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     lib, nvcc_secs = _build.build()
     mk._kernel_lib()
-    regs = re.findall(r"Used (\d+) registers", _build.build_log())
-    spills = re.findall(r"(\d+) bytes spill stores", _build.build_log())
+    log = _build.build_log()
+    # one entry per kernel instantiation <kMoving, kUniformTime>: its
+    # registers and spill stores
+    rows = []
+    for m in re.finditer(r"Compiling entry function '([^']*)'(.*?)Used "
+                         r"(\d+) registers", log, re.S):
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        rows.append(f"{_kernel_name(m.group(1))}: {m.group(3)} regs, "
+                    f"{spill.group(1) if spill else '?'} B spill")
+    sweep = sweep_sass(str(lib))
+    per_slot = "; ".join(f"{k}: {n} / {s} = {n / s:.2f}" if s else f"{k}: -"
+                         for k, (n, s) in sorted(sweep.items()))
     print(f"phase 2 build: {os.path.basename(lib)} nvcc {nvcc_secs:.3f} s, "
-          f"build+load {time.perf_counter() - t0:.3f} s, registers {regs}, "
-          f"spill stores {spills}", flush=True)
+          f"build+load {time.perf_counter() - t0:.3f} s; "
+          f"instantiations {'; '.join(rows)}; sweep SASS instructions per "
+          f"slot (loop / slots) {per_slot}", flush=True)
 
 
 def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
@@ -82,9 +237,9 @@ def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
     return args[0], out_k, out_r
 
 
-def phase_exact_parity() -> None:
-    """Exact-spp mode: winner tapes lane by lane, radiance on equal lanes."""
-    scene = make_scene("random_balls", 1.0)
+def _exact_parity(label, scene) -> float:
+    """Exact-spp mode at 64x64, 8 spp, depth 8: winner tapes lane by lane,
+    radiance on equal lanes. Returns the max abs radiance error."""
     pixf, out_k, out_r = _launch_both(scene, 64, 64, 8, 8, exact=True)
     valid = pixf[:, 2] > 0
     same = (out_k[:, 8:] == out_r[:, 8:]).all(dim=1) & valid
@@ -93,13 +248,27 @@ def phase_exact_parity() -> None:
     b = out_r[:, 0:3].transpose(1, 2)[same]
     err = (a - b).abs().max().item()
     close = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
-    print(f"phase 3 exact-spp parity (random_balls 64x64, 8 spp, depth 8, "
+    print(f"phase 3 exact-spp parity ({label} 64x64, 8 spp, depth 8, "
           f"T=256): tapes equal on {frac:.6f} of lanes (mismatch "
           f"{1 - frac:.6f}), max abs radiance err {err:.3e} "
           f"(rtol {RTOL}, atol {ATOL}): {'ok' if close else 'FAIL'}",
           flush=True)
     if frac < MIN_SAME or not close:
-        fail("kernel disagrees with its plain version in exact-spp mode")
+        fail(f"kernel disagrees with its plain version in exact-spp mode "
+             f"({label})")
+    return err
+
+
+def phase_exact_parity() -> dict:
+    errs = {"K1": _exact_parity("random_balls",
+                                make_scene("random_balls", 1.0))}
+    errs["K2+K3"] = max(
+        _exact_parity("cornell_box", make_scene("cornell_box", 1.0)),
+        _exact_parity("cornell_box glass_sphere=False aluminum_box=True",
+                      make_scene("cornell_box", 1.0, glass_sphere=False,
+                                 aluminum_box=True)),
+        _exact_parity("cornell_smoke", make_scene("cornell_smoke", 1.0)))
+    return errs
 
 
 def _load_golden(name):
@@ -114,7 +283,10 @@ def phase_goldens() -> None:
     """The pixelwise criterion of tests/test_golden.py through render()."""
     for name, golden, spp in (
             ("random_balls", "random_balls_128x128_2048spp.bin", 2048),
-            ("dielectric", "dielectric_32x32_4096spp.bin", 4096)):
+            ("dielectric", "dielectric_32x32_4096spp.bin", 4096),
+            ("cornell_box", "cornell_box_128x128_8192spp.bin", 8192),
+            ("cornell_box", "cornell_box_32x32_8192spp.bin", 8192),
+            ("cornell_smoke", "cornell_smoke_32x32_8192spp.bin", 8192)):
         g = _load_golden(golden)
         ny, nx, _ = g.shape
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=50,
@@ -132,37 +304,54 @@ def phase_goldens() -> None:
               f"tolerance {frac_ok:.5f} > 0.995, {secs:.3f} s: "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            fail(f"golden parity failed for {name}")
+            fail(f"golden parity failed for {golden}")
 
 
-def phase_main_path() -> dict:
-    """render() at the main path's shapes, counting kernel launches."""
-    scene = make_scene("random_balls", NX / NY)
-    base = dict(nx=NX, ny=NY, max_depth=DEPTH, samples_per_launch=SPP,
+def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label) -> dict:
+    """render() of one scene: one warm-up launch, then `spp` samples in
+    launches of `launch_spp`, with the kernel's launch count set to 0
+    just before the path and read just after."""
+    scene = make_scene(name, nx / ny)
+    base = dict(nx=nx, ny=ny, max_depth=depth, samples_per_launch=launch_spp,
                 device="cuda")
-    mk.KERNEL_LAUNCHES = 0
-    render(scene, RenderConfig(spp=SPP, seed=0, **base))   # warm-up launch
+    for k in mk.KERNEL_LAUNCHES:
+        mk.KERNEL_LAUNCHES[k] = 0
+    render(scene, RenderConfig(spp=launch_spp, seed=0, **base))   # warm-up
     stats = RenderStats()
-    canvas = render(scene, RenderConfig(spp=3 * SPP, seed=1, **base),
+    canvas = render(scene, RenderConfig(spp=spp, seed=1, **base),
                     stats=stats)
-    launches = mk.KERNEL_LAUNCHES
+    launches = dict(mk.KERNEL_LAUNCHES)
+    n_timed = spp // launch_spp
     img = canvas.cpu().numpy()
     mean = float(img.mean())
     with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "random_balls.png")
+        png = os.path.join(tmp, f"{name}.png")
         image_mod.write_png(image_mod.postprocess(img), png)
         png_bytes = os.path.getsize(png)
-    print(f"phase 5 main path (random_balls {NX}x{NY}, {SPP} spp/launch, "
-          f"depth {DEPTH}, 1 warm-up + 3 timed launches): "
+    print(f"{label} ({name} {nx}x{ny}, {launch_spp} spp/launch, depth "
+          f"{depth}, 1 warm-up + {n_timed} timed launches): "
           f"{stats.rays_per_s:.6e} path segments/s, "
-          f"{stats.trace_seconds / 3:.6f} s/launch, "
+          f"{stats.trace_seconds / n_timed:.6f} s/launch, "
           f"{stats.segments:.6e} segments, kernel launches {launches}, "
           f"image mean {mean:.6f}, png {png_bytes} bytes", flush=True)
-    if launches < 1:
-        fail("the main path launched no CUDA kernel")
-    if img.shape != (NY, NX, 3) or not np.isfinite(img).all():
-        fail("main path image is not finite or has the wrong shape")
-    return dict(launches=launches)
+    if launches[kernel] < 1:
+        fail(f"the {name} path launched no {kernel} kernel")
+    if img.shape != (ny, nx, 3) or not np.isfinite(img).all():
+        fail(f"{name} image is not finite or has the wrong shape")
+    return dict(launches=launches[kernel], rate=stats.rays_per_s)
+
+
+def phase_main_path() -> dict:
+    """The book-1 path at full width, through render()."""
+    return _drive("random_balls", NX, NY, 3 * SPP, SPP, DEPTH, "K1",
+                  "phase 5 main path")
+
+
+def phase_cornell_path() -> dict:
+    """The Cornell path at full width: cornell_box, then cornell_smoke."""
+    runs = [_drive(name, CNX, CNY, CSPP, CLAUNCH, CDEPTH, "K2+K3",
+                   "phase 6 Cornell path") for name in CORNELL_PATH]
+    return dict(launches=sum(r["launches"] for r in runs))
 
 
 def _event_ms(fn, reps: int) -> tuple[float, object]:
@@ -176,11 +365,12 @@ def _event_ms(fn, reps: int) -> tuple[float, object]:
     return start.elapsed_time(end) / reps, out
 
 
-def phase_kernel_vs_plain() -> dict:
-    """One launch at the main path's shapes: kernel and plain version on
-    the same inputs, timed with CUDA events, compared pixel by pixel."""
-    scene = make_scene("random_balls", NX / NY)
-    _, plan = mk.make_plan(scene, NX, NY, SPP, max_depth=DEPTH)
+def _kernel_vs_plain(name, nx, ny, spp, label) -> dict:
+    """One launch at a path's shapes: kernel and plain version on the same
+    inputs, timed with CUDA events, compared pixel by pixel; the bound
+    from the launch's segments and the measured hit mix."""
+    scene = make_scene(name, nx / ny)
+    _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
     args, inv = mk.device_inputs(scene, plan, "cuda")
 
     def kernel():
@@ -189,42 +379,66 @@ def phase_kernel_vs_plain() -> dict:
     def plain():
         return mk.trace_mega_reference(*args, SEED, plan)
 
-    kernel()                                   # warm-up
-    ms, out_k = _event_ms(kernel, 3)
+    once, _ = _event_ms(kernel, 1)             # warm-up, and a first time
+    reps = max(3, min(50, int(500.0 / max(once, 1e-3))))   # ~0.5 s
+    _event_ms(kernel, reps)                    # clocks up
+    ms, out_k = _event_ms(kernel, reps)
     plain_ms, out_r = _event_ms(plain, 1)
-    img_k = mk._epilogue(out_k, inv, plan).image / SPP
-    img_r = mk._epilogue(out_r, inv, plan).image / SPP
+    img_k = mk._epilogue(out_k, inv, plan).image / spp
+    img_r = mk._epilogue(out_r, inv, plan).image / spp
     err = (img_k - img_r).abs()
     max_err = err.max().item()
     frac = torch.isclose(img_k, img_r, rtol=RTOL, atol=ATOL).all(
         dim=-1).float().mean().item()
-    print(f"phase 5b kernel vs plain at the main path's shapes (T={plan.T}, "
-          f"S={plan.S}): kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} ms "
-          f"per launch; pixels equal within rtol {RTOL}/atol {ATOL}: "
-          f"{frac:.6f}, max abs err {max_err:.3e}", flush=True)
+    segments = out_k[:, 3, :].sum().item()
+    mix = segment_mix(scene)
+    ops = ops_per_segment(plan, mix)
+    bound = bound_ms(plan, segments, mix)
+    print(f"{label} kernel vs plain ({name} {nx}x{ny}x{spp} spp, "
+          f"T={plan.T}, S={plan.S}, R={plan.R}, L={plan.L}, V={plan.V}): "
+          f"kernel {ms:.3f} ms (mean of {reps}), plain PyTorch "
+          f"{plain_ms:.3f} ms per launch; {segments:.6e} segments; hit mix "
+          f"{json.dumps({k: round(v, 4) for k, v in mix.items()})}; "
+          f"{ops:.1f} FP32 ops per segment, bound {bound:.3f} ms "
+          f"({bound / ms:.3f} of the kernel time); pixels equal within rtol "
+          f"{RTOL}/atol {ATOL}: {frac:.6f}, max abs err {max_err:.3e}",
+          flush=True)
     if frac < MIN_SAME:
-        fail("kernel disagrees with its plain version at the main path's "
-             "shapes")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+        fail(f"kernel disagrees with its plain version on {name}")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
+                bound_ms=bound)
 
 
 def main() -> int:
     phase_device()
     phase_build()
-    phase_exact_parity()
+    parity = phase_exact_parity()
     phase_goldens()
     main_run = phase_main_path()
-    timing = phase_kernel_vs_plain()
-    print(json.dumps({"kernels": [{
-        "name": "megakernel (K1, book-1 sphere path)",
-        "route": "cuda",
-        "source": "raytracingweekend_tpu_torch/csrc/megakernel.cu",
-        "replaces": "raytracingweekend_tpu/ops/megakernel.py:371",
-        "launches": main_run["launches"],
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }]}))
+    cornell_run = phase_cornell_path()
+    k1 = _kernel_vs_plain("random_balls", NX, NY, SPP, "phase 5b")
+    k23 = [_kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
+           for name in CORNELL_PATH]
+    entries = [
+        dict(name="megakernel K1 (book-1 sphere path, random_balls)",
+             source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
+             replaces="raytracingweekend_tpu/ops/megakernel.py:371",
+             launches=main_run["launches"],
+             max_abs_err=max(k1["max_abs_err"], parity["K1"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"]),
+        dict(name="megakernel K2+K3 (rects, lights + MIS, emission, media; "
+                  "cornell_box timings)",
+             source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
+             replaces="raytracingweekend_tpu/ops/megakernel.py:1022",
+             launches=cornell_run["launches"],
+             max_abs_err=max([parity["K2+K3"]]
+                             + [r["max_abs_err"] for r in k23]),
+             ms=k23[0]["ms"], plain_ms=k23[0]["plain_ms"],
+             bound_ms=k23[0]["bound_ms"]),
+    ]
+    for e in entries:
+        e.update(route="cuda", bound_by="operations", library_ms=None)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,13 @@
-// Megakernel for sphere scenes: the whole path-trace loop in one launch.
+// Megakernel for scenes of spheres, axis rects and constant media: the
+// whole path-trace loop in one launch.
 //
 // Replaces raytracingweekend_tpu/ops/megakernel.py::_kernel in its C=1
-// configuration (one dense sphere cluster, no culling, no rects, lights,
-// media or textures; ROADMAP kernel K1). Plain version beside it:
+// configuration (one dense sphere cluster, no culling, constant textures):
+// the sphere path (ROADMAP kernel K1, mega_kernel) and, in
+// mega_kernel_surfaces, the rect hit with baked flip / rotate_y /
+// translate, the one-sample MIS over rect and sphere lights, one-sided
+// emission (K2), and the stochastic constant-medium boundaries with
+// isotropic scatter (K3). Plain version beside it:
 // raytracingweekend_tpu_torch/ops/megakernel.py::trace_mega_reference.
 //
 // One thread owns one lane, a pixel slot, and loops over bounces:
@@ -20,7 +25,8 @@
 //     lane of the block has spp (__syncthreads_or after each bounce), and
 //     the host epilogue renormalises by the per-lane sample count;
 //   exact (exact == 1): every lane traces exactly spp samples on its own
-//     and writes its winner code per iteration (-1 miss, else the slot).
+//     and writes its winner code per iteration: -1 miss, [0, S) sphere
+//     slot, S + r rect row, S + R + v medium row (the JAX tape encoding).
 //     Blocks are 256 threads; T is then only the tile width of the RNG key
 //     (tile = lane / T, lane % T), so the streams match any logical T.
 //
@@ -32,11 +38,15 @@
 // the kernel and its plain version round alike and differ only where their
 // rsqrtf / expf / logf implementations do.
 //
-// What bounds it: FP32 issue in the S-slot quadratic, about 20 flops per
-// (sphere, segment), with the sphere table (nine lanes, 36 bytes a slot)
-// broadcast from shared memory to every thread of a warp. The attribute
-// rows stay in global memory and are read once per bounce through the
-// read-only path (__ldg).
+// What bounds it: FP32 issue. Book-1 scenes spend it in the S-slot
+// quadratic, about 20 flops per (sphere, segment); Cornell scenes in the
+// R-rect plane tests and the light-pdf re-intersection. Every table
+// (sphere SoA, then the rect, light and medium rows and their static
+// codes) is copied once per block into shared memory and broadcast to the
+// threads of a warp; the loops over rects, lights and media run at run
+// time, with each row's axis, kind and transform presence read from its
+// code. The sphere attribute rows stay in global memory and are read once
+// per bounce through the read-only path (__ldg).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +63,23 @@ enum { A_CX, A_CY, A_CZ, A_DCX, A_DCY, A_DCZ, A_T0, A_IDT, A_RINV, A_MTYPE,
        A_ALBX, A_ALBY, A_ALBZ, A_MPARAM };
 // sweep SoA lanes (9, S), as ops/megakernel.py SWEEP_LANES
 enum { L_CX, L_CY, L_CZ, L_DCX, L_DCY, L_DCZ, L_T0, L_IDT, L_NR2, kLanes };
+// rect / light / medium lanes, as ops/megakernel.py RT_* / LT_* / MD_*; the
+// shared-memory copy keeps the first k*Lanes of each 128-lane table row
+enum { RT_A0, RT_A1, RT_B0, RT_B1, RT_K, RT_COS, RT_SIN, RT_OFFX, RT_OFFY,
+       RT_OFFZ, RT_NX, RT_NY, RT_NZ, RT_MTYPE, RT_ALBX, RT_ALBY, RT_ALBZ,
+       RT_FUZZ, RT_RIDX, kRectLanes };
+enum { LT_A0, LT_A1, LT_B0, LT_B1, LT_K, LT_COS, LT_SIN, LT_OFFX, LT_OFFY,
+       LT_OFFZ, LT_AREA, LT_CX, LT_CY, LT_CZ, LT_RAD, kLightLanes };
+enum { MD_P0X, MD_P0Y, MD_P0Z, MD_P1X, MD_P1Y, MD_P1Z, MD_COS, MD_SIN,
+       MD_OFFX, MD_OFFY, MD_OFFZ, MD_NIRHO, MD_ALBX, MD_ALBY, MD_ALBZ,
+       kMedLanes };
+constexpr int kTableLanes = 128;  // row stride of the rect/light/medium tables
+// float32 roundings of the plain version's constants
+constexpr float kInvPi = 0x1.45f306p-2f;   // 1 / pi
+constexpr float kTwoPi = 0x1.921fb6p+2f;   // 2 pi
+constexpr float kTiny20 = 0x1.79ca10p-67f; // 1e-20
+constexpr float kTiny30 = 0x1.4484c0p-100f; // 1e-30
+constexpr float kTiny38 = 0x1.b38fb8p-127f; // 1e-38 (subnormal)
 // camera vector lanes, as ops/megakernel.py CAM_*
 enum { CAM_OX, CAM_OY, CAM_OZ, CAM_LLX, CAM_LLY, CAM_LLZ, CAM_HX, CAM_HY,
        CAM_HZ, CAM_VX, CAM_VY, CAM_VZ, CAM_UX, CAM_UY, CAM_UZ, CAM_WX, CAM_WY,
@@ -69,6 +96,20 @@ struct Params {
   float spp, max_depth, rr_depth;  // rr_depth < 0: no roulette
   int exact, lens, bg_gradient, uniform_time;
   float inv_nx, inv_ny, t_min, ut_t0, ut_idt;
+};
+
+// The rect, light and medium tables of a surfaces launch (K2, K3).
+struct Surfaces {
+  const float* rect;   // (max(R, 1), 128) rect rows
+  const float* light;  // (max(L, 1), 128) light rows
+  const float* med;    // (max(V, 1), 128) medium rows
+  // static per-row codes, R + L + V of them:
+  //   rect   axis | rotated << 2 | translated << 3 | transform group << 4
+  //   light  kind | axis << 1 | rotated << 3 | translated << 4
+  //   medium kind | rotated << 1 | translated << 2
+  const int* codes;
+  int R, L, V, has_spheres;
+  float inv_L;  // 1 / L
 };
 
 struct Lane {
@@ -370,6 +411,526 @@ __device__ __forceinline__ int bounce(const Params& p, const float* sm,
   return code;
 }
 
+// ---------------------------------------------------------------------------
+// Rects, lights and media (the surfaces kernel: K2 and K3)
+// ---------------------------------------------------------------------------
+
+// NaN-propagating min / max, as torch.minimum / maximum and XLA's: the
+// slab of a ray that runs in a face's plane gives 0 * inf = NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The shared-memory copy of a surfaces launch's tables.
+struct Tables {
+  const float* rect;   // (R, kRectLanes)
+  const float* light;  // (L, kLightLanes)
+  const float* med;    // (V, kMedLanes)
+  const int* code;     // R rect, L light, V medium codes
+  int R, L, V, has_spheres;
+  float inv_L;
+};
+
+// A ray in the object space of a row's baked transform: the world -> object
+// map undoes translate, then rotate_y (hittable.h:294-416). `tf` holds cos,
+// sin, offx, offy, offz in consecutive lanes.
+__device__ __forceinline__ void to_object(const float* tf, bool rot,
+                                          bool trans, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& rox, float& roy,
+                                          float& roz, float& rdx, float& rdy,
+                                          float& rdz) {
+  rdy = dy;
+  if (rot) {
+    const float cth = tf[0], sth = tf[1];
+    const float sx = ox - tf[2], sz = oz - tf[4];
+    rox = fmaf(cth, sx, -(sth * sz));
+    roy = oy - tf[3];
+    roz = fmaf(sth, sx, cth * sz);
+    rdx = fmaf(cth, dx, -(sth * dz));
+    rdz = fmaf(sth, dx, cth * dz);
+  } else if (trans) {
+    rox = ox - tf[2];
+    roy = oy - tf[3];
+    roz = oz - tf[4];
+    rdx = dx;
+    rdz = dz;
+  } else {
+    rox = ox;
+    roy = oy;
+    roz = oz;
+    rdx = dx;
+    rdz = dz;
+  }
+}
+
+// (a, b, n) components of a vector for rect axis code 0 (XY: plane z = k),
+// 1 (XZ: plane y = k) or 2 (YZ: plane x = k)
+__device__ __forceinline__ void plane_axes(int ax, float x, float y, float z,
+                                           float& a, float& b, float& n) {
+  a = ax == 2 ? y : x;
+  b = ax == 0 ? y : z;
+  n = ax == 0 ? z : (ax == 1 ? y : x);
+}
+
+// Closest rect (hittable.h:142-267): the first rect with the strictly
+// smallest t wins. Rects of one transform group (a box's faces) share one
+// object-space ray. Returns the winner row (-1: none) and its t in rb_t.
+__device__ __forceinline__ int rect_hit(const Params& p, const Tables& tb,
+                                        const Lane& L, float idx, float idy,
+                                        float idz, float& rb_t) {
+  rb_t = kBig;
+  int rwin = -1, group = -1;
+  float rox = 0.f, roy = 0.f, roz = 0.f, rdx = 0.f, rdy = 0.f, rdz = 0.f;
+  float irx = idx, iry = idy, irz = idz;
+  for (int r = 0; r < tb.R; ++r) {
+    const float* row = tb.rect + r * kRectLanes;
+    const int code = tb.code[r];
+    if ((code >> 4) != group) {
+      group = code >> 4;
+      const bool rot = code & 4;
+      to_object(row + RT_COS, rot, code & 8, L.ox, L.oy, L.oz, L.dx, L.dy,
+                L.dz, rox, roy, roz, rdx, rdy, rdz);
+      irx = rot ? 1.f / rdx : idx;
+      irz = rot ? 1.f / rdz : idz;
+    }
+    const int ax = code & 3;
+    float oa, ob, on, da, db, dn;
+    plane_axes(ax, rox, roy, roz, oa, ob, on);
+    plane_axes(ax, rdx, rdy, rdz, da, db, dn);
+    const float in = ax == 0 ? irz : (ax == 1 ? iry : irx);  // 1 / dn
+    // d_n == 0 gives t = +-inf or NaN: every comparison then fails
+    const float t = (row[RT_K] - on) * in;
+    const float pa = fmaf(t, da, oa);
+    const float pb = fmaf(t, db, ob);
+    if (t > p.t_min && t < rb_t && pa >= row[RT_A0] && pa <= row[RT_A1] &&
+        pb >= row[RT_B0] && pb <= row[RT_B1]) {
+      rb_t = t;
+      rwin = r;
+    }
+  }
+  return rwin;
+}
+
+// Closest constant-medium scatter distance (hittable.h:430-479): t_in -
+// log(u) / density inside the sphere or box boundary, u from salt 4 (one
+// row per medium). Returns the winner row (-1: none) and its t in md_t.
+__device__ __forceinline__ int media_hit(const Params& p, const Tables& tb,
+                                         const Lane& L, float idx, float idy,
+                                         float idz, uint32_t b4,
+                                         float& md_t) {
+  md_t = kBig;
+  int mwin = -1;
+  for (int v = 0; v < tb.V; ++v) {
+    const float* row = tb.med + v * kMedLanes;
+    const int code = tb.code[tb.R + tb.L + v];
+    const bool rot = code & 2;
+    float mox, moy, moz, mdx, mdy, mdz;
+    to_object(row + MD_COS, rot, code & 4, L.ox, L.oy, L.oz, L.dx, L.dy,
+              L.dz, mox, moy, moz, mdx, mdy, mdz);
+    float m_in, m_out;
+    bool m_bh;
+    if ((code & 1) == 0) {  // sphere boundary (a = 1)
+      const float ocx = mox - row[MD_P0X];
+      const float ocy = moy - row[MD_P0Y];
+      const float ocz = moz - row[MD_P0Z];
+      const float bq = fmaf(ocz, mdz, fmaf(ocx, mdx, ocy * mdy));
+      const float rq2 = row[MD_P1X] * row[MD_P1X];
+      const float ccq = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - rq2;
+      const float dq = fmaf(bq, bq, -ccq);
+      const float sqq = sqrtf(fmaxf(dq, 0.f));
+      m_in = -bq - sqq;
+      m_out = -bq + sqq;
+      m_bh = dq > 0.f;
+    } else {  // box boundary: the signed-range slab (aabb.h:17-47)
+      const float ivx = rot ? 1.f / mdx : idx;
+      const float ivz = rot ? 1.f / mdz : idz;
+      const float tx0 = (row[MD_P0X] - mox) * ivx;
+      const float ty0 = (row[MD_P0Y] - moy) * idy;
+      const float tz0 = (row[MD_P0Z] - moz) * ivz;
+      const float tx1 = (row[MD_P1X] - mox) * ivx;
+      const float ty1 = (row[MD_P1Y] - moy) * idy;
+      const float tz1 = (row[MD_P1Z] - moz) * ivz;
+      m_in = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
+                     min_nan(tz0, tz1));
+      m_out = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
+                      max_nan(tz0, tz1));
+      m_bh = m_out > m_in;
+    }
+    m_in = max_nan(m_in, p.t_min);
+    const float u = fmaxf(uniform_row(b4, v), kTiny38);
+    const float tci = fmaf(row[MD_NIRHO], logf(u), m_in);
+    if (m_bh && m_in < m_out && tci < m_out && tci < md_t) {
+      md_t = tci;
+      mwin = v;
+    }
+  }
+  return mwin;
+}
+
+// Branchless ONB about unit w (onb.h:32-38), as ops/megakernel.py::_onb.
+__device__ __forceinline__ void onb(float wx, float wy, float wz, float& ux,
+                                    float& uy, float& uz, float& vx,
+                                    float& vy, float& vz) {
+  const bool bigx = fabsf(wx) > 0.9f;
+  vx = bigx ? -wz : 0.f;
+  vy = bigx ? 0.f : wz;
+  vz = bigx ? wx : -wy;
+  const float vinv = rsqrtf(fmaf(vz, vz, fmaf(vx, vx, vy * vy)) + kTiny30);
+  vx *= vinv;
+  vy *= vinv;
+  vz *= vinv;
+  ux = fmaf(wy, vz, -(wz * vy));
+  uy = fmaf(wz, vx, -(wx * vz));
+  uz = fmaf(wx, vy, -(wy * vx));
+}
+
+// Direction from p toward a sample on light `row` (ul1, ul2: salt-3 rows 1
+// and 2): a uniform point on a rect light through its baked transform
+// (hittable.h:224-228), or a cone sample of a sphere light (sphere.h:101-108,
+// utility.h:69-82).
+__device__ __forceinline__ void light_dir(const float* row, int code,
+                                          float ul1, float ul2, float px,
+                                          float py, float pz, float& lx,
+                                          float& ly, float& lz) {
+  if ((code & 1) == 0) {
+    const float pa = fmaf(ul1, row[LT_A1] - row[LT_A0], row[LT_A0]);
+    const float pb = fmaf(ul2, row[LT_B1] - row[LT_B0], row[LT_B0]);
+    const float kk = row[LT_K];
+    const int ax = (code >> 1) & 3;
+    float qx = ax == 2 ? kk : pa;
+    const float qy0 = ax == 0 ? pb : (ax == 1 ? kk : pa);
+    float qz = ax == 0 ? kk : pb;
+    float qy = qy0;
+    if (code & 8) {  // object -> world: Ry(theta)
+      const float cth = row[LT_COS], sth = row[LT_SIN];
+      const float wx = fmaf(cth, qx, sth * qz);
+      const float wz = fmaf(cth, qz, -(sth * qx));
+      qx = wx;
+      qz = wz;
+    }
+    if (code & 16) {
+      qx = qx + row[LT_OFFX];
+      qy = qy + row[LT_OFFY];
+      qz = qz + row[LT_OFFZ];
+    }
+    lx = qx - px;
+    ly = qy - py;
+    lz = qz - pz;
+  } else {
+    const float tcx = row[LT_CX] - px;
+    const float tcy = row[LT_CY] - py;
+    const float tcz = row[LT_CZ] - pz;
+    const float dist2 = fmaf(tcz, tcz, fmaf(tcx, tcx, tcy * tcy));
+    const float rad2 = row[LT_RAD] * row[LT_RAD];
+    const float ctm = sqrtf(fmaxf(1.f - rad2 / fmaxf(dist2, kTiny20), 0.f));
+    const float zc = fmaf(ul2, ctm - 1.f, 1.f);
+    float cpl, spl;
+    cossin2pi(ul1, cpl, spl);
+    const float sc = sqrtf(fmaxf(fmaf(-zc, zc, 1.f), 0.f));
+    const float winv = rsqrtf(fmaxf(dist2, kTiny20));
+    const float wlx = tcx * winv, wly = tcy * winv, wlz = tcz * winv;
+    float lux, luy, luz, lvx, lvy, lvz;
+    onb(wlx, wly, wlz, lux, luy, luz, lvx, lvy, lvz);
+    const float cph = cpl * sc, sph = spl * sc;
+    lx = fmaf(zc, wlx, fmaf(cph, lux, sph * lvx));
+    ly = fmaf(zc, wly, fmaf(cph, luy, sph * lvy));
+    lz = fmaf(zc, wlz, fmaf(cph, luz, sph * lvz));
+  }
+}
+
+// hittable_list::pdf_value over the lights list: the sum of each light's
+// solid-angle pdf along unit direction mu from p, each light re-intersected
+// (hittable.h:208-222, sphere.h:88-99).
+__device__ __forceinline__ float light_pdf(const Params& p, const Tables& tb,
+                                           float px, float py, float pz,
+                                           float mux, float muy, float muz) {
+  float acc = 0.f;
+  for (int li = 0; li < tb.L; ++li) {
+    const float* row = tb.light + li * kLightLanes;
+    const int code = tb.code[tb.R + li];
+    bool lh;
+    float pdf;
+    if ((code & 1) == 0) {
+      float qox, qoy, qoz, qdx, qdy, qdz;
+      to_object(row + LT_COS, code & 8, code & 16, px, py, pz, mux, muy, muz,
+                qox, qoy, qoz, qdx, qdy, qdz);
+      float qa, qb, qn, wa, wb, wn;
+      const int ax = (code >> 1) & 3;
+      plane_axes(ax, qox, qoy, qoz, qa, qb, qn);
+      plane_axes(ax, qdx, qdy, qdz, wa, wb, wn);
+      const float t = (row[LT_K] - qn) / wn;
+      const float ha = fmaf(t, wa, qa);
+      const float hb = fmaf(t, wb, qb);
+      lh = t > p.t_min && ha >= row[LT_A0] && ha <= row[LT_A1] &&
+           hb >= row[LT_B0] && hb <= row[LT_B1];
+      // unit probe direction: dist^2 = t^2, cosine = |d_n|
+      pdf = (t * t) / fmaxf(fabsf(wn) * row[LT_AREA], kTiny20);
+    } else {
+      const float ocx = px - row[LT_CX];
+      const float ocy = py - row[LT_CY];
+      const float ocz = pz - row[LT_CZ];
+      const float rad2 = row[LT_RAD] * row[LT_RAD];
+      const float b = fmaf(ocz, muz, fmaf(ocx, mux, ocy * muy));
+      const float d2 = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy));
+      const float cc = d2 - rad2;
+      const float disc = fmaf(b, b, -cc);
+      const float sq = sqrtf(fmaxf(disc, 0.f));
+      const float tn = -b - sq;
+      const float t = tn > p.t_min ? tn : -b + sq;
+      lh = disc > 0.f && t > p.t_min;
+      const float ctm = sqrtf(fmaxf(1.f - rad2 / fmaxf(d2, kTiny20), 0.f));
+      const float solid = kTwoPi * (1.f - ctm);
+      pdf = 1.f / fmaxf(solid, kTiny20);
+    }
+    acc = acc + (lh ? pdf : 0.f);
+  }
+  return acc;
+}
+
+// One bounce iteration of one lane in a scene with rects, lights or media.
+// Returns the winner code (-1 for a miss or an idle lane).
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ int bounce_surfaces(
+    const Params& p, const float* sm, const Tables& tb, const Cam& cam,
+    Lane& L, bool active, uint32_t tile, uint32_t lane, uint32_t it,
+    float pxi, float pxj) {
+  bool alive = false;
+  int code = -1;
+  float px = 0.f, py = 0.f, pz = 0.f, ndx = 0.f, ndy = 0.f, ndz = 0.f;
+  if (active) {
+    L.segs += 1.f;
+    float s_best = kBig;
+    int bidx = p.S;
+    if (tb.has_spheres) bidx = sweep<kMoving, kUniformTime>(p, sm, L, s_best);
+    const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
+    float rb_t;
+    const int rwin = rect_hit(p, tb, L, idx, idy, idz, rb_t);
+    const bool use_rect = rb_t < s_best;
+    float best = fminf(s_best, rb_t);
+    float md_t;
+    const int mwin = media_hit(p, tb, L, idx, idy, idz,
+                               stream_base(p.seed, tile, it, 4u, lane), md_t);
+    const bool use_med = md_t < best;
+    best = fminf(best, md_t);
+    if (best < kHitCut) {
+      code = use_med ? p.S + tb.R + mwin : (use_rect ? p.S + rwin : bidx);
+      px = fmaf(best, L.dx, L.ox);
+      py = fmaf(best, L.dy, L.oy);
+      pz = fmaf(best, L.dz, L.oz);
+      const uint32_t b2 = stream_base(p.seed, tile, it, 2u, lane);
+      float wx, wy, wz;
+      bool scatter_ok = true;
+      if (use_med) {
+        // ---- isotropic scatter at a medium vertex (material.h:252-265):
+        // a point in the unit ball (u2, u3, u4) ----
+        const float* row = tb.med + mwin * kMedLanes;
+        const float zb = 1.f - 2.f * uniform_row(b2, 2);
+        const float rb = sqrtf(fmaxf(fmaf(-zb, zb, 1.f), 0.f));
+        float cpb, spb;
+        cossin2pi(uniform_row(b2, 3), cpb, spb);
+        const float radb =
+            expf(logf(fmaxf(uniform_row(b2, 4), 1e-30f)) * 0.333333343f);
+        ndx = rb * cpb * radb;
+        ndy = rb * spb * radb;
+        ndz = zb * radb;
+        wx = row[MD_ALBX];
+        wy = row[MD_ALBY];
+        wz = row[MD_ALBZ];
+      } else {
+        float nx, ny, nz, mtype, fuzz, ridx;
+        if (use_rect) {
+          const float* row = tb.rect + rwin * kRectLanes;
+          nx = row[RT_NX];
+          ny = row[RT_NY];
+          nz = row[RT_NZ];
+          mtype = row[RT_MTYPE];
+          wx = row[RT_ALBX];
+          wy = row[RT_ALBY];
+          wz = row[RT_ALBZ];
+          fuzz = row[RT_FUZZ];
+          ridx = row[RT_RIDX];
+        } else {
+          // ---- sphere normal ((p - c(t)) / r) ----
+          float scx = attr_at(p, A_CX, bidx);
+          float scy = attr_at(p, A_CY, bidx);
+          float scz = attr_at(p, A_CZ, bidx);
+          if (kMoving) {
+            const float fr =
+                (L.time - attr_at(p, A_T0, bidx)) * attr_at(p, A_IDT, bidx);
+            scx = fmaf(fr, attr_at(p, A_DCX, bidx), scx);
+            scy = fmaf(fr, attr_at(p, A_DCY, bidx), scy);
+            scz = fmaf(fr, attr_at(p, A_DCZ, bidx), scz);
+          }
+          const float rinv = attr_at(p, A_RINV, bidx);
+          nx = (px - scx) * rinv;
+          ny = (py - scy) * rinv;
+          nz = (pz - scz) * rinv;
+          mtype = attr_at(p, A_MTYPE, bidx);
+          wx = attr_at(p, A_ALBX, bidx);
+          wy = attr_at(p, A_ALBY, bidx);
+          wz = attr_at(p, A_ALBZ, bidx);
+          fuzz = ridx = attr_at(p, A_MPARAM, bidx);
+        }
+        const float ddn = fmaf(L.dz, nz, fmaf(L.dx, nx, L.dy * ny));
+        const float rfx = fmaf(-2.f * ddn, nx, L.dx);
+        const float rfy = fmaf(-2.f * ddn, ny, L.dy);
+        const float rfz = fmaf(-2.f * ddn, nz, L.dz);
+        if (mtype < 0.5f) {
+          // ---- lambertian: cosine sample about the normal (u0, u1) ----
+          const float r2 = uniform_row(b2, 1);
+          const float z = sqrtf(fmaxf(1.f - r2, 0.f));
+          const float sq = sqrtf(r2);
+          float cphi, sphi;
+          cossin2pi(uniform_row(b2, 0), cphi, sphi);
+          const float lx = cphi * sq, ly = sphi * sq;
+          float ux, uy, uz, vx, vy, vz;
+          onb(nx, ny, nz, ux, uy, uz, vx, vy, vz);
+          ndx = fmaf(z, nx, fmaf(lx, ux, ly * vx));
+          ndy = fmaf(z, ny, fmaf(lx, uy, ly * vy));
+          ndz = fmaf(z, nz, fmaf(lx, uz, ly * vz));
+          scatter_ok = z > 0.f;
+          if (tb.L > 0) {
+            // ---- one-sample MIS: the mixture of the cosine pdf and the
+            // lights pdf (RayTracingWeekend.cpp:117-124, pdf.h:55-75);
+            // salt 3: u0 picks the light, u1 u2 sample it, u3 the coin ----
+            const uint32_t b3 = stream_base(p.seed, tile, it, 3u, lane);
+            const float pickf = uniform_row(b3, 0) * (float)tb.L;
+            const int li = (int)pickf;  // li <= pickf < li + 1
+            float ldx = 0.f, ldy = 0.f, ldz = 0.f;
+            if (li < tb.L) {
+              light_dir(tb.light + li * kLightLanes, tb.code[tb.R + li],
+                        uniform_row(b3, 1), uniform_row(b3, 2), px, py, pz,
+                        ldx, ldy, ldz);
+            }
+            if (!(uniform_row(b3, 3) < 0.5f)) {
+              ndx = ldx;
+              ndy = ldy;
+              ndz = ldz;
+            }
+            const float minv = rsqrtf(
+                fmaxf(fmaf(ndz, ndz, fmaf(ndx, ndx, ndy * ndy)), kTiny30));
+            const float mux = ndx * minv, muy = ndy * minv, muz = ndz * minv;
+            const float cosi = fmaf(muz, nz, fmaf(mux, nx, muy * ny));
+            const float cpdf = cosi <= 0.f ? 0.f : cosi * kInvPi;
+            const float acc = light_pdf(p, tb, px, py, pz, mux, muy, muz);
+            const float pdf_val = fmaf(0.5f, cpdf, 0.5f * acc * tb.inv_L);
+            scatter_ok = pdf_val > 0.f;
+            // weight = albedo * scattering pdf / mixture pdf
+            const float lam_w = scatter_ok ? cpdf / pdf_val : 0.f;
+            wx *= lam_w;
+            wy *= lam_w;
+            wz *= lam_w;
+          }
+        } else if (mtype < 1.5f) {
+          // ---- metal: reflect + fuzz * point in the unit ball (u2-u4) ----
+          const float zb = 1.f - 2.f * uniform_row(b2, 2);
+          const float rb = sqrtf(fmaxf(fmaf(-zb, zb, 1.f), 0.f));
+          float cpb, spb;
+          cossin2pi(uniform_row(b2, 3), cpb, spb);
+          const float radb =
+              expf(logf(fmaxf(uniform_row(b2, 4), 1e-30f)) * 0.333333343f);
+          ndx = fmaf(fuzz, rb * cpb * radb, rfx);
+          ndy = fmaf(fuzz, rb * spb * radb, rfy);
+          ndz = fmaf(fuzz, zb * radb, rfz);
+        } else if (mtype < 2.5f) {
+          // ---- dielectric, corrected exit cosine (material.h; u5) ----
+          const bool inside = ddn > 0.f;
+          const float sgn = inside ? -1.f : 1.f;
+          const float onx = sgn * nx, ony = sgn * ny, onz = sgn * nz;
+          const float nint = inside ? ridx : 1.f / fmaxf(ridx, 1e-6f);
+          const float cos_exit2 =
+              fmaf(-(ridx * ridx), fmaf(-ddn, ddn, 1.f), 1.f);
+          const float cos_exit = sqrtf(fmaxf(cos_exit2, 0.f));
+          const float cosine = inside ? cos_exit : -ddn;
+          const float dt = fmaf(L.dz, onz, fmaf(L.dx, onx, L.dy * ony));
+          const float disc_r = fmaf(-(nint * nint), fmaf(-dt, dt, 1.f), 1.f);
+          const float sqr = sqrtf(fmaxf(disc_r, 0.f));
+          float r0 = (1.f - ridx) / (1.f + ridx);
+          r0 = r0 * r0;
+          const float omc = 1.f - cosine;
+          const float omc2 = omc * omc;
+          const float schl = fmaf((1.f - r0) * omc2 * omc2, omc, r0);
+          const float rp = disc_r > 0.f ? schl : 1.f;
+          if (uniform_row(b2, 5) < rp) {
+            ndx = rfx;
+            ndy = rfy;
+            ndz = rfz;
+          } else {
+            ndx = fmaf(nint, fmaf(-onx, dt, L.dx), -(onx * sqr));
+            ndy = fmaf(nint, fmaf(-ony, dt, L.dy), -(ony * sqr));
+            ndz = fmaf(nint, fmaf(-onz, dt, L.dz), -(onz * sqr));
+          }
+          wx = wy = wz = 1.f;
+        } else {
+          // ---- diffuse_light: one-sided emission (material.h:238-244)
+          // when the ray runs along the normal; the path ends here ----
+          if (ddn > 0.f) {
+            L.rx += L.tpx * wx;
+            L.ry += L.tpy * wy;
+            L.rz += L.tpz * wz;
+          }
+          scatter_ok = false;
+        }
+      }
+      const float ninv =
+          rsqrtf(fmaf(ndz, ndz, fmaf(ndx, ndx, ndy * ndy)) + 1e-30f);
+      ndx *= ninv;
+      ndy *= ninv;
+      ndz *= ninv;
+      // ---- throughput, Russian roulette (u6) ----
+      L.tpx *= wx;
+      L.tpy *= wy;
+      L.tpz *= wz;
+      const float tpmax = fmaxf(L.tpx, fmaxf(L.tpy, L.tpz));
+      alive = scatter_ok && tpmax > 0.f;
+      if (alive && p.rr_depth >= 0.f && L.depth >= p.rr_depth) {
+        const float pc = fminf(fmaxf(tpmax, 0.05f), 0.95f);
+        if (uniform_row(b2, 6) < pc) {
+          const float inv_p = 1.f / pc;
+          L.tpx *= inv_p;
+          L.tpy *= inv_p;
+          L.tpz *= inv_p;
+        } else {
+          alive = false;
+        }
+      }
+    } else if (p.bg_gradient) {
+      // ---- gradient sky on a miss (RayTracingWeekend.cpp:143-158) ----
+      const float tbg = 0.5f * (L.dy + 1.f);
+      L.rx += L.tpx * fmaf(tbg, 0.5f, 1.f - tbg);
+      L.ry += L.tpy * fmaf(tbg, 0.7f, 1.f - tbg);
+      L.rz += L.tpz;
+    }
+    L.depth += 1.f;
+    alive = alive && L.depth < p.max_depth;
+    if (!alive) {
+      L.ax += L.rx;
+      L.ay += L.ry;
+      L.az += L.rz;
+      L.done += 1.f;
+    }
+  }
+  // ---- continue the path, or regenerate the slot's next sample ----
+  if (alive) {
+    L.ox = px;
+    L.oy = py;
+    L.oz = pz;
+    L.dx = ndx;
+    L.dy = ndy;
+    L.dz = ndz;
+  } else {
+    gen_ray(p, cam, tile, lane, it, pxi, pxj, L);
+    L.tpx = L.tpy = L.tpz = 1.f;
+    L.rx = L.ry = L.rz = 0.f;
+    L.depth = 0.f;
+  }
+  return code;
+}
+
 template <bool kMoving, bool kUniformTime>
 __global__ void mega_kernel(Params p) {
   extern __shared__ float sm[];  // (9, S) sweep SoA
@@ -435,10 +996,101 @@ __global__ void mega_kernel(Params p) {
   out[(size_t)7 * T] = 0.f;
 }
 
+// The kernel of scenes with rects, lights or media. Its lane loop is
+// mega_kernel's with bounce_surfaces; the two stay separate functions so
+// that the sphere-only code (34 SASS instructions per sweep slot) does not
+// depend on the surfaces path.
 template <bool kMoving, bool kUniformTime>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kLanes * (size_t)p.S;
-  auto kern = mega_kernel<kMoving, kUniformTime>;
+__global__ void mega_kernel_surfaces(Params p, Surfaces q) {
+  // (9, S) sweep SoA, then the rect, light and medium rows (their first
+  // k*Lanes lanes) and the R + L + V static codes
+  extern __shared__ float sm[];
+  for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
+    sm[i] = __ldg(p.sph + i);
+  }
+  float* rect = sm + kLanes * p.S;
+  float* light = rect + q.R * kRectLanes;
+  float* med = light + q.L * kLightLanes;
+  int* codes = reinterpret_cast<int*>(med + q.V * kMedLanes);
+  for (int i = threadIdx.x; i < q.R * kRectLanes; i += blockDim.x) {
+    rect[i] = __ldg(q.rect + (i / kRectLanes) * kTableLanes + i % kRectLanes);
+  }
+  for (int i = threadIdx.x; i < q.L * kLightLanes; i += blockDim.x) {
+    light[i] =
+        __ldg(q.light + (i / kLightLanes) * kTableLanes + i % kLightLanes);
+  }
+  for (int i = threadIdx.x; i < q.V * kMedLanes; i += blockDim.x) {
+    med[i] = __ldg(q.med + (i / kMedLanes) * kTableLanes + i % kMedLanes);
+  }
+  for (int i = threadIdx.x; i < q.R + q.L + q.V; i += blockDim.x) {
+    codes[i] = __ldg(q.codes + i);
+  }
+  const Tables tb{rect, light, med, codes, q.R, q.L, q.V, q.has_spheres,
+                  q.inv_L};
+  __syncthreads();
+
+  uint32_t tile, lane;
+  if (p.exact) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= (long long)p.n_tiles * p.T) return;
+    tile = (uint32_t)(g / p.T);
+    lane = (uint32_t)(g % p.T);
+  } else {
+    tile = blockIdx.x;
+    lane = threadIdx.x;
+  }
+  const int T = p.T;
+  const float* pix = p.pixf + (size_t)tile * 4 * T;
+  const float pxi = pix[lane];
+  const float pxj = pix[T + lane];
+  const bool valid = pix[2 * T + lane] > 0.f;
+  Cam cam;
+#pragma unroll
+  for (int k = 0; k < kCamLanes; ++k) cam.c[k] = __ldg(p.cam + k);
+
+  Lane L;
+  gen_ray(p, cam, tile, lane, 0xFFFFFFFFu, pxi, pxj, L);  // it = -1
+  L.tpx = L.tpy = L.tpz = 1.f;
+  L.rx = L.ry = L.rz = L.ax = L.ay = L.az = 0.f;
+  L.segs = L.depth = L.iters = 0.f;
+  L.done = valid ? 0.f : p.spp;
+
+  float* out = p.out + (size_t)tile * (kOutRows + p.n_iters) * T + lane;
+  if (p.exact) {
+    int it = 0;
+    for (; L.done < p.spp && it < p.n_iters; ++it) {
+      const int code = bounce_surfaces<kMoving, kUniformTime>(
+          p, sm, tb, cam, L, true, tile, lane, it, pxi, pxj);
+      L.iters += 1.f;
+      out[(size_t)(kOutRows + it) * T] = (float)code;
+    }
+    for (; it < p.n_iters; ++it) out[(size_t)(kOutRows + it) * T] = -1.f;
+  } else {
+    uint32_t it = 0;
+    int running = __syncthreads_or(valid);
+    while (running) {
+      bounce_surfaces<kMoving, kUniformTime>(p, sm, tb, cam, L, valid, tile,
+                                             lane, it, pxi, pxj);
+      L.iters += 1.f;
+      ++it;
+      running = __syncthreads_or(L.done < p.spp);
+    }
+  }
+  out[0] = L.ax;
+  out[(size_t)1 * T] = L.ay;
+  out[(size_t)2 * T] = L.az;
+  out[(size_t)3 * T] = L.segs;
+  out[(size_t)4 * T] = L.iters;
+  out[(size_t)5 * T] = L.done;
+  out[(size_t)6 * T] = L.iters;
+  out[(size_t)7 * T] = 0.f;
+}
+
+// Launch `kern` with `smem` bytes of dynamic shared memory: one block of T
+// lanes per tile (overdraw), or blocks of kExactBlock lanes (exact).
+template <class Kernel, class... Args>
+cudaError_t launch(Kernel kern, size_t smem, const Params& p,
+                   cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -453,8 +1105,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     grid = dim3(p.n_tiles);
     block = dim3(p.T);
   }
-  kern<<<grid, block, smem, stream>>>(p);
+  kern<<<grid, block, smem, stream>>>(p, args...);
   return cudaGetLastError();
+}
+
+template <bool kMoving, bool kUniformTime>
+cudaError_t launch_one(const Params& p, const Surfaces* q,
+                       cudaStream_t stream) {
+  size_t n = (size_t)kLanes * p.S;
+  if (q == nullptr) {
+    return launch(mega_kernel<kMoving, kUniformTime>, sizeof(float) * n, p,
+                  stream);
+  }
+  n += (size_t)q->R * kRectLanes + (size_t)q->L * kLightLanes +
+       (size_t)q->V * kMedLanes + q->R + q->L + q->V;
+  return launch(mega_kernel_surfaces<kMoving, kUniformTime>,
+                sizeof(float) * n, p, stream, *q);
 }
 
 }  // namespace
@@ -463,15 +1129,20 @@ extern "C" {
 
 // Launch the megakernel on `stream`. Returns cudaGetLastError() after the
 // launch (0 on success): a launch the device refuses (too many threads or
-// too much shared memory) reports here and nowhere else.
+// too much shared memory) reports here and nowhere else. `surfaces` selects
+// mega_kernel_surfaces, the kernel with the rect / light / medium parts.
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
-                    const float* attr, float* out, int n_tiles, int T, int S,
+                    const float* attr, const float* rect, const float* light,
+                    const float* med, const int* codes, float* out,
+                    int n_tiles, int T, int S, int R, int L, int V,
                     int n_iters, int seed, int spp, int max_depth,
                     int rr_depth, int exact, int lens, int bg_gradient,
-                    int moving, int uniform_time, float inv_nx, float inv_ny,
-                    float t_min, float ut_t0, float ut_idt, void* stream) {
-  if (n_tiles <= 0 || T <= 0 || S <= 0 || n_iters < 0 ||
-      (!exact && T > 1024) || (exact && n_iters <= 0)) {
+                    int moving, int uniform_time, int surfaces,
+                    int has_spheres, float inv_nx, float inv_ny, float t_min,
+                    float ut_t0, float ut_idt, float inv_L, void* stream) {
+  if (n_tiles <= 0 || T <= 0 || S <= 0 || R < 0 || L < 0 || V < 0 ||
+      n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
+      (!surfaces && (R || L || V))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -497,12 +1168,15 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   p.t_min = t_min;
   p.ut_t0 = ut_t0;
   p.ut_idt = ut_idt;
+  Surfaces q{rect, light, med, codes, R, L, V, has_spheres, inv_L};
+  const Surfaces* qp = surfaces ? &q : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (moving) {
-    e = uniform_time ? launch<true, true>(p, s) : launch<true, false>(p, s);
+    e = uniform_time ? launch_one<true, true>(p, qp, s)
+                     : launch_one<true, false>(p, qp, s);
   } else {
-    e = launch<false, false>(p, s);
+    e = launch_one<false, false>(p, qp, s);
   }
   return (int)e;
 }

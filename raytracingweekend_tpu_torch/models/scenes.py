@@ -1,9 +1,10 @@
 """The reference scene library on SceneBuilder
 (reference: RayTracingWeekend/Scene/scene.h:42-249).
 
-The port's counterpart of raytracingweekend_tpu/models/scenes.py. This
-slice carries the two book-1 scenes; every other scene of the JAX library
-raises NotImplementedError naming the ROADMAP item that brings it.
+The port's counterpart of raytracingweekend_tpu/models/scenes.py: the
+book-1 scenes and the Cornell boxes (rects, lights, media). Every other
+scene of the JAX library raises NotImplementedError naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -18,13 +19,11 @@ SCENES: Dict[str, Callable[..., st.Scene]] = {}
 
 # Scenes of the JAX library that later slices of the port bring.
 LATER_SCENES = {
-    "light_sample": "ROADMAP Queue 1 item 5 (K2 rects/lights, K4 textures)",
-    "cornell_box": "ROADMAP Queue 1 item 5 (K2 rects, lights and MIS)",
-    "cornell_smoke": "ROADMAP Queue 1 item 5 (K3 constant media)",
-    "two_perlin_spheres": "ROADMAP Queue 1 item 5 (K4 textures)",
-    "checker_spheres": "ROADMAP Queue 1 item 5 (K4 textures)",
-    "earth": "ROADMAP Queue 1 item 5 (K4 textures)",
-    "earth_rect": "ROADMAP Queue 1 item 5 (K2 rects, K4 textures)",
+    "light_sample": "ROADMAP Queue 1 item 5 (K4 noise textures)",
+    "two_perlin_spheres": "ROADMAP Queue 1 item 5 (K4 noise textures)",
+    "checker_spheres": "ROADMAP Queue 1 item 5 (K4 checker textures)",
+    "earth": "ROADMAP Queue 1 item 5 (K4 image textures)",
+    "earth_rect": "ROADMAP Queue 1 item 5 (K4 image textures)",
     "random_balls_large": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
     "random_balls_huge": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
 }
@@ -110,3 +109,68 @@ def random_balls_scene(aspect: float, moving: bool = True) -> st.Scene:
     b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, aspect, 0.0, 10.0,
              0.0, 1.0)
     return b.build(background=st.BG_GRADIENT, name="random_balls")
+
+
+@register("cornell_box")
+def cornell_box_scene(aspect: float, glass_sphere: bool = True,
+                      aluminum_box: bool = False) -> st.Scene:
+    """Book-3 Cornell box (Scene/scene.h:176-249): walls, the area light
+    and the rotated tall box; the short box is the glass sphere that is
+    also a light (the active #if 1 at scene.h:219-225).
+    `glass_sphere=False` restores the two-box book-2 variant;
+    `aluminum_box=True` makes the tall box metal (scene.h:228-231)."""
+    b = SceneBuilder()
+    red = b.lambertian(b.constant((0.65, 0.05, 0.05)))
+    white = b.lambertian(b.constant((0.73, 0.73, 0.73)))
+    green = b.lambertian(b.constant((0.12, 0.45, 0.15)))
+    light = b.diffuse_light((15.0, 15.0, 15.0))
+
+    b.add_light(b.rect("xz", 213.0, 343.0, 227.0, 332.0, 554.0, light))
+    b.rect("yz", 0.0, 555.0, 0.0, 555.0, 555.0, green, flip=True)
+    b.rect("yz", 0.0, 555.0, 0.0, 555.0, 0.0, red)
+    b.rect("xz", 0.0, 555.0, 0.0, 555.0, 555.0, white, flip=True)
+    b.rect("xz", 0.0, 555.0, 0.0, 555.0, 0.0, white)
+    b.rect("xy", 0.0, 555.0, 0.0, 555.0, 555.0, white, flip=True)
+
+    if glass_sphere:
+        b.add_light(b.sphere((190.0, 90.0, 190.0), 90.0, b.dielectric(1.5)))
+    else:
+        b.box((0, 0, 0), (165, 165, 165), white, rotate_y=-18.0,
+              translate=(130.0, 0.0, 65.0))
+
+    tall_mat = b.metal((0.8, 0.85, 0.88), 0.0) if aluminum_box else white
+    b.box((0, 0, 0), (165, 330, 165), tall_mat, rotate_y=15.0,
+          translate=(265.0, 0.0, 295.0))
+
+    b.camera((278, 278, -800), (278, 278, 0), (0, 1, 0), 40.0, aspect, 0.0,
+             10.0, 0.0, 1.0)
+    return b.build(background=st.BG_BLACK, name="cornell_box")
+
+
+@register("cornell_smoke")
+def cornell_smoke_scene(aspect: float) -> st.Scene:
+    """Book-2 Cornell box with two smoke boxes (constant_medium,
+    hittable.h:420-489; the reference's Volume.png render)."""
+    b = SceneBuilder()
+    red = b.lambertian(b.constant((0.65, 0.05, 0.05)))
+    white = b.lambertian(b.constant((0.73, 0.73, 0.73)))
+    green = b.lambertian(b.constant((0.12, 0.45, 0.15)))
+    light = b.diffuse_light((7.0, 7.0, 7.0))
+
+    b.add_light(b.rect("xz", 113.0, 443.0, 127.0, 432.0, 554.0, light))
+    b.rect("yz", 0.0, 555.0, 0.0, 555.0, 555.0, green, flip=True)
+    b.rect("yz", 0.0, 555.0, 0.0, 555.0, 0.0, red)
+    b.rect("xz", 0.0, 555.0, 0.0, 555.0, 555.0, white, flip=True)
+    b.rect("xz", 0.0, 555.0, 0.0, 555.0, 0.0, white)
+    b.rect("xy", 0.0, 555.0, 0.0, 555.0, 555.0, white, flip=True)
+
+    fog = b.isotropic((1.0, 1.0, 1.0))
+    smoke = b.isotropic((0.0, 0.0, 0.0))
+    b.constant_medium_box((0, 0, 0), (165, 165, 165), 0.01, fog,
+                          rotate_y=-18.0, translate=(130.0, 0.0, 65.0))
+    b.constant_medium_box((0, 0, 0), (165, 330, 165), 0.01, smoke,
+                          rotate_y=15.0, translate=(265.0, 0.0, 295.0))
+
+    b.camera((278, 278, -800), (278, 278, 0), (0, 1, 0), 40.0, aspect, 0.0,
+             10.0, 0.0, 1.0)
+    return b.build(background=st.BG_BLACK, name="cornell_smoke")

@@ -1,19 +1,23 @@
 """The megakernel: the whole path-trace loop fused in one CUDA kernel.
 
-The port of raytracingweekend_tpu/ops/megakernel.py for sphere scenes (the
-book-1 slice: ROADMAP kernel K1, `_kernel` with one dense sphere cluster).
-One launch traces every pixel of a frame: each lane owns one pixel slot
-and runs
+The port of raytracingweekend_tpu/ops/megakernel.py for scenes of spheres,
+axis rects and constant media with constant textures (ROADMAP kernels K1,
+K2 and K3: `_kernel` with one dense sphere cluster, the rect hit, the
+one-sample MIS over the lights list, one-sided emission, and the
+stochastic medium boundaries with isotropic scatter). One launch traces
+every pixel of a frame: each lane owns one pixel slot and runs
 
-    camera ray -> dense closest hit over every sphere slot -> shading
-    (lambertian / metal / dielectric, gradient sky) -> Russian roulette ->
+    camera ray -> closest hit over every sphere slot, rect and medium ->
+    shading (lambertian with the light mixture pdf, metal, dielectric,
+    emitter, isotropic; gradient or black sky) -> Russian roulette ->
     regeneration of the slot's next sample
 
 until its pixel has its samples. The module holds
 
-- the host plan: bitwise the JAX package's sphere / camera tables
-  (`build_tables`), sphere order (`_morton_order`, `_kd_cluster_order`),
-  launch plan (`make_plan`) and pixel layout (`_pixel_layout`);
+- the host plan: bitwise the JAX package's sphere / attribute / rect /
+  light / medium / camera tables (`build_tables`), sphere order
+  (`_morton_order`, `_kd_cluster_order`), launch plan (`make_plan`) and
+  pixel layout (`_pixel_layout`);
 - the device helpers `_uniforms` (the lowbias32 counter-hash RNG, bitwise
   equal to JAX's), `_onb` and `_cossin2pi`, in torch;
 - `mega_kernel`, the wrapper of the CUDA kernel (csrc/megakernel.cu), and
@@ -26,9 +30,10 @@ Two modes share the kernel. Overdraw (the render path): every valid lane
 of a tile keeps tracing samples of its own pixel until the tile's slowest
 lane has `spp`, and the epilogue renormalises by the true per-lane count.
 Exact-spp (the tape semantics of the JAX package's differentiable path):
-each lane traces exactly `spp` samples and records the winning sphere slot
-of every bounce (-1 for a miss), which holds the port to the JAX package
-decision by decision.
+each lane traces exactly `spp` samples and records the winner of every
+bounce in the JAX encoding (-1 miss, [0, S) sphere slot, S + r rect row,
+S + R + v medium row), which holds the port to the JAX package decision
+by decision.
 
 On a CPU tensor `trace_mega` runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -38,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 import weakref
 from typing import NamedTuple, Optional
 
@@ -66,6 +72,27 @@ SPH_LANES = 128
 # SoA (csrc/megakernel.cu, L_*).
 SWEEP_LANES = (C_CX, C_CY, C_CZ, C_DCX, C_DCY, C_DCZ, C_T0, C_IDT, C_NR2)
 
+# ---- rect table lanes: (max(R, 1), 128), rect-major (same lanes as JAX);
+# the kernel reads RT_A0..RT_RIDX ----
+(RT_A0, RT_A1, RT_B0, RT_B1, RT_K, RT_COS, RT_SIN, RT_OFFX, RT_OFFY,
+ RT_OFFZ, RT_NX, RT_NY, RT_NZ, RT_MTYPE, RT_ALBX, RT_ALBY, RT_ALBZ,
+ RT_FUZZ, RT_RIDX, RT_CHK, RT_EVENX, RT_EVENY, RT_EVENZ, RT_ODDX,
+ RT_ODDY, RT_ODDZ, RT_NOI, RT_NSC, RT_IMG, RT_IDA, RT_IDB) = range(31)
+RECT_LANES = 128
+
+# ---- light table lanes: (max(L, 1), 128), light-major ----
+(LT_A0, LT_A1, LT_B0, LT_B1, LT_K, LT_COS, LT_SIN, LT_OFFX, LT_OFFY,
+ LT_OFFZ, LT_AREA, LT_CX, LT_CY, LT_CZ, LT_RAD) = range(15)
+LIGHT_LANES = 128
+
+# ---- constant-medium lanes: (max(V, 1), 128), medium-major. P0/P1 are the
+# sphere centre / (radius, 0, 0) or the box min / max; NIRHO = -1/density;
+# the kernel reads MD_P0X..MD_ALBZ ----
+(MD_P0X, MD_P0Y, MD_P0Z, MD_P1X, MD_P1Y, MD_P1Z, MD_COS, MD_SIN,
+ MD_OFFX, MD_OFFY, MD_OFFZ, MD_NIRHO, MD_ALBX, MD_ALBY,
+ MD_ALBZ, MD_NOI, MD_NSC, MD_IMG) = range(18)
+MED_LANES = 128
+
 # ---- camera vector lanes: (1, 128) ----
 (CAM_OX, CAM_OY, CAM_OZ, CAM_LLX, CAM_LLY, CAM_LLZ, CAM_HX, CAM_HY, CAM_HZ,
  CAM_VX, CAM_VY, CAM_VZ, CAM_UX, CAM_UY, CAM_UZ, CAM_WX, CAM_WY, CAM_WZ,
@@ -75,8 +102,10 @@ SWEEP_LANES = (C_CX, C_CY, C_CZ, C_DCX, C_DCY, C_DCZ, C_T0, C_IDT, C_NR2)
 # samples done, sweep blocks, zero; exact mode appends n_iters tape rows.
 OUT_ROWS = 8
 
-# Number of CUDA kernel launches through `mega_kernel` in this process.
-KERNEL_LAUNCHES = 0
+# CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
+# kernel: "K1" the sphere-only instantiations, "K2+K3" those with the rect,
+# light and medium parts (`MegaPlan.surfaces`).
+KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +129,18 @@ def _f64(x):
 def _fma(a, b, c) -> torch.Tensor:
     """a * b + c in float32 with one rounding."""
     return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) in float32. On the card torch.rsqrt, which is CUDA's
+    rsqrtf, the kernel's. On the CPU correctly rounded (through float64):
+    XLA:CPU's rsqrt (vrsqrtps and two Newton steps) is correctly rounded on
+    88% of inputs, torch's CPU 1/sqrt on 77%, and the two agree on 71%, so
+    the correctly rounded form holds the plain version closest to the JAX
+    kernel's decisions."""
+    if x.is_cuda:
+        return torch.rsqrt(x)
+    return (1.0 / torch.sqrt(x.double())).float()
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -172,7 +213,7 @@ def _onb(wx, wy, wz):
     vx = torch.where(bigx, -wz, zero)
     vy = torch.where(bigx, zero, wz)
     vz = torch.where(bigx, wx, -wy)
-    vinv = torch.rsqrt(_fma(vz, vz, _fma(vx, vx, vy * vy)) + 1e-30)
+    vinv = _rsqrt(_fma(vz, vz, _fma(vx, vx, vy * vy)) + 1e-30)
     vx = vx * vinv
     vy = vy * vinv
     vz = vz * vinv
@@ -186,27 +227,44 @@ def _onb(wx, wy, wz):
 # Host plan: scene support, sphere order, tables, launch plan, pixel layout
 # ---------------------------------------------------------------------------
 
-def supports_scene(scene: st.Scene) -> bool:
-    """True when this slice of the port renders the scene: spheres only
-    (no rects, media or lights), constant textures, lambertian / metal /
-    dielectric materials, shaded, the `mis` strategy, no BVH."""
+_SURFACE_MATS = (st.MAT_LAMBERTIAN, st.MAT_METAL, st.MAT_DIELECTRIC,
+                 st.MAT_DIFFUSE_LIGHT)
+
+
+def unsupported_reason(scene: st.Scene) -> Optional[str]:
+    """Why this slice of the port cannot render the scene, naming the
+    ROADMAP item that brings it; None when it can. The slice covers
+    spheres, axis rects and constant media, constant textures,
+    lambertian / metal / dielectric / diffuse_light surfaces, isotropic
+    media, rect and sphere lights, shaded, the `mis` strategy, no BVH."""
+    if (scene.bvh is not None or scene.render_type != st.RENDER_SHADED
+            or scene.lambertian_strategy != "mis"):
+        return ("BVH scenes, normal rendering and non-MIS lambertian "
+                "strategies take the wavefront path (ROADMAP Queue 1 item 6)")
     act = np.asarray(scene.spheres.active, bool)
-    if (scene.bvh is not None
-            or scene.needs_legacy_textures
-            or scene.render_type != st.RENDER_SHADED
-            or scene.lambertian_strategy != "mis"
-            or not act.any()
-            or np.any(np.asarray(scene.rects.active))
-            or np.any(np.asarray(scene.media.active))
-            or int(scene.lights.num) != 0):
-        return False
-    mat = np.asarray(scene.spheres.mat)[act]
-    mtype = np.asarray(scene.materials.mtype)[mat]
+    ract = np.asarray(scene.rects.active, bool)
+    vact = np.asarray(scene.media.active, bool)
+    if not (act.any() or ract.any()):
+        return "the scene has no sphere or rect"
+    mtype = np.asarray(scene.materials.mtype)
+    surf = np.concatenate([np.asarray(scene.spheres.mat)[act],
+                           np.asarray(scene.rects.mat)[ract]])
+    if not np.all(np.isin(mtype[surf], _SURFACE_MATS)):
+        return ("an isotropic sphere or rect: the port shades isotropic "
+                "material on constant media only")
+    used = np.concatenate([surf, np.asarray(scene.media.mat)[vact]])
     ttype = np.asarray(scene.textures.ttype)[
-        np.asarray(scene.materials.tex)[mat]]
-    return bool(np.all(np.isin(mtype, (st.MAT_LAMBERTIAN, st.MAT_METAL,
-                                       st.MAT_DIELECTRIC)))
-                and np.all(ttype == st.TEX_CONSTANT))
+        np.asarray(scene.materials.tex)[used]]
+    if scene.needs_legacy_textures or np.any(ttype != st.TEX_CONSTANT):
+        return ("checker, noise and image textures come with kernel K4 "
+                "(ROADMAP Queue 1 item 5)")
+    return None
+
+
+def supports_scene(scene: st.Scene) -> bool:
+    """True when this slice of the port renders the scene (see
+    `unsupported_reason`)."""
+    return unsupported_reason(scene) is None
 
 
 def _morton_order(centers: np.ndarray) -> np.ndarray:
@@ -253,9 +311,11 @@ def _kd_cluster_order(centers: np.ndarray, SB: int) -> np.ndarray:
 
 
 def build_tables(scene: st.Scene, SB: int = 64):
-    """Host packing of the sphere and camera tables, bitwise equal to the
-    sphere / camera part of the JAX `build_tables`. Returns
-    (sph_tab (S, 128), attr_tab (24, S), cam_vec (1, 128), meta) as numpy.
+    """Host packing of the scene tables, bitwise equal to the JAX
+    `build_tables` without its cluster AABBs and image atlas. Returns
+    (sph_tab (S, 128), attr_tab (24, S), rect_tab (max(R, 1), 128),
+    light_tab (max(L, 1), 128), med_tab (max(V, 1), 128), cam_vec (1, 128),
+    meta) as numpy.
 
     Live spheres are deduplicated (first of exact geometric duplicates
     wins, as the reference's strict `t < closest` list sweep), ordered
@@ -361,6 +421,17 @@ def build_tables(scene: st.Scene, SB: int = 64):
                    (A_ODDZ, odc[:, 2]), (A_IMG, imgf)):
         attr_tab[row] = v
 
+    rect_tab, rect_meta = _rect_table(scene)
+    light_tab, light_meta = _light_table(scene)
+    med_tab, med_meta = _medium_table(scene)
+    R = rect_meta["R"]
+    r_mat = np.asarray(scene.rects.mat)
+    rlive = np.nonzero(np.asarray(scene.rects.active))[0]
+    mt_np = np.asarray(mats.mtype)
+    has_light = bool(
+        (R and np.any(mt_np[r_mat[rlive]] == st.MAT_DIFFUSE_LIGHT))
+        or (n and np.any(mtype[actm] == st.MAT_DIFFUSE_LIGHT)))
+
     cam = scene.camera
     cam_vec = np.zeros((1, 128), np.float32)
     for lane, v in ((CAM_OX, cam.origin), (CAM_LLX, cam.lower_left_corner),
@@ -385,11 +456,176 @@ def build_tables(scene: st.Scene, SB: int = 64):
                                   for ax in range(3)),
                 moving=bool(scene.has_moving_spheres),
                 lens=float(cam.lens_radius) > 0.0,
+                has_metal=bool(scene.has_metal),
+                has_dielectric=bool(scene.has_dielectric),
                 bg_gradient=scene.background == st.BG_GRADIENT,
+                has_spheres=n > 0,
+                has_light=has_light,
+                has_iso=med_meta["V"] > 0,
+                **rect_meta, **light_meta, **med_meta,
                 # scene sphere row of each slot (-1: padding): decodes a
                 # winner tape
                 slot_ext=idx_ext.astype(np.int32))
-    return sph_tab, attr_tab, cam_vec, meta
+    return sph_tab, attr_tab, rect_tab, light_tab, med_tab, cam_vec, meta
+
+
+def _texture_lanes(scene: st.Scene, ti: int):
+    """(albedo, checker flag, even, odd, noise flag, noise scale, image
+    flag) of texture row `ti`, as the JAX tables encode them."""
+    tex = scene.textures
+    col = np.asarray(tex.color, np.float32)
+    ttype = int(np.asarray(tex.ttype)[ti])
+    chk = ttype == st.TEX_CHECKER
+    noi = (1.0 + float(np.asarray(tex.noise_mode)[ti])
+           if ttype == st.TEX_NOISE else 0.0)
+    nsc = float(np.asarray(tex.scale)[ti]) if ttype == st.TEX_NOISE else 0.0
+    img = (1.0 + float(np.asarray(tex.image_id)[ti])
+           if ttype == st.TEX_IMAGE else 0.0)
+    return (col[ti], chk, col[int(np.asarray(tex.even)[ti])],
+            col[int(np.asarray(tex.odd)[ti])], noi, nsc, img)
+
+
+def _rect_table(scene: st.Scene):
+    """The live rects, one row each (RT_* lanes), and their static
+    metadata: axis code, rotation / translation presence and the
+    transform group (rects sharing one baked rotate_y + translate)."""
+    rects = scene.rects
+    mats = scene.materials
+    rlive = np.nonzero(np.asarray(rects.active))[0]
+    R = int(rlive.size)
+    rect_tab = np.zeros((max(R, 1), RECT_LANES), np.float32)
+    axes, rot, trans, tf, groups = [], [], [], [], {}
+    r_axis = np.asarray(rects.axis)
+    r_flip = np.asarray(rects.flip, np.float32)
+    r_cos = np.asarray(rects.cos_t, np.float32)
+    r_sin = np.asarray(rects.sin_t, np.float32)
+    r_off = np.asarray(rects.offset, np.float32)
+    r_mat = np.asarray(rects.mat)
+    for i, rr in enumerate(rlive):
+        ax = int(r_axis[rr])
+        axes.append(ax)
+        ct_, st_ = float(r_cos[rr]), float(r_sin[rr])
+        rot.append((ct_ != 1.0) or (st_ != 0.0))
+        trans.append(bool(np.any(r_off[rr] != 0.0)))
+        key = (rot[-1], trans[-1], ct_, st_,
+               tuple(float(v) for v in r_off[rr]))
+        tf.append(groups.setdefault(key, len(groups)))
+        # object-space unit normal by axis code (XY -> z, XZ -> y,
+        # YZ -> x), flipped, then rotated object -> world
+        n_o = [0.0, 0.0, 0.0]
+        n_o[2 - ax if ax != 2 else 0] = float(r_flip[rr])
+        nw = (ct_ * n_o[0] + st_ * n_o[2], n_o[1],
+              -st_ * n_o[0] + ct_ * n_o[2])
+        mi = int(r_mat[rr])
+        alb, chk, even, odd, noi, nsc, img = _texture_lanes(
+            scene, int(np.asarray(mats.tex)[mi]))
+        row = rect_tab[i]
+        if chk:
+            row[RT_CHK] = 1.0
+            row[RT_EVENX:RT_EVENZ + 1] = even
+            row[RT_ODDX:RT_ODDZ + 1] = odd
+        row[RT_NOI], row[RT_NSC], row[RT_IMG] = noi, nsc, img
+        for lane, v in ((RT_A0, rects.a0), (RT_A1, rects.a1),
+                        (RT_B0, rects.b0), (RT_B1, rects.b1),
+                        (RT_K, rects.k)):
+            row[lane] = float(np.asarray(v)[rr])
+        da = row[RT_A1] - row[RT_A0]
+        db = row[RT_B1] - row[RT_B0]
+        row[RT_IDA] = 1.0 / da if da != 0 else 0.0
+        row[RT_IDB] = 1.0 / db if db != 0 else 0.0
+        row[RT_COS] = ct_
+        row[RT_SIN] = st_
+        row[RT_OFFX:RT_OFFZ + 1] = r_off[rr]
+        row[RT_NX:RT_NZ + 1] = nw
+        row[RT_MTYPE] = float(np.asarray(mats.mtype)[mi])
+        row[RT_ALBX:RT_ALBZ + 1] = alb
+        row[RT_FUZZ] = np.asarray(mats.fuzz, np.float32)[mi]
+        row[RT_RIDX] = np.asarray(mats.ref_idx, np.float32)[mi]
+    meta = dict(R=R, rect_axes=tuple(axes), rect_rot=tuple(rot),
+                rect_trans=tuple(trans), rect_tf=tuple(tf),
+                rect_rows=tuple(int(r) for r in rlive))
+    return rect_tab, meta
+
+
+def _light_table(scene: st.Scene):
+    """The MIS lights list, one row each (LT_* lanes), and its static
+    metadata: kind (rect / sphere), axis, rotation, translation."""
+    lights, rects, sph = scene.lights, scene.rects, scene.spheres
+    L = int(lights.num)
+    light_tab = np.zeros((max(L, 1), LIGHT_LANES), np.float32)
+    kinds, axes, rot, trans = [], [], [], []
+    l_kind = np.asarray(lights.kind)
+    l_idx = np.asarray(lights.index)
+    for i in range(L):
+        kinds.append(int(l_kind[i]))
+        row = light_tab[i]
+        if kinds[-1] == st.LIGHT_RECT:
+            rr = int(l_idx[i])
+            axes.append(int(np.asarray(rects.axis)[rr]))
+            ct_ = float(np.asarray(rects.cos_t, np.float32)[rr])
+            st_ = float(np.asarray(rects.sin_t, np.float32)[rr])
+            off = np.asarray(rects.offset, np.float32)[rr]
+            rot.append((ct_ != 1.0) or (st_ != 0.0))
+            trans.append(bool(np.any(off != 0.0)))
+            for lane, v in ((LT_A0, rects.a0), (LT_A1, rects.a1),
+                            (LT_B0, rects.b0), (LT_B1, rects.b1),
+                            (LT_K, rects.k)):
+                row[lane] = float(np.asarray(v)[rr])
+            row[LT_COS] = ct_
+            row[LT_SIN] = st_
+            row[LT_OFFX:LT_OFFZ + 1] = off
+            row[LT_AREA] = float(
+                (np.asarray(rects.a1)[rr] - np.asarray(rects.a0)[rr])
+                * (np.asarray(rects.b1)[rr] - np.asarray(rects.b0)[rr]))
+        else:
+            si = int(l_idx[i])
+            axes.append(0)
+            rot.append(False)
+            trans.append(False)
+            row[LT_CX:LT_CZ + 1] = np.asarray(sph.center0, np.float32)[si]
+            row[LT_RAD] = float(np.asarray(sph.radius, np.float32)[si])
+    meta = dict(L=L, light_kinds=tuple(kinds), light_axes=tuple(axes),
+                light_rot=tuple(rot), light_trans=tuple(trans),
+                light_rows=tuple(int(r) for r in l_idx[:L]))
+    return light_tab, meta
+
+
+def _medium_table(scene: st.Scene):
+    """The live constant media, one row each (MD_* lanes), and their
+    static metadata: boundary kind, rotation, translation."""
+    media = scene.media
+    vlive = np.nonzero(np.asarray(media.active))[0]
+    V = int(vlive.size)
+    med_tab = np.zeros((max(V, 1), MED_LANES), np.float32)
+    kinds, rot, trans = [], [], []
+    m_cos = np.asarray(media.cos_t, np.float32)
+    m_sin = np.asarray(media.sin_t, np.float32)
+    m_off = np.asarray(media.offset, np.float32)
+    for i, vv in enumerate(vlive):
+        kinds.append(int(np.asarray(media.kind)[vv]))
+        ct_, st_ = float(m_cos[vv]), float(m_sin[vv])
+        rot.append((ct_ != 1.0) or (st_ != 0.0))
+        trans.append(bool(np.any(m_off[vv] != 0.0)))
+        row = med_tab[i]
+        row[MD_P0X:MD_P0Z + 1] = np.asarray(media.p0, np.float32)[vv]
+        row[MD_P1X:MD_P1Z + 1] = np.asarray(media.p1, np.float32)[vv]
+        row[MD_COS] = ct_
+        row[MD_SIN] = st_
+        row[MD_OFFX:MD_OFFZ + 1] = m_off[vv]
+        row[MD_NIRHO] = -1.0 / float(np.asarray(media.density,
+                                                np.float32)[vv])
+        ti = int(np.asarray(scene.materials.tex)[int(
+            np.asarray(media.mat)[vv])])
+        alb, _, _, _, noi, nsc, img = _texture_lanes(scene, ti)
+        row[MD_ALBX:MD_ALBZ + 1] = alb
+        if noi:
+            row[MD_NOI], row[MD_NSC] = noi, nsc
+        elif img:
+            row[MD_IMG] = img
+    meta = dict(V=V, med_kinds=tuple(kinds), med_rot=tuple(rot),
+                med_trans=tuple(trans),
+                med_rows=tuple(int(v) for v in vlive))
+    return med_tab, meta
 
 
 _TABLE_CACHE: dict = {}
@@ -438,6 +674,21 @@ class MegaPlan:
     ut_idt: float
     lens: bool
     bg_gradient: bool
+    has_spheres: bool      # any live sphere (else the sweep is skipped)
+    has_light: bool        # a live surface is a diffuse_light
+    R: int                 # live rects
+    rect_codes: tuple      # per rect: axis | rotated << 2 | translated << 3
+                           #   | transform group << 4
+    L: int                 # lights in the MIS list
+    light_codes: tuple     # per light: kind | axis << 1 | rot << 3 | tr << 4
+    V: int                 # live constant media
+    med_codes: tuple       # per medium: kind | rotated << 1 | translated << 2
+
+    @property
+    def surfaces(self) -> bool:
+        """The scene needs the rect / light / medium parts of the kernel
+        (K2, K3); sphere-only scenes run the book-1 instantiations."""
+        return bool(self.R or self.L or self.V or self.has_light)
 
 
 def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
@@ -451,11 +702,9 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     to 256 lanes; in overdraw mode it is the CUDA block size, so T <= 1024.
     The TPU's 128-lane rounding and 512-lane floor do not apply here.
     Returns (tables, plan)."""
-    if not supports_scene(scene):
-        raise NotImplementedError(
-            "the port's megakernel covers sphere scenes with constant "
-            "textures and lambertian/metal/dielectric materials; rects, "
-            "lights, media and textures come with ROADMAP Queue 1 item 5")
+    reason = unsupported_reason(scene)
+    if reason is not None:
+        raise NotImplementedError(f"scene {scene.name!r}: {reason}")
     n_live = int(np.sum(np.asarray(scene.spheres.active)))
     SB = min(512 if n_live <= 512 else 128, max(8, -(-n_live // 8) * 8))
     tabs = build_tables_cached(scene, SB)
@@ -470,7 +719,23 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                     moving=meta["moving"], moving_axes=meta["moving_axes"],
                     uniform_time=meta["uniform_time"], ut_t0=meta["ut_t0"],
                     ut_idt=meta["ut_idt"], lens=meta["lens"],
-                    bg_gradient=meta["bg_gradient"])
+                    bg_gradient=meta["bg_gradient"],
+                    has_spheres=meta["has_spheres"],
+                    has_light=meta["has_light"], R=meta["R"],
+                    rect_codes=tuple(
+                        a | r << 2 | t << 3 | g << 4 for a, r, t, g in zip(
+                            meta["rect_axes"], meta["rect_rot"],
+                            meta["rect_trans"], meta["rect_tf"])),
+                    L=meta["L"],
+                    light_codes=tuple(
+                        k | a << 1 | r << 3 | t << 4 for k, a, r, t in zip(
+                            meta["light_kinds"], meta["light_axes"],
+                            meta["light_rot"], meta["light_trans"])),
+                    V=meta["V"],
+                    med_codes=tuple(
+                        k | r << 1 | t << 2 for k, r, t in zip(
+                            meta["med_kinds"], meta["med_rot"],
+                            meta["med_trans"])))
     return tabs, plan
 
 
@@ -508,17 +773,20 @@ def _device_layout(nx: int, ny: int, T: int, device: str):
 
 def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     """The launch's tensors on `device`, in the kernel's argument order:
-    (pixf, cam_vec, sph_tab, attr_tab), plus the inverse pixel permutation.
-    Tables are copied once per (scene, device), layouts once per shape."""
+    (pixf, cam_vec, sph_tab, attr_tab, rect_tab, light_tab, med_tab), plus
+    the inverse pixel permutation. Tables are copied once per (scene,
+    device), layouts once per shape."""
     device = torch.device(device)
 
     def build():
-        sph, attr, cam, _ = build_tables_cached(scene, plan.SB)
-        return tuple(torch.from_numpy(a).to(device) for a in (sph, attr, cam))
-    sph, attr, cam = _scene_memo(_TABLE_CACHE, scene,
-                                 ("device", plan.SB, str(device)), build)
+        sph, attr, rect, light, med, cam, _ = build_tables_cached(scene,
+                                                                  plan.SB)
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in (cam, sph, attr, rect, light, med))
+    tabs = _scene_memo(_TABLE_CACHE, scene, ("device", plan.SB, str(device)),
+                       build)
     pixf, inv = _device_layout(plan.nx, plan.ny, plan.T, str(device))
-    return (pixf, cam, sph, attr), inv
+    return (pixf, *tabs), inv
 
 
 # ---------------------------------------------------------------------------
@@ -542,12 +810,36 @@ def _check_seed(seed: int) -> int:
     return seed
 
 
+def _f32(x) -> float:
+    """A scalar rounded to float32 (host-side float32 arithmetic)."""
+    return float(np.float32(x))
+
+
+_INV_PI = _f32(1.0 / math.pi)
+_TWO_PI = _f32(2.0 * math.pi)
+
+
+def _div(a: float, x: torch.Tensor) -> torch.Tensor:
+    """a / x with one rounding (torch evaluates `float / tensor` as
+    x.reciprocal() * a, two roundings)."""
+    return torch.full_like(x, a) / x
+
+
+def _rotate_y_inv(cth, sth, x, z):
+    """World -> object rotation about y of the (x, z) pair, with the FMAs
+    XLA contracts in the JAX kernel (the first product of each sum)."""
+    return _fma(cth, x, -(sth * z)), _fma(sth, x, cth * z)
+
+
 def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          sph_tab: torch.Tensor, attr_tab: torch.Tensor,
-                         seed: int, plan: MegaPlan) -> torch.Tensor:
+                         rect_tab: torch.Tensor, light_tab: torch.Tensor,
+                         med_tab: torch.Tensor, seed: int,
+                         plan: MegaPlan) -> torch.Tensor:
     """The plain PyTorch version of the megakernel, with the arguments of
-    `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128)
-    and attr_tab (24, S), float32 on one device; seed an int32.
+    `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128),
+    attr_tab (24, S), rect_tab (max(R, 1), 128), light_tab (max(L, 1), 128)
+    and med_tab (max(V, 1), 128), float32 on one device; seed an int32.
     Returns out (n_tiles, 8 + n_iters, T) float32.
 
     Vectorised over the lanes of every tile still running, with a Python
@@ -559,7 +851,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     dev = pixf.device
     f32 = torch.float32
     n_tiles, _, T = pixf.shape
-    S = plan.S
+    S, R, L, V = plan.S, plan.R, plan.L, plan.V
     spp = float(plan.spp)
     t_min = plan.t_min
 
@@ -571,14 +863,22 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     c_ux, c_uy, c_uz = cam[CAM_UX], cam[CAM_UY], cam[CAM_UZ]
     c_vvx, c_vvy, c_vvz = cam[CAM_WX], cam[CAM_WY], cam[CAM_WZ]
     c_lens, c_t0 = cam[CAM_LENS], cam[CAM_T0]
-    c_dt = float(np.float32(cam[CAM_T1]) - np.float32(c_t0))  # f32 scalar op
-    inv_nx = float(np.float32(1.0 / plan.nx))
-    inv_ny = float(np.float32(1.0 / plan.ny))
+    c_dt = _f32(np.float32(cam[CAM_T1]) - np.float32(c_t0))  # f32 scalar op
+    inv_nx = _f32(1.0 / plan.nx)
+    inv_ny = _f32(1.0 / plan.ny)
 
     # sweep columns (S, 1) and the attribute table with a zero miss column
     col = {ln: sph_tab[:, ln:ln + 1] for ln in SWEEP_LANES}
     attr_ext = torch.cat([attr_tab, torch.zeros((A_ROWS, 1), dtype=f32,
                                                 device=dev)], dim=1)
+    # rect / medium rows with a zero row for "none"; per-row scalars
+    rect_ext = torch.cat([rect_tab[:R], torch.zeros((1, RECT_LANES),
+                                                    dtype=f32, device=dev)])
+    med_ext = torch.cat([med_tab[:V], torch.zeros((1, MED_LANES), dtype=f32,
+                                                  device=dev)])
+    rect_rows = rect_tab[:R, :RT_RIDX + 1].tolist()
+    light_rows = light_tab[:L, :LT_RAD + 1].tolist()
+    med_rows = med_tab[:V, :MD_ALBZ + 1].tolist()
     lane_ids = torch.arange(T, dtype=torch.int64, device=dev)
 
     def gen_rays(it, tiles, pxi, pxj):
@@ -603,7 +903,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         dx = _fma(t, c_vx, _fma(s, c_hx, c_llx)) - ox
         dy = _fma(t, c_vy, _fma(s, c_hy, c_lly)) - oy
         dz = _fma(t, c_vz, _fma(s, c_hz, c_llz)) - oz
-        inv = torch.rsqrt(_fma(dz, dz, _fma(dx, dx, dy * dy)))
+        inv = _rsqrt(_fma(dz, dz, _fma(dx, dx, dy * dy)))
         return ox, oy, oz, dx * inv, dy * inv, dz * inv, time
 
     # float64 copies of the sweep columns: with float32 operands,
@@ -617,6 +917,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         n = ox.numel()
         best = torch.full((n,), BIG, dtype=f32, device=dev)
         bidx = torch.full((n,), S, dtype=torch.int64, device=dev)
+        if not plan.has_spheres:
+            return best, bidx
         eb = max(1, min(S, _SWEEP_ELEMS // max(n, 1)))
         orig = (ox[None], oy[None], oz[None])
         dy_ = dy[None]
@@ -648,7 +950,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             disc = torch.addcmul(cc.double().neg_(), nb64, nb64).float()
             nb = nb64.float()
             # disc < 0 and disc == 0 both give NaN: a miss
-            sq = disc * torch.rsqrt(disc)
+            sq = disc * _rsqrt(disc)
             tf = (nb + sq).masked_fill_(~((nb + sq) > t_min), BIG)
             tn = nb - sq
             tcv = torch.where(tn > t_min, tn, tf)
@@ -659,15 +961,223 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             best = torch.minimum(best, blk_min)
         return best, bidx
 
+    def object_ray(code_tr, row, o, d, lanes):
+        """A ray in a rect's, light's or medium's object space (translate,
+        then rotate_y, undone); code_tr = rotated | translated << 1 and
+        lanes name cos, sin, offx, offy, offz in the row."""
+        rot, trn = code_tr & 1, code_tr >> 1 & 1
+        ox, oy, oz = o
+        dx, dy, dz = d
+        if rot:
+            cth, sth = row[lanes[0]], row[lanes[1]]
+            sx = ox - row[lanes[2]]
+            ry = oy - row[lanes[3]]
+            sz = oz - row[lanes[4]]
+            rx, rz = _rotate_y_inv(cth, sth, sx, sz)
+            ex, ez = _rotate_y_inv(cth, sth, dx, dz)
+            return (rx, ry, rz), (ex, dy, ez)
+        if trn:
+            return (ox - row[lanes[2]], oy - row[lanes[3]],
+                    oz - row[lanes[4]]), d
+        return o, d
+
+    def reciprocals(code_tr, d, inv_d):
+        """1/d of an object-space direction: rotate_y leaves y alone and
+        translate the whole direction, so only a rotation pays."""
+        if code_tr & 1:
+            return 1.0 / d[0], inv_d[1], 1.0 / d[2]
+        return inv_d
+
+    _RT_TF = (RT_COS, RT_SIN, RT_OFFX, RT_OFFY, RT_OFFZ)
+    _LT_TF = (LT_COS, LT_SIN, LT_OFFX, LT_OFFY, LT_OFFZ)
+    _MD_TF = (MD_COS, MD_SIN, MD_OFFX, MD_OFFY, MD_OFFZ)
+
+    def rect_hit(o, d, inv_d):
+        """Closest rect (hittable.h:142-267, baked flip / rotate_y /
+        translate): (t, winner row; R when none). The first rect with the
+        strictly smallest t wins."""
+        rb_t = torch.full_like(o[0], BIG)
+        rwin = torch.full(o[0].shape, R, dtype=torch.int64, device=dev)
+        groups = {}
+        for ri, row in enumerate(rect_rows):
+            code = plan.rect_codes[ri]
+            key = (code >> 2, *(row[k] for k in _RT_TF))
+            if key not in groups:   # one object-space ray per transform
+                ro, rd = object_ray(code >> 2, row, o, d, _RT_TF)
+                groups[key] = ro, rd, reciprocals(code >> 2, rd, inv_d)
+            ro, rd, ir = groups[key]
+            ax = code & 3
+            # XY: plane z = k; XZ: plane y = k; YZ: plane x = k
+            ia, ib, i_n = ((0, 1, 2), (0, 2, 1), (1, 2, 0))[ax]
+            # d_n == 0 gives t = +-inf or NaN: every comparison then fails
+            t_r = (row[RT_K] - ro[i_n]) * ir[i_n]
+            pa = _fma(t_r, rd[ia], ro[ia])
+            pb = _fma(t_r, rd[ib], ro[ib])
+            ok = ((t_r > t_min) & (t_r < rb_t)
+                  & (pa >= row[RT_A0]) & (pa <= row[RT_A1])
+                  & (pb >= row[RT_B0]) & (pb <= row[RT_B1]))
+            rb_t = torch.where(ok, t_r, rb_t)
+            rwin = torch.where(ok, ri, rwin)
+        return rb_t, rwin
+
+    def media_hit(o, d, inv_d, tiles, it):
+        """Closest constant-medium scatter distance (hittable.h:430-479):
+        t_in - log(u) / density inside the boundary, salt 4, one row per
+        medium. Returns (t, winner row; V when none)."""
+        base = _stream_base(seed, tiles, it, 4, lane_ids).reshape(-1)
+        md_t = torch.full_like(o[0], BIG)
+        mwin = torch.full(o[0].shape, V, dtype=torch.int64, device=dev)
+        for vi, row in enumerate(med_rows):
+            code = plan.med_codes[vi]
+            mo, md = object_ray(code >> 1, row, o, d, _MD_TF)
+            if code & 1 == st.MEDIUM_SPHERE:    # sphere boundary (a = 1)
+                ocx = mo[0] - row[MD_P0X]
+                ocy = mo[1] - row[MD_P0Y]
+                ocz = mo[2] - row[MD_P0Z]
+                bq = _fma(ocz, md[2], _fma(ocx, md[0], ocy * md[1]))
+                rq2 = _f32(row[MD_P1X] * row[MD_P1X])
+                ccq = _fma(ocz, ocz, _fma(ocx, ocx, ocy * ocy)) - rq2
+                dq = _fma(bq, bq, -ccq)
+                sqq = torch.sqrt(torch.clamp_min(dq, 0.0))
+                m_in = -bq - sqq
+                m_out = -bq + sqq
+                m_bh = dq > 0.0
+            else:   # box boundary: the signed-range slab (aabb.h:17-47)
+                iv = reciprocals(code >> 1, md, inv_d)
+                t0 = [(row[MD_P0X + a] - mo[a]) * iv[a] for a in range(3)]
+                t1 = [(row[MD_P1X + a] - mo[a]) * iv[a] for a in range(3)]
+                lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+                hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+                m_in = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+                m_out = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+                m_bh = m_out > m_in
+            m_in = torch.maximum(m_in, torch.full_like(m_in, t_min))
+            u = torch.clamp_min(_uniform_row(base, vi), 1e-38)
+            tci = _fma(row[MD_NIRHO], torch.log(u), m_in)
+            ok = m_bh & (m_in < m_out) & (tci < m_out) & (tci < md_t)
+            md_t = torch.where(ok, tci, md_t)
+            mwin = torch.where(ok, vi, mwin)
+        return md_t, mwin
+
+    def light_dirs(ul, p):
+        """One-sample MIS (RayTracingWeekend.cpp:117-124, pdf.h:55-75):
+        the direction toward the picked light (li <= u0 * L < li + 1;
+        uniform point on a rect light, cone sample of a sphere light)."""
+        px_, py_, pz_ = p
+        pickf = ul[0] * float(L)
+        ld = [torch.zeros_like(px_) for _ in range(3)]
+        for li, row in enumerate(light_rows):
+            code = plan.light_codes[li]
+            if code & 1 == st.LIGHT_RECT:
+                pa_s = _fma(ul[1], _f32(row[LT_A1] - row[LT_A0]), row[LT_A0])
+                pb_s = _fma(ul[2], _f32(row[LT_B1] - row[LT_B0]), row[LT_B0])
+                kk = torch.full_like(px_, row[LT_K])
+                ppx, ppy, ppz = ((pa_s, pb_s, kk), (pa_s, kk, pb_s),
+                                 (kk, pa_s, pb_s))[code >> 1 & 3]
+                if code >> 3 & 1:   # object -> world: Ry(theta)
+                    cth, sth = row[LT_COS], row[LT_SIN]
+                    ppx, ppz = (_fma(cth, ppx, sth * ppz),
+                                _fma(cth, ppz, -(sth * ppx)))
+                if code >> 4 & 1:
+                    ppx = ppx + row[LT_OFFX]
+                    ppy = ppy + row[LT_OFFY]
+                    ppz = ppz + row[LT_OFFZ]
+                dl = (ppx - px_, ppy - py_, ppz - pz_)
+            else:   # sphere.h:101-108, utility.h:69-82
+                tcx = row[LT_CX] - px_
+                tcy = row[LT_CY] - py_
+                tcz = row[LT_CZ] - pz_
+                dist2 = _fma(tcz, tcz, _fma(tcx, tcx, tcy * tcy))
+                rad2 = _f32(row[LT_RAD] * row[LT_RAD])
+                ctm = torch.sqrt(torch.clamp_min(
+                    1.0 - _div(rad2, torch.clamp_min(dist2, 1e-20)), 0.0))
+                zc = _fma(ul[2], ctm - 1.0, 1.0)
+                cpl, spl = _cossin2pi(ul[1])
+                sc = torch.sqrt(torch.clamp_min(_fma(-zc, zc, 1.0), 0.0))
+                winv = _rsqrt(torch.clamp_min(dist2, 1e-20))
+                wlx, wly, wlz = tcx * winv, tcy * winv, tcz * winv
+                lux, luy, luz, lvx, lvy, lvz = _onb(wlx, wly, wlz)
+                cph = cpl * sc
+                sph_ = spl * sc
+                dl = (_fma(zc, wlx, _fma(cph, lux, sph_ * lvx)),
+                      _fma(zc, wly, _fma(cph, luy, sph_ * lvy)),
+                      _fma(zc, wlz, _fma(cph, luz, sph_ * lvz)))
+            if L == 1:
+                ld = list(dl)
+            else:
+                sel = (pickf >= float(li)) & (pickf < float(li + 1))
+                ld = [torch.where(sel, a, b) for a, b in zip(dl, ld)]
+        return ld
+
+    def light_pdf(p, mu):
+        """hittable_list::pdf_value over the lights list: the sum of each
+        light's solid-angle pdf along unit direction mu (hittable.h:208-222,
+        sphere.h:88-99)."""
+        px_, py_, pz_ = p
+        mux, muy, muz = mu
+        acc = torch.zeros_like(px_)
+        for li, row in enumerate(light_rows):
+            code = plan.light_codes[li]
+            if code & 1 == st.LIGHT_RECT:
+                q, w = object_ray(code >> 3, row, p, mu, _LT_TF)
+                ia, ib, i_n = ((0, 1, 2), (0, 2, 1), (1, 2, 0))[code >> 1 & 3]
+                t_l = (row[LT_K] - q[i_n]) / w[i_n]
+                hpa = _fma(t_l, w[ia], q[ia])
+                hpb = _fma(t_l, w[ib], q[ib])
+                lh = ((t_l > t_min)
+                      & (hpa >= row[LT_A0]) & (hpa <= row[LT_A1])
+                      & (hpb >= row[LT_B0]) & (hpb <= row[LT_B1]))
+                # unit probe direction: dist^2 = t^2, cosine = |d_n|
+                pdf_l = (t_l * t_l) / torch.clamp_min(
+                    w[i_n].abs() * row[LT_AREA], 1e-20)
+            else:
+                ocx = px_ - row[LT_CX]
+                ocy = py_ - row[LT_CY]
+                ocz = pz_ - row[LT_CZ]
+                rad2 = _f32(row[LT_RAD] * row[LT_RAD])
+                b_l = _fma(ocz, muz, _fma(ocx, mux, ocy * muy))
+                d2l = _fma(ocz, ocz, _fma(ocx, ocx, ocy * ocy))
+                cc_l = d2l - rad2
+                disc_l = _fma(b_l, b_l, -cc_l)
+                sq_l = torch.sqrt(torch.clamp_min(disc_l, 0.0))
+                tn_l = -b_l - sq_l
+                t_l = torch.where(tn_l > t_min, tn_l, -b_l + sq_l)
+                lh = (disc_l > 0.0) & (t_l > t_min)
+                ctm = torch.sqrt(torch.clamp_min(
+                    1.0 - _div(rad2, torch.clamp_min(d2l, 1e-20)), 0.0))
+                solid = _TWO_PI * (1.0 - ctm)
+                pdf_l = 1.0 / torch.clamp_min(solid, 1e-20)
+            acc = acc + torch.where(lh, pdf_l, 0.0)
+        return acc
+
     def one_iter(state, it, tiles, pxi, pxj, valid):
         (ox, oy, oz, dx, dy, dz, time, tpx, tpy, tpz, rx, ry, rz,
          ax, ay, az, segs, depth, done, iters) = state.unbind(0)
         active = (valid & (done < spp)) if plan.exact else valid
         segs = segs + active.to(f32)
 
-        best_t, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
+        s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
+        best_t = s_best
+        o, d = (ox, oy, oz), (dx, dy, dz)
+        if R or V:
+            inv_d = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+        if R:
+            rb_t, rwin = rect_hit(o, d, inv_d)
+            use_rect = rb_t < s_best
+            best_t = torch.minimum(s_best, rb_t)
+        if V:
+            md_t, mwin = media_hit(o, d, inv_d, tiles, it)
+            use_med = md_t < best_t
+            best_t = torch.minimum(best_t, md_t)
         hit = best_t < _HIT_CUT
-        wcode = torch.where(active & hit, bidx.to(f32), -1.0)
+        # winner code: -1 miss, [0, S) sphere slot, S + r rect, S + R + v
+        wcode = (bidx.to(f32) if plan.has_spheres
+                 else torch.full_like(best_t, -1.0))
+        if R:
+            wcode = torch.where(use_rect, (S + rwin).to(f32), wcode)
+        if V:
+            wcode = torch.where(use_med, (S + R + mwin).to(f32), wcode)
+        wcode = torch.where(active & hit, wcode, -1.0)
 
         px_ = _fma(best_t, dx, ox)
         py_ = _fma(best_t, dy, oy)
@@ -687,7 +1197,24 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         nz_ = (pz_ - scz) * rinv
         mtype = attrs[A_MTYPE]
         albx, alby, albz = attrs[A_ALBX], attrs[A_ALBY], attrs[A_ALBZ]
-        mparam = attrs[A_MPARAM]   # metal fuzz or dielectric IOR
+        fuzz = ridx = attrs[A_MPARAM]   # metal fuzz or dielectric IOR
+        if R:   # the rect winner's baked normal and material
+            rrow = rect_ext[rwin].t()
+            nx_ = torch.where(use_rect, rrow[RT_NX], nx_)
+            ny_ = torch.where(use_rect, rrow[RT_NY], ny_)
+            nz_ = torch.where(use_rect, rrow[RT_NZ], nz_)
+            mtype = torch.where(use_rect, rrow[RT_MTYPE], mtype)
+            albx = torch.where(use_rect, rrow[RT_ALBX], albx)
+            alby = torch.where(use_rect, rrow[RT_ALBY], alby)
+            albz = torch.where(use_rect, rrow[RT_ALBZ], albz)
+            fuzz = torch.where(use_rect, rrow[RT_FUZZ], fuzz)
+            ridx = torch.where(use_rect, rrow[RT_RIDX], ridx)
+        if V:   # medium scatter vertex: isotropic, albedo of the medium
+            mrow = med_ext[mwin].t()
+            mtype = torch.where(use_med, float(st.MAT_ISOTROPIC), mtype)
+            albx = torch.where(use_med, mrow[MD_ALBX], albx)
+            alby = torch.where(use_med, mrow[MD_ALBY], alby)
+            albz = torch.where(use_med, mrow[MD_ALBZ], albz)
 
         base = _stream_base(seed, tiles, it, 2, lane_ids).reshape(-1)
         u = [_uniform_row(base, r) for r in range(7)]
@@ -704,6 +1231,29 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         lamy = _fma(z, ny_, _fma(lx_t, uy_, ly_t * vy))
         lamz = _fma(z, nz_, _fma(lx_t, uz_, ly_t * vz))
         lam_ok = z > 0.0
+        lam_w = None
+        if L:
+            # ---- one-sample MIS: mixture(cosine pdf, lights pdf), salt 3
+            base3 = _stream_base(seed, tiles, it, 3, lane_ids).reshape(-1)
+            ul = [_uniform_row(base3, r) for r in range(4)]
+            p = (px_, py_, pz_)
+            ldx, ldy, ldz = light_dirs(ul, p)
+            coin_l = ul[3] < 0.5   # pdf.h:69-75
+            mdx = torch.where(coin_l, lamx, ldx)
+            mdy = torch.where(coin_l, lamy, ldy)
+            mdz = torch.where(coin_l, lamz, ldz)
+            minv = _rsqrt(torch.clamp_min(
+                _fma(mdz, mdz, _fma(mdx, mdx, mdy * mdy)), 1e-30))
+            mu = (mdx * minv, mdy * minv, mdz * minv)
+            cosi = _fma(mu[2], nz_, _fma(mu[0], nx_, mu[1] * ny_))
+            cpdf = torch.where(cosi <= 0.0, 0.0, cosi * _INV_PI)
+            acc = light_pdf(p, mu)
+            pdf_val = _fma(0.5, cpdf, 0.5 * acc * _f32(1.0 / L))
+            lam_ok = pdf_val > 0.0
+            # weight = albedo * scattering_pdf / pdf_val (material.h:115-119)
+            lam_w = torch.where(lam_ok,
+                                cpdf / torch.where(lam_ok, pdf_val, 1.0), 0.0)
+            lamx, lamy, lamz = mdx, mdy, mdz
 
         # ---- mirror reflection (metal and dielectric) ----
         ddn = _fma(dz, nz_, _fma(dx, nx_, dy * ny_))
@@ -711,18 +1261,20 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         rfy = _fma(-2.0 * ddn, ny_, dy)
         rfz = _fma(-2.0 * ddn, nz_, dz)
 
-        # ---- metal: reflect + fuzz * point in the unit ball ----
+        # ---- point in the unit ball: metal fuzz and isotropic scatter ----
         zb = 1.0 - 2.0 * u[2]
         rb = torch.sqrt(torch.clamp_min(_fma(-zb, zb, 1.0), 0.0))
         cpb, spb = _cossin2pi(u[3])
         radb = torch.exp(torch.log(torch.clamp_min(u[4], 1e-30))
                          * (1.0 / 3.0))
-        mex = _fma(mparam, rb * cpb * radb, rfx)
-        mey = _fma(mparam, rb * spb * radb, rfy)
-        mez = _fma(mparam, zb * radb, rfz)
+        ballx = rb * cpb * radb
+        bally = rb * spb * radb
+        ballz = zb * radb
+        mex = _fma(fuzz, ballx, rfx)
+        mey = _fma(fuzz, bally, rfy)
+        mez = _fma(fuzz, ballz, rfz)
 
         # ---- dielectric with the corrected exit cosine (material.h) ----
-        ridx = mparam
         inside = ddn > 0.0
         sgn = torch.where(inside, -1.0, 1.0)
         onx = sgn * nx_
@@ -753,18 +1305,36 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         # ---- select by material type ----
         is_lam = mtype < 0.5
         is_metal = (mtype > 0.5) & (mtype < 1.5)
-        is_diel = mtype > 1.5
+        is_diel = (mtype > 1.5) & (mtype < 2.5)
         ndx = torch.where(is_lam, lamx, torch.where(is_metal, mex, dex))
         ndy = torch.where(is_lam, lamy, torch.where(is_metal, mey, dey))
         ndz = torch.where(is_lam, lamz, torch.where(is_metal, mez, dez))
-        ninv = torch.rsqrt(_fma(ndz, ndz, _fma(ndx, ndx, ndy * ndy)) + 1e-30)
+        if V:
+            is_iso = mtype > 3.5
+            ndx = torch.where(is_iso, ballx, ndx)
+            ndy = torch.where(is_iso, bally, ndy)
+            ndz = torch.where(is_iso, ballz, ndz)
+        ninv = _rsqrt(_fma(ndz, ndz, _fma(ndx, ndx, ndy * ndy)) + 1e-30)
         ndx = ndx * ninv
         ndy = ndy * ninv
         ndz = ndz * ninv
+        if lam_w is not None:
+            albx = torch.where(is_lam, albx * lam_w, albx)
+            alby = torch.where(is_lam, alby * lam_w, alby)
+            albz = torch.where(is_lam, albz * lam_w, albz)
         wx = torch.where(is_diel, 1.0, albx)
         wy = torch.where(is_diel, 1.0, alby)
         wz = torch.where(is_diel, 1.0, albz)
         scatter_ok = ~is_lam | lam_ok
+        if plan.has_light:
+            # ---- one-sided emission (material.h:238-244): a light hit
+            # emits when the ray runs along the normal, and ends the path
+            is_li = (mtype > 2.5) & (mtype < 3.5)
+            emitm = active & hit & is_li & (ddn > 0.0)
+            rx = rx + torch.where(emitm, tpx * albx, 0.0)
+            ry = ry + torch.where(emitm, tpy * alby, 0.0)
+            rz = rz + torch.where(emitm, tpz * albz, 0.0)
+            scatter_ok = scatter_ok & ~is_li
 
         # ---- background on miss (RayTracingWeekend.cpp:143-158) ----
         miss = active & ~hit
@@ -869,18 +1439,22 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
 def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 sph_tab: torch.Tensor, attr_tab: torch.Tensor,
-                seed: int, plan: MegaPlan) -> torch.Tensor:
+                rect_tab: torch.Tensor, light_tab: torch.Tensor,
+                med_tab: torch.Tensor, seed: int,
+                plan: MegaPlan) -> torch.Tensor:
     """Launch csrc/megakernel.cu on the current CUDA stream. Same arguments
     and result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
     shape or dtype, a failed build and a refused launch."""
-    global KERNEL_LAUNCHES
     seed = _check_seed(seed)
     n_tiles, _, T = pixf.shape
     S = plan.S
     expect = {"pixf": (pixf, (n_tiles, 4, plan.T)),
               "cam_vec": (cam_vec, (1, 128)),
               "sph_tab": (sph_tab, (S, SPH_LANES)),
-              "attr_tab": (attr_tab, (A_ROWS, S))}
+              "attr_tab": (attr_tab, (A_ROWS, S)),
+              "rect_tab": (rect_tab, (max(plan.R, 1), RECT_LANES)),
+              "light_tab": (light_tab, (max(plan.L, 1), LIGHT_LANES)),
+              "med_tab": (med_tab, (max(plan.V, 1), MED_LANES))}
     for name, (t, shape) in expect.items():
         if not t.is_cuda:
             raise ValueError(f"mega_kernel needs CUDA tensors; {name} is on "
@@ -894,43 +1468,56 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
         raise ValueError(f"overdraw mode runs one tile per CUDA block: "
                          f"T={T} > 1024")
     lib = _kernel_lib()
-    pixf = pixf.contiguous()
-    cam_vec = cam_vec.contiguous()
-    attr_tab = attr_tab.contiguous()
+    pixf, cam_vec, attr_tab, rect_tab, light_tab, med_tab = (
+        t.contiguous() for t in (pixf, cam_vec, attr_tab, rect_tab,
+                                 light_tab, med_tab))
     sph_soa = sph_tab[:, list(SWEEP_LANES)].t().contiguous()   # (9, S)
+    codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes,
+                       str(pixf.device))
     out = torch.empty((n_tiles, OUT_ROWS + plan.n_iters, T),
                       dtype=torch.float32, device=pixf.device)
     with torch.cuda.device(pixf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rtw_mega_launch(
             pixf.data_ptr(), cam_vec.data_ptr(), sph_soa.data_ptr(),
-            attr_tab.data_ptr(), out.data_ptr(),
-            n_tiles, T, S, plan.n_iters, seed, plan.spp, plan.max_depth,
+            attr_tab.data_ptr(), rect_tab.data_ptr(), light_tab.data_ptr(),
+            med_tab.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            n_tiles, T, S, plan.R, plan.L, plan.V, plan.n_iters, seed,
+            plan.spp, plan.max_depth,
             -1 if plan.rr_depth is None else plan.rr_depth,
             int(plan.exact), int(plan.lens), int(plan.bg_gradient),
             int(plan.moving or any(plan.moving_axes)), int(plan.uniform_time),
-            float(np.float32(1.0 / plan.nx)), float(np.float32(1.0 / plan.ny)),
-            plan.t_min, plan.ut_t0, plan.ut_idt, stream)
+            int(plan.surfaces), int(plan.has_spheres),
+            _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
+            plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
-    KERNEL_LAUNCHES += 1
+    KERNEL_LAUNCHES["K2+K3" if plan.surfaces else "K1"] += 1
     return out
 
 
-def _mega_call(pixf, cam_vec, sph_tab, attr_tab, seed, plan):
-    """Dispatch one launch: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if pixf.is_cuda:
-        return mega_kernel(pixf, cam_vec, sph_tab, attr_tab, seed, plan)
-    return trace_mega_reference(pixf, cam_vec, sph_tab, attr_tab, seed, plan)
+@functools.lru_cache(maxsize=32)
+def _row_codes(codes: tuple, device: str) -> torch.Tensor:
+    """The rect, light and medium rows' static codes as an int32 tensor on
+    `device` (at least one element), made once per plan's codes."""
+    return torch.tensor(codes or (0,), dtype=torch.int32, device=device)
+
+
+def _mega_call(*args):
+    """Dispatch one launch (the arguments of `mega_kernel`): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if args[0].is_cuda:
+        return mega_kernel(*args)
+    return trace_mega_reference(*args)
 
 
 class MegaResult(NamedTuple):
     """image: (ny, nx, 3) radiance sums renormalised to exactly spp samples
     per pixel (divide by spp for the mean); segments: path segments traced;
     lane_iters: lane-iterations spent; tape: exact mode's (n_tiles, n_iters,
-    T) winner codes (-1 miss, else sphere slot), None in overdraw mode."""
+    T) winner codes (-1 miss, [0, S) sphere slot, S + r rect row, S + R + v
+    medium row), None in overdraw mode."""
     image: torch.Tensor
     segments: torch.Tensor
     lane_iters: torch.Tensor
@@ -940,7 +1527,7 @@ class MegaResult(NamedTuple):
 def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
                max_depth: int = 50, rr_depth: Optional[int] = 4,
                T: Optional[int] = None, exact: bool = False,
-               device="cpu") -> MegaResult:
+               device="cuda") -> MegaResult:
     """Render one launch of `spp` samples per pixel through the megakernel
     on `device`. `seed` is the launch's int32 RNG seed (the JAX package
     draws it from its key; pass that value to reproduce its streams)."""
@@ -972,11 +1559,11 @@ def _kernel_lib() -> ctypes.CDLL:
     restype of its C entry points."""
     lib = _build.load()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtw_mega_launch.argtypes = [p, p, p, p, p,          # tensors
-                                    i, i, i, i, i, i, i, i,  # sizes, seed..
-                                    i, i, i, i, i,           # mode flags
-                                    f, f, f, f, f,           # floats
-                                    p]                       # stream
+    lib.rtw_mega_launch.argtypes = ([p] * 9     # tensors
+                                    + [i] * 11  # sizes, seed, spp, depths
+                                    + [i] * 7   # mode flags
+                                    + [f] * 6   # floats
+                                    + [p])      # stream
     lib.rtw_mega_launch.restype = ctypes.c_int
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     lib.rtw_error_string.restype = ctypes.c_char_p

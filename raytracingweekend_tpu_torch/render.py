@@ -10,6 +10,9 @@ Usage:
     python -m raytracingweekend_tpu_torch.render --scene random_balls \
         --nx 1200 --ny 800 --spp 128 --samples-per-launch 64 \
         --max-depth 50 --stats --out final.png
+    python -m raytracingweekend_tpu_torch.render --scene cornell_box \
+        --nx 400 --ny 400 --spp 256 --samples-per-launch 64 \
+        --max-depth 50 --stats --out cornell.png
 """
 from __future__ import annotations
 
@@ -104,10 +107,9 @@ def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
         raise NotImplementedError(
             f"loop mode {cfg.loop_mode!r} needs the wavefront integrators "
             "(ROADMAP Queue 1 item 6)")
-    if not mk.supports_scene(scene):
-        raise NotImplementedError(
-            f"scene {scene.name!r} needs rects, lights, media or textures "
-            "(ROADMAP Queue 1 item 5)")
+    reason = mk.unsupported_reason(scene)
+    if reason is not None:
+        raise NotImplementedError(f"scene {scene.name!r}: {reason}")
     device = torch.device(cfg.device)
     chunk = min(cfg.samples_per_launch, cfg.spp)
     want_stats = stats is not None

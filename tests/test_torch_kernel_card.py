@@ -32,15 +32,58 @@ def shutter_scene(builder_cls, st):
     return b.build(background=st.BG_GRADIENT, name="shutter")
 
 
+def nested_scene(bm, st):
+    """Instancing and media beyond the Cornell scenes, built by either
+    package's builder module `bm`: a rect and a box under a nested
+    `transform=` around their own rotate_y / translate, a translated sphere
+    light, a rotated constant_medium_sphere and an untransformed
+    constant_medium_box."""
+    b = bm.SceneBuilder()
+    T = bm.Transform
+    outer = T.translate((10.0, -2.0, 5.0)) @ T.rotate_y(30.0)
+    white = b.lambertian(b.constant((0.7, 0.7, 0.7)))
+    lamp = b.diffuse_light((4.0, 4.0, 4.0))
+    b.rect("xz", -50.0, 50.0, -50.0, 50.0, 0.0, white)
+    b.add_light(b.rect("xy", 1.0, 3.0, 2.0, 4.0, -6.0, lamp, flip=True,
+                       rotate_y=20.0, translate=(1.0, 2.0, 3.0),
+                       transform=outer))
+    b.box((0, 0, 0), (2, 3, 2), white, rotate_y=-40.0,
+          translate=(-3.0, 0.0, 1.0), transform=outer)
+    b.add_light(b.sphere((0.5, 4.0, -1.0), 0.75, lamp,
+                         translate=(0.0, 1.0, 0.0), transform=outer))
+    b.sphere((2.0, 1.0, 2.0), 1.0, b.dielectric(1.5))
+    b.constant_medium_sphere((0.0, 1.0, 0.0), 1.5, 0.2,
+                             b.isotropic((0.9, 0.8, 0.7)), rotate_y=45.0,
+                             translate=(-4.0, 0.5, -2.0), transform=outer)
+    b.constant_medium_box((4, 0, -4), (6, 2, -2), 0.05,
+                          b.isotropic((0.3, 0.3, 0.3)))
+    b.camera((0, 5, 20), (0, 1, 0), (0, 1, 0), 40.0, 1.0, 0.0, 10.0)
+    return b.build(background=st.BG_BLACK, name="nested")
+
+
+# Cornell variants: rects, rect and sphere lights with MIS, emission (K2),
+# constant media (K3)
+CORNELL = {"cornell_box": ("cornell_box", {}),
+           "cornell_box_glassless": ("cornell_box", {"glass_sphere": False}),
+           "cornell_box_aluminum": ("cornell_box", {"aluminum_box": True}),
+           "cornell_smoke": ("cornell_smoke", {})}
+
+
 def _scene(name):
+    from raytracingweekend_tpu_torch.models import builder, scene_types
     if name == "shutter":
-        from raytracingweekend_tpu_torch.models import builder, scene_types
         return shutter_scene(builder.SceneBuilder, scene_types)
+    if name == "nested":
+        return nested_scene(builder, scene_types)
+    if name in CORNELL:
+        base, kw = CORNELL[name]
+        return make_scene(base, 1.0, **kw)
     return make_scene(name, 1.0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["random_balls", "shutter"])
+@pytest.mark.parametrize("name", ["random_balls", "shutter", *CORNELL,
+                                  "nested"])
 @pytest.mark.parametrize("exact", [True, False])
 def test_kernel_matches_plain_version_on_card(exact, name):
     """On the card: the CUDA kernel against its plain PyTorch version on
@@ -51,7 +94,9 @@ def test_kernel_matches_plain_version_on_card(exact, name):
     scene = _scene(name)
     _, plan = tk.make_plan(scene, 64, 64, 4, max_depth=8, T=256,
                            exact=exact)
-    assert plan.uniform_time == (name != "shutter")
+    assert plan.surfaces == (name not in ("random_balls", "shutter"))
+    if name in ("random_balls", "shutter"):
+        assert plan.uniform_time == (name != "shutter")
     args, _ = tk.device_inputs(scene, plan, "cuda")
     pixf = args[0]
     out_k = tk.mega_kernel(*args, 31337, plan)

@@ -5,12 +5,15 @@ its own tests run it: the Pallas kernel in interpret mode, the tape-mode
 kernel (`mega_grad.tape_forward`) and the XLA replay (`make_replay`).
 
 - Exact-spp mode is held to the JAX tape decision by decision: at least
-  99% of lanes must record the same winner sphere at every bounce, and on
-  those lanes the radiance must match to the replay gate of
-  tests/test_mega_grad.py (rtol 1e-3, atol 5e-5). Lanes whose tapes differ
-  are float32 divergence: the ground sphere (r = 1000) loses ~1e-4 of its
-  hit point to cancellation, so implementations whose rsqrt differs by an
-  ulp part ways at grazing hits on ~1% of lanes over 20 bounces.
+  99% of lanes must record the same winner (sphere slot, rect or medium
+  row) at every bounce, and on those lanes the radiance must match to the
+  replay gate of tests/test_mega_grad.py (rtol 1e-3, atol 5e-5). Lanes
+  whose tapes differ are float32 divergence: XLA:CPU's rsqrt is not
+  correctly rounded, and an ulp in a direction decides grazing hits on
+  random_balls' ground sphere (r = 1000, ~1e-4 of its hit point lost to
+  cancellation) and, in the Cornell boxes, whether a hit point on a
+  rotated box face lands on its far side and the next ray hits the face
+  again at a grazing angle.
 - The JAX replay fed the PORT's tape must reproduce the port's image.
 - Overdraw mode agrees with the JAX kernel statistically, and render()
   passes the blockwise golden gate of tests/test_golden.py.
@@ -37,7 +40,8 @@ from raytracingweekend_tpu_torch.models import scene_types as tst  # noqa: E402
 from raytracingweekend_tpu_torch.models.scenes import make_scene  # noqa: E402
 from raytracingweekend_tpu_torch.ops import megakernel as tk  # noqa: E402
 from raytracingweekend_tpu_torch.utils.config import RenderConfig  # noqa: E402
-from test_torch_kernel_card import shutter_scene  # noqa: E402
+from test_torch_kernel_card import (  # noqa: E402
+    CORNELL, nested_scene, shutter_scene)
 
 # The suite runs under pytest-xdist with one worker per few cores; torch's
 # default of one intra-op thread per core oversubscribes the machine there
@@ -48,10 +52,14 @@ torch.set_num_threads(2)
 NX = NY = 16
 SPP, DEPTH = 4, 5
 RTOL, ATOL = 1e-3, 5e-5
-# JAX keys per scene: random_balls pools four launches (1024 lanes), so
-# the 99% gate is not decided by one or two grazing lanes of 256
+# JAX keys per scene: random_balls and the Cornell variants pool four
+# launches (1024 lanes), so the 99% gate is not decided by one or two
+# grazing lanes of 256
 KEYS = {"random_balls": (3, 4, 5, 6), "dielectric": (3,), "lens": (3, 4),
-        "shutter": (3, 4)}
+        "shutter": (3, 4), "nested": (3, 4),
+        **{name: (3, 4, 5, 6) for name in CORNELL}}
+TAPE_SCENES = ["random_balls", "dielectric", "lens", "shutter",
+               *CORNELL, "nested"]
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
@@ -77,7 +85,10 @@ def _scenes(name):
     if name == "shutter":
         return (shutter_scene(jbuilder.SceneBuilder, jst),
                 shutter_scene(tbuilder.SceneBuilder, tst))
-    return jscenes.make_scene(name, 1.0), make_scene(name, 1.0)
+    if name == "nested":
+        return nested_scene(jbuilder, jst), nested_scene(tbuilder, tst)
+    base, kw = CORNELL.get(name, (name, {}))
+    return jscenes.make_scene(base, 1.0, **kw), make_scene(base, 1.0, **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,12 +101,11 @@ def _exact_pair(name, key):
                                       interpret=True)
     seed = int(np.asarray(seed)[0, 0])
     res = tk.trace_mega(seed, ts, NX, NY, SPP, max_depth=DEPTH,
-                        rr_depth=None, T=ctx["T"], exact=True)
+                        rr_depth=None, T=ctx["T"], exact=True, device="cpu")
     return ctx, np.asarray(img), np.asarray(tape), seed, res
 
 
-@pytest.mark.parametrize("name", ["random_balls", "dielectric", "lens",
-                                  "shutter"])
+@pytest.mark.parametrize("name", TAPE_SCENES)
 def test_exact_spp_matches_jax_tape(name):
     same_lanes = total_lanes = 0
     max_err = 0.0
@@ -119,8 +129,7 @@ def test_exact_spp_matches_jax_tape(name):
                           f"(max abs err on them {max_err:.3g})")
 
 
-@pytest.mark.parametrize("name", ["random_balls", "dielectric", "lens",
-                                  "shutter"])
+@pytest.mark.parametrize("name", TAPE_SCENES)
 def test_jax_replay_of_port_tape(name):
     """ROADMAP level 3: the JAX replay, fed the port's own winner tape,
     reproduces the port's image to the replay gate."""
@@ -147,7 +156,8 @@ def test_overdraw_matches_jax_statistically():
     img_j, segs_j, iters_j, _ = mk.trace_mega(
         jax.random.key(11), js, nx, ny, spp, max_depth=depth, T=256,
         interpret=True, return_stats=True)
-    res = tk.trace_mega(2024, ts, nx, ny, spp, max_depth=depth, T=T)
+    res = tk.trace_mega(2024, ts, nx, ny, spp, max_depth=depth, T=T,
+                        device="cpu")
     mean_j = float(np.asarray(img_j).mean()) / spp
     mean_t = float(res.image.mean()) / spp
     assert abs(mean_t - mean_j) <= 0.05 * mean_j, (mean_t, mean_j)
@@ -212,12 +222,15 @@ def test_cli_writes_png(tmp_path):
 
 
 def test_cuda_requests_raise_without_a_card():
-    """No fallback: a CUDA request on a machine without a card raises, and
-    asking for the kernel on a CPU tensor raises."""
+    """No fallback: a CUDA request on a machine without a card raises (and
+    the entry points ask for the card unless told otherwise), and asking
+    for the kernel on a CPU tensor raises."""
     scene = make_scene("dielectric", 1.0)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             tk.trace_mega(1, scene, 8, 8, 1, device="cuda")
+        with pytest.raises((RuntimeError, AssertionError)):
+            tk.trace_mega(1, scene, 8, 8, 1)
         with pytest.raises((RuntimeError, AssertionError)):
             trender.render(scene, RenderConfig(nx=8, ny=8, spp=1,
                                                device="cuda"))

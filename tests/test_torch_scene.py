@@ -19,9 +19,17 @@ from raytracingweekend_tpu_torch.models.convert import (  # noqa: E402
     scene_from_arrays)
 from raytracingweekend_tpu_torch.models.scenes import make_scene  # noqa: E402
 from raytracingweekend_tpu_torch.ops import megakernel as tk  # noqa: E402
-from test_torch_kernel_card import shutter_scene  # noqa: E402
+from test_torch_kernel_card import (  # noqa: E402
+    CORNELL, nested_scene, shutter_scene)
 
 SCENES = ["random_balls", "dielectric"]
+
+
+def _pair(name, aspect):
+    """The JAX package's scene and the port's, by name or Cornell variant."""
+    base, kw = CORNELL.get(name, (name, {}))
+    return (jscenes.make_scene(base, aspect, **kw),
+            make_scene(base, aspect, **kw))
 
 
 def _assert_same(a, b, path="scene"):
@@ -52,27 +60,27 @@ def _leaves(jax_scene):
 
 
 @pytest.mark.parametrize("aspect", [1.0, 1.5])
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SCENES + list(CORNELL))
 def test_make_scene_bitwise(name, aspect):
-    _assert_same(jscenes.make_scene(name, aspect), make_scene(name, aspect))
+    _assert_same(*_pair(name, aspect))
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SCENES + list(CORNELL))
 def test_scene_from_arrays_bitwise(name):
-    js = jscenes.make_scene(name, 1.5)
+    js, ts = _pair(name, 1.5)
     ported = scene_from_arrays(*_leaves(js))
     _assert_same(js, ported)
-    _assert_same(make_scene(name, 1.5), ported)
+    _assert_same(ts, ported)
 
 
 def test_scene_from_arrays_carries_unported_scenes_and_rejects_them():
-    """A rect/light scene converts field for field, and the slice's host
-    plan refuses it by name instead of rendering it wrong."""
-    js = jscenes.make_scene("cornell_box", 1.0)
+    """A noise-textured scene (kernel K4) converts field for field, and the
+    slice's host plan refuses it by name instead of rendering it wrong."""
+    js = jscenes.make_scene("two_perlin_spheres", 1.0)
     ported = scene_from_arrays(*_leaves(js))
     _assert_same(js, ported)
     assert not tk.supports_scene(ported)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         tk.make_plan(ported, 8, 8, 1)
 
 
@@ -86,39 +94,70 @@ def test_scene_from_arrays_rejects_unknown_leaves():
         scene_from_arrays(arrays, static)
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "earth", "cornell_smoke"])
+@pytest.mark.parametrize("name", ["two_perlin_spheres", "earth",
+                                  "random_balls_large"])
 def test_unported_scene_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         make_scene(name, 1.0)
 
 
+# meta fields of the JAX tables that the port's plan reads
+META_KEYS = ("S", "C", "SB", "uniform_time", "ut_t0", "ut_idt", "moving",
+             "lens", "bg_gradient", "has_spheres", "has_light", "has_iso",
+             "has_metal", "has_dielectric", "R", "rect_axes", "rect_rot",
+             "rect_trans", "rect_tf", "rect_rows", "L", "light_kinds",
+             "light_axes", "light_rot", "light_trans", "light_rows", "V",
+             "med_kinds", "med_rot", "med_trans", "med_rows")
+
+
+def _assert_tables(js, ts, SB):
+    (sph_j, attr_j, _, rect_j, light_j, med_j, _, cam_j,
+     meta_j) = mk.build_tables(js, SB)
+    sph_t, attr_t, rect_t, light_t, med_t, cam_t, meta_t = tk.build_tables(
+        ts, SB)
+    for label, a, b in (("sph", sph_j, sph_t), ("attr", attr_j, attr_t),
+                        ("rect", rect_j, rect_t), ("light", light_j, light_t),
+                        ("med", med_j, med_t), ("cam", cam_j, cam_t)):
+        a = np.asarray(a)
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), label
+        assert a.tobytes() == b.tobytes(), label
+    for key in META_KEYS:
+        assert meta_j[key] == meta_t[key], key
+    assert np.array_equal(meta_j["slot_ext"], meta_t["slot_ext"])
+    # per-axis motion: the union over the JAX per-cluster flags
+    assert meta_t["moving_axes"] == tuple(
+        any(c[ax] for c in meta_j["clus_moving"]) for ax in range(3))
+    return meta_t
+
+
 @pytest.mark.parametrize("SB", [64, 512])
-@pytest.mark.parametrize("name", SCENES + ["shutter"])
+@pytest.mark.parametrize("name", SCENES + ["shutter"] + list(CORNELL))
 def test_build_tables_bitwise(name, SB):
-    """The sphere and camera tables, the slot order and the meta the
-    kernel reads. SB=64 exercises the multi-cluster kd order and the
-    biggest-radius cluster reordering on random_balls; the shutter scene's
-    spheres do not share one shutter, so its plan is not uniform_time."""
+    """The sphere, attribute, rect, light, medium and camera tables, the
+    slot order and the meta the kernel reads. SB=64 exercises the
+    multi-cluster kd order and the biggest-radius cluster reordering on
+    random_balls; the shutter scene's spheres do not share one shutter, so
+    its plan is not uniform_time."""
     if name == "shutter":
         js = shutter_scene(jbuilder.SceneBuilder, jst)
         ts = shutter_scene(tbuilder.SceneBuilder, tst)
     else:
-        js, ts = jscenes.make_scene(name, 1.5), make_scene(name, 1.5)
-    (sph_j, attr_j, clus_j, _, _, _, _, cam_j, meta_j) = mk.build_tables(js, SB)
-    sph_t, attr_t, cam_t, meta_t = tk.build_tables(ts, SB)
-    for label, a, b in (("sph", sph_j, sph_t), ("attr", attr_j, attr_t),
-                        ("cam", cam_j, cam_t)):
-        a = np.asarray(a)
-        assert (a.dtype, a.shape) == (b.dtype, b.shape), label
-        assert a.tobytes() == b.tobytes(), label
-    for key in ("S", "C", "SB", "uniform_time", "ut_t0", "ut_idt", "moving",
-                "lens", "bg_gradient"):
-        assert meta_j[key] == meta_t[key], key
-    assert np.array_equal(meta_j["slot_ext"], meta_t["slot_ext"])
-    assert meta_t["uniform_time"] == (name != "shutter")
-    # per-axis motion: the union over the JAX per-cluster flags
-    assert meta_t["moving_axes"] == tuple(
-        any(c[ax] for c in meta_j["clus_moving"]) for ax in range(3))
+        js, ts = _pair(name, 1.5)
+    meta_t = _assert_tables(js, ts, SB)
+    if name in SCENES + ["shutter"]:
+        assert meta_t["uniform_time"] == (name != "shutter")
+
+
+def test_builder_nested_transform_and_sphere_medium_bitwise():
+    js = nested_scene(jbuilder, jst)
+    ts = nested_scene(tbuilder, tst)
+    _assert_same(js, ts)
+    meta = _assert_tables(js, ts, 8)
+    assert (meta["R"], meta["L"], meta["V"]) == (8, 2, 2)
+    assert meta["med_kinds"] == (tst.MEDIUM_SPHERE, tst.MEDIUM_BOX)
+    assert meta["med_rot"] == (True, False)
+    assert meta["rect_rot"] == (False,) + (True,) * 7
+    assert tk.supports_scene(ts)
 
 
 @pytest.mark.parametrize("nx,ny,T", [(16, 16, 512), (37, 23, 128),
@@ -139,8 +178,33 @@ def test_make_plan_book1_defaults():
     assert meta["C"] == 1 and plan.S == meta["S"] == plan.SB <= 512
     assert plan.T == 256 and plan.rr_depth == 4 and not plan.exact
     assert plan.moving and plan.uniform_time and not plan.lens
+    assert not plan.surfaces and (plan.R, plan.L, plan.V) == (0, 0, 0)
     _, small = tk.make_plan(make_scene("dielectric", 1.0), 8, 8, 2, T=64,
                             exact=True)
     assert small.T == 64 and small.n_iters == 2 * 50
     with pytest.raises(ValueError):
         tk.make_plan(make_scene("dielectric", 1.0), 8, 8, 2, T=2048)
+
+
+@pytest.mark.parametrize("name", list(CORNELL))
+def test_make_plan_cornell(name):
+    """The Cornell plans: S = 8 slots whether or not a sphere is live (the
+    JAX plan's S, so tape codes match), and the per-row codes decode to the
+    JAX tables' static metadata."""
+    js, ts = _pair(name, 1.0)
+    tabs, plan = tk.make_plan(ts, 16, 16, 4, max_depth=5, T=512,
+                              exact=True)
+    meta = tabs[-1]
+    cfg = mk.make_plan(js, 16, 16, 4, max_depth=5, T=256, tape=True)[1]
+    assert plan.surfaces and plan.S == cfg.S == 8
+    assert plan.has_spheres == cfg.has_spheres == (name in (
+        "cornell_box", "cornell_box_aluminum"))
+    assert (plan.R, plan.L, plan.V) == (cfg.R, cfg.L, cfg.V)
+    assert plan.has_light == cfg.has_light
+    assert tuple(c & 3 for c in plan.rect_codes) == cfg.rect_axes
+    assert tuple(bool(c >> 2 & 1) for c in plan.rect_codes) == cfg.rect_rot
+    assert tuple(bool(c >> 3 & 1) for c in plan.rect_codes) == cfg.rect_trans
+    assert tuple(c >> 4 for c in plan.rect_codes) == meta["rect_tf"]
+    assert tuple(c & 1 for c in plan.light_codes) == cfg.light_kinds
+    assert tuple(c & 1 for c in plan.med_codes) == cfg.med_kinds
+    assert tuple(bool(c >> 1 & 1) for c in plan.med_codes) == cfg.med_rot

@@ -63,14 +63,16 @@ def test_cossin2pi_matches_jit():
 
 def test_onb_matches_jit():
     """Bitwise where the two backends' rsqrt agree; within 2 ulp of 1.0
-    elsewhere: XLA:CPU's and torch's rsqrt are not correctly rounded and
-    differ by up to 2 ulp, and u and v inherit that through 1/|v|."""
+    elsewhere: XLA:CPU's rsqrt is not correctly rounded and the port's CPU
+    rsqrt is (`_rsqrt`), so the two differ by up to 2 ulp, and u and v
+    inherit that through 1/|v|."""
     w = np.random.default_rng(1).normal(size=(3, 1 << 18)).astype(np.float32)
     w /= np.linalg.norm(w, axis=0)
     wx, wy, wz = w
     ra = [np.asarray(x) for x in jax.jit(mk._onb)(*map(jnp.asarray, w))]
     rb = [x.numpy() for x in tk._onb(*map(torch.from_numpy, w))]
-    # the rsqrt argument both sides compute (FMA form, one rounding each)
+    # the rsqrt argument both sides compute (FMA form, one rounding each),
+    # and XLA's rsqrt of it inside the same fused expression as mk._onb's
     bigx = np.abs(wx) > 0.9
     vx = np.where(bigx, -wz, 0.0).astype(np.float32)
     vy = np.where(bigx, 0.0, wz).astype(np.float32)
@@ -78,8 +80,10 @@ def test_onb_matches_jit():
     t = torch.from_numpy
     s = (tk._fma(t(vz), t(vz), tk._fma(t(vx), t(vx), t(vy) * t(vy)))
          + 1e-30)
-    same_rsqrt = (np.asarray(jax.lax.rsqrt(jnp.asarray(s.numpy())))
-                  == torch.rsqrt(s).numpy())
+    xla_rsqrt = jax.jit(
+        lambda x, y, z: jax.lax.rsqrt(x * x + y * y + z * z + 1e-30))
+    same_rsqrt = (np.asarray(xla_rsqrt(*map(jnp.asarray, (vx, vy, vz))))
+                  == tk._rsqrt(s).numpy())
     assert same_rsqrt.mean() > 0.5
     for a, b in zip(ra, rb):
         assert _ulps(a, b)[same_rsqrt].max() == 0
