@@ -7,14 +7,19 @@ Run from the root of a checkout:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, checks the renderer
-against the reference oracle's golden images, and drives the port's two
+against the reference oracle's golden images, and drives the port's three
 paths through `render()`: book-1 `random_balls` at 1200x800, 64 spp per
-launch, max_depth 50 (kernel K1), and the Cornell path, `cornell_box` then
+launch, max_depth 50 (kernel K1); the Cornell path, `cornell_box` then
 `cornell_smoke` at 400x400, 256 spp in launches of 64, max_depth 50
 (kernels K2 and K3: rects, lights with one-sample MIS, emission, constant
-media). It prints one line per phase. Any failure exits non-zero; without a
-CUDA device it exits non-zero before printing any result. The last line is
-one JSON object naming the device.
+media); and the texture path, `earth` and `earth_rect` on the reference
+oracle's texels (tools/reference_oracle/earth.rtwi), `two_perlin_spheres`,
+`light_sample` and `checker_spheres` at 800x600, 64 spp, max_depth 50
+(kernel K4: checker, Perlin-noise and image textures). Each kernel is held
+to its plain version at its path's full launch shape. It prints one line
+per phase. Any failure exits non-zero; without a CUDA device it exits
+non-zero before printing any result. The last line is one JSON object
+naming the device.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from raytracingweekend_tpu_torch.models import (builder, probe_scenes,
+                                                scene_types)
 from raytracingweekend_tpu_torch.models.scenes import make_scene
 from raytracingweekend_tpu_torch.ops import _build
 from raytracingweekend_tpu_torch.ops import megakernel as mk
@@ -45,6 +52,17 @@ NX, NY, SPP, DEPTH = 1200, 800, 64, 50   # the book-1 path (bench.py)
 # the Cornell path: tools/bench_all.py:24-25 (400x400, 256 spp, depth 50)
 CNX, CNY, CSPP, CLAUNCH, CDEPTH = 400, 400, 256, 64, 50
 CORNELL_PATH = ("cornell_box", "cornell_smoke")
+# the texture path: tools/bench_all.py:26-27 (earth, earth_rect at 800x600,
+# 64 spp) and the other texture scenes at the same shape, 5 timed launches
+TNX, TNY, TSPP, TLAUNCHES, TDEPTH = 800, 600, 64, 5, 50
+# the plain version of the Perlin scenes takes seconds per 200x150x16
+# launch; at the full launch shape it traces every 8th tile only
+PLAIN_TILE_STRIDE = {"two_perlin_spheres": 8, "light_sample": 8}
+RTWI = os.path.join(REPO, "tools", "reference_oracle", "earth.rtwi")
+TEXTURE_PATH = (("earth", {"image_path": RTWI}),
+                ("earth_rect", {"image_path": RTWI}),
+                ("two_perlin_spheres", {}), ("light_sample", {}),
+                ("checker_spheres", {}))
 SEED = 20240601
 
 # FP32 operations of a path segment, counted from csrc/megakernel.cu (add,
@@ -77,6 +95,20 @@ OPS_MIS = 24                  # pick 1, mixture direction 15, pdf_val 4,
 OPS_LIGHT_DIR = {0: 9, 1: 89}     # rect / sphere light sample
 OPS_LIGHT_PDF = {0: 10, 1: 27}    # rect / sphere light pdf, with the sum
 OPS_REGEN = 34                # new camera ray, per path end
+# textures (K4), per textured hit. One Perlin evaluation: floor and
+# fraction 6, smoothsteps 12, corner offsets and weights 6, 8 corners of
+# dot 5, weight 2, accumulate 2 = 96
+OPS_PERLIN = 96
+OPS_TURB = 7 * (OPS_PERLIN + 7)   # 7 octaves: scaled point 3, weight and
+#                                   sum 2, octave scale 2
+OPS_TEXTURE = {"marble": OPS_TURB + 6,   # 10 t, FMA, sin, 0.5 (1 + .)
+               "smooth": OPS_PERLIN + 5,  # scaled point 3, 0.5 (1 + .)
+               "turb": OPS_TURB + 3,      # scaled point 3
+               "checker": 8,              # 3 x sin(10 p), two products
+               "image_sphere": 44,        # 2 polynomial atan2 32, asin 3,
+               #                            u v 5, texel index 4
+               "image_rect": 8,           # planar uv 4, texel index 4
+               "image_medium": 4}         # texel index at uv (0, 0)
 FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
 MATERIALS = ("lambertian", "metal", "dielectric", "light")
 
@@ -107,6 +139,8 @@ def ops_per_segment(plan, mix: dict) -> float:
     for kind, n in OPS_SHADE.items():
         ops += mix[kind] * n
     ops += mix["miss"] * 6 * plan.bg_gradient
+    for kind, n in OPS_TEXTURE.items():
+        ops += mix.get("tex_" + kind, 0.0) * n
     if plan.L:
         kinds = [c & 1 for c in plan.light_codes]
         ops += mix["lambertian"] * (
@@ -118,11 +152,12 @@ def ops_per_segment(plan, mix: dict) -> float:
 def segment_mix(scene) -> dict:
     """What path segments hit, as fractions of all segments: one kernel
     launch in exact-spp mode (64x64, 8 spp, depth 50) and its winner tape,
-    decoded with the scene's tables."""
+    decoded with the scene's tables (materials, and the texture each hit
+    evaluates)."""
     _, plan = mk.make_plan(scene, 64, 64, 8, max_depth=DEPTH, exact=True)
     args, _ = mk.device_inputs(scene, plan, "cuda")
     out = mk.mega_kernel(*args, SEED, plan)
-    attr_tab, rect_tab = args[3], args[4]
+    attr_tab, rect_tab, med_tab = args[3], args[4], args[6]
     tape = out[:, mk.OUT_ROWS:, :]                   # (tiles, iters, T)
     it = torch.arange(tape.shape[1], device=tape.device)[None, :, None]
     code = tape[it < out[:, 4:5, :]].long()          # each lane's own
@@ -130,15 +165,33 @@ def segment_mix(scene) -> dict:
     S, R = plan.S, plan.R
     sph = (code >= 0) & (code < S)
     rec = (code >= S) & (code < S + R)
+    med = code >= S + R
     mtype = torch.full_like(code, -1)
     mtype[sph] = attr_tab[mk.A_MTYPE, code[sph]].long()
     mtype[rec] = rect_tab[code[rec] - S, mk.RT_MTYPE].long()
     mix = {kind: (mtype == m).sum().item() / n
            for m, kind in enumerate(MATERIALS)}
     mix.update(miss=(code < 0).sum().item() / n,
-               medium=(code >= S + R).sum().item() / n,
+               medium=med.sum().item() / n,
                sphere=sph.sum().item() / n,
                ends=out[:, 5, :].sum().item() / out[:, 3, :].sum().item())
+    # the texture lanes of each hit: 1 + NOISE_* (0 marble, 1 smooth,
+    # 2 turb), the checker flag, 1 + image id
+    noi, chk, img = (torch.zeros_like(code, dtype=torch.float32)
+                     for _ in range(3))
+    for mask, tab, rows, idx in (
+            (sph, attr_tab.t(), (mk.A_NOISE, mk.A_CHK, mk.A_IMG), code),
+            (rec, rect_tab, (mk.RT_NOI, mk.RT_CHK, mk.RT_IMG), code - S),
+            (med, med_tab, (mk.MD_NOI, None, mk.MD_IMG), code - S - R)):
+        for dst, row in zip((noi, chk, img), rows):
+            if row is not None and mask.any():
+                dst[mask] = tab[idx[mask], row]
+    for m, kind in enumerate(("marble", "smooth", "turb")):
+        mix["tex_" + kind] = (noi == 1 + m).sum().item() / n
+    mix["tex_checker"] = (chk > 0.5).sum().item() / n
+    mix["tex_image_sphere"] = ((img > 0.5) & sph).sum().item() / n
+    mix["tex_image_rect"] = ((img > 0.5) & rec).sum().item() / n
+    mix["tex_image_medium"] = ((img > 0.5) & med).sum().item() / n
     return mix
 
 
@@ -151,12 +204,15 @@ def bound_ms(plan, segments: float, mix: dict) -> float:
 
 
 def _kernel_name(mangled: str):
-    """'<kMoving,kUniformTime>' or 'surfaces<kMoving,kUniformTime>' of a
-    mangled mega_kernel / mega_kernel_surfaces instantiation, else None."""
-    m = re.search(r"mega_kernel(_surfaces)?ILb(\d)ELb(\d)E", mangled)
+    """'<kMoving,kUniformTime>' or 'surfaces<kMoving,kUniformTime,kTex>' of
+    a mangled mega_kernel / mega_kernel_surfaces instantiation, else
+    None."""
+    m = re.search(r"mega_kernel(_surfaces)?ILb(\d)ELb(\d)E(?:Lb(\d)E)?",
+                  mangled)
     if not m:
         return None
-    return f"{'surfaces' if m.group(1) else ''}<{m.group(2)},{m.group(3)}>"
+    args = ",".join(g for g in m.groups()[1:] if g is not None)
+    return f"{'surfaces' if m.group(1) else ''}<{args}>"
 
 
 def sweep_sass(lib: str) -> dict:
@@ -215,8 +271,10 @@ def phase_build() -> None:
     for m in re.finditer(r"Compiling entry function '([^']*)'(.*?)Used "
                          r"(\d+) registers", log, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        stack = re.search(r"(\d+) bytes stack frame", m.group(2))
         rows.append(f"{_kernel_name(m.group(1))}: {m.group(3)} regs, "
-                    f"{spill.group(1) if spill else '?'} B spill")
+                    f"{spill.group(1) if spill else '?'} B spill, "
+                    f"{stack.group(1) if stack else '?'} B stack")
     sweep = sweep_sass(str(lib))
     per_slot = "; ".join(f"{k}: {n} / {s} = {n / s:.2f}" if s else f"{k}: -"
                          for k, (n, s) in sorted(sweep.items()))
@@ -259,6 +317,13 @@ def _exact_parity(label, scene) -> float:
     return err
 
 
+def texture_mix():
+    """The builder scene with every texture lane: checker sphere and rect,
+    marble sphere, smooth and turb noise on rects, a marble medium, an
+    image medium."""
+    return probe_scenes.texture_mix_scene(builder, scene_types)
+
+
 def phase_exact_parity() -> dict:
     errs = {"K1": _exact_parity("random_balls",
                                 make_scene("random_balls", 1.0))}
@@ -268,6 +333,11 @@ def phase_exact_parity() -> dict:
                       make_scene("cornell_box", 1.0, glass_sphere=False,
                                  aluminum_box=True)),
         _exact_parity("cornell_smoke", make_scene("cornell_smoke", 1.0)))
+    errs["K4"] = max(
+        [_exact_parity(name + (" (earth.rtwi)" if kw else ""),
+                       make_scene(name, 1.0, **kw))
+         for name, kw in TEXTURE_PATH]
+        + [_exact_parity("texture_mix (builder)", texture_mix())])
     return errs
 
 
@@ -281,18 +351,23 @@ def _load_golden(name):
 
 def phase_goldens() -> None:
     """The pixelwise criterion of tests/test_golden.py through render()."""
-    for name, golden, spp in (
-            ("random_balls", "random_balls_128x128_2048spp.bin", 2048),
-            ("dielectric", "dielectric_32x32_4096spp.bin", 4096),
-            ("cornell_box", "cornell_box_128x128_8192spp.bin", 8192),
-            ("cornell_box", "cornell_box_32x32_8192spp.bin", 8192),
-            ("cornell_smoke", "cornell_smoke_32x32_8192spp.bin", 8192)):
+    rtwi = {"image_path": RTWI}
+    for name, golden, spp, kw in (
+            ("random_balls", "random_balls_128x128_2048spp.bin", 2048, {}),
+            ("dielectric", "dielectric_32x32_4096spp.bin", 4096, {}),
+            ("cornell_box", "cornell_box_128x128_8192spp.bin", 8192, {}),
+            ("cornell_box", "cornell_box_32x32_8192spp.bin", 8192, {}),
+            ("cornell_smoke", "cornell_smoke_32x32_8192spp.bin", 8192, {}),
+            ("light_sample", "light_sample_32x32_4096spp.bin", 4096, {}),
+            ("earth", "earth_32x32_4096spp.bin", 4096, rtwi),
+            ("earth_rect", "earth_rect_32x32_4096spp.bin", 4096, rtwi)):
         g = _load_golden(golden)
         ny, nx, _ = g.shape
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=50,
                            samples_per_launch=64, seed=7, device="cuda")
         t0 = time.perf_counter()
-        o = render(make_scene(name, nx / ny), cfg).double().cpu().numpy()
+        o = render(make_scene(name, nx / ny, **kw),
+                   cfg).double().cpu().numpy()
         secs = time.perf_counter() - t0
         mean_rel = abs(o.mean() - g.mean()) / max(g.mean(), 1e-6)
         err = np.abs(o - g)
@@ -307,11 +382,13 @@ def phase_goldens() -> None:
             fail(f"golden parity failed for {golden}")
 
 
-def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label) -> dict:
-    """render() of one scene: one warm-up launch, then `spp` samples in
-    launches of `launch_spp`, with the kernel's launch count set to 0
-    just before the path and read just after."""
-    scene = make_scene(name, nx / ny)
+def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label,
+           **kw) -> dict:
+    """render() of one scene (make_scene keywords `kw`): one warm-up
+    launch, then `spp` samples in launches of `launch_spp`, with the
+    kernel's launch count set to 0 just before the path and read just
+    after."""
+    scene = make_scene(name, nx / ny, **kw)
     base = dict(nx=nx, ny=ny, max_depth=depth, samples_per_launch=launch_spp,
                 device="cuda")
     for k in mk.KERNEL_LAUNCHES:
@@ -354,6 +431,14 @@ def phase_cornell_path() -> dict:
     return dict(launches=sum(r["launches"] for r in runs))
 
 
+def phase_texture_path() -> dict:
+    """The texture path at full width: each scene 800x600, five 64 spp
+    launches after a warm-up."""
+    runs = [_drive(name, TNX, TNY, TLAUNCHES * TSPP, TSPP, TDEPTH, "K4",
+                   "phase 8 texture path", **kw) for name, kw in TEXTURE_PATH]
+    return dict(launches=sum(r["launches"] for r in runs))
+
+
 def _event_ms(fn, reps: int) -> tuple[float, object]:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -365,44 +450,60 @@ def _event_ms(fn, reps: int) -> tuple[float, object]:
     return start.elapsed_time(end) / reps, out
 
 
-def _kernel_vs_plain(name, nx, ny, spp, label) -> dict:
-    """One launch at a path's shapes: kernel and plain version on the same
-    inputs, timed with CUDA events, compared pixel by pixel; the bound
-    from the launch's segments and the measured hit mix."""
-    scene = make_scene(name, nx / ny)
+def _lane_means(out: torch.Tensor) -> torch.Tensor:
+    """(n_tiles, T, 3) mean radiance of each lane's pixel: its sums over
+    the samples it traced (the epilogue's renormalisation, unpermuted)."""
+    return (out[:, 0:3, :] / torch.clamp_min(out[:, 5:6, :], 1.0)).transpose(
+        1, 2)
+
+
+def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
+                     **kw) -> dict:
+    """One launch at a path's shape: the kernel and its plain version on
+    the same inputs, timed with CUDA events and compared pixel by pixel;
+    the bound from the launch's segments and the measured hit mix. With
+    `tile_stride` > 1 the plain version traces every `tile_stride`-th tile
+    of the launch only (the others are marked invalid in its copy of the
+    pixel table; tiles are independent and keep their RNG streams), and
+    the kernel's output is compared on those tiles."""
+    scene = make_scene(name, nx / ny, **kw)
     _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
-    args, inv = mk.device_inputs(scene, plan, "cuda")
+    args, _ = mk.device_inputs(scene, plan, "cuda")
+    pixf = args[0]
+    sel = torch.zeros(pixf.shape[0], dtype=torch.bool, device=pixf.device)
+    sel[::tile_stride] = True
+    pixf_plain = pixf.clone()
+    pixf_plain[~sel, 2, :] = 0.0
 
     def kernel():
         return mk.mega_kernel(*args, SEED, plan)
-
-    def plain():
-        return mk.trace_mega_reference(*args, SEED, plan)
 
     once, _ = _event_ms(kernel, 1)             # warm-up, and a first time
     reps = max(3, min(50, int(500.0 / max(once, 1e-3))))   # ~0.5 s
     _event_ms(kernel, reps)                    # clocks up
     ms, out_k = _event_ms(kernel, reps)
-    plain_ms, out_r = _event_ms(plain, 1)
-    img_k = mk._epilogue(out_k, inv, plan).image / spp
-    img_r = mk._epilogue(out_r, inv, plan).image / spp
-    err = (img_k - img_r).abs()
-    max_err = err.max().item()
-    frac = torch.isclose(img_k, img_r, rtol=RTOL, atol=ATOL).all(
-        dim=-1).float().mean().item()
     segments = out_k[:, 3, :].sum().item()
+    plain_ms, out_r = _event_ms(
+        lambda: mk.trace_mega_reference(pixf_plain, *args[1:], SEED, plan), 1)
+    lanes = (pixf[:, 2, :] > 0) & sel[:, None]
+    a, b = _lane_means(out_k)[lanes], _lane_means(out_r)[lanes]
+    max_err = (a - b).abs().max().item()
+    frac = torch.isclose(a, b, rtol=RTOL, atol=ATOL).all(
+        dim=-1).float().mean().item()
     mix = segment_mix(scene)
     ops = ops_per_segment(plan, mix)
     bound = bound_ms(plan, segments, mix)
+    part = (f" on every {tile_stride}th tile ({sel.sum().item()} of "
+            f"{sel.numel()})" if tile_stride > 1 else "")
     print(f"{label} kernel vs plain ({name} {nx}x{ny}x{spp} spp, "
           f"T={plan.T}, S={plan.S}, R={plan.R}, L={plan.L}, V={plan.V}): "
-          f"kernel {ms:.3f} ms (mean of {reps}), plain PyTorch "
-          f"{plain_ms:.3f} ms per launch; {segments:.6e} segments; hit mix "
+          f"kernel {ms:.3f} ms (mean of {reps}) per launch, plain PyTorch "
+          f"{plain_ms:.3f} ms{part}; {segments:.6e} segments; hit mix "
           f"{json.dumps({k: round(v, 4) for k, v in mix.items()})}; "
           f"{ops:.1f} FP32 ops per segment, bound {bound:.3f} ms "
-          f"({bound / ms:.3f} of the kernel time); pixels equal within rtol "
-          f"{RTOL}/atol {ATOL}: {frac:.6f}, max abs err {max_err:.3e}",
-          flush=True)
+          f"({bound / ms:.3f} of the kernel time); pixels{part} equal "
+          f"within rtol {RTOL}/atol {ATOL}: {frac:.6f} of {a.shape[0]}, "
+          f"max abs err {max_err:.3e}", flush=True)
     if frac < MIN_SAME:
         fail(f"kernel disagrees with its plain version on {name}")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
@@ -416,9 +517,13 @@ def main() -> int:
     phase_goldens()
     main_run = phase_main_path()
     cornell_run = phase_cornell_path()
+    texture_run = phase_texture_path()
     k1 = _kernel_vs_plain("random_balls", NX, NY, SPP, "phase 5b")
     k23 = [_kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
            for name in CORNELL_PATH]
+    k4 = [_kernel_vs_plain(name, TNX, TNY, TSPP, "phase 9",
+                           tile_stride=PLAIN_TILE_STRIDE.get(name, 1), **kw)
+          for name, kw in TEXTURE_PATH]
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -435,6 +540,15 @@ def main() -> int:
                              + [r["max_abs_err"] for r in k23]),
              ms=k23[0]["ms"], plain_ms=k23[0]["plain_ms"],
              bound_ms=k23[0]["bound_ms"]),
+        dict(name="megakernel K4 (checker, Perlin noise, image textures; "
+                  "earth on earth.rtwi timings)",
+             source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
+             replaces="raytracingweekend_tpu/ops/megakernel.py:1410",
+             launches=texture_run["launches"],
+             max_abs_err=max([parity["K4"]]
+                             + [r["max_abs_err"] for r in k4]),
+             ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
+             bound_ms=k4[0]["bound_ms"]),
     ]
     for e in entries:
         e.update(route="cuda", bound_by="operations", library_ms=None)

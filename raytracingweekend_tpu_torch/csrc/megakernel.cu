@@ -2,13 +2,15 @@
 // whole path-trace loop in one launch.
 //
 // Replaces raytracingweekend_tpu/ops/megakernel.py::_kernel in its C=1
-// configuration (one dense sphere cluster, no culling, constant textures):
-// the sphere path (ROADMAP kernel K1, mega_kernel) and, in
+// configuration (one dense sphere cluster, no culling): the sphere path
+// with constant textures (ROADMAP kernel K1, mega_kernel) and, in
 // mega_kernel_surfaces, the rect hit with baked flip / rotate_y /
 // translate, the one-sample MIS over rect and sphere lights, one-sided
-// emission (K2), and the stochastic constant-medium boundaries with
-// isotropic scatter (K3). Plain version beside it:
-// raytracingweekend_tpu_torch/ops/megakernel.py::trace_mega_reference.
+// emission (K2), the stochastic constant-medium boundaries with isotropic
+// scatter (K3) and, in its kTextures instantiations, checker, Perlin-noise
+// and image textures on spheres, rects and media (K4). Plain version
+// beside it: raytracingweekend_tpu_torch/ops/megakernel.py::
+// trace_mega_reference (noise: ops/noise.py).
 //
 // One thread owns one lane, a pixel slot, and loops over bounces:
 //   camera ray (jitter, shutter time, thin lens) -> closest hit over every
@@ -47,6 +49,18 @@
 // time, with each row's axis, kind and transform presence read from its
 // code. The sphere attribute rows stay in global memory and are read once
 // per bounce through the read-only path (__ldg).
+//
+// Textures (K4): a Perlin evaluation makes 6 permutation reads and 8
+// gradient reads per octave at data-dependent addresses (marble and turb
+// take 7 octaves), so the 256-entry permutation and the 256 x 3 float32
+// gradients (4 KB) sit in shared memory, where a warp's scattered reads do
+// not serialise as they would in constant memory. The JAX kernel's bf16
+// hi/lo one-hot lookups of those tables are a TPU device: this kernel
+// indexes the exact float32 values. Texels stay in device memory (the
+// earth image is 768 KB, resident in the 50 MB L2) and are read through
+// __ldg, one nearest texel per hit. The sphere uv keeps the JAX kernel's
+// polynomial atan2 / asin, and sinf / floorf are IEEE (no fast math), so
+// the texel index and the noise round as in the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,26 +74,47 @@ constexpr int kExactBlock = 256;
 
 // attribute table rows (24, S), as ops/megakernel.py A_*
 enum { A_CX, A_CY, A_CZ, A_DCX, A_DCY, A_DCZ, A_T0, A_IDT, A_RINV, A_MTYPE,
-       A_ALBX, A_ALBY, A_ALBZ, A_MPARAM };
+       A_ALBX, A_ALBY, A_ALBZ, A_MPARAM, A_NSCALE, A_CHK, A_EVENX, A_EVENY,
+       A_EVENZ, A_ODDX, A_ODDY, A_ODDZ, A_NOISE, A_IMG };
 // sweep SoA lanes (9, S), as ops/megakernel.py SWEEP_LANES
 enum { L_CX, L_CY, L_CZ, L_DCX, L_DCY, L_DCZ, L_T0, L_IDT, L_NR2, kLanes };
 // rect / light / medium lanes, as ops/megakernel.py RT_* / LT_* / MD_*; the
-// shared-memory copy keeps the first k*Lanes of each 128-lane table row
+// shared-memory copy keeps the first k*Lanes of each 128-lane table row,
+// and the texture lanes (RT_CHK.., MD_NOI..) only in texture launches
 enum { RT_A0, RT_A1, RT_B0, RT_B1, RT_K, RT_COS, RT_SIN, RT_OFFX, RT_OFFY,
        RT_OFFZ, RT_NX, RT_NY, RT_NZ, RT_MTYPE, RT_ALBX, RT_ALBY, RT_ALBZ,
-       RT_FUZZ, RT_RIDX, kRectLanes };
+       RT_FUZZ, RT_RIDX, RT_CHK, RT_EVENX, RT_EVENY, RT_EVENZ, RT_ODDX,
+       RT_ODDY, RT_ODDZ, RT_NOI, RT_NSC, RT_IMG, RT_IDA, RT_IDB };
 enum { LT_A0, LT_A1, LT_B0, LT_B1, LT_K, LT_COS, LT_SIN, LT_OFFX, LT_OFFY,
        LT_OFFZ, LT_AREA, LT_CX, LT_CY, LT_CZ, LT_RAD, kLightLanes };
 enum { MD_P0X, MD_P0Y, MD_P0Z, MD_P1X, MD_P1Y, MD_P1Z, MD_COS, MD_SIN,
        MD_OFFX, MD_OFFY, MD_OFFZ, MD_NIRHO, MD_ALBX, MD_ALBY, MD_ALBZ,
-       kMedLanes };
+       MD_NOI, MD_NSC, MD_IMG };
+constexpr int kRectLanes = RT_RIDX + 1, kRectTexLanes = RT_IDB + 1;
+constexpr int kMedLanes = MD_ALBZ + 1, kMedTexLanes = MD_IMG + 1;
+template <bool kTex>
+__host__ __device__ constexpr int rect_lanes() {
+  return kTex ? kRectTexLanes : kRectLanes;
+}
+template <bool kTex>
+__host__ __device__ constexpr int med_lanes() {
+  return kTex ? kMedTexLanes : kMedLanes;
+}
 constexpr int kTableLanes = 128;  // row stride of the rect/light/medium tables
+constexpr int kNoiseSize = 256;   // Perlin permutation and gradient entries
 // float32 roundings of the plain version's constants
 constexpr float kInvPi = 0x1.45f306p-2f;   // 1 / pi
 constexpr float kTwoPi = 0x1.921fb6p+2f;   // 2 pi
 constexpr float kTiny20 = 0x1.79ca10p-67f; // 1e-20
 constexpr float kTiny30 = 0x1.4484c0p-100f; // 1e-30
 constexpr float kTiny38 = 0x1.b38fb8p-127f; // 1e-38 (subnormal)
+// the sphere uv's constants, float32 roundings of the JAX kernel's, whose
+// pi is 3.14159265358979
+constexpr float kPiUv = 0x1.921fb6p+1f;        // pi
+constexpr float kHalfPiUv = 0x1.921fb6p+0f;    // pi / 2
+constexpr float kHalfInvPiUv = 0x1.45f306p-3f; // 0.5 / pi
+constexpr float kInvPiUv = 0x1.45f306p-2f;     // 1 / pi
+constexpr float kTexelBias = 0x1.0624dep-10f;  // 0.001 of the row index
 // camera vector lanes, as ops/megakernel.py CAM_*
 enum { CAM_OX, CAM_OY, CAM_OZ, CAM_LLX, CAM_LLY, CAM_LLZ, CAM_HX, CAM_HY,
        CAM_HZ, CAM_VX, CAM_VY, CAM_VZ, CAM_UX, CAM_UY, CAM_UZ, CAM_WX, CAM_WY,
@@ -110,6 +145,16 @@ struct Surfaces {
   const int* codes;
   int R, L, V, has_spheres;
   float inv_L;  // 1 / L
+};
+
+// The texture tables of a texture launch (K4). In a texture launch the
+// codes array continues after the R + L + V row codes with (height, width)
+// of each image.
+struct Texels {
+  const int* perm;      // (256,) Perlin permutation
+  const float* ranvec;  // (256, 3) Perlin unit gradients
+  const float* images;  // (n_img, img_h, img_w, 3) texels, row 0 at the top
+  int n_img, img_h, img_w;
 };
 
 struct Lane {
@@ -426,9 +471,9 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 // The shared-memory copy of a surfaces launch's tables.
 struct Tables {
-  const float* rect;   // (R, kRectLanes)
+  const float* rect;   // (R, rect_lanes)
   const float* light;  // (L, kLightLanes)
-  const float* med;    // (V, kMedLanes)
+  const float* med;    // (V, med_lanes)
   const int* code;     // R rect, L light, V medium codes
   int R, L, V, has_spheres;
   float inv_L;
@@ -478,16 +523,19 @@ __device__ __forceinline__ void plane_axes(int ax, float x, float y, float z,
 
 // Closest rect (hittable.h:142-267): the first rect with the strictly
 // smallest t wins. Rects of one transform group (a box's faces) share one
-// object-space ray. Returns the winner row (-1: none) and its t in rb_t.
+// object-space ray. Returns the winner row (-1: none) and its t in rb_t;
+// with kTex, the winner's planar uv (hittable.h:160-172) in r_u, r_v.
+template <bool kTex>
 __device__ __forceinline__ int rect_hit(const Params& p, const Tables& tb,
                                         const Lane& L, float idx, float idy,
-                                        float idz, float& rb_t) {
+                                        float idz, float& rb_t, float& r_u,
+                                        float& r_v) {
   rb_t = kBig;
   int rwin = -1, group = -1;
   float rox = 0.f, roy = 0.f, roz = 0.f, rdx = 0.f, rdy = 0.f, rdz = 0.f;
   float irx = idx, iry = idy, irz = idz;
   for (int r = 0; r < tb.R; ++r) {
-    const float* row = tb.rect + r * kRectLanes;
+    const float* row = tb.rect + r * rect_lanes<kTex>();
     const int code = tb.code[r];
     if ((code >> 4) != group) {
       group = code >> 4;
@@ -510,6 +558,10 @@ __device__ __forceinline__ int rect_hit(const Params& p, const Tables& tb,
         pb >= row[RT_B0] && pb <= row[RT_B1]) {
       rb_t = t;
       rwin = r;
+      if (kTex) {  // uv = planar offset / extent
+        r_u = (pa - row[RT_A0]) * row[RT_IDA];
+        r_v = (pb - row[RT_B0]) * row[RT_IDB];
+      }
     }
   }
   return rwin;
@@ -518,6 +570,7 @@ __device__ __forceinline__ int rect_hit(const Params& p, const Tables& tb,
 // Closest constant-medium scatter distance (hittable.h:430-479): t_in -
 // log(u) / density inside the sphere or box boundary, u from salt 4 (one
 // row per medium). Returns the winner row (-1: none) and its t in md_t.
+template <bool kTex>
 __device__ __forceinline__ int media_hit(const Params& p, const Tables& tb,
                                          const Lane& L, float idx, float idy,
                                          float idz, uint32_t b4,
@@ -525,7 +578,7 @@ __device__ __forceinline__ int media_hit(const Params& p, const Tables& tb,
   md_t = kBig;
   int mwin = -1;
   for (int v = 0; v < tb.V; ++v) {
-    const float* row = tb.med + v * kMedLanes;
+    const float* row = tb.med + v * med_lanes<kTex>();
     const int code = tb.code[tb.R + tb.L + v];
     const bool rot = code & 2;
     float mox, moy, moz, mdx, mdy, mdz;
@@ -691,13 +744,148 @@ __device__ __forceinline__ float light_pdf(const Params& p, const Tables& tb,
   return acc;
 }
 
-// One bounce iteration of one lane in a scene with rects, lights or media.
-// Returns the winner code (-1 for a miss or an idle lane).
-template <bool kMoving, bool kUniformTime>
+// ---------------------------------------------------------------------------
+// Textures (K4)
+// ---------------------------------------------------------------------------
+
+// The shared-memory noise tables and the texel source of a texture launch.
+struct TexTables {
+  const int* perm;      // (256,) in shared memory
+  const float* rv;      // (256, 3) in shared memory
+  const int* hw;        // (height, width) per image
+  const float* images;  // (n_img, img_h, img_w, 3) in device memory
+  int img_h, img_w;
+};
+
+// Gradient Perlin noise in [-1, 1] (noise.h:89-151, hermite smoothstep),
+// as ops/noise.py::perlin_noise. Negative lattice coordinates wrap through
+// & 255 as int32 does.
+__device__ __forceinline__ float perlin(const TexTables& tx, float px,
+                                        float py, float pz) {
+  const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+  const float u = px - fx, v = py - fy, w = pz - fz;
+  const int i = (int)fx, j = (int)fy, k = (int)fz;
+  const float uu = u * u * (3.f - 2.f * u);
+  const float vv = v * v * (3.f - 2.f * v);
+  const float ww = w * w * (3.f - 2.f * w);
+  const int pi[2] = {tx.perm[i & 255], tx.perm[(i + 1) & 255]};
+  const int pj[2] = {tx.perm[j & 255], tx.perm[(j + 1) & 255]};
+  const int pk[2] = {tx.perm[k & 255], tx.perm[(k + 1) & 255]};
+  float acc = 0.f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const float wu = di ? uu : 1.f - uu;
+    const float ru = u - (float)di;
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      const float wv = dj ? vv : 1.f - vv;
+      const float rv = v - (float)dj;
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const float wwk = dk ? ww : 1.f - ww;
+        const float rw = w - (float)dk;
+        const float* g = tx.rv + 3 * (pi[di] ^ pj[dj] ^ pk[dk]);
+        const float dot = fmaf(g[2], rw, fmaf(g[0], ru, g[1] * rv));
+        acc = fmaf(wu * wv * wwk, dot, acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// 7-octave |fBm| turbulence (noise.h:74-86); the octave weights and scales
+// are powers of two, so their products are exact.
+__device__ __forceinline__ float turb(const TexTables& tx, float px,
+                                      float py, float pz) {
+  float acc = 0.f, wgt = 1.f, sc = 1.f;
+#pragma unroll 1
+  for (int o = 0; o < 7; ++o) {
+    acc = acc + wgt * perlin(tx, px * sc, py * sc, pz * sc);
+    wgt *= 0.5f;
+    sc *= 2.f;
+  }
+  return fabsf(acc);
+}
+
+// The JAX kernel's octant-reduced polynomial atan2 (range (-pi, pi],
+// atan2(0, 0) = 0, y = -0 on the -pi side), as ops/megakernel.py::_atan2.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float a = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), kTiny30);
+  const float s = a * a;
+  float p = fmaf(0x1.095508p-7f, s, -0x1.354312p-5f);
+  p = fmaf(p, s, 0x1.5b2cfcp-4f);
+  p = fmaf(p, s, -0x1.154068p-3f);
+  p = fmaf(p, s, 0x1.97733cp-3f);
+  p = fmaf(p, s, -0x1.55474ap-2f);
+  p = fmaf(p, s, 0x1.fffff6p-1f);
+  float r = a * p;
+  if (ay > ax) r = kHalfPiUv - r;
+  if (x < 0.f) r = kPiUv - r;
+  return signbit(y) ? -r : r;
+}
+
+// The albedo of a hit under its texture, in the JAX kernel's order (a
+// later override wins; a texture sets at most one of them):
+//   noise   noi = 1 + NOISE_* (texture.h:55-69): marble, smooth, turb;
+//   checker chk > 0.5 (texture.h:35-46): the sign of the product of sines
+//           picks the odd colour (cols[3..5] * stride) or the even one;
+//   image   img = 1 + image id (texture.h:73-98): the nearest texel at
+//           (u, v), a sphere's from its unit normal (sphere.h:115-122).
+__device__ __forceinline__ void texture_albedo(
+    const TexTables& tx, float noi, float nsc, float chk, const float* cols,
+    int stride, float img, bool sphere_uv, float u, float v, float px,
+    float py, float pz, float nx, float ny, float nz, float& wx, float& wy,
+    float& wz) {
+  if (noi > 0.5f) {
+    const int mode = (int)noi - 1;
+    float val;
+    if (mode == 0) {  // marble: 0.5 (1 + sin(scale z + 10 turb(p)))
+      val = 0.5f * (1.f + sinf(fmaf(nsc, pz, 10.f * turb(tx, px, py, pz))));
+    } else if (mode == 1) {  // smooth: 0.5 (1 + noise(scale p))
+      val = 0.5f * (1.f + perlin(tx, px * nsc, py * nsc, pz * nsc));
+    } else {  // turb(scale p)
+      val = turb(tx, px * nsc, py * nsc, pz * nsc);
+    }
+    wx = wy = wz = val;
+  }
+  if (chk > 0.5f) {
+    const float sines = sinf(10.f * px) * sinf(10.f * py) * sinf(10.f * pz);
+    const float* c = cols + (sines < 0.f ? 3 * stride : 0);
+    wx = c[0];
+    wy = c[stride];
+    wz = c[2 * stride];
+  }
+  if (img > 0.5f) {
+    if (sphere_uv) {
+      const float phi = atan2_poly(nz, nx);
+      const float sy = fminf(fmaxf(ny, -1.f), 1.f);  // asin(ny)
+      const float theta =
+          atan2_poly(sy, sqrtf(fmaxf(fmaf(-sy, sy, 1.f), 0.f)));
+      u = fmaf(-(phi + kPiUv), kHalfInvPiUv, 1.f);
+      v = (theta + kHalfPiUv) * kInvPiUv;
+    }
+    const int id = (int)img - 1;
+    const int h = tx.hw[2 * id], w = tx.hw[2 * id + 1];
+    const int i = min(max((int)(u * (float)w), 0), w - 1);
+    const int j = min(max((int)fmaf(1.f - v, (float)h, -kTexelBias), 0),
+                      h - 1);
+    const float* t =
+        tx.images + (((size_t)id * tx.img_h + j) * tx.img_w + i) * 3;
+    wx = __ldg(t);
+    wy = __ldg(t + 1);
+    wz = __ldg(t + 2);
+  }
+}
+
+// One bounce iteration of one lane in a scene with rects, lights or media
+// (and, with kTex, textures). Returns the winner code (-1 for a miss or an
+// idle lane).
+template <bool kMoving, bool kUniformTime, bool kTex>
 __device__ __forceinline__ int bounce_surfaces(
-    const Params& p, const float* sm, const Tables& tb, const Cam& cam,
-    Lane& L, bool active, uint32_t tile, uint32_t lane, uint32_t it,
-    float pxi, float pxj) {
+    const Params& p, const float* sm, const Tables& tb, const TexTables& tx,
+    const Cam& cam, Lane& L, bool active, uint32_t tile, uint32_t lane,
+    uint32_t it, float pxi, float pxj) {
   bool alive = false;
   int code = -1;
   float px = 0.f, py = 0.f, pz = 0.f, ndx = 0.f, ndy = 0.f, ndz = 0.f;
@@ -707,13 +895,14 @@ __device__ __forceinline__ int bounce_surfaces(
     int bidx = p.S;
     if (tb.has_spheres) bidx = sweep<kMoving, kUniformTime>(p, sm, L, s_best);
     const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
-    float rb_t;
-    const int rwin = rect_hit(p, tb, L, idx, idy, idz, rb_t);
+    float rb_t, r_u = 0.f, r_v = 0.f;
+    const int rwin = rect_hit<kTex>(p, tb, L, idx, idy, idz, rb_t, r_u, r_v);
     const bool use_rect = rb_t < s_best;
     float best = fminf(s_best, rb_t);
     float md_t;
-    const int mwin = media_hit(p, tb, L, idx, idy, idz,
-                               stream_base(p.seed, tile, it, 4u, lane), md_t);
+    const int mwin =
+        media_hit<kTex>(p, tb, L, idx, idy, idz,
+                        stream_base(p.seed, tile, it, 4u, lane), md_t);
     const bool use_med = md_t < best;
     best = fminf(best, md_t);
     if (best < kHitCut) {
@@ -727,7 +916,7 @@ __device__ __forceinline__ int bounce_surfaces(
       if (use_med) {
         // ---- isotropic scatter at a medium vertex (material.h:252-265):
         // a point in the unit ball (u2, u3, u4) ----
-        const float* row = tb.med + mwin * kMedLanes;
+        const float* row = tb.med + mwin * med_lanes<kTex>();
         const float zb = 1.f - 2.f * uniform_row(b2, 2);
         const float rb = sqrtf(fmaxf(fmaf(-zb, zb, 1.f), 0.f));
         float cpb, spb;
@@ -740,10 +929,15 @@ __device__ __forceinline__ int bounce_surfaces(
         wx = row[MD_ALBX];
         wy = row[MD_ALBY];
         wz = row[MD_ALBZ];
+        if (kTex) {  // noise or image, no checker; media sample uv (0, 0)
+          texture_albedo(tx, row[MD_NOI], row[MD_NSC], 0.f, row, 0,
+                         row[MD_IMG], false, 0.f, 0.f, px, py, pz, 0.f, 0.f,
+                         0.f, wx, wy, wz);
+        }
       } else {
         float nx, ny, nz, mtype, fuzz, ridx;
         if (use_rect) {
-          const float* row = tb.rect + rwin * kRectLanes;
+          const float* row = tb.rect + rwin * rect_lanes<kTex>();
           nx = row[RT_NX];
           ny = row[RT_NY];
           nz = row[RT_NZ];
@@ -753,6 +947,11 @@ __device__ __forceinline__ int bounce_surfaces(
           wz = row[RT_ALBZ];
           fuzz = row[RT_FUZZ];
           ridx = row[RT_RIDX];
+          if (kTex) {
+            texture_albedo(tx, row[RT_NOI], row[RT_NSC], row[RT_CHK],
+                           row + RT_EVENX, 1, row[RT_IMG], false, r_u, r_v,
+                           px, py, pz, nx, ny, nz, wx, wy, wz);
+          }
         } else {
           // ---- sphere normal ((p - c(t)) / r) ----
           float scx = attr_at(p, A_CX, bidx);
@@ -774,6 +973,13 @@ __device__ __forceinline__ int bounce_surfaces(
           wy = attr_at(p, A_ALBY, bidx);
           wz = attr_at(p, A_ALBZ, bidx);
           fuzz = ridx = attr_at(p, A_MPARAM, bidx);
+          if (kTex) {  // checker colours: rows A_EVENX.. A_ODDZ, stride S
+            texture_albedo(tx, attr_at(p, A_NOISE, bidx),
+                           attr_at(p, A_NSCALE, bidx), attr_at(p, A_CHK, bidx),
+                           p.attr + (size_t)A_EVENX * p.S + bidx, p.S,
+                           attr_at(p, A_IMG, bidx), true, 0.f, 0.f, px, py, pz,
+                           nx, ny, nz, wx, wy, wz);
+          }
         }
         const float ddn = fmaf(L.dz, nz, fmaf(L.dx, nx, L.dy * ny));
         const float rfx = fmaf(-2.f * ddn, nx, L.dx);
@@ -996,37 +1202,54 @@ __global__ void mega_kernel(Params p) {
   out[(size_t)7 * T] = 0.f;
 }
 
-// The kernel of scenes with rects, lights or media. Its lane loop is
-// mega_kernel's with bounce_surfaces; the two stay separate functions so
-// that the sphere-only code (34 SASS instructions per sweep slot) does not
-// depend on the surfaces path.
-template <bool kMoving, bool kUniformTime>
-__global__ void mega_kernel_surfaces(Params p, Surfaces q) {
+// The kernel of scenes with rects, lights or media, or with textures
+// (kTex). Its lane loop is mega_kernel's with bounce_surfaces; the two stay
+// separate functions so that the sphere-only code (34 SASS instructions per
+// sweep slot) does not depend on the surfaces path, and the kTex = false
+// instantiations compile to the code they had before textures.
+template <bool kMoving, bool kUniformTime, bool kTex>
+__global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
   // (9, S) sweep SoA, then the rect, light and medium rows (their first
-  // k*Lanes lanes) and the R + L + V static codes
+  // rect_lanes / kLightLanes / med_lanes lanes), the R + L + V static codes
+  // and, with kTex, the image sizes and the Perlin tables
+  constexpr int kRL = rect_lanes<kTex>(), kML = med_lanes<kTex>();
   extern __shared__ float sm[];
   for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
     sm[i] = __ldg(p.sph + i);
   }
   float* rect = sm + kLanes * p.S;
-  float* light = rect + q.R * kRectLanes;
+  float* light = rect + q.R * kRL;
   float* med = light + q.L * kLightLanes;
-  int* codes = reinterpret_cast<int*>(med + q.V * kMedLanes);
-  for (int i = threadIdx.x; i < q.R * kRectLanes; i += blockDim.x) {
-    rect[i] = __ldg(q.rect + (i / kRectLanes) * kTableLanes + i % kRectLanes);
+  int* codes = reinterpret_cast<int*>(med + q.V * kML);
+  for (int i = threadIdx.x; i < q.R * kRL; i += blockDim.x) {
+    rect[i] = __ldg(q.rect + (i / kRL) * kTableLanes + i % kRL);
   }
   for (int i = threadIdx.x; i < q.L * kLightLanes; i += blockDim.x) {
     light[i] =
         __ldg(q.light + (i / kLightLanes) * kTableLanes + i % kLightLanes);
   }
-  for (int i = threadIdx.x; i < q.V * kMedLanes; i += blockDim.x) {
-    med[i] = __ldg(q.med + (i / kMedLanes) * kTableLanes + i % kMedLanes);
+  for (int i = threadIdx.x; i < q.V * kML; i += blockDim.x) {
+    med[i] = __ldg(q.med + (i / kML) * kTableLanes + i % kML);
   }
-  for (int i = threadIdx.x; i < q.R + q.L + q.V; i += blockDim.x) {
+  const int n_codes = q.R + q.L + q.V + (kTex ? 2 * x.n_img : 0);
+  for (int i = threadIdx.x; i < n_codes; i += blockDim.x) {
     codes[i] = __ldg(q.codes + i);
   }
   const Tables tb{rect, light, med, codes, q.R, q.L, q.V, q.has_spheres,
                   q.inv_L};
+  TexTables tx{};
+  if (kTex) {
+    int* perm = codes + n_codes;
+    float* rv = reinterpret_cast<float*>(perm + kNoiseSize);
+    for (int i = threadIdx.x; i < kNoiseSize; i += blockDim.x) {
+      perm[i] = __ldg(x.perm + i);
+    }
+    for (int i = threadIdx.x; i < 3 * kNoiseSize; i += blockDim.x) {
+      rv[i] = __ldg(x.ranvec + i);
+    }
+    tx = TexTables{perm, rv, codes + q.R + q.L + q.V, x.images, x.img_h,
+                   x.img_w};
+  }
   __syncthreads();
 
   uint32_t tile, lane;
@@ -1059,8 +1282,8 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q) {
   if (p.exact) {
     int it = 0;
     for (; L.done < p.spp && it < p.n_iters; ++it) {
-      const int code = bounce_surfaces<kMoving, kUniformTime>(
-          p, sm, tb, cam, L, true, tile, lane, it, pxi, pxj);
+      const int code = bounce_surfaces<kMoving, kUniformTime, kTex>(
+          p, sm, tb, tx, cam, L, true, tile, lane, it, pxi, pxj);
       L.iters += 1.f;
       out[(size_t)(kOutRows + it) * T] = (float)code;
     }
@@ -1069,8 +1292,8 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q) {
     uint32_t it = 0;
     int running = __syncthreads_or(valid);
     while (running) {
-      bounce_surfaces<kMoving, kUniformTime>(p, sm, tb, cam, L, valid, tile,
-                                             lane, it, pxi, pxj);
+      bounce_surfaces<kMoving, kUniformTime, kTex>(
+          p, sm, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj);
       L.iters += 1.f;
       ++it;
       running = __syncthreads_or(L.done < p.spp);
@@ -1109,18 +1332,26 @@ cudaError_t launch(Kernel kern, size_t smem, const Params& p,
   return cudaGetLastError();
 }
 
+// The sphere kernel (q == nullptr), the surfaces kernel, or the surfaces
+// kernel with textures (x != nullptr), with their shared memory.
 template <bool kMoving, bool kUniformTime>
-cudaError_t launch_one(const Params& p, const Surfaces* q,
+cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
                        cudaStream_t stream) {
   size_t n = (size_t)kLanes * p.S;
   if (q == nullptr) {
     return launch(mega_kernel<kMoving, kUniformTime>, sizeof(float) * n, p,
                   stream);
   }
-  n += (size_t)q->R * kRectLanes + (size_t)q->L * kLightLanes +
-       (size_t)q->V * kMedLanes + q->R + q->L + q->V;
-  return launch(mega_kernel_surfaces<kMoving, kUniformTime>,
-                sizeof(float) * n, p, stream, *q);
+  n += (size_t)q->L * kLightLanes + q->R + q->L + q->V;
+  if (x == nullptr) {
+    n += (size_t)q->R * kRectLanes + (size_t)q->V * kMedLanes;
+    return launch(mega_kernel_surfaces<kMoving, kUniformTime, false>,
+                  sizeof(float) * n, p, stream, *q, Texels{});
+  }
+  n += (size_t)q->R * kRectTexLanes + (size_t)q->V * kMedTexLanes +
+       2 * x->n_img + 4 * kNoiseSize;
+  return launch(mega_kernel_surfaces<kMoving, kUniformTime, true>,
+                sizeof(float) * n, p, stream, *q, *x);
 }
 
 }  // namespace
@@ -1130,19 +1361,24 @@ extern "C" {
 // Launch the megakernel on `stream`. Returns cudaGetLastError() after the
 // launch (0 on success): a launch the device refuses (too many threads or
 // too much shared memory) reports here and nowhere else. `surfaces` selects
-// mega_kernel_surfaces, the kernel with the rect / light / medium parts.
+// mega_kernel_surfaces, the kernel with the rect / light / medium parts;
+// `textures` its instantiations with checker, noise and image textures,
+// whose image sizes follow the row codes in `codes`.
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     const float* attr, const float* rect, const float* light,
-                    const float* med, const int* codes, float* out,
+                    const float* med, const int* codes, const int* perm,
+                    const float* ranvec, const float* images, float* out,
                     int n_tiles, int T, int S, int R, int L, int V,
                     int n_iters, int seed, int spp, int max_depth,
-                    int rr_depth, int exact, int lens, int bg_gradient,
-                    int moving, int uniform_time, int surfaces,
-                    int has_spheres, float inv_nx, float inv_ny, float t_min,
-                    float ut_t0, float ut_idt, float inv_L, void* stream) {
+                    int rr_depth, int n_img, int img_h, int img_w, int exact,
+                    int lens, int bg_gradient, int moving, int uniform_time,
+                    int surfaces, int has_spheres, int textures,
+                    float inv_nx, float inv_ny, float t_min, float ut_t0,
+                    float ut_idt, float inv_L, void* stream) {
   if (n_tiles <= 0 || T <= 0 || S <= 0 || R < 0 || L < 0 || V < 0 ||
       n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
-      (!surfaces && (R || L || V))) {
+      (!surfaces && (R || L || V || textures)) || n_img < 0 ||
+      img_h <= 0 || img_w <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -1170,13 +1406,15 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   p.ut_idt = ut_idt;
   Surfaces q{rect, light, med, codes, R, L, V, has_spheres, inv_L};
   const Surfaces* qp = surfaces ? &q : nullptr;
+  Texels x{perm, ranvec, images, n_img, img_h, img_w};
+  const Texels* xp = textures ? &x : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (moving) {
-    e = uniform_time ? launch_one<true, true>(p, qp, s)
-                     : launch_one<true, false>(p, qp, s);
+    e = uniform_time ? launch_one<true, true>(p, qp, xp, s)
+                     : launch_one<true, false>(p, qp, xp, s);
   } else {
-    e = launch_one<false, false>(p, qp, s);
+    e = launch_one<false, false>(p, qp, xp, s);
   }
   return (int)e;
 }

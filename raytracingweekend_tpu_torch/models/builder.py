@@ -2,13 +2,13 @@
 tables (the reference's make_shared<...> object graph, Scene/scene.h).
 
 The port's counterpart of raytracingweekend_tpu/models/builder.py:
-constant textures; lambertian, metal, dielectric, diffuse_light and
-isotropic materials; static and moving spheres, axis rects, boxes and
-constant media (sphere or box boundary) under the `Transform` instancing
-wrappers; the MIS lights list; and the camera. `build()` pads and types
-every table exactly as the JAX builder does, so the two produce
-bitwise-equal scenes. Checker, noise and image textures come with
-ROADMAP Queue 1 item 5 (K4), `use_bvh` with item 6 (the wavefront path).
+constant, checker, Perlin-noise and image textures; lambertian, metal,
+dielectric, diffuse_light and isotropic materials; static and moving
+spheres, axis rects, boxes and constant media (sphere or box boundary)
+under the `Transform` instancing wrappers; the MIS lights list; and the
+camera. `build()` pads and types every table exactly as the JAX builder
+does, so the two produce bitwise-equal scenes. `use_bvh` comes with
+ROADMAP Queue 1 item 6 (the wavefront path).
 """
 from __future__ import annotations
 
@@ -157,6 +157,7 @@ class SceneBuilder:
         self._rects: List[_Rect] = []
         self._media: List[_Medium] = []
         self._lights: List[Tuple[int, int]] = []
+        self._images: List[np.ndarray] = []
         self._camera: Optional[st.Camera] = None
         self._has_rect_transforms = False
         self._has_moving = False
@@ -164,6 +165,29 @@ class SceneBuilder:
     # ---- textures (texture.h) ----
     def constant(self, color) -> int:
         self._textures.append(_Tex(st.TEX_CONSTANT, tuple(color)))
+        return len(self._textures) - 1
+
+    def checker(self, even: int, odd: int) -> int:
+        """checker_texture (texture.h:29-50) of two texture handles."""
+        self._textures.append(_Tex(st.TEX_CHECKER, even=even, odd=odd))
+        return len(self._textures) - 1
+
+    def noise(self, scale: float = 5.0, mode: int = st.NOISE_MARBLE) -> int:
+        """noise_texture (texture.h:52-71) in display mode NOISE_*."""
+        self._textures.append(_Tex(st.TEX_NOISE, scale=scale,
+                                   noise_mode=mode))
+        return len(self._textures) - 1
+
+    def image(self, pixels: np.ndarray) -> int:
+        """image_texture (texture.h:73-98) from an (H, W, 3) float array in
+        [0, 1] with row 0 at the image bottom (the `utils.image.load_image`
+        convention), stored top-down so the reference's (1 - v) row lookup
+        (texture.h:84) applies as it is."""
+        pixels = np.asarray(pixels, dtype=_REAL)
+        assert pixels.ndim == 3 and pixels.shape[-1] == 3
+        self._images.append(pixels[::-1])
+        self._textures.append(_Tex(st.TEX_IMAGE,
+                                   image_id=len(self._images) - 1))
         return len(self._textures) - 1
 
     # ---- materials (material.h) ----
@@ -365,6 +389,15 @@ class SceneBuilder:
             ref_idx=np.asarray([m.ref_idx for m in mats], np.float32))
 
         texs = self._textures or [_Tex(st.TEX_CONSTANT)]
+        images = image_hw = None
+        if self._images:   # one (I, Hmax, Wmax, 3) table, zero-padded
+            hmax = max(im.shape[0] for im in self._images)
+            wmax = max(im.shape[1] for im in self._images)
+            images = np.zeros((len(self._images), hmax, wmax, 3), _REAL)
+            image_hw = np.zeros((len(self._images), 2), np.int32)
+            for i, im in enumerate(self._images):
+                images[i, :im.shape[0], :im.shape[1]] = im
+                image_hw[i] = im.shape[:2]
         textures = st.Textures(
             ttype=np.asarray([t.ttype for t in texs], np.int32),
             color=np.asarray([t.color for t in texs], np.float32),
@@ -372,7 +405,8 @@ class SceneBuilder:
             noise_mode=np.asarray([t.noise_mode for t in texs], np.int32),
             even=np.asarray([t.even for t in texs], np.int32),
             odd=np.asarray([t.odd for t in texs], np.int32),
-            image_id=np.asarray([t.image_id for t in texs], np.int32))
+            image_id=np.asarray([t.image_id for t in texs], np.int32),
+            images=images, image_hw=image_hw)
 
         # The lights list, padded to one row; num is the true count.
         lt = self._lights or [(st.LIGHT_RECT, 0)]
@@ -380,6 +414,14 @@ class SceneBuilder:
                            index=np.asarray([l[1] for l in lt], np.int32),
                            num=len(self._lights))
 
+        ttypes = {t.ttype for t in self._textures}
+        # a checker whose child is not a constant texture needs the
+        # wavefront's recursive texture evaluation
+        complex_checker = any(
+            t.ttype == st.TEX_CHECKER
+            and (self._textures[t.even].ttype != st.TEX_CONSTANT
+                 or self._textures[t.odd].ttype != st.TEX_CONSTANT)
+            for t in self._textures)
         return st.Scene(
             spheres=spheres, rects=rects, media=media, materials=materials,
             textures=textures, lights=lights, camera=self._camera,
@@ -387,8 +429,14 @@ class SceneBuilder:
             has_moving_spheres=self._has_moving,
             has_rect_transforms=self._has_rect_transforms,
             has_media=bool(self._media),
+            has_noise_tex=st.TEX_NOISE in ttypes,
+            noise_modes=tuple(sorted({t.noise_mode for t in self._textures
+                                      if t.ttype == st.TEX_NOISE})),
+            has_image_tex=st.TEX_IMAGE in ttypes,
+            has_checker_tex=st.TEX_CHECKER in ttypes,
             has_metal=any(m.mtype == st.MAT_METAL for m in mats),
             has_dielectric=any(m.mtype == st.MAT_DIELECTRIC for m in mats),
             has_isotropic=any(m.mtype == st.MAT_ISOTROPIC for m in mats),
             has_lights_mat=any(m.mtype == st.MAT_DIFFUSE_LIGHT for m in mats),
-            lambertian_strategy=lambertian_strategy, name=name)
+            lambertian_strategy=lambertian_strategy,
+            needs_legacy_textures=complex_checker, name=name)

@@ -7,9 +7,9 @@ device tensors per launch geometry.
 
 Every hittable of the reference normalizes to a row in one of three padded
 tables (spheres, axis rects, constant media); materials and textures are
-type-coded rows in their own tables. Only the sphere path renders in this
-slice of the port; the rect and medium tables are carried (empty) so a
-scene round-trips field for field with the JAX package.
+type-coded rows in their own tables; image textures keep their texels in
+`Textures.images`. A scene round-trips field for field with the JAX
+package.
 """
 from __future__ import annotations
 

@@ -2,28 +2,26 @@
 (reference: RayTracingWeekend/Scene/scene.h:42-249).
 
 The port's counterpart of raytracingweekend_tpu/models/scenes.py: the
-book-1 scenes and the Cornell boxes (rects, lights, media). Every other
-scene of the JAX library raises NotImplementedError naming the ROADMAP
-item that brings it.
+book-1 scenes, the Cornell boxes (rects, lights, media) and the texture
+scenes (checker, Perlin noise, the earth image). The two large-S stress
+scenes raise NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
+
+import numpy as np
 
 from . import scene_types as st
 from .builder import SceneBuilder
+from ..utils import image as image_mod
 from ..utils.detrng import MinStd
 
 SCENES: Dict[str, Callable[..., st.Scene]] = {}
 
 # Scenes of the JAX library that later slices of the port bring.
 LATER_SCENES = {
-    "light_sample": "ROADMAP Queue 1 item 5 (K4 noise textures)",
-    "two_perlin_spheres": "ROADMAP Queue 1 item 5 (K4 noise textures)",
-    "checker_spheres": "ROADMAP Queue 1 item 5 (K4 checker textures)",
-    "earth": "ROADMAP Queue 1 item 5 (K4 image textures)",
-    "earth_rect": "ROADMAP Queue 1 item 5 (K4 image textures)",
     "random_balls_large": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
     "random_balls_huge": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
 }
@@ -41,6 +39,30 @@ def make_scene(name: str, aspect: float, **kw) -> st.Scene:
         raise NotImplementedError(
             f"scene {name!r} is not ported yet: {LATER_SCENES[name]}")
     return SCENES[name](aspect, **kw)
+
+
+@register("light_sample")
+def light_sample(aspect: float) -> st.Scene:
+    """Perlin spheres, a sphere light and a rect light under a thin lens
+    (Scene/scene.h:42-70). The reference registers no lights list here
+    (scene.h:50-59 fills `objects` only), so MIS falls back to the cosine
+    pdf."""
+    b = SceneBuilder()
+    pertext = b.noise(4.0)
+    four = b.constant((4.0, 4.0, 4.0))
+    lam = b.lambertian(pertext)
+    light = b.diffuse_light(four)
+
+    b.sphere((0, -1000, 0), 1000.0, lam)
+    b.sphere((0, 2, 0), 2.0, lam)
+    b.sphere((0, 7, 0), 2.0, light)
+    b.rect("xy", 3.0, 5.0, 1.0, 3.0, -2.0, light)
+
+    lookfrom = (24.0, 5.0, 5.0)
+    lookat = (0.0, 3.0, 0.0)
+    dist = math.dist(lookfrom, lookat)
+    b.camera(lookfrom, lookat, (0, 1, 0), 20.0, aspect, 0.2, dist, 0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="light_sample")
 
 
 @register("dielectric")
@@ -174,3 +196,72 @@ def cornell_smoke_scene(aspect: float) -> st.Scene:
     b.camera((278, 278, -800), (278, 278, 0), (0, 1, 0), 40.0, aspect, 0.0,
              10.0, 0.0, 1.0)
     return b.build(background=st.BG_BLACK, name="cornell_smoke")
+
+
+@register("two_perlin_spheres")
+def two_perlin_spheres(aspect: float) -> st.Scene:
+    """Book-2 marble spheres (noise_texture, texture.h:52-71)."""
+    b = SceneBuilder()
+    pertext = b.noise(4.0)
+    lam = b.lambertian(pertext)
+    b.sphere((0, -1000, 0), 1000.0, lam)
+    b.sphere((0, 2, 0), 2.0, lam)
+    b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="two_perlin_spheres")
+
+
+@register("checker_spheres")
+def checker_spheres(aspect: float) -> st.Scene:
+    """Book-2 checker ground (checker_texture, texture.h:29-50)."""
+    b = SceneBuilder()
+    checker = b.checker(b.constant((0.2, 0.3, 0.1)),
+                        b.constant((0.9, 0.9, 0.9)))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+    b.sphere((0, 2, 0), 2.0, b.lambertian(checker))
+    b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="checker_spheres")
+
+
+def _earth_pixels(image_path: Optional[str] = None) -> np.ndarray:
+    """The texels of `image_path` (`utils.image.load_image`), else the JAX
+    package's procedural stand-in (latitude bands, 256x512), which is also
+    what the JAX package renders while the repo holds no earth.jpg. The
+    port reads no JPEG (ROADMAP Queue 1 item 9)."""
+    if image_path:
+        return image_mod.load_image(image_path)
+    v = np.linspace(0.0, 1.0, 256)[:, None]
+    u = np.linspace(0.0, 1.0, 512)[None, :]
+    land = (np.sin(u * 21.0) * np.sin(v * 13.0)) > 0.3
+    return np.where(land[..., None],
+                    np.array([0.2, 0.5, 0.2]),
+                    np.array([0.1, 0.2, 0.6]))
+
+
+@register("earth")
+def earth_scene(aspect: float, image_path: Optional[str] = None) -> st.Scene:
+    """Book-2 image-texture globe; `image_path` names the texels, e.g.
+    tools/reference_oracle/earth.rtwi, the reference oracle's own."""
+    b = SceneBuilder()
+    tex = b.image(_earth_pixels(image_path))
+    b.sphere((0, 0, 0), 2.0, b.lambertian(tex))
+    b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="earth")
+
+
+@register("earth_rect")
+def earth_rect_scene(aspect: float,
+                     image_path: Optional[str] = None) -> st.Scene:
+    """The earth image on an axis rect (planar uv, hittable.h:160-172) and
+    on a sphere beside it, over a grey ground sphere."""
+    b = SceneBuilder()
+    tex = b.image(_earth_pixels(image_path))
+    b.rect("xy", -3.0, 3.0, -1.5, 1.5, -1.0, b.lambertian(tex))
+    b.sphere((0, 0, 2.0), 1.0, b.lambertian(tex))
+    b.sphere((0, -101.8, 0), 100.0,
+             b.lambertian(b.constant((0.6, 0.6, 0.6))))
+    b.camera((0, 0.5, 9), (0, 0, 0), (0, 1, 0), 40.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="earth_rect")

@@ -1,13 +1,15 @@
 """The megakernel: the whole path-trace loop fused in one CUDA kernel.
 
 The port of raytracingweekend_tpu/ops/megakernel.py for scenes of spheres,
-axis rects and constant media with constant textures (ROADMAP kernels K1,
-K2 and K3: `_kernel` with one dense sphere cluster, the rect hit, the
-one-sample MIS over the lights list, one-sided emission, and the
-stochastic medium boundaries with isotropic scatter). One launch traces
-every pixel of a frame: each lane owns one pixel slot and runs
+axis rects and constant media (ROADMAP kernels K1, K2, K3 and K4: `_kernel`
+with one dense sphere cluster, the rect hit, the one-sample MIS over the
+lights list, one-sided emission, the stochastic medium boundaries with
+isotropic scatter, and checker, Perlin-noise and image textures). One
+launch traces every pixel of a frame: each lane owns one pixel slot and
+runs
 
     camera ray -> closest hit over every sphere slot, rect and medium ->
+    albedo (constant, checker, Perlin noise or the nearest texel) ->
     shading (lambertian with the light mixture pdf, metal, dielectric,
     emitter, isotropic; gradient or black sky) -> Russian roulette ->
     regeneration of the slot's next sample
@@ -19,7 +21,9 @@ until its pixel has its samples. The module holds
   (`_morton_order`, `_kd_cluster_order`), launch plan (`make_plan`) and
   pixel layout (`_pixel_layout`);
 - the device helpers `_uniforms` (the lowbias32 counter-hash RNG, bitwise
-  equal to JAX's), `_onb` and `_cossin2pi`, in torch;
+  equal to JAX's), `_onb`, `_cossin2pi` and the polynomial `_atan2` /
+  `_asin` of the sphere uv, in torch (the Perlin helpers are in
+  ops/noise.py);
 - `mega_kernel`, the wrapper of the CUDA kernel (csrc/megakernel.cu), and
   `trace_mega_reference`, its plain PyTorch version with the same
   arguments;
@@ -52,6 +56,8 @@ import torch
 
 from ..models import scene_types as st
 from . import _build
+from . import noise as _noise
+from .rounding import _fma
 from .integrator import _block_linear_order
 
 BIG = 3.0e37
@@ -103,9 +109,11 @@ MED_LANES = 128
 OUT_ROWS = 8
 
 # CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
-# kernel: "K1" the sphere-only instantiations, "K2+K3" those with the rect,
-# light and medium parts (`MegaPlan.surfaces`).
-KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0}
+# kernel: "K1" the sphere-only instantiations; "K2+K3" the launches that
+# run the rect, light or medium parts; "K4" those that run textures. A
+# launch of a textured Cornell-like scene counts under both of the last
+# two.
+KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -113,22 +121,6 @@ KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0}
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
-
-
-# Fused multiply-adds. The JAX kernel runs its arithmetic under XLA, whose
-# CPU backend contracts every single-use multiply feeding an add into an
-# FMA (LLVM's rule: in x*y + z*w the first product is fused), and the CUDA
-# kernel is built with -fmad=false and writes the same fmaf calls. The
-# plain version writes each of those FMAs out, with one rounding: the
-# product of two float32 values is exact in float64.
-def _f64(x):
-    """float64 view of a float32 tensor or (float32-rounded) constant."""
-    return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
-
-
-def _fma(a, b, c) -> torch.Tensor:
-    """a * b + c in float32 with one rounding."""
-    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +133,15 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return torch.rsqrt(x)
     return (1.0 / torch.sqrt(x.double())).float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) in float32, correctly rounded as XLA's and CUDA's sqrtf are:
+    on the card torch.sqrt; on the CPU through float64 (torch's CPU sqrt
+    is off by an ulp on ~0.3% of inputs)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -223,6 +224,37 @@ def _onb(wx, wy, wz):
     return ux, uy, uz, vx, vy, vz
 
 
+# pi as the JAX kernel's uv code writes it, and its atan polynomial:
+# atan(a) ~ a P(a^2) on [0, 1] (max abs error 5.8e-7)
+_PI_UV = 3.14159265358979
+_ATAN_C = (0.9999997, -0.33327976, 0.19895026, -0.13537675,
+           0.0847597, -0.03775171, 0.008097295)
+
+
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The JAX kernel's octant-reduced polynomial atan2 (range (-pi, pi],
+    atan2(0, 0) = 0, y = -0 on the -pi side), kept instead of torch.atan2:
+    the texel index is int(u W), and a true atan2 differs from the
+    polynomial by up to 6e-7, enough to move a lane to the next texel."""
+    ax, ay = x.abs(), y.abs()
+    a = torch.minimum(ax, ay) / torch.clamp_min(torch.maximum(ax, ay),
+                                                 _f32(1e-30))
+    s = a * a
+    p = torch.full_like(a, _f32(_ATAN_C[-1]))
+    for c in _ATAN_C[-2::-1]:
+        p = _fma(p, s, c)
+    r = a * p
+    r = torch.where(ay > ax, _f32(0.5 * _PI_UV) - r, r)
+    r = torch.where(x < 0.0, _f32(_PI_UV) - r, r)
+    return torch.where(torch.signbit(y), -r, r)
+
+
+def _asin(y: torch.Tensor) -> torch.Tensor:
+    """asin(y) = atan2(y, sqrt(1 - y^2)) on y clipped to [-1, 1]."""
+    y = torch.clamp(y, -1.0, 1.0)
+    return _atan2(y, _sqrt(torch.clamp_min(_fma(-y, y, 1.0), 0.0)))
+
+
 # ---------------------------------------------------------------------------
 # Host plan: scene support, sphere order, tables, launch plan, pixel layout
 # ---------------------------------------------------------------------------
@@ -234,16 +266,20 @@ _SURFACE_MATS = (st.MAT_LAMBERTIAN, st.MAT_METAL, st.MAT_DIELECTRIC,
 def unsupported_reason(scene: st.Scene) -> Optional[str]:
     """Why this slice of the port cannot render the scene, naming the
     ROADMAP item that brings it; None when it can. The slice covers
-    spheres, axis rects and constant media, constant textures,
+    spheres, axis rects and constant media; constant, checker (of constant
+    children), Perlin-noise and image textures on any of them;
     lambertian / metal / dielectric / diffuse_light surfaces, isotropic
-    media, rect and sphere lights, shaded, the `mis` strategy, no BVH."""
+    media, rect and sphere lights, shaded, the `mis` strategy, no BVH.
+    Texels live in device memory, so an image has no size cap here."""
     if (scene.bvh is not None or scene.render_type != st.RENDER_SHADED
             or scene.lambertian_strategy != "mis"):
         return ("BVH scenes, normal rendering and non-MIS lambertian "
                 "strategies take the wavefront path (ROADMAP Queue 1 item 6)")
+    if scene.needs_legacy_textures:
+        return ("a checker of non-constant textures needs the wavefront's "
+                "recursive texture evaluation (ROADMAP Queue 1 item 6)")
     act = np.asarray(scene.spheres.active, bool)
     ract = np.asarray(scene.rects.active, bool)
-    vact = np.asarray(scene.media.active, bool)
     if not (act.any() or ract.any()):
         return "the scene has no sphere or rect"
     mtype = np.asarray(scene.materials.mtype)
@@ -252,12 +288,8 @@ def unsupported_reason(scene: st.Scene) -> Optional[str]:
     if not np.all(np.isin(mtype[surf], _SURFACE_MATS)):
         return ("an isotropic sphere or rect: the port shades isotropic "
                 "material on constant media only")
-    used = np.concatenate([surf, np.asarray(scene.media.mat)[vact]])
-    ttype = np.asarray(scene.textures.ttype)[
-        np.asarray(scene.materials.tex)[used]]
-    if scene.needs_legacy_textures or np.any(ttype != st.TEX_CONSTANT):
-        return ("checker, noise and image textures come with kernel K4 "
-                "(ROADMAP Queue 1 item 5)")
+    if scene.has_image_tex and scene.textures.images is None:
+        return "an image texture without texels"
     return None
 
 
@@ -312,7 +344,8 @@ def _kd_cluster_order(centers: np.ndarray, SB: int) -> np.ndarray:
 
 def build_tables(scene: st.Scene, SB: int = 64):
     """Host packing of the scene tables, bitwise equal to the JAX
-    `build_tables` without its cluster AABBs and image atlas. Returns
+    `build_tables` without its cluster AABBs and image atlas (the kernel
+    reads the scene's float32 `textures.images` as they are). Returns
     (sph_tab (S, 128), attr_tab (24, S), rect_tab (max(R, 1), 128),
     light_tab (max(L, 1), 128), med_tab (max(V, 1), 128), cam_vec (1, 128),
     meta) as numpy.
@@ -388,8 +421,8 @@ def build_tables(scene: st.Scene, SB: int = 64):
     fuzz = np.asarray(mats.fuzz, np.float32)[matp]
     ridx = np.asarray(mats.ref_idx, np.float32)[matp]
     rinv = np.where(radp != 0, 1.0 / np.where(radp != 0, radp, 1.0), 0.0)
-    # Checker / noise / image rows keep the JAX layout (their values for
-    # constant textures); the sphere slice of the kernel does not read them.
+    # texture rows: checker flag and its children's colours; 1 + NOISE_*
+    # and the scale of a noise texture; 1 + image id of an image texture
     ttype_np = np.asarray(tex.ttype)
     chk = (ttype_np[ti] == st.TEX_CHECKER).astype(np.float32)
     evc = col_all[np.asarray(tex.even)[ti]]
@@ -431,6 +464,15 @@ def build_tables(scene: st.Scene, SB: int = 64):
     has_light = bool(
         (R and np.any(mt_np[r_mat[rlive]] == st.MAT_DIFFUSE_LIGHT))
         or (n and np.any(mtype[actm] == st.MAT_DIFFUSE_LIGHT)))
+    # the noise modes and images that live spheres, rects and media use
+    V = med_meta["V"]
+    noise_modes = {int(m) for m in nmode_np[ti][is_noi & actm]}
+    noise_modes |= {int(f) - 1 for f in np.concatenate(
+        [rect_tab[:R, RT_NOI], med_tab[:V, MD_NOI]]) if f > 0}
+    has_image = bool(np.any(imgf > 0) or np.any(rect_tab[:R, RT_IMG] > 0)
+                     or np.any(med_tab[:V, MD_IMG] > 0))
+    img_hw = (tuple((int(h), int(w)) for h, w in np.asarray(tex.image_hw))
+              if has_image else ())
 
     cam = scene.camera
     cam_vec = np.zeros((1, 128), np.float32)
@@ -461,7 +503,11 @@ def build_tables(scene: st.Scene, SB: int = 64):
                 bg_gradient=scene.background == st.BG_GRADIENT,
                 has_spheres=n > 0,
                 has_light=has_light,
-                has_iso=med_meta["V"] > 0,
+                has_checker=bool(scene.has_checker_tex),
+                has_noise=bool(noise_modes),
+                noise_modes=tuple(sorted(noise_modes)),
+                has_image=has_image, n_img=len(img_hw), img_hw=img_hw,
+                has_iso=V > 0,
                 **rect_meta, **light_meta, **med_meta,
                 # scene sphere row of each slot (-1: padding): decodes a
                 # winner tape
@@ -683,12 +729,23 @@ class MegaPlan:
     light_codes: tuple     # per light: kind | axis << 1 | rot << 3 | tr << 4
     V: int                 # live constant media
     med_codes: tuple       # per medium: kind | rotated << 1 | translated << 2
+    has_checker: bool = False   # the scene has a checker texture
+    noise_modes: tuple = ()     # NOISE_* display modes that prims use
+    img_hw: tuple = ()          # (height, width) per image, when one is used
+
+    @property
+    def textures(self) -> bool:
+        """The launch evaluates checker, noise or image albedos (K4)."""
+        return bool(self.has_checker or self.noise_modes or self.img_hw)
 
     @property
     def surfaces(self) -> bool:
         """The scene needs the rect / light / medium parts of the kernel
-        (K2, K3); sphere-only scenes run the book-1 instantiations."""
-        return bool(self.R or self.L or self.V or self.has_light)
+        (K2, K3) or its textures (K4), which live in the same kernel;
+        constant-textured sphere-only scenes run the book-1
+        instantiations."""
+        return bool(self.R or self.L or self.V or self.has_light
+                    or self.textures)
 
 
 def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
@@ -735,7 +792,9 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                     med_codes=tuple(
                         k | r << 1 | t << 2 for k, r, t in zip(
                             meta["med_kinds"], meta["med_rot"],
-                            meta["med_trans"])))
+                            meta["med_trans"])),
+                    has_checker=meta["has_checker"],
+                    noise_modes=meta["noise_modes"], img_hw=meta["img_hw"])
     return tabs, plan
 
 
@@ -773,16 +832,24 @@ def _device_layout(nx: int, ny: int, T: int, device: str):
 
 def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     """The launch's tensors on `device`, in the kernel's argument order:
-    (pixf, cam_vec, sph_tab, attr_tab, rect_tab, light_tab, med_tab), plus
-    the inverse pixel permutation. Tables are copied once per (scene,
-    device), layouts once per shape."""
+    (pixf, cam_vec, sph_tab, attr_tab, rect_tab, light_tab, med_tab, perm,
+    ranvec, images), plus the inverse pixel permutation. perm (256,) int32
+    and ranvec (256, 3) float32 are the Perlin tables; images is the
+    scene's (n_img, Hmax, Wmax, 3) float32 texels, or one zero texel when
+    the launch reads none. Tables are copied once per (scene, device),
+    layouts once per shape."""
     device = torch.device(device)
 
     def build():
         sph, attr, rect, light, med, cam, _ = build_tables_cached(scene,
                                                                   plan.SB)
-        return tuple(torch.from_numpy(a).to(device)
-                     for a in (cam, sph, attr, rect, light, med))
+        images = (scene.textures.images if plan.img_hw
+                  else np.zeros((1, 1, 1, 3), np.float32))
+        return (*(torch.from_numpy(a).to(device)
+                  for a in (cam, sph, attr, rect, light, med)),
+                *_noise.noise_tables(str(device)),
+                torch.from_numpy(np.ascontiguousarray(images, np.float32))
+                .to(device))
     tabs = _scene_memo(_TABLE_CACHE, scene, ("device", plan.SB, str(device)),
                        build)
     pixf, inv = _device_layout(plan.nx, plan.ny, plan.T, str(device))
@@ -834,12 +901,14 @@ def _rotate_y_inv(cth, sth, x, z):
 def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          sph_tab: torch.Tensor, attr_tab: torch.Tensor,
                          rect_tab: torch.Tensor, light_tab: torch.Tensor,
-                         med_tab: torch.Tensor, seed: int,
-                         plan: MegaPlan) -> torch.Tensor:
+                         med_tab: torch.Tensor, perm: torch.Tensor,
+                         ranvec: torch.Tensor, images: torch.Tensor,
+                         seed: int, plan: MegaPlan) -> torch.Tensor:
     """The plain PyTorch version of the megakernel, with the arguments of
     `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128),
     attr_tab (24, S), rect_tab (max(R, 1), 128), light_tab (max(L, 1), 128)
-    and med_tab (max(V, 1), 128), float32 on one device; seed an int32.
+    and med_tab (max(V, 1), 128), ranvec (256, 3) and images (n_img, Hmax,
+    Wmax, 3) float32, perm (256,) int32, on one device; seed an int32.
     Returns out (n_tiles, 8 + n_iters, T) float32.
 
     Vectorised over the lanes of every tile still running, with a Python
@@ -876,7 +945,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                                                     dtype=f32, device=dev)])
     med_ext = torch.cat([med_tab[:V], torch.zeros((1, MED_LANES), dtype=f32,
                                                   device=dev)])
-    rect_rows = rect_tab[:R, :RT_RIDX + 1].tolist()
+    rect_rows = rect_tab[:R, :RT_IDB + 1].tolist()
+    img_hw = torch.tensor(plan.img_hw or ((1, 1),), device=dev)
     light_rows = light_tab[:L, :LT_RAD + 1].tolist()
     med_rows = med_tab[:V, :MD_ALBZ + 1].tolist()
     lane_ids = torch.arange(T, dtype=torch.int64, device=dev)
@@ -994,10 +1064,14 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
     def rect_hit(o, d, inv_d):
         """Closest rect (hittable.h:142-267, baked flip / rotate_y /
-        translate): (t, winner row; R when none). The first rect with the
-        strictly smallest t wins."""
+        translate): (t, winner row; R when none, the winner's planar uv
+        when the launch reads images). The first rect with the strictly
+        smallest t wins."""
         rb_t = torch.full_like(o[0], BIG)
         rwin = torch.full(o[0].shape, R, dtype=torch.int64, device=dev)
+        r_u = r_v = None
+        if plan.img_hw:
+            r_u, r_v = torch.zeros_like(rb_t), torch.zeros_like(rb_t)
         groups = {}
         for ri, row in enumerate(rect_rows):
             code = plan.rect_codes[ri]
@@ -1018,7 +1092,10 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                   & (pb >= row[RT_B0]) & (pb <= row[RT_B1]))
             rb_t = torch.where(ok, t_r, rb_t)
             rwin = torch.where(ok, ri, rwin)
-        return rb_t, rwin
+            if r_u is not None:   # uv = planar offset / extent
+                r_u = torch.where(ok, (pa - row[RT_A0]) * row[RT_IDA], r_u)
+                r_v = torch.where(ok, (pb - row[RT_B0]) * row[RT_IDB], r_v)
+        return rb_t, rwin, r_u, r_v
 
     def media_hit(o, d, inv_d, tiles, it):
         """Closest constant-medium scatter distance (hittable.h:430-479):
@@ -1150,6 +1227,56 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             acc = acc + torch.where(lh, pdf_l, 0.0)
         return acc
 
+    def texture_albedo(tx, p, uv, alb):
+        """The albedo with the winner's texture applied, in the JAX
+        kernel's order (a later override wins): Perlin noise
+        (texture.h:55-69, on the lanes that need it), checker
+        (texture.h:35-46), the nearest texel (texture.h:73-98)."""
+        albx, alby, albz = alb
+        if plan.noise_modes:
+            lanes = (tx["noi"] > 0.5).nonzero().squeeze(1)
+            mval = torch.zeros(lanes.shape, dtype=f32, device=dev)
+            mode = tx["noi"][lanes]
+            for m in plan.noise_modes:
+                sel = lanes[mode == float(1 + m)]
+                q = [c[sel] for c in p]
+                sc = tx["nsc"][sel]
+                if m == st.NOISE_MARBLE:
+                    val = _noise.marble(*q, sc, perm, ranvec)
+                elif m == st.NOISE_SMOOTH:   # 0.5 (1 + noise(scale p))
+                    val = 0.5 * (1.0 + _noise.perlin_noise(
+                        *(c * sc for c in q), perm, ranvec))
+                else:                        # turb(scale p)
+                    val = _noise.turb(*(c * sc for c in q), perm, ranvec)
+                mval[mode == float(1 + m)] = val
+            albx, alby, albz = (a.index_put((lanes,), mval)
+                                for a in (albx, alby, albz))
+        if plan.has_checker:
+            sines = (torch.sin(10.0 * p[0]) * torch.sin(10.0 * p[1])
+                     * torch.sin(10.0 * p[2]))
+            is_chk = tx["chk"] > 0.5
+            use_odd = is_chk & (sines < 0.0)
+            albx = torch.where(use_odd, tx["odx"],
+                               torch.where(is_chk, tx["evx"], albx))
+            alby = torch.where(use_odd, tx["ody"],
+                               torch.where(is_chk, tx["evy"], alby))
+            albz = torch.where(use_odd, tx["odz"],
+                               torch.where(is_chk, tx["evz"], albz))
+        if uv is not None:   # img = 1 + image id; clipped texel indices
+            u_img, v_img = uv
+            use_img = tx["img"] > 0.5
+            ids = torch.where(use_img, tx["img"] - 1.0, 0.0).to(torch.int64)
+            h, w = img_hw[ids].unbind(1)
+            i_t = torch.minimum(torch.clamp_min(
+                (u_img * w.to(f32)).to(torch.int64), 0), w - 1)
+            j_t = torch.minimum(torch.clamp_min(_fma(
+                1.0 - v_img, h.to(f32), -0.001).to(torch.int64), 0), h - 1)
+            tex = images[ids, j_t, i_t]
+            albx = torch.where(use_img, tex[:, 0], albx)
+            alby = torch.where(use_img, tex[:, 1], alby)
+            albz = torch.where(use_img, tex[:, 2], albz)
+        return albx, alby, albz
+
     def one_iter(state, it, tiles, pxi, pxj, valid):
         (ox, oy, oz, dx, dy, dz, time, tpx, tpy, tpz, rx, ry, rz,
          ax, ay, az, segs, depth, done, iters) = state.unbind(0)
@@ -1162,7 +1289,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         if R or V:
             inv_d = (1.0 / dx, 1.0 / dy, 1.0 / dz)
         if R:
-            rb_t, rwin = rect_hit(o, d, inv_d)
+            rb_t, rwin, r_u, r_v = rect_hit(o, d, inv_d)
             use_rect = rb_t < s_best
             best_t = torch.minimum(s_best, rb_t)
         if V:
@@ -1215,6 +1342,43 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             albx = torch.where(use_med, mrow[MD_ALBX], albx)
             alby = torch.where(use_med, mrow[MD_ALBY], alby)
             albz = torch.where(use_med, mrow[MD_ALBZ], albz)
+        if plan.textures:
+            # the winner's texture lanes (sphere attributes, then the rect
+            # and medium winners'); a medium carries no checker
+            tx = {k: attrs[r] for k, r in (
+                ("noi", A_NOISE), ("nsc", A_NSCALE), ("chk", A_CHK),
+                ("img", A_IMG), ("evx", A_EVENX), ("evy", A_EVENY),
+                ("evz", A_EVENZ), ("odx", A_ODDX), ("ody", A_ODDY),
+                ("odz", A_ODDZ))}
+            if R:
+                for k, r in (("noi", RT_NOI), ("nsc", RT_NSC),
+                             ("chk", RT_CHK), ("img", RT_IMG),
+                             ("evx", RT_EVENX), ("evy", RT_EVENY),
+                             ("evz", RT_EVENZ), ("odx", RT_ODDX),
+                             ("ody", RT_ODDY), ("odz", RT_ODDZ)):
+                    tx[k] = torch.where(use_rect, rrow[r], tx[k])
+            if V:
+                for k, r in (("noi", MD_NOI), ("nsc", MD_NSC),
+                             ("img", MD_IMG)):
+                    tx[k] = torch.where(use_med, mrow[r], tx[k])
+                tx["chk"] = torch.where(use_med, 0.0, tx["chk"])
+            uv = None
+            if plan.img_hw:
+                # sphere uv from the unit normal (sphere.h:115-122); rects
+                # take their planar uv, media uv = (0, 0)
+                phi = _atan2(nz_, nx_)
+                theta = _asin(ny_)
+                u_img = _fma(-(phi + _f32(_PI_UV)), 0.5 / _PI_UV, 1.0)
+                v_img = (theta + _f32(0.5 * _PI_UV)) * _f32(1.0 / _PI_UV)
+                if R:
+                    u_img = torch.where(use_rect, r_u, u_img)
+                    v_img = torch.where(use_rect, r_v, v_img)
+                if V:
+                    u_img = torch.where(use_med, 0.0, u_img)
+                    v_img = torch.where(use_med, 0.0, v_img)
+                uv = u_img, v_img
+            albx, alby, albz = texture_albedo(tx, (px_, py_, pz_), uv,
+                                              (albx, alby, albz))
 
         base = _stream_base(seed, tiles, it, 2, lane_ids).reshape(-1)
         u = [_uniform_row(base, r) for r in range(7)]
@@ -1440,7 +1604,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 sph_tab: torch.Tensor, attr_tab: torch.Tensor,
                 rect_tab: torch.Tensor, light_tab: torch.Tensor,
-                med_tab: torch.Tensor, seed: int,
+                med_tab: torch.Tensor, perm: torch.Tensor,
+                ranvec: torch.Tensor, images: torch.Tensor, seed: int,
                 plan: MegaPlan) -> torch.Tensor:
     """Launch csrc/megakernel.cu on the current CUDA stream. Same arguments
     and result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
@@ -1448,31 +1613,45 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
     seed = _check_seed(seed)
     n_tiles, _, T = pixf.shape
     S = plan.S
-    expect = {"pixf": (pixf, (n_tiles, 4, plan.T)),
-              "cam_vec": (cam_vec, (1, 128)),
-              "sph_tab": (sph_tab, (S, SPH_LANES)),
-              "attr_tab": (attr_tab, (A_ROWS, S)),
-              "rect_tab": (rect_tab, (max(plan.R, 1), RECT_LANES)),
-              "light_tab": (light_tab, (max(plan.L, 1), LIGHT_LANES)),
-              "med_tab": (med_tab, (max(plan.V, 1), MED_LANES))}
-    for name, (t, shape) in expect.items():
+    n_img = len(plan.img_hw)
+    f32, i32 = torch.float32, torch.int32
+    expect = {"pixf": (pixf, f32, (n_tiles, 4, plan.T)),
+              "cam_vec": (cam_vec, f32, (1, 128)),
+              "sph_tab": (sph_tab, f32, (S, SPH_LANES)),
+              "attr_tab": (attr_tab, f32, (A_ROWS, S)),
+              "rect_tab": (rect_tab, f32, (max(plan.R, 1), RECT_LANES)),
+              "light_tab": (light_tab, f32, (max(plan.L, 1), LIGHT_LANES)),
+              "med_tab": (med_tab, f32, (max(plan.V, 1), MED_LANES)),
+              "perm": (perm, i32, (256,)),
+              "ranvec": (ranvec, f32, (256, 3)),
+              "images": (images, f32, (max(n_img, 1),) + (
+                  tuple(images.shape[1:]) if n_img else (1, 1, 3)))}
+    for name, (t, dtype, shape) in expect.items():
         if not t.is_cuda:
             raise ValueError(f"mega_kernel needs CUDA tensors; {name} is on "
                              f"{t.device}")
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != pixf.device:
             raise ValueError(f"{name} is on {t.device}, pixf on {pixf.device}")
+    img_h, img_w = images.shape[1:3]
+    if images.shape[3] != 3 or any(h > img_h or w > img_w
+                                   for h, w in plan.img_hw):
+        raise ValueError(f"images {tuple(images.shape)} do not hold the "
+                         f"plan's images {plan.img_hw}")
     if not plan.exact and T > 1024:
         raise ValueError(f"overdraw mode runs one tile per CUDA block: "
                          f"T={T} > 1024")
     lib = _kernel_lib()
-    pixf, cam_vec, attr_tab, rect_tab, light_tab, med_tab = (
-        t.contiguous() for t in (pixf, cam_vec, attr_tab, rect_tab,
-                                 light_tab, med_tab))
+    pixf, cam_vec, attr_tab, rect_tab, light_tab, med_tab, perm, ranvec, \
+        images = (t.contiguous() for t in (pixf, cam_vec, attr_tab, rect_tab,
+                                           light_tab, med_tab, perm, ranvec,
+                                           images))
     sph_soa = sph_tab[:, list(SWEEP_LANES)].t().contiguous()   # (9, S)
-    codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes,
+    # the rect, light and medium codes, then (height, width) per image
+    codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes
+                       + tuple(v for hw in plan.img_hw for v in hw),
                        str(pixf.device))
     out = torch.empty((n_tiles, OUT_ROWS + plan.n_iters, T),
                       dtype=torch.float32, device=pixf.device)
@@ -1481,25 +1660,32 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
         rc = lib.rtw_mega_launch(
             pixf.data_ptr(), cam_vec.data_ptr(), sph_soa.data_ptr(),
             attr_tab.data_ptr(), rect_tab.data_ptr(), light_tab.data_ptr(),
-            med_tab.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            med_tab.data_ptr(), codes.data_ptr(), perm.data_ptr(),
+            ranvec.data_ptr(), images.data_ptr(), out.data_ptr(),
             n_tiles, T, S, plan.R, plan.L, plan.V, plan.n_iters, seed,
             plan.spp, plan.max_depth,
             -1 if plan.rr_depth is None else plan.rr_depth,
+            n_img, img_h, img_w,
             int(plan.exact), int(plan.lens), int(plan.bg_gradient),
             int(plan.moving or any(plan.moving_axes)), int(plan.uniform_time),
-            int(plan.surfaces), int(plan.has_spheres),
+            int(plan.surfaces), int(plan.has_spheres), int(plan.textures),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
             plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
-    KERNEL_LAUNCHES["K2+K3" if plan.surfaces else "K1"] += 1
+    if not plan.surfaces:
+        KERNEL_LAUNCHES["K1"] += 1
+    if plan.R or plan.L or plan.V or plan.has_light:
+        KERNEL_LAUNCHES["K2+K3"] += 1
+    if plan.textures:
+        KERNEL_LAUNCHES["K4"] += 1
     return out
 
 
 @functools.lru_cache(maxsize=32)
 def _row_codes(codes: tuple, device: str) -> torch.Tensor:
-    """The rect, light and medium rows' static codes as an int32 tensor on
+    """The rows' static codes (and the image sizes) as an int32 tensor on
     `device` (at least one element), made once per plan's codes."""
     return torch.tensor(codes or (0,), dtype=torch.int32, device=device)
 
@@ -1559,9 +1745,10 @@ def _kernel_lib() -> ctypes.CDLL:
     restype of its C entry points."""
     lib = _build.load()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtw_mega_launch.argtypes = ([p] * 9     # tensors
-                                    + [i] * 11  # sizes, seed, spp, depths
-                                    + [i] * 7   # mode flags
+    lib.rtw_mega_launch.argtypes = ([p] * 12    # tensors
+                                    + [i] * 14  # sizes, seed, spp, depths,
+                                    #             image sizes
+                                    + [i] * 8   # mode flags
                                     + [f] * 6   # floats
                                     + [p])      # stream
     lib.rtw_mega_launch.restype = ctypes.c_int

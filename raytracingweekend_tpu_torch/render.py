@@ -13,6 +13,11 @@ Usage:
     python -m raytracingweekend_tpu_torch.render --scene cornell_box \
         --nx 400 --ny 400 --spp 256 --samples-per-launch 64 \
         --max-depth 50 --stats --out cornell.png
+    python -m raytracingweekend_tpu_torch.render --scene earth \
+        --nx 800 --ny 600 --spp 64 --max-depth 50 --out earth.png
+
+The default scene is `cornell_box`, the reference's
+(RayTracingWeekend.cpp:201).
 """
 from __future__ import annotations
 
@@ -153,7 +158,7 @@ def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--scene", default="random_balls", choices=sorted(SCENES))
+    p.add_argument("--scene", default="cornell_box", choices=sorted(SCENES))
     p.add_argument("--nx", type=int, default=400)
     p.add_argument("--ny", type=int, default=400)
     p.add_argument("--spp", type=int, default=64)
@@ -200,7 +205,8 @@ def main(argv=None):
               f"({stats.segments:.3e} segments) on {cfg.device}")
         print(f"Pixel variance: {stats.pixel_variance:.3e} "
               f"(mean std error {stats.mean_std_error:.3e})")
-    print(f"wrote {args.out}")
+    print(f"wrote {args.out} ({args.scene}, {cfg.nx}x{cfg.ny}, "
+          f"{cfg.spp} spp)")
 
 
 if __name__ == "__main__":

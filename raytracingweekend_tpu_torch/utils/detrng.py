@@ -1,8 +1,9 @@
-"""Deterministic host-side RNG for scene construction.
+"""Deterministic host-side RNG for scene construction and noise tables.
 
-The reference builds the random-balls scene with a default-seeded
-std::minstd_rand consumed through std::uniform_real_distribution<double>
-(Scene/scene.h:103-104), so the scene is bit-reproducible run to run.
+The reference builds the random-balls scene and the Perlin tables with
+default-seeded std::minstd_rand engines consumed through
+std::uniform_real_distribution<double> (Scene/scene.h:103-104,
+noise.h:166-213), so both are bit-reproducible run to run.
 For golden parity this replicates the libstdc++ double stream of the
 oracle build (tools/reference_oracle): generate_canonical for a 53-bit
 double over minstd_rand (range R = 2^31 - 2) takes TWO engine steps:
@@ -11,6 +12,8 @@ double over minstd_rand (range R = 2^31 - 2) takes TWO engine steps:
     u = ((x1 - 1) + (x2 - 1) * R) / R^2  # first draw is the low-order part
 """
 from __future__ import annotations
+
+import numpy as np
 
 MINSTD_A = 48271
 MINSTD_M = 2147483647  # 2**31 - 1
@@ -31,3 +34,10 @@ class MinStd:
         x1 = self._step()
         x2 = self._step()
         return ((x1 - 1) + (x2 - 1) * _R) / (_R * _R)
+
+
+def minstd_stream(n: int, seed: int = 1) -> np.ndarray:
+    """First n uniform doubles of a default-seeded engine (libstdc++
+    semantics, two engine steps per double)."""
+    eng = MinStd(seed)
+    return np.array([eng.uniform() for _ in range(n)], dtype=np.float64)

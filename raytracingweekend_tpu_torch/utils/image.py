@@ -1,6 +1,7 @@
-"""Image output: gamma postprocess and PNG writing (reference:
-RayTracingWeekend.cpp:244, 252-286). Pure numpy + zlib; the native
-codec library of the JAX package is not needed here."""
+"""Image I/O: gamma postprocess and PNG writing (reference:
+RayTracingWeekend.cpp:244, 252-286), and texture loading from the raw RTWI
+format. Pure numpy + zlib; the native codec library of the JAX package is
+not needed here."""
 from __future__ import annotations
 
 import struct as _struct
@@ -8,7 +9,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["postprocess", "write_png"]
+__all__ = ["postprocess", "write_png", "load_image"]
 
 
 def postprocess(canvas: np.ndarray) -> np.ndarray:
@@ -39,3 +40,25 @@ def write_png(canvas01: np.ndarray, path: str) -> None:
            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(png)
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load a texture as float (ny, nx, 3) in [0, 1], row 0 at the image
+    bottom: the convention `SceneBuilder.image` takes.
+
+    Reads the raw RTWI format that tools/export_texture_raw.py writes and
+    the reference oracle reads: b"RTWI <nx> <ny>\n", then nx * ny * 3 RGB8
+    bytes, row-major, row 0 at the top. Other formats (PNG, JPEG, PPM)
+    raise ValueError."""
+    if not path.lower().endswith(".rtwi"):
+        raise ValueError(f"unsupported image format for {path!r} (the "
+                         "port reads .rtwi textures)")
+    with open(path, "rb") as f:
+        header = f.readline().split()
+        if len(header) != 3 or header[0] != b"RTWI":
+            raise ValueError(f"bad RTWI header in {path!r}")
+        nx, ny = int(header[1]), int(header[2])
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    if data.size != nx * ny * 3:
+        raise ValueError(f"{path!r}: {data.size} texel bytes for {nx}x{ny}")
+    return data.reshape(ny, nx, 3)[::-1] / 255.0

@@ -23,9 +23,11 @@ def _port_modules():
 
 def test_port_module_list_is_complete():
     mods = _port_modules()
-    for expected in ("models.builder", "models.convert", "models.scenes",
+    for expected in ("models.builder", "models.convert",
+                     "models.probe_scenes", "models.scenes",
                      "models.scene_types", "ops._build", "ops.camera",
-                     "ops.integrator", "ops.megakernel", "render",
+                     "ops.integrator", "ops.megakernel", "ops.noise",
+                     "ops.rounding", "render",
                      "utils.config", "utils.detrng", "utils.image"):
         assert f"{PKG}.{expected}" in mods, mods
 

@@ -8,57 +8,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from raytracingweekend_tpu_torch.models import probe_scenes  # noqa: E402
 from raytracingweekend_tpu_torch.models.scenes import make_scene  # noqa: E402
 from raytracingweekend_tpu_torch.ops import megakernel as tk  # noqa: E402
 
 RTOL, ATOL = 1e-3, 5e-5
-
-
-def shutter_scene(builder_cls, st):
-    """Spheres whose shutters differ, built by either package: a ball
-    moving in y over [0.25, 0.75], one moving in x and z over [0, 1], and
-    static metal, glass and ground. The plan's `uniform_time` is then
-    false, so the sweep takes each slot's own motion fraction."""
-    b = builder_cls()
-    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.constant((0.5, 0.5, 0.5))))
-    b.sphere((0, 1, 0), 1.0, b.lambertian(b.constant((0.4, 0.2, 0.1))),
-             center1=(0, 1.5, 0), time0=0.25, time1=0.75)
-    b.sphere((-4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.2))
-    b.sphere((4, 1, 0), 1.0, b.dielectric(1.5))
-    b.sphere((2.0, 0.4, 2.0), 0.4, b.lambertian(b.constant((0.2, 0.7, 0.3))),
-             center1=(2.6, 0.4, 1.5), time0=0.0, time1=1.0)
-    b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, 1.0, 0.0, 10.0,
-             0.0, 1.0)
-    return b.build(background=st.BG_GRADIENT, name="shutter")
-
-
-def nested_scene(bm, st):
-    """Instancing and media beyond the Cornell scenes, built by either
-    package's builder module `bm`: a rect and a box under a nested
-    `transform=` around their own rotate_y / translate, a translated sphere
-    light, a rotated constant_medium_sphere and an untransformed
-    constant_medium_box."""
-    b = bm.SceneBuilder()
-    T = bm.Transform
-    outer = T.translate((10.0, -2.0, 5.0)) @ T.rotate_y(30.0)
-    white = b.lambertian(b.constant((0.7, 0.7, 0.7)))
-    lamp = b.diffuse_light((4.0, 4.0, 4.0))
-    b.rect("xz", -50.0, 50.0, -50.0, 50.0, 0.0, white)
-    b.add_light(b.rect("xy", 1.0, 3.0, 2.0, 4.0, -6.0, lamp, flip=True,
-                       rotate_y=20.0, translate=(1.0, 2.0, 3.0),
-                       transform=outer))
-    b.box((0, 0, 0), (2, 3, 2), white, rotate_y=-40.0,
-          translate=(-3.0, 0.0, 1.0), transform=outer)
-    b.add_light(b.sphere((0.5, 4.0, -1.0), 0.75, lamp,
-                         translate=(0.0, 1.0, 0.0), transform=outer))
-    b.sphere((2.0, 1.0, 2.0), 1.0, b.dielectric(1.5))
-    b.constant_medium_sphere((0.0, 1.0, 0.0), 1.5, 0.2,
-                             b.isotropic((0.9, 0.8, 0.7)), rotate_y=45.0,
-                             translate=(-4.0, 0.5, -2.0), transform=outer)
-    b.constant_medium_box((4, 0, -4), (6, 2, -2), 0.05,
-                          b.isotropic((0.3, 0.3, 0.3)))
-    b.camera((0, 5, 20), (0, 1, 0), (0, 1, 0), 40.0, 1.0, 0.0, 10.0)
-    return b.build(background=st.BG_BLACK, name="nested")
 
 
 # Cornell variants: rects, rect and sphere lights with MIS, emission (K2),
@@ -67,14 +21,15 @@ CORNELL = {"cornell_box": ("cornell_box", {}),
            "cornell_box_glassless": ("cornell_box", {"glass_sphere": False}),
            "cornell_box_aluminum": ("cornell_box", {"aluminum_box": True}),
            "cornell_smoke": ("cornell_smoke", {})}
+# texture scenes (K4): the five scenes of the library and the builder mix
+TEXTURES = ("light_sample", "two_perlin_spheres", "checker_spheres",
+            "earth", "earth_rect", "texture_mix")
 
 
 def _scene(name):
     from raytracingweekend_tpu_torch.models import builder, scene_types
-    if name == "shutter":
-        return shutter_scene(builder.SceneBuilder, scene_types)
-    if name == "nested":
-        return nested_scene(builder, scene_types)
+    if name in ("shutter", "nested", "texture_mix"):
+        return getattr(probe_scenes, f"{name}_scene")(builder, scene_types)
     if name in CORNELL:
         base, kw = CORNELL[name]
         return make_scene(base, 1.0, **kw)
@@ -83,7 +38,7 @@ def _scene(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["random_balls", "shutter", *CORNELL,
-                                  "nested"])
+                                  "nested", *TEXTURES])
 @pytest.mark.parametrize("exact", [True, False])
 def test_kernel_matches_plain_version_on_card(exact, name):
     """On the card: the CUDA kernel against its plain PyTorch version on

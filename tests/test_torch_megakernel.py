@@ -37,11 +37,12 @@ from raytracingweekend_tpu.ops import megakernel as mk  # noqa: E402
 from raytracingweekend_tpu_torch import render as trender  # noqa: E402
 from raytracingweekend_tpu_torch.models import builder as tbuilder  # noqa: E402
 from raytracingweekend_tpu_torch.models import scene_types as tst  # noqa: E402
+from raytracingweekend_tpu_torch.models.probe_scenes import (  # noqa: E402
+    nested_scene, shutter_scene)
 from raytracingweekend_tpu_torch.models.scenes import make_scene  # noqa: E402
 from raytracingweekend_tpu_torch.ops import megakernel as tk  # noqa: E402
 from raytracingweekend_tpu_torch.utils.config import RenderConfig  # noqa: E402
-from test_torch_kernel_card import (  # noqa: E402
-    CORNELL, nested_scene, shutter_scene)
+from test_torch_kernel_card import CORNELL  # noqa: E402
 
 # The suite runs under pytest-xdist with one worker per few cores; torch's
 # default of one intra-op thread per core oversubscribes the machine there
@@ -83,8 +84,8 @@ def _scenes(name):
         return (_lens_scene(jbuilder.SceneBuilder, jst),
                 _lens_scene(tbuilder.SceneBuilder, tst))
     if name == "shutter":
-        return (shutter_scene(jbuilder.SceneBuilder, jst),
-                shutter_scene(tbuilder.SceneBuilder, tst))
+        return (shutter_scene(jbuilder, jst),
+                shutter_scene(tbuilder, tst))
     if name == "nested":
         return nested_scene(jbuilder, jst), nested_scene(tbuilder, tst)
     base, kw = CORNELL.get(name, (name, {}))
@@ -211,14 +212,18 @@ def test_launch_seeds_are_deterministic_and_distinct():
     assert trender.launch_seed(8, 0) != seeds[0]
 
 
-def test_cli_writes_png(tmp_path):
+@pytest.mark.parametrize("scene_args,scene", [
+    (["--scene", "dielectric"], "dielectric"),
+    ([], "cornell_box")])   # the default is the reference's scene
+def test_cli_writes_png(tmp_path, capsys, scene_args, scene):
     out = tmp_path / "tiny.png"
-    trender.main(["--scene", "dielectric", "--nx", "8", "--ny", "6",
+    trender.main([*scene_args, "--nx", "8", "--ny", "6",
                   "--spp", "2", "--samples-per-launch", "1",
                   "--max-depth", "3", "--device", "cpu", "--stats",
                   "--out", str(out)])
     data = out.read_bytes()
     assert data[:8] == b"\x89PNG\r\n\x1a\n" and b"IHDR" in data
+    assert f"({scene}, 8x6, 2 spp)" in capsys.readouterr().out
 
 
 def test_cuda_requests_raise_without_a_card():

@@ -2,6 +2,7 @@
 scenes, converted scene leaves, packed tables and pixel layouts must be
 bitwise equal."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -17,12 +18,21 @@ from raytracingweekend_tpu_torch.models import builder as tbuilder  # noqa: E402
 from raytracingweekend_tpu_torch.models import scene_types as tst  # noqa: E402
 from raytracingweekend_tpu_torch.models.convert import (  # noqa: E402
     scene_from_arrays)
+from raytracingweekend_tpu_torch.models.probe_scenes import (  # noqa: E402
+    nested_scene, shutter_scene, texture_mix_scene)
+from raytracingweekend_tpu_torch.models import scenes as tscenes  # noqa: E402
 from raytracingweekend_tpu_torch.models.scenes import make_scene  # noqa: E402
 from raytracingweekend_tpu_torch.ops import megakernel as tk  # noqa: E402
-from test_torch_kernel_card import (  # noqa: E402
-    CORNELL, nested_scene, shutter_scene)
+from raytracingweekend_tpu_torch.utils.image import load_image  # noqa: E402
+from test_torch_kernel_card import CORNELL  # noqa: E402
 
 SCENES = ["random_balls", "dielectric"]
+# the texture scenes (K4); the earth scenes on the JAX package's stand-in
+# texels, as both packages build them by default here
+TEXTURED = ["light_sample", "two_perlin_spheres", "checker_spheres",
+            "earth", "earth_rect"]
+RTWI = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools", "reference_oracle", "earth.rtwi")
 
 
 def _pair(name, aspect):
@@ -60,12 +70,39 @@ def _leaves(jax_scene):
 
 
 @pytest.mark.parametrize("aspect", [1.0, 1.5])
-@pytest.mark.parametrize("name", SCENES + list(CORNELL))
+@pytest.mark.parametrize("name", SCENES + list(CORNELL) + TEXTURED)
 def test_make_scene_bitwise(name, aspect):
     _assert_same(*_pair(name, aspect))
 
 
-@pytest.mark.parametrize("name", SCENES + list(CORNELL))
+@pytest.mark.parametrize("name", ["earth", "earth_rect"])
+def test_earth_on_oracle_texels_bitwise(name, monkeypatch):
+    """The earth scenes on the oracle's texels: the port loads them through
+    `image_path`; the JAX package, which reads no RTWI, is handed the same
+    pixels in place of its `_earth_pixels`."""
+    pixels = load_image(RTWI)
+    monkeypatch.setattr(jscenes, "_earth_pixels", lambda path=None: pixels)
+    js = jscenes.make_scene(name, 1.5)
+    ts = make_scene(name, 1.5, image_path=RTWI)
+    _assert_same(js, ts)
+    assert ts.textures.images.shape == (1, 256, 256, 3)
+    _assert_tables(js, ts, 8)
+
+
+def test_load_image_rtwi():
+    """The RTWI loader returns the texel bytes bottom row first, over 255,
+    and refuses the formats the port does not read."""
+    with open(RTWI, "rb") as f:
+        assert f.readline() == b"RTWI 256 256\n"
+        raw = np.frombuffer(f.read(), np.uint8).reshape(256, 256, 3)
+    img = load_image(RTWI)
+    assert img.shape == (256, 256, 3) and img.dtype == np.float64
+    assert np.array_equal(img, raw[::-1] / 255.0)
+    with pytest.raises(ValueError, match="unsupported image format"):
+        load_image("earth.jpg")
+
+
+@pytest.mark.parametrize("name", SCENES + list(CORNELL) + TEXTURED)
 def test_scene_from_arrays_bitwise(name):
     js, ts = _pair(name, 1.5)
     ported = scene_from_arrays(*_leaves(js))
@@ -73,14 +110,27 @@ def test_scene_from_arrays_bitwise(name):
     _assert_same(ts, ported)
 
 
+def _nested_checker(bm, st):
+    """A checker whose odd child is a noise texture: the JAX package's
+    `needs_legacy_textures`, which only the wavefront path renders."""
+    b = bm.SceneBuilder()
+    b.sphere((0, 0, -1), 0.5, b.lambertian(b.checker(
+        b.constant((0.2, 0.3, 0.1)), b.noise(4.0))))
+    b.camera((0, 0, 1), (0, 0, -1), (0, 1, 0), 60.0, 1.0, 0.0, 2.0)
+    return b.build(background=st.BG_GRADIENT, name="nested_checker")
+
+
 def test_scene_from_arrays_carries_unported_scenes_and_rejects_them():
-    """A noise-textured scene (kernel K4) converts field for field, and the
-    slice's host plan refuses it by name instead of rendering it wrong."""
-    js = jscenes.make_scene("two_perlin_spheres", 1.0)
+    """A checker of a noise texture (`needs_legacy_textures`, the wavefront
+    path) converts field for field, and the slice's host plan refuses it
+    by name instead of rendering it wrong."""
+    js = _nested_checker(jbuilder, jst)
+    assert js.needs_legacy_textures
     ported = scene_from_arrays(*_leaves(js))
     _assert_same(js, ported)
+    _assert_same(_nested_checker(tbuilder, tst), ported)
     assert not tk.supports_scene(ported)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         tk.make_plan(ported, 8, 8, 1)
 
 
@@ -94,8 +144,16 @@ def test_scene_from_arrays_rejects_unknown_leaves():
         scene_from_arrays(arrays, static)
 
 
-@pytest.mark.parametrize("name", ["two_perlin_spheres", "earth",
-                                  "random_balls_large"])
+def test_every_jax_scene_is_ported_but_the_k5_ones():
+    assert set(SCENES + list(TEXTURED) + ["cornell_box", "cornell_smoke"]
+               ) == set(tscenes.SCENES)
+    assert set(tscenes.SCENES) | set(tscenes.LATER_SCENES) == set(
+        jscenes.SCENES)
+    assert set(tscenes.LATER_SCENES) == {"random_balls_large",
+                                         "random_balls_huge"}
+
+
+@pytest.mark.parametrize("name", ["random_balls_large", "random_balls_huge"])
 def test_unported_scene_names_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         make_scene(name, 1.0)
@@ -107,7 +165,9 @@ META_KEYS = ("S", "C", "SB", "uniform_time", "ut_t0", "ut_idt", "moving",
              "has_metal", "has_dielectric", "R", "rect_axes", "rect_rot",
              "rect_trans", "rect_tf", "rect_rows", "L", "light_kinds",
              "light_axes", "light_rot", "light_trans", "light_rows", "V",
-             "med_kinds", "med_rot", "med_trans", "med_rows")
+             "med_kinds", "med_rot", "med_trans", "med_rows",
+             "has_checker", "has_noise", "noise_modes", "has_image", "n_img",
+             "img_hw")
 
 
 def _assert_tables(js, ts, SB):
@@ -131,7 +191,8 @@ def _assert_tables(js, ts, SB):
 
 
 @pytest.mark.parametrize("SB", [64, 512])
-@pytest.mark.parametrize("name", SCENES + ["shutter"] + list(CORNELL))
+@pytest.mark.parametrize("name", SCENES + ["shutter"] + list(CORNELL)
+                         + TEXTURED)
 def test_build_tables_bitwise(name, SB):
     """The sphere, attribute, rect, light, medium and camera tables, the
     slot order and the meta the kernel reads. SB=64 exercises the
@@ -139,13 +200,42 @@ def test_build_tables_bitwise(name, SB):
     random_balls; the shutter scene's spheres do not share one shutter, so
     its plan is not uniform_time."""
     if name == "shutter":
-        js = shutter_scene(jbuilder.SceneBuilder, jst)
-        ts = shutter_scene(tbuilder.SceneBuilder, tst)
+        js = shutter_scene(jbuilder, jst)
+        ts = shutter_scene(tbuilder, tst)
     else:
         js, ts = _pair(name, 1.5)
     meta_t = _assert_tables(js, ts, SB)
     if name in SCENES + ["shutter"]:
         assert meta_t["uniform_time"] == (name != "shutter")
+
+
+def test_builder_texture_mix_bitwise():
+    """Checker, noise and image textures on spheres, rects and media: the
+    scene, its texture lanes and the texture meta."""
+    js = texture_mix_scene(jbuilder, jst)
+    ts = texture_mix_scene(tbuilder, tst)
+    _assert_same(js, ts)
+    meta = _assert_tables(js, ts, 8)
+    assert meta["noise_modes"] == (tst.NOISE_MARBLE, tst.NOISE_SMOOTH,
+                                   tst.NOISE_TURB)
+    assert meta["has_checker"] and meta["img_hw"] == ((16, 32),)
+    _, plan = tk.make_plan(ts, 8, 8, 1)
+    assert plan.textures and plan.surfaces
+
+
+@pytest.mark.parametrize("name", TEXTURED)
+def test_make_plan_textures(name):
+    """Texture scenes take the surfaces kernel with its textures, even with
+    spheres only, and their plans carry the JAX plan's texture flags."""
+    js, ts = _pair(name, 1.0)
+    _, plan = tk.make_plan(ts, 16, 16, 4, max_depth=5, exact=True)
+    cfg = mk.make_plan(js, 16, 16, 4, max_depth=5, T=256, tape=True)[1]
+    assert plan.textures and plan.surfaces
+    assert plan.has_checker == cfg.has_checker
+    assert plan.noise_modes == cfg.noise_modes
+    assert plan.img_hw == cfg.img_hw and len(plan.img_hw) == cfg.n_img
+    assert (plan.R, plan.L, plan.V, plan.has_light) == (
+        cfg.R, cfg.L, cfg.V, cfg.has_light)
 
 
 def test_builder_nested_transform_and_sphere_medium_bitwise():
