@@ -7,17 +7,20 @@ Run from the root of a checkout:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, checks the renderer
-against the reference oracle's golden images, and drives the port's three
+against the reference oracle's golden images, and drives the port's four
 paths through `render()`: book-1 `random_balls` at 1200x800, 64 spp per
 launch, max_depth 50 (kernel K1); the Cornell path, `cornell_box` then
 `cornell_smoke` at 400x400, 256 spp in launches of 64, max_depth 50
 (kernels K2 and K3: rects, lights with one-sample MIS, emission, constant
-media); and the texture path, `earth` and `earth_rect` on the reference
+media); the texture path, `earth` and `earth_rect` on the reference
 oracle's texels (tools/reference_oracle/earth.rtwi), `two_perlin_spheres`,
 `light_sample` and `checker_spheres` at 800x600, 64 spp, max_depth 50
-(kernel K4: checker, Perlin-noise and image textures). Each kernel is held
-to its plain version at its path's full launch shape. It prints one line
-per phase. Any failure exits non-zero; without a CUDA device it exits
+(kernel K4: checker, Perlin-noise and image textures); and the large-S
+path, `random_balls_large` (3604 spheres) at 1200x800, 32 spp per launch,
+and `random_balls_huge` (14404) at 16, max_depth 50 (kernel K5: cluster
+culling), where the culled kernel is also held to the dense one bit for
+bit. Each kernel is held to its plain version at its path's full launch
+shape. It prints one line per phase. Any failure exits non-zero; without a CUDA device it exits
 non-zero before printing any result. The last line is one JSON object
 naming the device.
 """
@@ -58,6 +61,13 @@ TNX, TNY, TSPP, TLAUNCHES, TDEPTH = 800, 600, 64, 5, 50
 # the plain version of the Perlin scenes takes seconds per 200x150x16
 # launch; at the full launch shape it traces every 8th tile only
 PLAIN_TILE_STRIDE = {"two_perlin_spheres": 8, "light_sample": 8}
+# the large-S path: tools/bench_all.py:28-29 (1200x800 at 32 and 16 spp per
+# launch), three timed launches a scene; the plain version of the culled
+# sweep takes ~C tensor rounds a bounce, so at this shape it traces every
+# LARGE_TILE_STRIDE-th tile only
+LNX, LNY, LLAUNCHES, LDEPTH = 1200, 800, 3, 50
+LARGE_PATH = (("random_balls_large", 32), ("random_balls_huge", 16))
+LARGE_TILE_STRIDE = 4
 RTWI = os.path.join(REPO, "tools", "reference_oracle", "earth.rtwi")
 TEXTURE_PATH = (("earth", {"image_path": RTWI}),
                 ("earth_rect", {"image_path": RTWI}),
@@ -95,6 +105,12 @@ OPS_MIS = 24                  # pick 1, mixture direction 15, pdf_val 4,
 OPS_LIGHT_DIR = {0: 9, 1: 89}     # rect / sphere light sample
 OPS_LIGHT_PDF = {0: 10, 1: 27}    # rect / sphere light pdf, with the sum
 OPS_REGEN = 34                # new camera ray, per path end
+# cluster culling (K5), per segment: the ray's reciprocals, then C slab
+# votes (6 sub + 6 mul; with near-to-far order these are the geometric
+# votes, and each swept block adds a re-vote) and a re-vote's entry
+# shrink (1 mul); swept blocks pay SB slots each
+OPS_VOTE = 12
+OPS_REVOTE = 13
 # textures (K4), per textured hit. One Perlin evaluation: floor and
 # fraction 6, smoothsteps 12, corner offsets and weights 6, 8 corners of
 # dot 5, weight 2, accumulate 2 = 96
@@ -117,11 +133,11 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def ops_per_segment(plan, mix: dict) -> float:
+def ops_per_segment(plan, mix: dict, blocks: float = 1.0) -> float:
     """The FP32 operations of an average path segment of `plan` whose
     hits are distributed as `mix` (fractions of segments: miss, medium,
     sphere, and the material of each surface hit; ends = paths ended per
-    segment)."""
+    segment); a culled plan sweeps `blocks` clusters a segment."""
     ops = float(OPS_FLOOR)
     if plan.has_spheres:
         slot = OPS_SLOT_STATIC
@@ -129,7 +145,12 @@ def ops_per_segment(plan, mix: dict) -> float:
             slot += OPS_SLOT_MOVING
             if not plan.uniform_time:
                 slot += OPS_SLOT_SHUTTER
-        ops += plan.S * slot
+        if plan.cull:
+            ops += (OPS_RECIPROCALS + blocks * plan.SB * slot
+                    + (plan.C * OPS_VOTE + blocks * OPS_REVOTE
+                       if plan.dyn_order else plan.C * OPS_REVOTE))
+        else:
+            ops += plan.S * slot
         ops += mix["sphere"] * (OPS_SPHERE_NORMAL + 8 * plan.moving)
     if plan.surfaces:
         ops += OPS_RECIPROCALS + plan.R * OPS_RECT
@@ -157,7 +178,7 @@ def segment_mix(scene) -> dict:
     _, plan = mk.make_plan(scene, 64, 64, 8, max_depth=DEPTH, exact=True)
     args, _ = mk.device_inputs(scene, plan, "cuda")
     out = mk.mega_kernel(*args, SEED, plan)
-    attr_tab, rect_tab, med_tab = args[3], args[4], args[6]
+    attr_tab, rect_tab, med_tab = args[3], args[5], args[7]
     tape = out[:, mk.OUT_ROWS:, :]                   # (tiles, iters, T)
     it = torch.arange(tape.shape[1], device=tape.device)[None, :, None]
     code = tape[it < out[:, 4:5, :]].long()          # each lane's own
@@ -195,32 +216,37 @@ def segment_mix(scene) -> dict:
     return mix
 
 
-def bound_ms(plan, segments: float, mix: dict) -> float:
-    """Least time of a launch that traced `segments` path segments: their
-    FP32 operations over the card's FP32 peak. Bytes do not bound it: every
-    table sits in shared memory, and a launch reads 16 B and writes 32 B
-    per lane."""
-    return ops_per_segment(plan, mix) * segments / FP32_PEAK * 1e3
+def bound_ms(plan, segments: float, mix: dict, blocks: float = 0.0) -> float:
+    """Least time of a launch that traced `segments` path segments (and,
+    culled, swept `blocks` cluster blocks): their FP32 operations over the
+    card's FP32 peak. Bytes do not bound it: the dense kernels' tables sit
+    in shared memory, the culled kernel's slot quads in L2 (231 KB for
+    random_balls_huge), and a launch reads 16 B and writes 32 B per
+    lane."""
+    return (ops_per_segment(plan, mix, blocks / max(segments, 1.0))
+            * segments / FP32_PEAK * 1e3)
 
 
 def _kernel_name(mangled: str):
-    """'<kMoving,kUniformTime>' or 'surfaces<kMoving,kUniformTime,kTex>' of
-    a mangled mega_kernel / mega_kernel_surfaces instantiation, else
-    None."""
-    m = re.search(r"mega_kernel(_surfaces)?ILb(\d)ELb(\d)E(?:Lb(\d)E)?",
-                  mangled)
+    """'<kMoving,kUniformTime>', 'surfaces<kMoving,kUniformTime,kTex>' or
+    'culled<kMoving,kUniformTime>' of a mangled mega_kernel /
+    mega_kernel_surfaces / mega_kernel_culled instantiation, else None."""
+    m = re.search(
+        r"mega_kernel(_surfaces|_culled)?ILb(\d)ELb(\d)E(?:Lb(\d)E)?",
+        mangled)
     if not m:
         return None
     args = ",".join(g for g in m.groups()[1:] if g is not None)
-    return f"{'surfaces' if m.group(1) else ''}<{args}>"
+    return f"{(m.group(1) or '_')[1:]}<{args}>"
 
 
 def sweep_sass(lib: str) -> dict:
     """SASS instructions per sphere slot of each kernel instantiation's
     sweep loop (`cuobjdump -sass` of the built library): the innermost
-    loop with the most MUFU.RSQ (one per slot; nvcc unrolls the sweep),
-    from its branch target to its backward branch. Returns {name:
-    (instructions, slots)}."""
+    loop with the most MUFU.RSQ (one per slot; nvcc unrolls the sweep)
+    and no warp vote (the culled kernel's cluster visits vote; its slot
+    loop does not), from its branch target to its backward branch.
+    Returns {name: (instructions, slots)}."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -239,7 +265,9 @@ def sweep_sass(lib: str) -> dict:
                 loops.append((addr[int(br.group(1), 16)], k))
         inner = [(a, b) for a, b in loops
                  if not any(a <= c and d <= b and (c, d) != (a, b)
-                            for c, d in loops)]
+                            for c, d in loops)
+                 and not any(re.match(r"(VOTE|REDUX)", op)
+                             for _, op in ins[a:b + 1])]
         best = max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
                      b - a + 1) for a, b in inner), default=(0, 0))
         out[name] = (best[1], best[0])
@@ -297,7 +325,8 @@ def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
 
 def _exact_parity(label, scene) -> float:
     """Exact-spp mode at 64x64, 8 spp, depth 8: winner tapes lane by lane,
-    radiance on equal lanes. Returns the max abs radiance error."""
+    radiance and swept blocks (row 6) on equal lanes. Returns the max abs
+    radiance error."""
     pixf, out_k, out_r = _launch_both(scene, 64, 64, 8, 8, exact=True)
     valid = pixf[:, 2] > 0
     same = (out_k[:, 8:] == out_r[:, 8:]).all(dim=1) & valid
@@ -306,12 +335,14 @@ def _exact_parity(label, scene) -> float:
     b = out_r[:, 0:3].transpose(1, 2)[same]
     err = (a - b).abs().max().item()
     close = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+    blocks = (out_k[:, 6] == out_r[:, 6])[same].float().mean().item()
     print(f"phase 3 exact-spp parity ({label} 64x64, 8 spp, depth 8, "
           f"T=256): tapes equal on {frac:.6f} of lanes (mismatch "
           f"{1 - frac:.6f}), max abs radiance err {err:.3e} "
-          f"(rtol {RTOL}, atol {ATOL}): {'ok' if close else 'FAIL'}",
+          f"(rtol {RTOL}, atol {ATOL}), swept blocks equal on {blocks:.6f} "
+          f"of them: {'ok' if close and blocks == 1.0 else 'FAIL'}",
           flush=True)
-    if frac < MIN_SAME or not close:
+    if frac < MIN_SAME or not close or blocks != 1.0:
         fail(f"kernel disagrees with its plain version in exact-spp mode "
              f"({label})")
     return err
@@ -338,6 +369,9 @@ def phase_exact_parity() -> dict:
                        make_scene(name, 1.0, **kw))
          for name, kw in TEXTURE_PATH]
         + [_exact_parity("texture_mix (builder)", texture_mix())])
+    errs["K5"] = max(_exact_parity(f"{name} (culled, SB 256)",
+                                   make_scene(name, 1.0))
+                     for name, _ in LARGE_PATH)
     return errs
 
 
@@ -439,6 +473,53 @@ def phase_texture_path() -> dict:
     return dict(launches=sum(r["launches"] for r in runs))
 
 
+def phase_large_path() -> dict:
+    """The large-S path at full width: each stress scene 1200x800, three
+    timed launches after a warm-up."""
+    runs = [_drive(name, LNX, LNY, LLAUNCHES * spp, spp, LDEPTH, "K5",
+                   "phase 10 large-S path") for name, spp in LARGE_PATH]
+    return dict(launches=sum(r["launches"] for r in runs))
+
+
+def phase_culled_vs_dense() -> dict:
+    """random_balls_large at its path's launch (1200x800x32), whose dense
+    sweep (S = 3712) still fits in shared memory: the culled kernel against
+    the dense one on the same inputs, every output row but the block
+    count, timed in turns (dense, culled, culled, dense)."""
+    name, spp = LARGE_PATH[0]
+    scene = make_scene(name, LNX / LNY)
+    _, culled = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
+    _, dense = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH,
+                            cull=False)
+    args, _ = mk.device_inputs(scene, culled, "cuda")
+    runs = {"dense": [], "culled": []}
+    outs = {}
+    for kind in ("dense", "culled", "culled", "dense"):
+        plan = culled if kind == "culled" else dense
+        _event_ms(lambda: mk.mega_kernel(*args, SEED, plan), 1)   # warm-up
+        ms, outs[kind] = _event_ms(lambda: mk.mega_kernel(*args, SEED, plan),
+                                   2)
+        runs[kind].append(ms)
+    a, b = outs["culled"][:, :6], outs["dense"][:, :6]
+    err = (a - b).abs().max().item()
+    equal = torch.equal(a, b)
+    ms_c, ms_d = (sum(runs[k]) / 2 for k in ("culled", "dense"))
+    surv = (outs["culled"][:, 6].sum() / (outs["culled"][:, 4].sum()
+                                          * culled.C)).item()
+    print(f"phase 11 culled vs dense kernel ({name} {LNX}x{LNY}x{spp} spp, "
+          f"S={culled.S}, C={culled.C}, SB={culled.SB}, near-to-far "
+          f"{culled.dyn_order} buckets): culled {ms_c:.3f} ms, dense "
+          f"{ms_d:.3f} ms per launch (dense, culled, culled, dense: "
+          f"{runs['dense'][0]:.3f} {runs['culled'][0]:.3f} "
+          f"{runs['culled'][1]:.3f} {runs['dense'][1]:.3f}); survival "
+          f"{surv:.6f}; pixels, segments, lane iterations and sample counts "
+          f"equal: {equal} (max abs err {err:.3e}; segments "
+          f"{b[:, 3].sum().item():.6e})", flush=True)
+    if not equal:
+        fail("the culled kernel differs from the dense kernel")
+    return dict(max_abs_err=err, dense_ms=ms_d)
+
+
 def _event_ms(fn, reps: int) -> tuple[float, object]:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -465,7 +546,8 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     `tile_stride` > 1 the plain version traces every `tile_stride`-th tile
     of the launch only (the others are marked invalid in its copy of the
     pixel table; tiles are independent and keep their RNG streams), and
-    the kernel's output is compared on those tiles."""
+    the kernel's output is compared on those tiles. A culled plan also
+    compares the swept-block counts (row 6) lane by lane."""
     scene = make_scene(name, nx / ny, **kw)
     _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
     args, _ = mk.device_inputs(scene, plan, "cuda")
@@ -490,11 +572,21 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     max_err = (a - b).abs().max().item()
     frac = torch.isclose(a, b, rtol=RTOL, atol=ATOL).all(
         dim=-1).float().mean().item()
+    blocks = out_k[:, 6, :].sum().item() if plan.cull else 0.0
     mix = segment_mix(scene)
-    ops = ops_per_segment(plan, mix)
-    bound = bound_ms(plan, segments, mix)
+    ops = ops_per_segment(plan, mix, blocks / segments)
+    bound = bound_ms(plan, segments, mix, blocks)
     part = (f" on every {tile_stride}th tile ({sel.sum().item()} of "
             f"{sel.numel()})" if tile_stride > 1 else "")
+    culled = ""
+    frac_blk = 1.0
+    if plan.cull:
+        frac_blk = (out_k[:, 6, :] == out_r[:, 6, :])[lanes].float().mean(
+        ).item()
+        culled = (f"; C={plan.C}, SB={plan.SB}, survival "
+                  f"{blocks / (out_k[:, 4, :].sum().item() * plan.C):.6f}, "
+                  f"swept-block counts{part} equal on {frac_blk:.6f} of "
+                  f"lanes")
     print(f"{label} kernel vs plain ({name} {nx}x{ny}x{spp} spp, "
           f"T={plan.T}, S={plan.S}, R={plan.R}, L={plan.L}, V={plan.V}): "
           f"kernel {ms:.3f} ms (mean of {reps}) per launch, plain PyTorch "
@@ -503,8 +595,8 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
           f"{ops:.1f} FP32 ops per segment, bound {bound:.3f} ms "
           f"({bound / ms:.3f} of the kernel time); pixels{part} equal "
           f"within rtol {RTOL}/atol {ATOL}: {frac:.6f} of {a.shape[0]}, "
-          f"max abs err {max_err:.3e}", flush=True)
-    if frac < MIN_SAME:
+          f"max abs err {max_err:.3e}{culled}", flush=True)
+    if frac < MIN_SAME or frac_blk < MIN_SAME:
         fail(f"kernel disagrees with its plain version on {name}")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
                 bound_ms=bound)
@@ -518,12 +610,19 @@ def main() -> int:
     main_run = phase_main_path()
     cornell_run = phase_cornell_path()
     texture_run = phase_texture_path()
+    large_run = phase_large_path()
+    vs_dense = phase_culled_vs_dense()
     k1 = _kernel_vs_plain("random_balls", NX, NY, SPP, "phase 5b")
     k23 = [_kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
            for name in CORNELL_PATH]
     k4 = [_kernel_vs_plain(name, TNX, TNY, TSPP, "phase 9",
                            tile_stride=PLAIN_TILE_STRIDE.get(name, 1), **kw)
           for name, kw in TEXTURE_PATH]
+    print(f"phase 12 plain version of the culled kernel on every "
+          f"{LARGE_TILE_STRIDE}th tile (N = {LARGE_TILE_STRIDE})", flush=True)
+    k5 = [_kernel_vs_plain(name, LNX, LNY, spp, "phase 12",
+                           tile_stride=LARGE_TILE_STRIDE)
+          for name, spp in LARGE_PATH]
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -549,6 +648,16 @@ def main() -> int:
                              + [r["max_abs_err"] for r in k4]),
              ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
              bound_ms=k4[0]["bound_ms"]),
+        dict(name="megakernel K5 (cluster-culled sphere sweep; "
+                  "random_balls_large 1200x800x32 timings, plain version "
+                  f"on every {LARGE_TILE_STRIDE}th tile)",
+             source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
+             replaces="raytracingweekend_tpu/ops/megakernel.py:753",
+             launches=large_run["launches"],
+             max_abs_err=max([parity["K5"], vs_dense["max_abs_err"]]
+                             + [r["max_abs_err"] for r in k5]),
+             ms=k5[0]["ms"], plain_ms=k5[0]["plain_ms"],
+             bound_ms=k5[0]["bound_ms"]),
     ]
     for e in entries:
         e.update(route="cuda", bound_by="operations", library_ms=None)

@@ -8,8 +8,10 @@
 // translate, the one-sample MIS over rect and sphere lights, one-sided
 // emission (K2), the stochastic constant-medium boundaries with isotropic
 // scatter (K3) and, in its kTextures instantiations, checker, Perlin-noise
-// and image textures on spheres, rects and media (K4). Plain version
-// beside it: raytracingweekend_tpu_torch/ops/megakernel.py::
+// and image textures on spheres, rects and media (K4); and, in
+// mega_kernel_culled, the cluster culling of large sphere tables (K5:
+// _kernel's slab votes and dynamic survivor-list sweep, megakernel.py:553-996).
+// Plain version beside it: raytracingweekend_tpu_torch/ops/megakernel.py::
 // trace_mega_reference (noise: ops/noise.py).
 //
 // One thread owns one lane, a pixel slot, and loops over bounces:
@@ -49,6 +51,15 @@
 // time, with each row's axis, kind and transform presence read from its
 // code. The sphere attribute rows stay in global memory and are read once
 // per bounce through the read-only path (__ldg).
+//
+// Culling (K5): a dense sweep of S slots costs ~34 instructions a slot and
+// its (9, S) table stops fitting in shared memory near 6400 slots. The
+// culled kernel keeps only the (C, 6) cluster boxes there; each warp votes
+// a cluster with one __any_sync (the TPU kernel's whole-tile any() becomes
+// a warp's), so a warp sweeps only the clusters one of its rays can reach
+// before its running best, in near-to-far order keyed by a
+// __reduce_min_sync of the slab entries. The slots it sweeps stream from
+// L2 as broadcast 16-byte loads, one slot for all 32 lanes.
 //
 // Textures (K4): a Perlin evaluation makes 6 permutation reads and 8
 // gradient reads per octave at data-dependent addresses (marble and turb
@@ -123,7 +134,7 @@ enum { CAM_OX, CAM_OY, CAM_OZ, CAM_LLX, CAM_LLY, CAM_LLZ, CAM_HX, CAM_HY,
 struct Params {
   const float* pixf;   // (n_tiles, 4, T): pixel i, pixel j, valid, pad
   const float* cam;    // (1, 128) camera vector
-  const float* sph;    // (9, S) sweep SoA
+  const float* sph;    // (9, S) sweep SoA; culled: slot quads (S, 4 Q)
   const float* attr;   // (24, S) attribute rows
   float* out;          // (n_tiles, 8 + n_iters, T)
   int n_tiles, T, S, n_iters;
@@ -289,19 +300,24 @@ __device__ __forceinline__ float attr_at(const Params& p, int row, int slot) {
 }
 
 // One bounce iteration of one lane. Returns the winner code (-1 for a miss
-// or an idle lane, else the sphere slot).
-template <bool kMoving, bool kUniformTime>
+// or an idle lane, else the sphere slot). With kSwept the closest hit comes
+// from the caller (the culled kernel's sweep: swept_bidx, swept_best) and
+// `sm` is not read.
+template <bool kMoving, bool kUniformTime, bool kSwept = false>
 __device__ __forceinline__ int bounce(const Params& p, const float* sm,
                                       const Cam& cam, Lane& L, bool active,
                                       uint32_t tile, uint32_t lane,
-                                      uint32_t it, float pxi, float pxj) {
+                                      uint32_t it, float pxi, float pxj,
+                                      int swept_bidx = 0,
+                                      float swept_best = 0.f) {
   bool alive = false;
   int code = -1;
   float px = 0.f, py = 0.f, pz = 0.f, ndx = 0.f, ndy = 0.f, ndz = 0.f;
   if (active) {
     L.segs += 1.f;
-    float best;
-    const int bidx = sweep<kMoving, kUniformTime>(p, sm, L, best);
+    float best = swept_best;
+    const int bidx =
+        kSwept ? swept_bidx : sweep<kMoving, kUniformTime>(p, sm, L, best);
     if (best < kHitCut) {
       code = bidx;
       px = fmaf(best, L.dx, L.ox);
@@ -1309,6 +1325,238 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
   out[(size_t)7 * T] = 0.f;
 }
 
+// ---------------------------------------------------------------------------
+// Cluster culling (K5): the sphere kernel for tables of C > 1 clusters
+// ---------------------------------------------------------------------------
+
+// The cluster table of a culled launch.
+struct Clusters {
+  const float* tab;  // (C, 128): AABB min xyz, max xyz in lanes 0-5
+  int C, SB;         // clusters, slots per cluster
+  int dord;          // near-to-far buckets of the visit order; 0: ascending id
+};
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kBoxLanes = 6;
+constexpr float kShrink = 0x1.fffff8p-1f;  // float32(1 - 2.4e-7)
+constexpr float kSurvCut = 0.5f * kBig;    // past it a cluster cannot win
+
+// Slab entry (>= t_min) and exit of the lane's ray against box b (min xyz,
+// max xyz), NaN-propagating as the JAX kernel's jnp.minimum / maximum.
+__device__ __forceinline__ void slab(const float* b, const Lane& L, float idx,
+                                     float idy, float idz, float tmin,
+                                     float& tlo, float& thi) {
+  const float tx0 = (b[0] - L.ox) * idx, tx1 = (b[3] - L.ox) * idx;
+  const float ty0 = (b[1] - L.oy) * idy, ty1 = (b[4] - L.oy) * idy;
+  const float tz0 = (b[2] - L.oz) * idz, tz1 = (b[5] - L.oz) * idz;
+  tlo = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
+                max_nan(min_nan(tz0, tz1), tmin));
+  thi = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
+                max_nan(tz0, tz1));
+}
+
+// Closest hit over the SB slots of one cluster from `lo`, merged into
+// (best, bidx) strictly (the first visitor keeps a tie): the arithmetic of
+// `sweep`. The slots are 16-byte quads in device memory, Q a slot: (cx, cy,
+// cz, nr2), with motion (dcx, dcy, dcz, 0), without a uniform shutter (t0,
+// 1/dt, 0, 0). Every lane of a warp reads the same slot, a broadcast load
+// through the read-only path; a cluster is 2-6 KB, resident in L1 / L2.
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ void sweep_cluster(const Params& p, int lo, int SB,
+                                              const Lane& L, float frac_u,
+                                              float& best, int& bidx) {
+  constexpr int Q = kMoving ? (kUniformTime ? 2 : 3) : 1;
+  const float4* q = reinterpret_cast<const float4*>(p.sph) + (size_t)lo * Q;
+  const float tmin = p.t_min;
+#pragma unroll 4
+  for (int j = 0; j < SB; ++j) {
+    const float4 a = __ldg(q + j * Q);
+    float cx = a.x, cy = a.y, cz = a.z;
+    if (kMoving) {
+      const float4 m = __ldg(q + j * Q + 1);
+      float fr = frac_u;
+      if (!kUniformTime) {
+        const float4 tq = __ldg(q + j * Q + 2);
+        fr = (L.time - tq.x) * tq.y;
+      }
+      cx = fmaf(fr, m.x, cx);  // exact on static axes (dc = 0)
+      cy = fmaf(fr, m.y, cy);
+      cz = fmaf(fr, m.z, cz);
+    }
+    const float cox = cx - L.ox, coy = cy - L.oy, coz = cz - L.oz;
+    const float nb = fmaf(coz, L.dz, fmaf(cox, L.dx, coy * L.dy));
+    const float cc = fmaf(cox, cox, fmaf(coy, coy, fmaf(coz, coz, a.w)));
+    const float disc = fmaf(nb, nb, -cc);
+    const float sq = disc * rsqrtf(disc);
+    const float tn = nb - sq, tf = nb + sq;
+    const float t = tn > tmin ? tn : (tf > tmin ? tf : kBig);
+    if (t < best) {
+      best = t;
+      bidx = lo + j;
+    }
+  }
+}
+
+// The culled closest hit of a warp's lanes; every lane of the warp calls
+// it (an idle lane with active = false). A cluster is visited as one vote
+// of the warp: it is swept, for all 32 lanes, when one active lane's ray
+// enters its box before that lane's running best (the entry shrunk by
+// 2.4e-7 so rounding never drops a tie). Visit order: ascending cluster
+// id; or, with q.dord buckets, near to far: each cluster's key is the
+// warp's smallest slab entry over its active lanes (BIG where none
+// enters), keys past kSurvCut are dropped, the rest are bucketed linearly
+// between the smallest key and the largest surviving one, and buckets are
+// visited in order, clusters in ascending id within one. `wb` holds the
+// warp's C keys, then buckets. Each visited cluster adds `inc` to
+// `blocks`. Returns the winner slot (S on a miss) and its t in best.
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ int sweep_culled(const Params& p,
+                                            const Clusters& q,
+                                            const float* box, int* wb,
+                                            const Lane& L, bool active,
+                                            float inc, float& best,
+                                            float& blocks) {
+  const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
+  const float frac_u = kUniformTime ? (L.time - p.ut_t0) * p.ut_idt : 0.f;
+  const float tmin = p.t_min;
+  int bidx = p.S;
+  best = kBig;
+  auto visit = [&](int c) {
+    float tlo, thi;
+    slab(box + kBoxLanes * c, L, idx, idy, idz, tmin, tlo, thi);
+    if (__any_sync(kFull, active && tlo <= thi && tlo * kShrink < best)) {
+      sweep_cluster<kMoving, kUniformTime>(p, c * q.SB, q.SB, L, frac_u,
+                                           best, bidx);
+      blocks += inc;
+    }
+  };
+  if (q.dord == 0) {
+    for (int c = 0; c < q.C; ++c) visit(c);
+    return bidx;
+  }
+  const int wl = threadIdx.x & 31;
+  float kmin = kBig, kmax = -kBig;
+  for (int c = 0; c < q.C; ++c) {
+    float tlo, thi;
+    slab(box + kBoxLanes * c, L, idx, idy, idz, tmin, tlo, thi);
+    // tlo >= t_min > 0 and kBig are positive: their bits order as uints
+    const float key = __uint_as_float(__reduce_min_sync(
+        kFull, __float_as_uint(active && tlo <= thi ? tlo : kBig)));
+    if (wl == 0) wb[c] = __float_as_int(key);
+    kmin = fminf(kmin, key);
+    if (key < kSurvCut) kmax = fmaxf(kmax, key);
+  }
+  if (kmax == -kBig) return bidx;  // no active lane enters any box
+  const float scale = (float)q.dord / fmaxf(kmax - kmin, kTiny20);
+  __syncwarp();
+  for (int c = wl; c < q.C; c += 32) {
+    const float key = __int_as_float(wb[c]);
+    wb[c] = key < kSurvCut
+                ? (int)fminf(fmaxf((key - kmin) * scale, 0.f),
+                             (float)(q.dord - 1))
+                : q.dord;
+  }
+  __syncwarp();
+  for (int b = 0; b < q.dord; ++b) {
+    for (int c0 = 0; c0 < q.C; c0 += 32) {
+      unsigned bits =
+          __ballot_sync(kFull, c0 + wl < q.C && wb[c0 + wl] == b);
+      while (bits) {
+        visit(c0 + __ffs(bits) - 1);
+        bits &= bits - 1;
+      }
+    }
+  }
+  __syncwarp();  // the next bounce rewrites wb
+  return bidx;
+}
+
+// The sphere kernel of culled plans (K5): mega_kernel's lanes with
+// sweep_culled as their closest hit. The votes need every lane of a warp
+// at one point: in overdraw mode a whole block loops until its slowest lane
+// has spp; in exact mode a warp loops until its slowest lane has spp, the
+// others idle, so T % 32 == 0 keeps a warp in one tile.
+template <bool kMoving, bool kUniformTime>
+__global__ void mega_kernel_culled(Params p, Clusters q) {
+  // (C, 6) cluster boxes, then with q.dord C key / bucket slots per warp
+  extern __shared__ float sm[];
+  for (int i = threadIdx.x; i < kBoxLanes * q.C; i += blockDim.x) {
+    sm[i] = __ldg(q.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
+  }
+  int* wb = reinterpret_cast<int*>(sm + kBoxLanes * q.C) +
+            (threadIdx.x >> 5) * q.C;
+  __syncthreads();
+
+  uint32_t tile, lane;
+  if (p.exact) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= (long long)p.n_tiles * p.T) return;  // whole warps
+    tile = (uint32_t)(g / p.T);
+    lane = (uint32_t)(g % p.T);
+  } else {
+    tile = blockIdx.x;
+    lane = threadIdx.x;
+  }
+  const int T = p.T;
+  const float* pix = p.pixf + (size_t)tile * 4 * T;
+  const float pxi = pix[lane];
+  const float pxj = pix[T + lane];
+  const bool valid = pix[2 * T + lane] > 0.f;
+  Cam cam;
+#pragma unroll
+  for (int k = 0; k < kCamLanes; ++k) cam.c[k] = __ldg(p.cam + k);
+
+  Lane L;
+  gen_ray(p, cam, tile, lane, 0xFFFFFFFFu, pxi, pxj, L);  // it = -1
+  L.tpx = L.tpy = L.tpz = 1.f;
+  L.rx = L.ry = L.rz = L.ax = L.ay = L.az = 0.f;
+  L.segs = L.depth = L.iters = 0.f;
+  L.done = valid ? 0.f : p.spp;
+  float blocks = 0.f;
+
+  float* out = p.out + (size_t)tile * (kOutRows + p.n_iters) * T + lane;
+  if (p.exact) {
+    // a lane's iterations are 0 .. iters - 1; it counts a block only then
+    int it = 0;
+    for (; it < p.n_iters && __any_sync(kFull, L.done < p.spp); ++it) {
+      const bool active = L.done < p.spp;
+      float best;
+      const int bidx = sweep_culled<kMoving, kUniformTime>(
+          p, q, sm, wb, L, active, active ? 1.f : 0.f, best, blocks);
+      const int code = bounce<kMoving, kUniformTime, true>(
+          p, nullptr, cam, L, active, tile, lane, it, pxi, pxj, bidx, best);
+      if (active) {
+        L.iters += 1.f;
+        out[(size_t)(kOutRows + it) * T] = (float)code;
+      }
+    }
+    for (it = (int)L.iters; it < p.n_iters; ++it) {
+      out[(size_t)(kOutRows + it) * T] = -1.f;
+    }
+  } else {
+    uint32_t it = 0;
+    int running = __syncthreads_or(valid);
+    while (running) {
+      float best;
+      const int bidx = sweep_culled<kMoving, kUniformTime>(
+          p, q, sm, wb, L, valid, 1.f, best, blocks);
+      bounce<kMoving, kUniformTime, true>(p, nullptr, cam, L, valid, tile,
+                                          lane, it, pxi, pxj, bidx, best);
+      L.iters += 1.f;
+      ++it;
+      running = __syncthreads_or(L.done < p.spp);
+    }
+  }
+  out[0] = L.ax;
+  out[(size_t)1 * T] = L.ay;
+  out[(size_t)2 * T] = L.az;
+  out[(size_t)3 * T] = L.segs;
+  out[(size_t)4 * T] = L.iters;
+  out[(size_t)5 * T] = L.done;
+  out[(size_t)6 * T] = blocks;
+  out[(size_t)7 * T] = 0.f;
+}
+
 // Launch `kern` with `smem` bytes of dynamic shared memory: one block of T
 // lanes per tile (overdraw), or blocks of kExactBlock lanes (exact).
 template <class Kernel, class... Args>
@@ -1332,11 +1580,19 @@ cudaError_t launch(Kernel kern, size_t smem, const Params& p,
   return cudaGetLastError();
 }
 
-// The sphere kernel (q == nullptr), the surfaces kernel, or the surfaces
-// kernel with textures (x != nullptr), with their shared memory.
+// The sphere kernel (q == nullptr), the culled sphere kernel (k !=
+// nullptr), the surfaces kernel, or the surfaces kernel with textures (x !=
+// nullptr), with their shared memory.
 template <bool kMoving, bool kUniformTime>
 cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
-                       cudaStream_t stream) {
+                       const Clusters* k, cudaStream_t stream) {
+  if (k != nullptr) {
+    const int warps = (p.exact ? kExactBlock : p.T) / 32;
+    const size_t words =
+        (size_t)k->C * (kBoxLanes + (k->dord ? warps : 0));
+    return launch(mega_kernel_culled<kMoving, kUniformTime>,
+                  sizeof(float) * words, p, stream, *k);
+  }
   size_t n = (size_t)kLanes * p.S;
   if (q == nullptr) {
     return launch(mega_kernel<kMoving, kUniformTime>, sizeof(float) * n, p,
@@ -1363,22 +1619,27 @@ extern "C" {
 // too much shared memory) reports here and nowhere else. `surfaces` selects
 // mega_kernel_surfaces, the kernel with the rect / light / medium parts;
 // `textures` its instantiations with checker, noise and image textures,
-// whose image sizes follow the row codes in `codes`.
+// whose image sizes follow the row codes in `codes`; `cull` the culled
+// sphere kernel over the (C, 128) cluster table `clus` (sph then holds the
+// slot quads of sweep_cluster, not the dense (9, S) SoA).
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
-                    const float* attr, const float* rect, const float* light,
-                    const float* med, const int* codes, const int* perm,
-                    const float* ranvec, const float* images, float* out,
-                    int n_tiles, int T, int S, int R, int L, int V,
-                    int n_iters, int seed, int spp, int max_depth,
-                    int rr_depth, int n_img, int img_h, int img_w, int exact,
+                    const float* attr, const float* clus, const float* rect,
+                    const float* light, const float* med, const int* codes,
+                    const int* perm, const float* ranvec,
+                    const float* images, float* out, int n_tiles, int T,
+                    int S, int R, int L, int V, int n_iters, int seed,
+                    int spp, int max_depth, int rr_depth, int n_img,
+                    int img_h, int img_w, int C, int SB, int dord, int exact,
                     int lens, int bg_gradient, int moving, int uniform_time,
-                    int surfaces, int has_spheres, int textures,
+                    int surfaces, int has_spheres, int textures, int cull,
                     float inv_nx, float inv_ny, float t_min, float ut_t0,
                     float ut_idt, float inv_L, void* stream) {
   if (n_tiles <= 0 || T <= 0 || S <= 0 || R < 0 || L < 0 || V < 0 ||
       n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
       (!surfaces && (R || L || V || textures)) || n_img < 0 ||
-      img_h <= 0 || img_w <= 0) {
+      img_h <= 0 || img_w <= 0 ||
+      (cull && (surfaces || T % 32 || C <= 0 || SB <= 0 ||
+                (long long)C * SB != S || dord < 0))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -1408,13 +1669,15 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   const Surfaces* qp = surfaces ? &q : nullptr;
   Texels x{perm, ranvec, images, n_img, img_h, img_w};
   const Texels* xp = textures ? &x : nullptr;
+  Clusters k{clus, C, SB, dord};
+  const Clusters* kp = cull ? &k : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (moving) {
-    e = uniform_time ? launch_one<true, true>(p, qp, xp, s)
-                     : launch_one<true, false>(p, qp, xp, s);
+    e = uniform_time ? launch_one<true, true>(p, qp, xp, kp, s)
+                     : launch_one<true, false>(p, qp, xp, kp, s);
   } else {
-    e = launch_one<false, false>(p, qp, xp, s);
+    e = launch_one<false, false>(p, qp, xp, kp, s);
   }
   return (int)e;
 }

@@ -2,9 +2,11 @@
 (reference: RayTracingWeekend/Scene/scene.h:42-249).
 
 The port's counterpart of raytracingweekend_tpu/models/scenes.py: the
-book-1 scenes, the Cornell boxes (rects, lights, media) and the texture
-scenes (checker, Perlin noise, the earth image). The two large-S stress
-scenes raise NotImplementedError naming the ROADMAP item that brings them.
+book-1 scenes, the two large-S stress scenes, the Cornell boxes (rects,
+lights, media) and the texture scenes (checker, Perlin noise, the earth
+image). A scene of the JAX library that a later slice of the port brings
+is listed in LATER_SCENES and raises NotImplementedError naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,11 +22,9 @@ from ..utils.detrng import MinStd
 
 SCENES: Dict[str, Callable[..., st.Scene]] = {}
 
-# Scenes of the JAX library that later slices of the port bring.
-LATER_SCENES = {
-    "random_balls_large": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
-    "random_balls_huge": "ROADMAP Queue 1 item 5 (K5 large-S culling)",
-}
+# Scenes of the JAX library that later slices of the port bring (none
+# left): name -> the ROADMAP item that brings it.
+LATER_SCENES: Dict[str, str] = {}
 
 
 def register(name):
@@ -131,6 +131,54 @@ def random_balls_scene(aspect: float, moving: bool = True) -> st.Scene:
     b.camera((13, 2, 3), (0, 0, 0), (0, 1, 0), 20.0, aspect, 0.0, 10.0,
              0.0, 1.0)
     return b.build(background=st.BG_GRADIENT, name="random_balls")
+
+
+@register("random_balls_large")
+def random_balls_large(aspect: float, n: int = 60,
+                       use_bvh: bool = False) -> st.Scene:
+    """Stress scene beyond the reference's scale: an n x n grid of
+    jittered diffuse / metal / glass balls (~n^2 spheres; 3604 live at the
+    default n = 60), the three big balls and the ground, on the
+    default-seeded minstd stream. `use_bvh=True` (the JAX package's sphere
+    BVH) comes with the wavefront path."""
+    if use_bvh:
+        raise NotImplementedError(
+            "random_balls_large(use_bvh=True) takes the wavefront path with "
+            "its sphere BVH (ROADMAP Queue 1 item 6)")
+    b = SceneBuilder()
+    eng = MinStd()
+    half = n // 2
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.constant((0.5, 0.5, 0.5))))
+    for a in range(-half, half):
+        for bb in range(-half, half):
+            choose_mat = eng.uniform()
+            uz = eng.uniform()   # z before x, as in random_balls
+            ux = eng.uniform()
+            center = (a + 0.9 * ux, 0.2, bb + 0.9 * uz)
+            if choose_mat < 0.8:
+                color = (eng.uniform() * eng.uniform(),
+                         eng.uniform() * eng.uniform(),
+                         eng.uniform() * eng.uniform())
+                b.sphere(center, 0.2, b.lambertian(b.constant(color)))
+            elif choose_mat < 0.95:
+                color = (0.5 * (1 + eng.uniform()),
+                         0.5 * (1 + eng.uniform()),
+                         0.5 * (1 + eng.uniform()))
+                b.sphere(center, 0.2, b.metal(color, 0.5 * eng.uniform()))
+            else:
+                b.sphere(center, 0.2, b.dielectric(1.5))
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-4, 1, 0), 1.0, b.lambertian(b.constant((0.4, 0.2, 0.1))))
+    b.sphere((4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+    b.camera((13, 4, 3), (0, 0, 0), (0, 1, 0), 30.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="random_balls_large")
+
+
+@register("random_balls_huge")
+def random_balls_huge(aspect: float) -> st.Scene:
+    """The 120 x 120 grid of random_balls_large: 14404 live spheres."""
+    return random_balls_large(aspect, n=120)
 
 
 @register("cornell_box")

@@ -1,12 +1,12 @@
 """The megakernel: the whole path-trace loop fused in one CUDA kernel.
 
 The port of raytracingweekend_tpu/ops/megakernel.py for scenes of spheres,
-axis rects and constant media (ROADMAP kernels K1, K2, K3 and K4: `_kernel`
-with one dense sphere cluster, the rect hit, the one-sample MIS over the
-lights list, one-sided emission, the stochastic medium boundaries with
-isotropic scatter, and checker, Perlin-noise and image textures). One
-launch traces every pixel of a frame: each lane owns one pixel slot and
-runs
+axis rects and constant media (ROADMAP kernels K1-K5: `_kernel` with a
+dense sphere sweep, the rect hit, the one-sample MIS over the lights list,
+one-sided emission, the stochastic medium boundaries with isotropic
+scatter, checker, Perlin-noise and image textures, and the cluster-culled
+sphere sweep of large tables). One launch traces every pixel of a frame:
+each lane owns one pixel slot and runs
 
     camera ray -> closest hit over every sphere slot, rect and medium ->
     albedo (constant, checker, Perlin noise or the nearest texel) ->
@@ -16,8 +16,8 @@ runs
 
 until its pixel has its samples. The module holds
 
-- the host plan: bitwise the JAX package's sphere / attribute / rect /
-  light / medium / camera tables (`build_tables`), sphere order
+- the host plan: bitwise the JAX package's sphere / attribute / cluster /
+  rect / light / medium / camera tables (`build_tables`), sphere order
   (`_morton_order`, `_kd_cluster_order`), launch plan (`make_plan`) and
   pixel layout (`_pixel_layout`);
 - the device helpers `_uniforms` (the lowbias32 counter-hash RNG, bitwise
@@ -78,6 +78,11 @@ SPH_LANES = 128
 # SoA (csrc/megakernel.cu, L_*).
 SWEEP_LANES = (C_CX, C_CY, C_CZ, C_DCX, C_DCY, C_DCZ, C_T0, C_IDT, C_NR2)
 
+# ---- cluster table lanes: (C, 128), cluster-major (same lanes as JAX): the
+# AABB of the motion-swept spheres of each SB-slot cluster ----
+(K_MINX, K_MINY, K_MINZ, K_MAXX, K_MAXY, K_MAXZ) = range(6)
+CLUS_LANES = 128
+
 # ---- rect table lanes: (max(R, 1), 128), rect-major (same lanes as JAX);
 # the kernel reads RT_A0..RT_RIDX ----
 (RT_A0, RT_A1, RT_B0, RT_B1, RT_K, RT_COS, RT_SIN, RT_OFFX, RT_OFFY,
@@ -109,11 +114,11 @@ MED_LANES = 128
 OUT_ROWS = 8
 
 # CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
-# kernel: "K1" the sphere-only instantiations; "K2+K3" the launches that
-# run the rect, light or medium parts; "K4" those that run textures. A
-# launch of a textured Cornell-like scene counts under both of the last
-# two.
-KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0}
+# kernel: "K1" the dense sphere-only instantiations; "K2+K3" the launches
+# that run the rect, light or medium parts; "K4" those that run textures
+# (a launch of a textured Cornell-like scene counts under both); "K5" the
+# cluster-culled sphere kernel.
+KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0, "K5": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -344,11 +349,12 @@ def _kd_cluster_order(centers: np.ndarray, SB: int) -> np.ndarray:
 
 def build_tables(scene: st.Scene, SB: int = 64):
     """Host packing of the scene tables, bitwise equal to the JAX
-    `build_tables` without its cluster AABBs and image atlas (the kernel
+    `build_tables` without its super-group rows and image atlas (the kernel
     reads the scene's float32 `textures.images` as they are). Returns
     (sph_tab (S, 128), attr_tab (24, S), rect_tab (max(R, 1), 128),
     light_tab (max(L, 1), 128), med_tab (max(V, 1), 128), cam_vec (1, 128),
-    meta) as numpy.
+    meta) as numpy; meta["clus_tab"] (C, 128) holds the cluster AABBs and
+    meta["clus_moving"] each cluster's per-axis any-moving flags.
 
     Live spheres are deduplicated (first of exact geometric duplicates
     wins, as the reference's strict `t < closest` list sweep), ordered
@@ -410,6 +416,23 @@ def build_tables(scene: st.Scene, SB: int = 64):
                     (C_T0, t0p), (C_IDT, idt), (C_R2, r2),
                     (C_ACT, actp), (C_NR2, -r2)):
         sph_tab[:, lane] = v
+
+    # cluster AABBs over the motion-swept spheres (padding rows never
+    # widen a box) and each cluster's per-axis any-moving flags
+    clus_moving = tuple(
+        tuple(bool(np.any(dc[c * SB:(c + 1) * SB, ax] != 0))
+              for ax in range(3))
+        for c in range(C))
+    absr = np.abs(radp)
+    los = np.where(actp[:, None] > 0,
+                   np.minimum(c0p, c1p) - absr[:, None], np.inf)
+    his = np.where(actp[:, None] > 0,
+                   np.maximum(c0p, c1p) + absr[:, None], -np.inf)
+    clus_tab = np.zeros((C, CLUS_LANES), np.float32)
+    for c in range(C):
+        sl = slice(c * SB, (c + 1) * SB)
+        clus_tab[c, K_MINX:K_MINZ + 1] = los[sl].min(axis=0)
+        clus_tab[c, K_MAXX:K_MAXZ + 1] = his[sl].max(axis=0)
 
     mats = scene.materials
     tex = scene.textures
@@ -507,7 +530,7 @@ def build_tables(scene: st.Scene, SB: int = 64):
                 has_noise=bool(noise_modes),
                 noise_modes=tuple(sorted(noise_modes)),
                 has_image=has_image, n_img=len(img_hw), img_hw=img_hw,
-                has_iso=V > 0,
+                has_iso=V > 0, clus_tab=clus_tab, clus_moving=clus_moving,
                 **rect_meta, **light_meta, **med_meta,
                 # scene sphere row of each slot (-1: padding): decodes a
                 # winner tape
@@ -732,6 +755,10 @@ class MegaPlan:
     has_checker: bool = False   # the scene has a checker texture
     noise_modes: tuple = ()     # NOISE_* display modes that prims use
     img_hw: tuple = ()          # (height, width) per image, when one is used
+    C: int = 1                  # sphere clusters of SB slots
+    cull: bool = False          # cluster-culled sweep (K5) instead of dense
+    dyn_order: int = 0          # culled visit order: near-to-far buckets,
+    #                             0 = ascending cluster id
 
     @property
     def textures(self) -> bool:
@@ -750,20 +777,37 @@ class MegaPlan:
 
 def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
               max_depth: int = 50, rr_depth: Optional[int] = 4,
-              T: Optional[int] = None, exact: bool = False):
+              T: Optional[int] = None, exact: bool = False,
+              SB: Optional[int] = None, cull: Optional[bool] = None,
+              dyn_order: Optional[int] = None):
     """Host-side launch plan: the packed tables and the static plan.
 
-    The slots are one cluster of every live sphere up to 512 (the JAX
-    package's book-1 order, without its 128-lane padding) and clusters of
-    128 beyond; the kernel sweeps all slots densely either way. T defaults
-    to 256 lanes; in overdraw mode it is the CUDA block size, so T <= 1024.
-    The TPU's 128-lane rounding and 512-lane floor do not apply here.
-    Returns (tables, plan)."""
+    Slots: one cluster of every live sphere up to 512 (the JAX package's
+    book-1 order, without its 128-lane padding); beyond, clusters of 128
+    slots, or of 256 in exact mode (JAX's tape plan, whose winner codes
+    are these slot numbers). `SB` overrides the cluster size. T defaults
+    to 256 lanes; in overdraw mode it is the CUDA block size, so
+    T <= 1024. The TPU's 128-lane rounding and 512-lane floor do not
+    apply here.
+
+    `cull` (auto: C > 1 on sphere-only scenes) takes the cluster-culled
+    kernel (K5): each warp of 32 lanes votes every cluster's AABB against
+    t_min and its lanes' running best and sweeps only the clusters one of
+    its lanes can reach, in ascending cluster id or, with `dyn_order` > 0
+    buckets (auto: 16 in overdraw mode from C >= 8, else 0), near to far.
+    The JAX package's `dyn_cull` switch has no counterpart: with no fused
+    extraction to feed, its survivor-list sweep differs from interleaved
+    votes only in the visit order, which is `dyn_order`. Scenes with
+    rects, lights, media or textures keep the dense surfaces kernel.
+    Returns (tables, plan); raises ValueError where a launch would not
+    fit the card (T, or a dense sweep past its shared memory)."""
     reason = unsupported_reason(scene)
     if reason is not None:
         raise NotImplementedError(f"scene {scene.name!r}: {reason}")
     n_live = int(np.sum(np.asarray(scene.spheres.active)))
-    SB = min(512 if n_live <= 512 else 128, max(8, -(-n_live // 8) * 8))
+    if SB is None:
+        SB = 512 if n_live <= 512 else (256 if exact else 128)
+    SB = min(int(SB), max(8, -(-n_live // 8) * 8))
     tabs = build_tables_cached(scene, SB)
     meta = tabs[-1]
     T = 256 if T is None else int(T)
@@ -794,8 +838,63 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                             meta["med_kinds"], meta["med_rot"],
                             meta["med_trans"])),
                     has_checker=meta["has_checker"],
-                    noise_modes=meta["noise_modes"], img_hw=meta["img_hw"])
+                    noise_modes=meta["noise_modes"], img_hw=meta["img_hw"],
+                    C=meta["C"])
+    if cull is None:
+        cull = plan.C > 1 and not plan.surfaces
+    if cull and plan.surfaces:
+        raise NotImplementedError(
+            "cluster culling of a scene with rects, lights, media or "
+            "textures (the culled surfaces kernel, ROADMAP Queue 1 item 5)")
+    if cull and T % 32:
+        raise ValueError(f"the culled kernel votes per warp of 32 lanes: "
+                         f"T={T} must be a multiple of 32")
+    if dyn_order is None:
+        dyn_order = 16 if plan.C >= 8 and not exact else 0
+    if dyn_order < 0:
+        raise ValueError(f"dyn_order={dyn_order} must be >= 0")
+    plan = dataclasses.replace(plan, cull=bool(cull),
+                               dyn_order=int(dyn_order) if cull else 0)
+    smem = shared_bytes(plan)
+    if smem > SHARED_MAX:
+        raise ValueError(
+            f"scene {scene.name!r}: the {'culled' if plan.cull else 'dense'} "
+            f"sweep over S={plan.S} slots needs {smem} bytes of shared "
+            f"memory per block, over the card's {SHARED_MAX} (227 KB); "
+            + ("a sphere-only scene culls past it (cull=None or True)"
+               if not plan.surfaces else "the culled surfaces kernel is "
+               "not ported (ROADMAP Queue 1 item 5)"))
     return tabs, plan
+
+
+# Shared memory a block can use on an H100 (sm_90), and the float32 lanes
+# of each table row that the kernels copy there (csrc/megakernel.cu)
+SHARED_MAX = 232448
+_SMEM_LANES = dict(sweep=len(SWEEP_LANES), rect=RT_RIDX + 1,
+                   rect_tex=RT_IDB + 1, light=LT_RAD + 1, med=MD_ALBZ + 1,
+                   med_tex=MD_IMG + 1, box=K_MAXZ + 1, noise=4 * 256)
+
+
+def shared_bytes(plan: MegaPlan) -> int:
+    """Dynamic shared memory of the plan's launch, as the kernel lays it
+    out: the dense kernels hold the (9, S) sweep table (and the surfaces
+    kernel its rect, light and medium rows, their codes, the image sizes
+    and the Perlin tables); the culled kernel holds the (C, 6) cluster
+    boxes and, in near-to-far order, C bucket slots for each warp."""
+    n = _SMEM_LANES
+    if plan.cull:
+        warps = (256 if plan.exact else plan.T) // 32
+        return 4 * plan.C * (n["box"] + (warps if plan.dyn_order else 0))
+    words = n["sweep"] * plan.S
+    if plan.surfaces:
+        tex = plan.textures
+        words += (plan.R * (n["rect_tex"] if tex else n["rect"])
+                  + plan.L * n["light"]
+                  + plan.V * (n["med_tex"] if tex else n["med"])
+                  + plan.R + plan.L + plan.V)
+        if tex:
+            words += 2 * len(plan.img_hw) + n["noise"]
+    return 4 * words
 
 
 def _layout_from_order(order, inv, nx: int, ny: int, T: int):
@@ -832,8 +931,9 @@ def _device_layout(nx: int, ny: int, T: int, device: str):
 
 def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     """The launch's tensors on `device`, in the kernel's argument order:
-    (pixf, cam_vec, sph_tab, attr_tab, rect_tab, light_tab, med_tab, perm,
-    ranvec, images), plus the inverse pixel permutation. perm (256,) int32
+    (pixf, cam_vec, sph_tab, attr_tab, clus_tab, rect_tab, light_tab,
+    med_tab, perm, ranvec, images), plus the inverse pixel permutation.
+    clus_tab (C, 128) float32 holds the cluster AABBs; perm (256,) int32
     and ranvec (256, 3) float32 are the Perlin tables; images is the
     scene's (n_img, Hmax, Wmax, 3) float32 texels, or one zero texel when
     the launch reads none. Tables are copied once per (scene, device),
@@ -841,12 +941,13 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     device = torch.device(device)
 
     def build():
-        sph, attr, rect, light, med, cam, _ = build_tables_cached(scene,
-                                                                  plan.SB)
+        sph, attr, rect, light, med, cam, meta = build_tables_cached(
+            scene, plan.SB)
         images = (scene.textures.images if plan.img_hw
                   else np.zeros((1, 1, 1, 3), np.float32))
         return (*(torch.from_numpy(a).to(device)
-                  for a in (cam, sph, attr, rect, light, med)),
+                  for a in (cam, sph, attr, meta["clus_tab"], rect, light,
+                            med)),
                 *_noise.noise_tables(str(device)),
                 torch.from_numpy(np.ascontiguousarray(images, np.float32))
                 .to(device))
@@ -860,14 +961,22 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device):
 # The plain PyTorch version of the kernel
 # ---------------------------------------------------------------------------
 
-# state rows of the plain version
+# state rows of the plain version (R_BLK: swept cluster blocks)
 (R_OX, R_OY, R_OZ, R_DX, R_DY, R_DZ, R_TIME, R_TPX, R_TPY, R_TPZ,
  R_RX, R_RY, R_RZ, R_AX, R_AY, R_AZ, R_SEGS, R_DEPTH, R_DONE,
- R_ITERS) = range(20)
-STATE_ROWS = 20
+ R_ITERS, R_BLK) = range(21)
+STATE_ROWS = 21
 
-# (sphere block) x (lanes) elements per sweep step of the plain version
+# (sphere block) x (lanes) elements per sweep step of the plain version,
+# and (cluster or cluster slot) x (lanes) elements per culled chunk
 _SWEEP_ELEMS = 1 << 24
+_CULL_ELEMS = 1 << 22
+# the culled sweep's constants, as the JAX kernel's: the slab-entry
+# shrink float32(1 - 2.4e-7) of the re-vote, and the survivor cut of the
+# near-to-far order (a cluster whose key is past it cannot win: 0.5 BIG
+# is beyond the miss cut)
+_SHRINK = float(np.float32(1.0 - 2.4e-7))
+_SURV_CUT = float(np.float32(0.5 * BIG))
 
 
 def _check_seed(seed: int) -> int:
@@ -900,22 +1009,25 @@ def _rotate_y_inv(cth, sth, x, z):
 
 def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          sph_tab: torch.Tensor, attr_tab: torch.Tensor,
-                         rect_tab: torch.Tensor, light_tab: torch.Tensor,
-                         med_tab: torch.Tensor, perm: torch.Tensor,
-                         ranvec: torch.Tensor, images: torch.Tensor,
-                         seed: int, plan: MegaPlan) -> torch.Tensor:
+                         clus_tab: torch.Tensor, rect_tab: torch.Tensor,
+                         light_tab: torch.Tensor, med_tab: torch.Tensor,
+                         perm: torch.Tensor, ranvec: torch.Tensor,
+                         images: torch.Tensor, seed: int,
+                         plan: MegaPlan) -> torch.Tensor:
     """The plain PyTorch version of the megakernel, with the arguments of
     `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128),
-    attr_tab (24, S), rect_tab (max(R, 1), 128), light_tab (max(L, 1), 128)
-    and med_tab (max(V, 1), 128), ranvec (256, 3) and images (n_img, Hmax,
-    Wmax, 3) float32, perm (256,) int32, on one device; seed an int32.
-    Returns out (n_tiles, 8 + n_iters, T) float32.
+    attr_tab (24, S), clus_tab (C, 128), rect_tab (max(R, 1), 128),
+    light_tab (max(L, 1), 128) and med_tab (max(V, 1), 128), ranvec
+    (256, 3) and images (n_img, Hmax, Wmax, 3) float32, perm (256,) int32,
+    on one device; seed an int32. Returns out (n_tiles, 8 + n_iters, T)
+    float32.
 
     Vectorised over the lanes of every tile still running, with a Python
     loop over bounce iterations, in the op order of the JAX kernel. A tile
     runs until its slowest lane has `spp` samples (overdraw: all its valid
     lanes trace on; exact mode: finished lanes idle); lanes of a finished
-    tile freeze."""
+    tile freeze. A culled plan sweeps as the culled kernel does, warp by
+    warp of 32 lanes, so row 6 counts the same swept blocks."""
     seed = _check_seed(seed)
     dev = pixf.device
     f32 = torch.float32
@@ -981,6 +1093,36 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     # `addcmul(...).float()` is `_fma` without re-converting its operands
     col64 = {ln: c.double() for ln, c in col.items()}
 
+    def quad(cb, cb64, o, dy, dx64, dz64, time, frac64):
+        """The closest root > t_min (BIG on a miss) of each (slot, lane)
+        pair: the sign-flipped half-b quadratic with a = 1 (unit
+        directions). cb / cb64 map a sweep lane to its slot columns in
+        float32 / float64, broadcastable against the (1, n) rays o, dy,
+        dx64, dz64 and time; frac64 is the uniform shutter's motion
+        fraction (float64), else None."""
+        if any(plan.moving_axes) and not plan.uniform_time:
+            frac64 = ((time - cb[C_T0]) * cb[C_IDT]).double()
+        co = []
+        for ax, (lc, ldc) in enumerate(((C_CX, C_DCX), (C_CY, C_DCY),
+                                        (C_CZ, C_DCZ))):
+            c = cb[lc]
+            if plan.moving_axes[ax]:
+                c = torch.addcmul(cb64[lc], frac64, cb64[ldc]).float()
+            co.append(c - o[ax])
+        cox64, coy64, coz64 = (c.double() for c in co)
+        nb = torch.addcmul((co[1] * dy).double(), cox64, dx64).float()
+        nb64 = torch.addcmul(nb.double(), coz64, dz64).float().double()
+        cc = torch.addcmul(cb64[C_NR2], coz64, coz64).float()
+        cc = torch.addcmul(cc.double(), coy64, coy64).float()
+        cc = torch.addcmul(cc.double(), cox64, cox64).float()
+        disc = torch.addcmul(cc.double().neg_(), nb64, nb64).float()
+        nb = nb64.float()
+        # disc < 0 and disc == 0 both give NaN: a miss
+        sq = disc * _rsqrt(disc)
+        tf = (nb + sq).masked_fill_(~((nb + sq) > t_min), BIG)
+        tn = nb - sq
+        return torch.where(tn > t_min, tn, tf)
+
     def sweep(ox, oy, oz, dx, dy, dz, time):
         """Closest hit over every slot: (best_t, winner slot; S on miss).
         The winner is the first slot with the strictly smallest t."""
@@ -991,45 +1133,115 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             return best, bidx
         eb = max(1, min(S, _SWEEP_ELEMS // max(n, 1)))
         orig = (ox[None], oy[None], oz[None])
-        dy_ = dy[None]
         dx64, dz64 = dx.double()[None], dz.double()[None]
-        tm_ = time[None]
-        if plan.uniform_time:
-            frac64 = ((tm_ - plan.ut_t0) * plan.ut_idt).double()
+        frac64 = (((time - plan.ut_t0) * plan.ut_idt).double()[None]
+                  if plan.uniform_time else None)
         for lo in range(0, S, eb):
             hi = min(S, lo + eb)
-            if any(plan.moving_axes) and not plan.uniform_time:
-                frac64 = ((tm_ - col[C_T0][lo:hi])
-                          * col[C_IDT][lo:hi]).double()
-            # sign-flipped half-b quadratic with a = 1 (unit directions)
-            co, co64 = [], []
-            for ax, (lc, ldc) in enumerate(((C_CX, C_DCX), (C_CY, C_DCY),
-                                            (C_CZ, C_DCZ))):
-                c = col[lc][lo:hi]
-                if plan.moving_axes[ax]:
-                    c = torch.addcmul(col64[lc][lo:hi], frac64,
-                                      col64[ldc][lo:hi]).float()
-                co.append(c - orig[ax])
-                co64.append(co[-1].double())
-            cox64, coy64, coz64 = co64
-            nb = torch.addcmul((co[1] * dy_).double(), cox64, dx64).float()
-            nb64 = torch.addcmul(nb.double(), coz64, dz64).float().double()
-            cc = torch.addcmul(col64[C_NR2][lo:hi], coz64, coz64).float()
-            cc = torch.addcmul(cc.double(), coy64, coy64).float()
-            cc = torch.addcmul(cc.double(), cox64, cox64).float()
-            disc = torch.addcmul(cc.double().neg_(), nb64, nb64).float()
-            nb = nb64.float()
-            # disc < 0 and disc == 0 both give NaN: a miss
-            sq = disc * _rsqrt(disc)
-            tf = (nb + sq).masked_fill_(~((nb + sq) > t_min), BIG)
-            tn = nb - sq
-            tcv = torch.where(tn > t_min, tn, tf)
+            tcv = quad({k: v[lo:hi] for k, v in col.items()},
+                       {k: v[lo:hi] for k, v in col64.items()},
+                       orig, dy[None], dx64, dz64, time[None], frac64)
             # min over dim 0 returns the first index of the smallest value
             blk_min, cand = tcv.min(dim=0)
             upd = blk_min < best
             bidx = torch.where(upd, cand + lo, bidx)
             best = torch.minimum(best, blk_min)
         return best, bidx
+
+    boxes = clus_tab[:, K_MINX:K_MAXZ + 1].t()          # (6, C)
+    t_min_t = torch.tensor(t_min, dtype=f32, device=dev)
+    # the slot columns the culled sweep gathers
+    cull_lanes = [C_CX, C_CY, C_CZ, C_NR2]
+    if any(plan.moving_axes):
+        cull_lanes += [C_DCX, C_DCY, C_DCZ]
+        if not plan.uniform_time:
+            cull_lanes += [C_T0, C_IDT]
+    sph_cols = {ln: sph_tab[:, ln] for ln in cull_lanes}
+
+    def slab(box, o, inv_d):
+        """Slab entry and exit (tlo >= t_min, thi) of rays o + t d against
+        AABBs box (6, ...) broadcast against the rays; NaN-propagating
+        min / max, as the JAX kernel's."""
+        t0 = [(box[a] - o[a]) * inv_d[a] for a in range(3)]
+        t1 = [(box[3 + a] - o[a]) * inv_d[a] for a in range(3)]
+        tlo = torch.maximum(
+            torch.maximum(torch.minimum(t0[0], t1[0]),
+                          torch.minimum(t0[1], t1[1])),
+            torch.maximum(torch.minimum(t0[2], t1[2]), t_min_t))
+        thi = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                          torch.maximum(t0[1], t1[1])),
+                            torch.maximum(t0[2], t1[2]))
+        return tlo, thi
+
+    def sweep_culled(ox, oy, oz, dx, dy, dz, time, active, inc):
+        """The culled kernel's sweep, warp by warp (32 consecutive lanes):
+        visit the clusters in ascending id, or near to far in
+        `plan.dyn_order` buckets of the warp's smallest geometric slab
+        entry (stable in id within a bucket; no bucket for a cluster no
+        active lane reaches); re-vote each against the lanes' running
+        best and sweep it for the whole warp if one active lane passes.
+        Returns (best_t, winner slot, swept-block increments per lane)."""
+        n = ox.numel()
+        best = torch.full((n,), BIG, dtype=f32, device=dev)
+        bidx = torch.full((n,), S, dtype=torch.int64, device=dev)
+        blocks = torch.zeros((n,), dtype=f32, device=dev)
+        C, SB, NB = plan.C, plan.SB, plan.dyn_order
+        # whole warps per chunk, so the (C or SB, lanes) blocks stay small
+        step = 32 * max(1, _CULL_ELEMS // (32 * max(C, SB)))
+        j_slot = torch.arange(SB, device=dev)[:, None]
+        cid = torch.arange(C, device=dev)[:, None]
+        for lo in range(0, n, step):
+            sl = slice(lo, min(n, lo + step))
+            o = (ox[sl], oy[sl], oz[sl])
+            inv_d = (1.0 / dx[sl], 1.0 / dy[sl], 1.0 / dz[sl])
+            act = active[sl]
+            m, W = act.numel(), act.numel() // 32
+            tlo, thi = slab(boxes[:, :, None], o, inv_d)      # (C, m)
+            if NB:
+                key = torch.where((tlo <= thi) & act, tlo, BIG).view(
+                    C, W, 32).amin(-1)                       # (C, W)
+                surv = key < _SURV_CUT
+                kmin = key.amin(0)
+                kmax = torch.where(surv, key, -BIG).amax(0)
+                scale = _div(float(NB), torch.clamp_min(kmax - kmin,
+                                                        _f32(1e-20)))
+                bucket = torch.where(
+                    surv, torch.clamp((key - kmin) * scale, 0.0,
+                                      float(NB - 1)).to(torch.int64), NB)
+                order = torch.sort(bucket * C + cid, dim=0).indices
+                n_vis = surv.sum(0)
+            else:
+                order = cid.expand(C, W)
+                n_vis = torch.full((W,), C, device=dev)
+            b_ = best[sl]
+            bi_ = bidx[sl]
+            bl_ = blocks[sl]
+            for r in range(int(n_vis.max()) if W else 0):
+                cl = order[r].repeat_interleave(32)           # (m,)
+                lo_l = tlo.gather(0, cl[None])[0]
+                hi_l = thi.gather(0, cl[None])[0]
+                vote = (lo_l <= hi_l) & (lo_l * _SHRINK < b_) & act
+                go = (vote.view(W, 32).any(1) & (r < n_vis))
+                lanes = go.repeat_interleave(32).nonzero().squeeze(1)
+                if lanes.numel() == 0:
+                    continue
+                slots = cl[lanes][None] * SB + j_slot          # (SB, k)
+                cb = {k: v[slots] for k, v in sph_cols.items()}
+                tm = time[sl][lanes][None]
+                frac64 = (((tm - plan.ut_t0) * plan.ut_idt).double()
+                          if plan.uniform_time else None)
+                tcv = quad(cb, {k: v.double() for k, v in cb.items()},
+                           tuple(c[lanes][None] for c in o),
+                           dy[sl][lanes][None],
+                           dx[sl][lanes].double()[None],
+                           dz[sl][lanes].double()[None], tm, frac64)
+                blk_min, cand = tcv.min(dim=0)
+                upd = blk_min < b_[lanes]
+                bi_[lanes] = torch.where(upd, cl[lanes] * SB + cand,
+                                         bi_[lanes])
+                b_[lanes] = torch.minimum(b_[lanes], blk_min)
+                bl_[lanes] += inc[sl][lanes]
+        return best, bidx, blocks
 
     def object_ray(code_tr, row, o, d, lanes):
         """A ray in a rect's, light's or medium's object space (translate,
@@ -1279,11 +1491,18 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
     def one_iter(state, it, tiles, pxi, pxj, valid):
         (ox, oy, oz, dx, dy, dz, time, tpx, tpy, tpz, rx, ry, rz,
-         ax, ay, az, segs, depth, done, iters) = state.unbind(0)
+         ax, ay, az, segs, depth, done, iters, blk) = state.unbind(0)
         active = (valid & (done < spp)) if plan.exact else valid
         segs = segs + active.to(f32)
 
-        s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
+        if plan.cull:
+            # a lane counts a swept block where it counts an iteration
+            s_best, bidx, blk_inc = sweep_culled(
+                ox, oy, oz, dx, dy, dz, time, active,
+                active.to(f32) if plan.exact else torch.ones_like(ox))
+            blk = blk + blk_inc
+        else:
+            s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
         best_t = s_best
         o, d = (ox, oy, oz), (dx, dy, dz)
         if R or V:
@@ -1550,7 +1769,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             torch.where(alive, tpz, 1.0),
             torch.where(alive, rx, 0.0), torch.where(alive, ry, 0.0),
             torch.where(alive, rz, 0.0),
-            ax, ay, az, segs, torch.where(alive, depth, 0.0), done, iters])
+            ax, ay, az, segs, torch.where(alive, depth, 0.0), done, iters,
+            blk])
         return new, wcode, done
 
     # ---- init: the first camera rays use it = -1 ----
@@ -1591,8 +1811,11 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         running[run] = (done.view(n_run, T) < spp).any(dim=1)
         it += 1
 
+    # row 6: swept (cluster, lane) blocks; a dense sweep counts one a
+    # lane-iteration
     for row, r in ((0, R_AX), (1, R_AY), (2, R_AZ), (3, R_SEGS),
-                   (4, R_ITERS), (5, R_DONE), (6, R_ITERS)):
+                   (4, R_ITERS), (5, R_DONE),
+                   (6, R_BLK if plan.cull else R_ITERS)):
         out[:, row, :] = state[r]
     return out
 
@@ -1603,12 +1826,14 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
 def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 sph_tab: torch.Tensor, attr_tab: torch.Tensor,
-                rect_tab: torch.Tensor, light_tab: torch.Tensor,
-                med_tab: torch.Tensor, perm: torch.Tensor,
-                ranvec: torch.Tensor, images: torch.Tensor, seed: int,
+                clus_tab: torch.Tensor, rect_tab: torch.Tensor,
+                light_tab: torch.Tensor, med_tab: torch.Tensor,
+                perm: torch.Tensor, ranvec: torch.Tensor,
+                images: torch.Tensor, seed: int,
                 plan: MegaPlan) -> torch.Tensor:
-    """Launch csrc/megakernel.cu on the current CUDA stream. Same arguments
-    and result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
+    """Launch csrc/megakernel.cu on the current CUDA stream: the culled
+    kernel for a culled plan, else the dense one. Same arguments and
+    result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
     shape or dtype, a failed build and a refused launch."""
     seed = _check_seed(seed)
     n_tiles, _, T = pixf.shape
@@ -1619,6 +1844,7 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
               "cam_vec": (cam_vec, f32, (1, 128)),
               "sph_tab": (sph_tab, f32, (S, SPH_LANES)),
               "attr_tab": (attr_tab, f32, (A_ROWS, S)),
+              "clus_tab": (clus_tab, f32, (plan.C, CLUS_LANES)),
               "rect_tab": (rect_tab, f32, (max(plan.R, 1), RECT_LANES)),
               "light_tab": (light_tab, f32, (max(plan.L, 1), LIGHT_LANES)),
               "med_tab": (med_tab, f32, (max(plan.V, 1), MED_LANES)),
@@ -1643,12 +1869,14 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
     if not plan.exact and T > 1024:
         raise ValueError(f"overdraw mode runs one tile per CUDA block: "
                          f"T={T} > 1024")
+    if plan.cull and T % 32:
+        raise ValueError(f"the culled kernel needs T % 32 == 0, got T={T}")
     lib = _kernel_lib()
-    pixf, cam_vec, attr_tab, rect_tab, light_tab, med_tab, perm, ranvec, \
-        images = (t.contiguous() for t in (pixf, cam_vec, attr_tab, rect_tab,
-                                           light_tab, med_tab, perm, ranvec,
-                                           images))
-    sph_soa = sph_tab[:, list(SWEEP_LANES)].t().contiguous()   # (9, S)
+    pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab, perm, \
+        ranvec, images = (t.contiguous() for t in (
+            pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab,
+            perm, ranvec, images))
+    sph = _sweep_table(sph_tab, plan)
     # the rect, light and medium codes, then (height, width) per image
     codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes
                        + tuple(v for hw in plan.img_hw for v in hw),
@@ -1658,29 +1886,52 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
     with torch.cuda.device(pixf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rtw_mega_launch(
-            pixf.data_ptr(), cam_vec.data_ptr(), sph_soa.data_ptr(),
-            attr_tab.data_ptr(), rect_tab.data_ptr(), light_tab.data_ptr(),
-            med_tab.data_ptr(), codes.data_ptr(), perm.data_ptr(),
-            ranvec.data_ptr(), images.data_ptr(), out.data_ptr(),
+            pixf.data_ptr(), cam_vec.data_ptr(), sph.data_ptr(),
+            attr_tab.data_ptr(), clus_tab.data_ptr(), rect_tab.data_ptr(),
+            light_tab.data_ptr(), med_tab.data_ptr(), codes.data_ptr(),
+            perm.data_ptr(), ranvec.data_ptr(), images.data_ptr(),
+            out.data_ptr(),
             n_tiles, T, S, plan.R, plan.L, plan.V, plan.n_iters, seed,
             plan.spp, plan.max_depth,
             -1 if plan.rr_depth is None else plan.rr_depth,
-            n_img, img_h, img_w,
+            n_img, img_h, img_w, plan.C, plan.SB, plan.dyn_order,
             int(plan.exact), int(plan.lens), int(plan.bg_gradient),
             int(plan.moving or any(plan.moving_axes)), int(plan.uniform_time),
             int(plan.surfaces), int(plan.has_spheres), int(plan.textures),
+            int(plan.cull),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
             plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
-    if not plan.surfaces:
+    if plan.cull:
+        KERNEL_LAUNCHES["K5"] += 1
+    elif not plan.surfaces:
         KERNEL_LAUNCHES["K1"] += 1
     if plan.R or plan.L or plan.V or plan.has_light:
         KERNEL_LAUNCHES["K2+K3"] += 1
     if plan.textures:
         KERNEL_LAUNCHES["K4"] += 1
     return out
+
+
+def _sweep_table(sph_tab: torch.Tensor, plan: MegaPlan) -> torch.Tensor:
+    """The sphere slots as the kernel reads them. Dense: the (9, S) SoA
+    of SWEEP_LANES, copied to shared memory. Culled: (S, 4 Q) float32, Q
+    16-byte quads a slot read through the read-only path: (cx, cy, cz,
+    nr2), with moving spheres (dcx, dcy, dcz, 0), without a uniform
+    shutter (t0, 1/dt, 0, 0)."""
+    if not plan.cull:
+        return sph_tab[:, list(SWEEP_LANES)].t().contiguous()
+    moving = plan.moving or any(plan.moving_axes)
+    q = 1 if not moving else (2 if plan.uniform_time else 3)
+    quads = sph_tab.new_zeros((plan.S, 4 * q))
+    quads[:, 0:4] = sph_tab[:, [C_CX, C_CY, C_CZ, C_NR2]]
+    if q > 1:
+        quads[:, 4:7] = sph_tab[:, [C_DCX, C_DCY, C_DCZ]]
+    if q > 2:
+        quads[:, 8:10] = sph_tab[:, [C_T0, C_IDT]]
+    return quads
 
 
 @functools.lru_cache(maxsize=32)
@@ -1703,22 +1954,29 @@ class MegaResult(NamedTuple):
     per pixel (divide by spp for the mean); segments: path segments traced;
     lane_iters: lane-iterations spent; tape: exact mode's (n_tiles, n_iters,
     T) winner codes (-1 miss, [0, S) sphere slot, S + r rect row, S + R + v
-    medium row), None in overdraw mode."""
+    medium row), None in overdraw mode; blocks: swept (cluster, lane)
+    blocks, counted where lane_iters counts an iteration, so that
+    blocks / (lane_iters * C) is the culling's survival (1 when dense)."""
     image: torch.Tensor
     segments: torch.Tensor
     lane_iters: torch.Tensor
     tape: Optional[torch.Tensor]
+    blocks: torch.Tensor
 
 
 def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
                max_depth: int = 50, rr_depth: Optional[int] = 4,
                T: Optional[int] = None, exact: bool = False,
-               device="cuda") -> MegaResult:
+               device="cuda", SB: Optional[int] = None,
+               cull: Optional[bool] = None,
+               dyn_order: Optional[int] = None) -> MegaResult:
     """Render one launch of `spp` samples per pixel through the megakernel
     on `device`. `seed` is the launch's int32 RNG seed (the JAX package
-    draws it from its key; pass that value to reproduce its streams)."""
+    draws it from its key; pass that value to reproduce its streams).
+    SB, cull and dyn_order are `make_plan`'s."""
     _, plan = make_plan(scene, nx, ny, spp, max_depth=max_depth,
-                        rr_depth=rr_depth, T=T, exact=exact)
+                        rr_depth=rr_depth, T=T, exact=exact, SB=SB,
+                        cull=cull, dyn_order=dyn_order)
     args, inv = device_inputs(scene, plan, device)
     out = _mega_call(*args, seed, plan)
     return _epilogue(out, inv, plan)
@@ -1735,8 +1993,11 @@ def _epilogue(out: torch.Tensor, inv: torch.Tensor,
     blocked = (sums * scale[..., None]).reshape(n_tiles * T, 3)
     image = blocked[inv].reshape(plan.ny, plan.nx, 3)
     tape = out[:, OUT_ROWS:, :] if plan.exact else None
+    # a dense launch's row 6 counts one sweep of all C clusters
+    blocks = out[:, 6, :].sum() * (1 if plan.cull else plan.C)
     return MegaResult(image=image, segments=out[:, 3, :].sum(),
-                      lane_iters=out[:, 4, :].sum(), tape=tape)
+                      lane_iters=out[:, 4, :].sum(), tape=tape,
+                      blocks=blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1745,10 +2006,10 @@ def _kernel_lib() -> ctypes.CDLL:
     restype of its C entry points."""
     lib = _build.load()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtw_mega_launch.argtypes = ([p] * 12    # tensors
-                                    + [i] * 14  # sizes, seed, spp, depths,
-                                    #             image sizes
-                                    + [i] * 8   # mode flags
+    lib.rtw_mega_launch.argtypes = ([p] * 13    # tensors
+                                    + [i] * 17  # sizes, seed, spp, depths,
+                                    #             image sizes, C, SB, order
+                                    + [i] * 9   # mode flags
                                     + [f] * 6   # floats
                                     + [p])      # stream
     lib.rtw_mega_launch.restype = ctypes.c_int

@@ -71,18 +71,67 @@ def test_kernel_matches_plain_version_on_card(exact, name):
 
 
 @pytest.mark.cuda
-def test_refused_launch_raises():
-    """A sphere table past the card's 227 KB of shared memory per block
-    (9 lanes x 4 bytes x 7040 slots) is refused by CUDA, and the wrapper
-    raises instead of returning an unwritten output."""
+@pytest.mark.parametrize("name", ["random_balls_large", "random_balls_huge"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_culled_kernel_matches_plain_version_on_card(exact, name):
+    """The culled kernel (K5) against its plain version on the same
+    tensors: tapes, radiance and the swept-block counts of row 6, lane by
+    lane. Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from raytracingweekend_tpu_torch.models.builder import SceneBuilder
-    b = SceneBuilder()
-    mat = b.lambertian(b.constant((0.5, 0.5, 0.5)))
-    for i in range(7000):
-        b.sphere((i % 100, 0.0, i // 100), 0.3, mat)
-    b.camera((50, 20, -30), (50, 0, 35), (0, 1, 0), 40.0, 1.0, 0.0, 10.0)
-    scene = b.build()
+    scene = make_scene(name, 1.0)
+    _, plan = tk.make_plan(scene, 64, 64, 2, max_depth=8, exact=exact)
+    assert plan.cull and plan.dyn_order == (0 if exact else 16)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    valid = args[0][:, 2] > 0
+    out_k = tk.mega_kernel(*args, 31337, plan)
+    out_r = tk.trace_mega_reference(*args, 31337, plan)
+    torch.cuda.synchronize()
+    rows = slice(0, None) if exact else slice(0, 7)
+    same = (out_k[:, rows] == out_r[:, rows]).all(dim=1) & valid
+    assert same.sum().item() >= 0.99 * valid.sum().item()
+    a = out_k[:, 0:3].transpose(1, 2)[valid]
+    b = out_r[:, 0:3].transpose(1, 2)[valid]
+    assert torch.isclose(a, b, rtol=RTOL, atol=ATOL).all(
+        dim=-1).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyn_order", [0, 16])
+@pytest.mark.parametrize("exact", [True, False])
+def test_culled_kernel_equals_dense_kernel(exact, dyn_order):
+    """Culling skips only clusters that cannot hold the winner: on
+    random_balls_large(n=30) (SB 128, C = 8) the culled kernel's image,
+    sample counts and tapes equal the dense kernel's bit for bit, with
+    fewer blocks swept. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = make_scene("random_balls_large", 1.0, n=30)
+    kw = dict(max_depth=8, exact=exact, SB=128, device="cuda")
+    dense = tk.trace_mega(5, scene, 96, 64, 4, cull=False, **kw)
+    culled = tk.trace_mega(5, scene, 96, 64, 4, dyn_order=dyn_order, **kw)
+    assert torch.equal(culled.image, dense.image)
+    assert culled.segments.item() == dense.segments.item()
+    assert culled.lane_iters.item() == dense.lane_iters.item()
+    if exact:
+        assert torch.equal(culled.tape, dense.tape)
+    assert 0 < culled.blocks.item() < dense.blocks.item()
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises():
+    """A dense sweep table past the card's 227 KB of shared memory per
+    block (random_balls_huge: 9 lanes x 4 bytes x 14464 slots) is refused
+    by CUDA, and the wrapper raises instead of returning an unwritten
+    output; `make_plan` refuses such a plan before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+    scene = make_scene("random_balls_huge", 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.make_plan(scene, 8, 8, 1, cull=False)
+    _, plan = tk.make_plan(scene, 8, 8, 1)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
     with pytest.raises(RuntimeError, match="launch failed"):
-        tk.trace_mega(1, scene, 8, 8, 1, device="cuda")
+        tk.mega_kernel(*args, 1, dataclasses.replace(plan, cull=False,
+                                                     dyn_order=0))

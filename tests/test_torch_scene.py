@@ -145,18 +145,33 @@ def test_scene_from_arrays_rejects_unknown_leaves():
 
 
 def test_every_jax_scene_is_ported_but_the_k5_ones():
-    assert set(SCENES + list(TEXTURED) + ["cornell_box", "cornell_smoke"]
-               ) == set(tscenes.SCENES)
-    assert set(tscenes.SCENES) | set(tscenes.LATER_SCENES) == set(
-        jscenes.SCENES)
-    assert set(tscenes.LATER_SCENES) == {"random_balls_large",
-                                         "random_balls_huge"}
+    """Every scene of the JAX library is ported, the two large-S stress
+    scenes (K5) included: none is left for a later slice."""
+    assert set(SCENES + list(TEXTURED) + STRESS
+               + ["cornell_box", "cornell_smoke"]) == set(tscenes.SCENES)
+    assert set(tscenes.SCENES) == set(jscenes.SCENES)
+    assert not tscenes.LATER_SCENES
 
 
-@pytest.mark.parametrize("name", ["random_balls_large", "random_balls_huge"])
-def test_unported_scene_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        make_scene(name, 1.0)
+STRESS = ["random_balls_large", "random_balls_huge"]
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("random_balls_large", {}), ("random_balls_large", {"n": 30}),
+    ("random_balls_huge", {}), ("random_balls_large", {"use_bvh": True})])
+def test_stress_scenes_bitwise(name, kw):
+    """The large-S stress scenes (3604 and 14404 live spheres at their
+    defaults) are built bitwise JAX's; their sphere BVH comes with the
+    wavefront path."""
+    if kw.get("use_bvh"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 6"):
+            make_scene(name, 1.5, **kw)
+        return
+    js, ts = jscenes.make_scene(name, 1.5, **kw), make_scene(name, 1.5, **kw)
+    _assert_same(js, ts)
+    n = kw.get("n", 120 if name == "random_balls_huge" else 60)
+    assert int(np.sum(np.asarray(ts.spheres.active))) == n * n + 4
 
 
 # meta fields of the JAX tables that the port's plan reads
