@@ -20,9 +20,16 @@ path, `random_balls_large` (3604 spheres) at 1200x800, 32 spp per launch,
 and `random_balls_huge` (14404) at 16, max_depth 50 (kernel K5: cluster
 culling), where the culled kernel is also held to the dense one bit for
 bit. Each kernel is held to its plain version at its path's full launch
-shape. It prints one line per phase. Any failure exits non-zero; without a CUDA device it exits
-non-zero before printing any result. The last line is one JSON object
-naming the device.
+shape. Then the wavefront path (kernel K7, the closest sphere hit): K7
+against its plain version on the rays of the first regen iterations of
+`random_balls`, `random_balls_large` and `random_balls_huge` (N = 524,288
+rays), the path-regenerative wavefront on `random_balls` at 1200x800, 8
+spp, max_depth 50 (timed, with K7's share), the other wavefront paths
+(regen on the Cornell scenes, tiled, while, normal shading, a non-MIS
+strategy, the BVH scene) and the goldens through regen. It prints one line per phase and each phase's seconds.
+Any failure exits non-zero; without a CUDA device it exits non-zero
+before printing any result. The last line is one JSON object naming the
+device.
 """
 from __future__ import annotations
 
@@ -41,7 +48,10 @@ from raytracingweekend_tpu_torch.models import (builder, probe_scenes,
                                                 scene_types)
 from raytracingweekend_tpu_torch.models.scenes import make_scene
 from raytracingweekend_tpu_torch.ops import _build
+from raytracingweekend_tpu_torch.ops import geometry
+from raytracingweekend_tpu_torch.ops import intersect as k7
 from raytracingweekend_tpu_torch.ops import megakernel as mk
+from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
 from raytracingweekend_tpu_torch.render import RenderStats, render
 from raytracingweekend_tpu_torch.utils import image as image_mod
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
@@ -74,6 +84,38 @@ TEXTURE_PATH = (("earth", {"image_path": RTWI}),
                 ("two_perlin_spheres", {}), ("light_sample", {}),
                 ("checker_spheres", {}))
 SEED = 20240601
+# the wavefront path (K7): random_balls through the path-regenerative
+# wavefront at 1200x800, 8 spp in one launch, depth 50 (n_slots = 2^19
+# rays in flight); K7 is held to its plain version on the rays of the first
+# K7_ITERS regen iterations of the three sphere scenes
+WNX, WNY, WSPP, WDEPTH = 1200, 800, 8, 50
+K7_SCENES = ("random_balls", "random_balls_large", "random_balls_huge")
+K7_ITERS = 3
+K7_RTOL = 1e-4
+# FP32 operations per (ray, slot) pair of K7, counted from
+# csrc/intersect.cu as below (they equal the JAX kernel's cost estimate,
+# pallas_intersect.py:156-160): co 3, b 5, cc 6, disc 3, sqrt 1, tn / tf 4;
+# moving centres add the fraction 2 and three FMAs 6
+OPS_K7_PAIR = {False: 22, True: 30}
+HBM_PEAK = 3.35e12            # H100 SXM bytes/s
+# the goldens through regen, their spp cut to keep the script's time
+# (the wavefront is host-bound: ~2,500 small kernels an iteration)
+REGEN_GOLDEN_SPP = {"random_balls_128x128_2048spp.bin": 512,
+                    "dielectric_32x32_4096spp.bin": 1024,
+                    "cornell_box_128x128_8192spp.bin": 1024,
+                    "cornell_box_32x32_8192spp.bin": 2048,
+                    "cornell_smoke_32x32_8192spp.bin": 2048,
+                    "light_sample_32x32_4096spp.bin": 1024}
+# the other wavefront paths, at smaller shapes
+WAVEFRONT_PATHS = (
+    ("cornell_box", {}, 400, 400, 4, "regen", {}),
+    ("cornell_smoke", {}, 400, 400, 4, "regen", {}),
+    ("random_balls", {}, 300, 200, 4, "tiled", {}),
+    ("random_balls", {}, 300, 200, 4, "while", {}),
+    ("random_balls", {}, 1200, 800, 1, "regen", {"normals": True}),
+    ("cornell_box", {}, 400, 400, 4, "regen",
+     {"lambertian_strategy": "hemisphere"}),
+    ("random_balls_large", {"use_bvh": True}, 1200, 800, 1, "auto", {}))
 
 # FP32 operations of a path segment, counted from csrc/megakernel.cu (add,
 # sub, mul, div, sqrt, rsqrt, log, exp = 1, FMA = 2; compares, min / max,
@@ -300,7 +342,10 @@ def phase_build() -> None:
                          r"(\d+) registers", log, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         stack = re.search(r"(\d+) bytes stack frame", m.group(2))
-        rows.append(f"{_kernel_name(m.group(1))}: {m.group(3)} regs, "
+        name = _kernel_name(m.group(1)) or (
+            f"k7<{int('ILb1E' in m.group(1))}>"
+            if "hit_spheres_kernel" in m.group(1) else m.group(1))
+        rows.append(f"{name}: {m.group(3)} regs, "
                     f"{spill.group(1) if spill else '?'} B spill, "
                     f"{stack.group(1) if stack else '?'} B stack")
     sweep = sweep_sass(str(lib))
@@ -385,6 +430,14 @@ def _load_golden(name):
 
 def phase_goldens() -> None:
     """The pixelwise criterion of tests/test_golden.py through render()."""
+    _goldens("phase 4 golden", "mega", 64)
+
+
+def _goldens(label: str, mode: str, launch_spp: int,
+             max_spp: dict | None = None) -> None:
+    """Every golden through render() in `mode`, launches of launch_spp, at
+    the golden's spp or at most max_spp[golden] (the tolerance takes the
+    spp rendered)."""
     rtwi = {"image_path": RTWI}
     for name, golden, spp, kw in (
             ("random_balls", "random_balls_128x128_2048spp.bin", 2048, {}),
@@ -397,8 +450,10 @@ def phase_goldens() -> None:
             ("earth_rect", "earth_rect_32x32_4096spp.bin", 4096, rtwi)):
         g = _load_golden(golden)
         ny, nx, _ = g.shape
+        spp = min(spp, (max_spp or {}).get(golden, spp))
         cfg = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=50,
-                           samples_per_launch=64, seed=7, device="cuda")
+                           samples_per_launch=launch_spp, seed=7,
+                           loop_mode=mode, device="cuda")
         t0 = time.perf_counter()
         o = render(make_scene(name, nx / ny, **kw),
                    cfg).double().cpu().numpy()
@@ -408,7 +463,7 @@ def phase_goldens() -> None:
         tol = 0.05 + 4.0 * np.sqrt(np.maximum(g, 0.0) / spp)
         frac_ok = float((err <= tol).mean())
         ok = np.isfinite(o).all() and mean_rel < 0.02 and frac_ok > 0.995
-        print(f"phase 4 golden {name} {nx}x{ny} {spp} spp: mean {o.mean():.6f}"
+        print(f"{label} {name} {nx}x{ny} {spp} spp: mean {o.mean():.6f}"
               f" vs {g.mean():.6f} (rel {mean_rel:.5f} < 0.02), pixels in "
               f"tolerance {frac_ok:.5f} > 0.995, {secs:.3f} s: "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -424,7 +479,7 @@ def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label,
     after."""
     scene = make_scene(name, nx / ny, **kw)
     base = dict(nx=nx, ny=ny, max_depth=depth, samples_per_launch=launch_spp,
-                device="cuda")
+                loop_mode="mega", device="cuda")
     for k in mk.KERNEL_LAUNCHES:
         mk.KERNEL_LAUNCHES[k] = 0
     render(scene, RenderConfig(spp=launch_spp, seed=0, **base))   # warm-up
@@ -602,27 +657,323 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
                 bound_ms=bound)
 
 
+def k7_sass(lib: str) -> dict:
+    """K7's slot loop in the SASS of the built library, per instantiation
+    (`moving` / `static`): the innermost loop with the most MUFU.RSQ (one
+    per slot: sqrtf's reciprocal-square-root seed), its instructions per
+    slot and its FFMA / FMUL / FADD per slot. {name: dict}."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"hit_spheres_kernelILb(\d)E", func.split(None, 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
+        addr = {a: k for k, (a, _) in enumerate(ins)}
+        loops = [(addr[int(br.group(1), 16)], k)
+                 for k, (a, op) in enumerate(ins)
+                 for br in [re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)]
+                 if br and int(br.group(1), 16) <= a
+                 and int(br.group(1), 16) in addr]
+        best = None
+        for a, b in loops:
+            body = [op for _, op in ins[a:b + 1]]
+            slots = sum("MUFU.RSQ" in op for op in body)
+            if slots and (best is None or slots > best[0]):
+                best = (slots, body)
+        if best is None:
+            continue
+        slots, body = best
+        count = {k: sum(op.split()[0].startswith(k) for op in body
+                        if op.split()) / slots
+                 for k in ("FFMA", "FMUL", "FADD")}
+        out["moving" if m.group(1) == "1" else "static"] = dict(
+            sass_per_slot=len(body) / slots, slots_unrolled=slots, **count)
+    return out
+
+
+def k7_build_report() -> dict:
+    """Registers and spills of K7's instantiations (ptxas) and its slot
+    loop's SASS."""
+    regs = {}
+    for m in re.finditer(r"Compiling entry function '([^']*hit_spheres_"
+                         r"kernel[^']*)'(.*?)Used (\d+) registers",
+                         _build.build_log(), re.S):
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        kind = "moving" if "ILb1E" in m.group(1) else "static"
+        regs[kind] = (int(m.group(3)), int(spill.group(1)) if spill else -1)
+    sass = k7_sass(str(_build.library_path()))
+    print(f"phase 13a K7 build: registers, spill bytes {regs}; slot loop "
+          f"{json.dumps(sass)}", flush=True)
+    if set(regs) != {"moving", "static"}:
+        fail("K7's two instantiations are not in the build log")
+    return dict(regs=regs, sass=sass)
+
+
+def _capture_regen_rays(scene, n_iters: int) -> list:
+    """The (o, d, time) K7 gets in the first n_iters iterations of a regen
+    launch at the main path's shape (copies; the launch stops there)."""
+    got = []
+    orig = geometry.hit_spheres
+
+    class _Enough(Exception):
+        pass
+
+    def record(o, d, time, ds, t_min=geometry.T_MIN):
+        got.append((o.clone(), d.clone(), time.clone()))
+        if len(got) >= n_iters:
+            raise _Enough
+        return orig(o, d, time, ds, t_min)
+
+    geometry.hit_spheres = record
+    try:
+        render(scene, RenderConfig(nx=WNX, ny=WNY, spp=WSPP,
+                                   samples_per_launch=WSPP,
+                                   max_depth=WDEPTH, seed=2,
+                                   loop_mode="regen", device="cuda"))
+    except _Enough:
+        pass
+    finally:
+        geometry.hit_spheres = orig
+    return got
+
+
+def k7_bound_ms(n: int, S: int, moving: bool) -> tuple[float, str]:
+    """Least time of one K7 call: every ray against every slot (no early
+    exit), OPS_K7_PAIR operations a pair over the FP32 peak, against its
+    bytes (7 floats a ray and 12 a slot read, 8 bytes a ray written) over
+    the memory rate."""
+    ops_ms = n * S * OPS_K7_PAIR[moving] / FP32_PEAK * 1e3
+    bytes_ms = ((7 * n + 12 * S) * 4 + 8 * n) / HBM_PEAK * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_k7_vs_plain() -> list:
+    """K7 against its plain version on the rays of the first K7_ITERS
+    regen iterations of each K7 scene at the main path's shape: indices
+    equal on every hitting ray, t to rtol K7_RTOL; kernel, plain and bound
+    ms per call."""
+    rows = []
+    for name in K7_SCENES:
+        scene = make_scene(name, WNX / WNY)
+        t0 = time.perf_counter()
+        rays = _capture_regen_rays(scene, K7_ITERS)
+        from raytracingweekend_tpu_torch.ops.packing import device_scene
+        table = device_scene(scene, "cuda").sphere_table
+        moving = scene.has_moving_spheres
+        n, S = rays[0][0].shape[0], table.shape[0]
+        errs, bit = [], []
+        for o, d, tm in rays:
+            kt, ki = k7.hit_spheres_kernel(o, d, tm, table, moving)
+            rt, ri = k7.hit_spheres_reference(o, d, tm, table, moving)
+            torch.cuda.synchronize()
+            hit = rt < 1e30
+            if not (torch.equal(kt < 1e30, hit)
+                    and torch.equal(ki[hit], ri[hit])
+                    and torch.allclose(kt[hit], rt[hit], rtol=K7_RTOL,
+                                       atol=0.0)):
+                fail(f"K7 disagrees with its plain version on {name}")
+            errs.append((kt[hit] - rt[hit]).abs().max().item()
+                        if hit.any() else 0.0)
+            bit.append(torch.equal(kt, rt))
+        o, d, tm = rays[0]
+
+        def kernel():
+            return k7.hit_spheres_kernel(o, d, tm, table, moving)
+
+        once, _ = _event_ms(kernel, 1)
+        reps = max(5, min(200, int(300.0 / max(once, 1e-3))))
+        _event_ms(kernel, reps)
+        ms, _ = _event_ms(kernel, reps)
+        plain_ms, _ = _event_ms(
+            lambda: k7.hit_spheres_reference(o, d, tm, table, moving), 1)
+        bound, by = k7_bound_ms(n, S, moving)
+        hits = (rt < 1e30).float().mean().item()
+        print(f"phase 13 K7 kernel vs plain ({name}, rays of the first "
+              f"{K7_ITERS} regen iterations at {WNX}x{WNY}x{WSPP}: N={n}, "
+              f"S={S}, {'moving' if moving else 'static'}): indices equal "
+              f"on every hitting ray ({hits:.4f} of rays hit), t within "
+              f"rtol {K7_RTOL}, max abs err {max(errs):.3e}, bitwise equal "
+              f"calls {sum(bit)}/{len(bit)}; kernel {ms:.4f} ms (mean of "
+              f"{reps}), plain PyTorch {plain_ms:.3f} ms, bound {bound:.4f} "
+              f"ms by {by} (share {bound / ms:.3f}); "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err=max(errs), S=S))
+    return rows
+
+
+class _K7Timer:
+    """CUDA events around every K7 wrapper call while installed (the
+    wrapper's ray packing, a ~15 MB copy, included)."""
+
+    def __init__(self):
+        self.pairs = []
+        self.orig = k7.hit_spheres_kernel
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.orig(*args, **kw)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+        k7.hit_spheres_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        k7.hit_spheres_kernel = self.orig
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def _wavefront_run(scene, cfg, timer: bool = False):
+    """One render(); returns (image, stats, seconds, K7 ms or None)."""
+    stats = RenderStats()
+    t0 = time.perf_counter()
+    if timer:
+        with _K7Timer() as tm:
+            img = render(scene, cfg, stats=stats)
+        k7_ms = tm.ms()
+    else:
+        img = render(scene, cfg, stats=stats)
+        k7_ms = None
+    return img, stats, time.perf_counter() - t0, k7_ms
+
+
+def phase_wavefront_main() -> dict:
+    """The wavefront main path: random_balls 1200x800, regen, depth 50, 8
+    spp in one launch after a warm-up launch, with K7's launch count set
+    to 0 just before and read just after; the image mean held to the
+    megakernel's at the same shape."""
+    scene = make_scene("random_balls", WNX / WNY)
+    cfg = RenderConfig(nx=WNX, ny=WNY, spp=WSPP, samples_per_launch=WSPP,
+                       max_depth=WDEPTH, seed=0, loop_mode="regen",
+                       device="cuda")
+    k7.KERNEL_LAUNCHES["K7"] = 0
+    render(scene, cfg)                                   # warm-up
+    launches_warm = k7.KERNEL_LAUNCHES["K7"]
+    torch.cuda.synchronize()
+    syncs0 = dict(SYNCS)
+    img, stats, secs, k7_ms = _wavefront_run(
+        scene, RenderConfig(**{**cfg.__dict__, "seed": 1}), timer=True)
+    launches = k7.KERNEL_LAUNCHES["K7"]
+    syncs = SYNCS["regen"] - syncs0["regen"]
+    mega = render(scene, RenderConfig(nx=WNX, ny=WNY, spp=WSPP,
+                                      samples_per_launch=WSPP,
+                                      max_depth=WDEPTH, seed=1,
+                                      loop_mode="mega", device="cuda"))
+    mean, mean_mk = img.mean().item(), mega.mean().item()
+    rel = abs(mean - mean_mk) / mean_mk
+    print(f"phase 14 wavefront main path (random_balls {WNX}x{WNY}, regen, "
+          f"{WSPP} spp in one launch, depth {WDEPTH}, 1 warm-up + 1 timed "
+          f"launch): {stats.rays_per_s:.6e} path segments/s, {secs:.4f} s "
+          f"per launch, {stats.segments:.6e} segments, {stats.iterations} "
+          f"iterations, host syncs {syncs} (one every {CHECK_EVERY} "
+          f"iterations), K7 launches {launches} "
+          f"({launches - launches_warm} timed), K7 wrapper time "
+          f"{k7_ms:.3f} ms = {k7_ms / (secs * 1e3):.4f} of the launch; "
+          f"image mean {mean:.6f} vs megakernel {mean_mk:.6f} (rel "
+          f"{rel:.5f} < 0.02)", flush=True)
+    if launches < 1:
+        fail("the wavefront main path launched no K7 kernel")
+    if not torch.isfinite(img).all() or img.shape != (WNY, WNX, 3):
+        fail("wavefront image is not finite or has the wrong shape")
+    if rel >= 0.02:
+        fail("wavefront image mean differs from the megakernel's")
+    return dict(launches=launches, rate=stats.rays_per_s, secs=secs,
+                k7_share=k7_ms / (secs * 1e3))
+
+
+def phase_wavefront_paths() -> None:
+    """The other wavefront paths through render(), one launch each, K7's
+    launch count set to 0 just before each and read just after (the BVH
+    scene traverses its tree in plain PyTorch and launches none)."""
+    for name, kw, nx, ny, spp, mode, extra in WAVEFRONT_PATHS:
+        scene = make_scene(name, nx / ny, **kw)
+        import dataclasses
+        if extra.get("normals"):
+            scene = dataclasses.replace(scene,
+                                        render_type=scene_types.RENDER_NORMAL)
+        if "lambertian_strategy" in extra:
+            scene = dataclasses.replace(
+                scene, lambertian_strategy=extra["lambertian_strategy"])
+        cfg = RenderConfig(nx=nx, ny=ny, spp=spp, samples_per_launch=spp,
+                           max_depth=WDEPTH, seed=3, loop_mode=mode,
+                           device="cuda")
+        k7.KERNEL_LAUNCHES["K7"] = 0
+        b0 = SYNCS["bvh"]
+        img, stats, secs, _ = _wavefront_run(scene, cfg)
+        launches = k7.KERNEL_LAUNCHES["K7"]
+        label = f"{name}{kw or ''} {mode} {extra or ''}".strip()
+        print(f"phase 15 wavefront path ({label}, {nx}x{ny}x{spp}, depth "
+              f"{WDEPTH}): {stats.rays_per_s:.6e} path segments/s, "
+              f"{secs:.4f} s, {stats.segments:.6e} segments, "
+              f"{stats.iterations} iterations, K7 launches {launches}, BVH "
+              f"syncs {SYNCS['bvh'] - b0}, image mean "
+              f"{img.mean().item():.6f}", flush=True)
+        if not torch.isfinite(img).all():
+            fail(f"wavefront image of {label} is not finite")
+        if scene.bvh is None and launches < 1:
+            fail(f"the {label} path launched no K7 kernel")
+        if scene.bvh is not None and SYNCS["bvh"] == b0:
+            fail("the BVH scene did not traverse its BVH")
+
+
+def phase_wavefront_goldens() -> None:
+    """The pixelwise criterion of tests/test_golden.py through render()
+    in regen mode (launches of 1024 spp), at REGEN_GOLDEN_SPP."""
+    _goldens("phase 16 regen golden", "regen", 1024, REGEN_GOLDEN_SPP)
+
+
+
+def _timed(label: str, fn, *args, **kw):
+    """fn(*args, **kw), then one line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"{label} took {time.perf_counter() - t0:.3f} s", flush=True)
+    return out
+
+
 def main() -> int:
-    phase_device()
-    phase_build()
-    parity = phase_exact_parity()
-    phase_goldens()
-    main_run = phase_main_path()
-    cornell_run = phase_cornell_path()
-    texture_run = phase_texture_path()
-    large_run = phase_large_path()
-    vs_dense = phase_culled_vs_dense()
-    k1 = _kernel_vs_plain("random_balls", NX, NY, SPP, "phase 5b")
-    k23 = [_kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
-           for name in CORNELL_PATH]
-    k4 = [_kernel_vs_plain(name, TNX, TNY, TSPP, "phase 9",
-                           tile_stride=PLAIN_TILE_STRIDE.get(name, 1), **kw)
-          for name, kw in TEXTURE_PATH]
+    t_start = time.perf_counter()
+    _timed("phase 1", phase_device)
+    _timed("phase 2", phase_build)
+    parity = _timed("phase 3", phase_exact_parity)
+    _timed("phase 4", phase_goldens)
+    main_run = _timed("phase 5", phase_main_path)
+    cornell_run = _timed("phase 6", phase_cornell_path)
+    texture_run = _timed("phase 8", phase_texture_path)
+    large_run = _timed("phase 10", phase_large_path)
+    vs_dense = _timed("phase 11", phase_culled_vs_dense)
+    k1 = _timed("phase 5b", _kernel_vs_plain, "random_balls", NX, NY, SPP,
+                "phase 5b")
+    k23 = _timed("phase 7", lambda: [
+        _kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
+        for name in CORNELL_PATH])
+    k4 = _timed("phase 9", lambda: [
+        _kernel_vs_plain(name, TNX, TNY, TSPP, "phase 9",
+                         tile_stride=PLAIN_TILE_STRIDE.get(name, 1), **kw)
+        for name, kw in TEXTURE_PATH])
     print(f"phase 12 plain version of the culled kernel on every "
           f"{LARGE_TILE_STRIDE}th tile (N = {LARGE_TILE_STRIDE})", flush=True)
-    k5 = [_kernel_vs_plain(name, LNX, LNY, spp, "phase 12",
-                           tile_stride=LARGE_TILE_STRIDE)
-          for name, spp in LARGE_PATH]
+    k5 = _timed("phase 12", lambda: [
+        _kernel_vs_plain(name, LNX, LNY, spp, "phase 12",
+                         tile_stride=LARGE_TILE_STRIDE)
+        for name, spp in LARGE_PATH])
+    _timed("phase 13a", k7_build_report)
+    k7_rows = _timed("phase 13", phase_k7_vs_plain)
+    wave_run = _timed("phase 14", phase_wavefront_main)
+    _timed("phase 15", phase_wavefront_paths)
+    _timed("phase 16", phase_wavefront_goldens)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -661,6 +1012,19 @@ def main() -> int:
     ]
     for e in entries:
         e.update(route="cuda", bound_by="operations", library_ms=None)
+    k7_main = k7_rows[0]
+    entries.append(dict(
+        name="K7 wavefront closest sphere hit (random_balls regen rays "
+             f"N=524288, S={k7_main['S']} moving; per call)",
+        source="raytracingweekend_tpu_torch/csrc/intersect.cu",
+        replaces="raytracingweekend_tpu/ops/pallas_intersect.py:139",
+        launches=wave_run["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in k7_rows),
+        ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
+        bound_ms=k7_main["bound_ms"], route="cuda",
+        bound_by=k7_main["bound_by"], library_ms=None))
+    print(f"chip_smoke total {time.perf_counter() - t_start:.3f} s",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

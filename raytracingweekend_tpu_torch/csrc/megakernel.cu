@@ -1565,7 +1565,10 @@ cudaError_t launch(Kernel kern, size_t smem, const Params& p,
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return e;
+    }
   }
   dim3 grid, block;
   if (p.exact) {

@@ -7,8 +7,8 @@ dielectric, diffuse_light and isotropic materials; static and moving
 spheres, axis rects, boxes and constant media (sphere or box boundary)
 under the `Transform` instancing wrappers; the MIS lights list; and the
 camera. `build()` pads and types every table exactly as the JAX builder
-does, so the two produce bitwise-equal scenes. `use_bvh` comes with
-ROADMAP Queue 1 item 6 (the wavefront path).
+does, so the two produce bitwise-equal scenes; `use_bvh` adds the sphere
+BVH of ops/bvh.py, which the wavefront path traverses.
 """
 from __future__ import annotations
 
@@ -310,7 +310,11 @@ class SceneBuilder:
     # ---- compile ----
     def build(self, *, background: int = st.BG_GRADIENT,
               render_type: int = st.RENDER_SHADED, name: str = "",
+              use_bvh: bool = False,
               lambertian_strategy: str = "mis") -> st.Scene:
+        """Compile to a Scene. use_bvh builds a sphere BVH (ops/bvh.py) and
+        stores it on the scene; the wavefront's closest hit then traverses
+        it instead of the brute-force table scan."""
         assert self._camera is not None, "call camera(...) before build()"
 
         ns = len(self._spheres)
@@ -414,6 +418,11 @@ class SceneBuilder:
                            index=np.asarray([l[1] for l in lt], np.int32),
                            num=len(self._lights))
 
+        tree = None
+        if use_bvh:
+            from ..ops.bvh import build_sphere_bvh
+            tree = build_sphere_bvh(spheres)
+
         ttypes = {t.ttype for t in self._textures}
         # a checker whose child is not a constant texture needs the
         # wavefront's recursive texture evaluation
@@ -424,7 +433,7 @@ class SceneBuilder:
             for t in self._textures)
         return st.Scene(
             spheres=spheres, rects=rects, media=media, materials=materials,
-            textures=textures, lights=lights, camera=self._camera,
+            textures=textures, lights=lights, camera=self._camera, bvh=tree,
             background=background, render_type=render_type,
             has_moving_spheres=self._has_moving,
             has_rect_transforms=self._has_rect_transforms,

@@ -30,21 +30,24 @@ _TABLES = {
 def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> st.Scene:
     """Build the port's Scene from a JAX Scene's leaves and static fields.
 
-    Raises ValueError on a key the port's Scene has no field for, a table
-    field that is missing, or a BVH (the port has no BVH path yet, ROADMAP
-    Queue 1 item 6)."""
+    The `bvh.*` leaves of a scene built with `use_bvh=True` become its
+    ops/bvh.SphereBVH. Raises ValueError on a key the port's Scene has no
+    field for, or a table field that is missing."""
     by_table: dict[str, dict] = {name: {} for name in _TABLES}
+    by_table["bvh"] = {}
     for key, value in arrays.items():
         table, _, field = key.partition(".")
-        if table == "bvh":
-            raise ValueError("BVH scenes are not supported by the port yet")
         if table not in by_table or not field:
             raise ValueError(f"unknown scene leaf {key!r}")
         by_table[table][field] = np.asarray(value)
     by_table["lights"]["num"] = int(static.get("lights.num", 0))
 
     parts = {}
-    for table, cls in _TABLES.items():
+    tables = dict(_TABLES)
+    if by_table["bvh"]:
+        from ..ops.bvh import SphereBVH
+        tables["bvh"] = SphereBVH
+    for table, cls in tables.items():
         names = {f.name for f in dataclasses.fields(cls)}
         got = by_table[table]
         unknown = set(got) - names

@@ -139,12 +139,8 @@ def random_balls_large(aspect: float, n: int = 60,
     """Stress scene beyond the reference's scale: an n x n grid of
     jittered diffuse / metal / glass balls (~n^2 spheres; 3604 live at the
     default n = 60), the three big balls and the ground, on the
-    default-seeded minstd stream. `use_bvh=True` (the JAX package's sphere
-    BVH) comes with the wavefront path."""
-    if use_bvh:
-        raise NotImplementedError(
-            "random_balls_large(use_bvh=True) takes the wavefront path with "
-            "its sphere BVH (ROADMAP Queue 1 item 6)")
+    default-seeded minstd stream. `use_bvh=True` adds the sphere BVH
+    (ops/bvh.py), which routes the scene to the wavefront path."""
     b = SceneBuilder()
     eng = MinStd()
     half = n // 2
@@ -172,7 +168,8 @@ def random_balls_large(aspect: float, n: int = 60,
     b.sphere((4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
     b.camera((13, 4, 3), (0, 0, 0), (0, 1, 0), 30.0, aspect, 0.0, 10.0,
              0.0, 1.0)
-    return b.build(background=st.BG_GRADIENT, name="random_balls_large")
+    return b.build(background=st.BG_GRADIENT, name="random_balls_large",
+                   use_bvh=use_bvh)
 
 
 @register("random_balls_huge")

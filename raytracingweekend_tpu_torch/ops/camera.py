@@ -1,17 +1,21 @@
-"""Thin-lens camera basis (reference: camera.h:7-34).
+"""Thin-lens camera (reference: camera.h:7-74).
 
-Host-side only: the megakernel generates its rays on the device from the
-basis packed by ops/megakernel.build_tables. Float32 numpy arithmetic in the
-same op order as raytracingweekend_tpu/ops/camera.make_camera, so the basis
-is bitwise equal to the JAX one.
+`make_camera` builds the basis on the host in float32 numpy arithmetic, in
+the same op order as raytracingweekend_tpu/ops/camera.make_camera, so the
+basis is bitwise equal to the JAX one. The megakernel generates its rays on
+the device from the basis packed by ops/megakernel.build_tables; the
+wavefront integrators take theirs from `get_rays`.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 from ..models.scene_types import Camera
+from ..utils import prng
+from . import linalg, sampling
 
 
 def _normalize(v: np.ndarray) -> np.ndarray:
@@ -44,3 +48,21 @@ def make_camera(lookfrom, lookat, vup, vfov, aspect, aperture, focus_dist,
         time0=np.asarray(t0, f32),
         time1=np.asarray(t1, f32),
     )
+
+
+def get_rays(key, cam, s: torch.Tensor, t: torch.Tensor):
+    """camera::get_ray (camera.h:36-50) for pixel parameters s, t (N,),
+    with `cam` the camera's tensors on their device (packing.DeviceScene).
+    Returns (origin (N, 3), normalized direction (N, 3), time (N,))."""
+    kd, kt = prng.split(key)
+    shape = tuple(s.shape)
+    rd = cam.lens_radius * sampling.random_in_unit_disk(kd, shape, s.device)
+    offset = cam.u[None, :] * rd[..., 0:1] + cam.v[None, :] * rd[..., 1:2]
+    time = cam.time0 + sampling.uniform(kt, shape, device=s.device) * (
+        cam.time1 - cam.time0)
+    direction = (cam.lower_left_corner[None, :]
+                 + s[..., None] * cam.horizontal[None, :]
+                 + t[..., None] * cam.vertical[None, :]
+                 - cam.origin[None, :] - offset)
+    origin = cam.origin[None, :] + offset
+    return origin, linalg.normalize(direction), time

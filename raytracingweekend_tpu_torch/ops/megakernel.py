@@ -269,8 +269,8 @@ _SURFACE_MATS = (st.MAT_LAMBERTIAN, st.MAT_METAL, st.MAT_DIELECTRIC,
 
 
 def unsupported_reason(scene: st.Scene) -> Optional[str]:
-    """Why this slice of the port cannot render the scene, naming the
-    ROADMAP item that brings it; None when it can. The slice covers
+    """Why the megakernel cannot render the scene, naming the path that
+    can; None when it can. It covers
     spheres, axis rects and constant media; constant, checker (of constant
     children), Perlin-noise and image textures on any of them;
     lambertian / metal / dielectric / diffuse_light surfaces, isotropic
@@ -279,10 +279,12 @@ def unsupported_reason(scene: st.Scene) -> Optional[str]:
     if (scene.bvh is not None or scene.render_type != st.RENDER_SHADED
             or scene.lambertian_strategy != "mis"):
         return ("BVH scenes, normal rendering and non-MIS lambertian "
-                "strategies take the wavefront path (ROADMAP Queue 1 item 6)")
+                "strategies take the wavefront path (loop_mode regen, "
+                "tiled, while or scan)")
     if scene.needs_legacy_textures:
         return ("a checker of non-constant textures needs the wavefront's "
-                "recursive texture evaluation (ROADMAP Queue 1 item 6)")
+                "recursive texture evaluation (loop_mode regen, tiled, "
+                "while or scan)")
     act = np.asarray(scene.spheres.active, bool)
     ract = np.asarray(scene.rects.active, bool)
     if not (act.any() or ract.any()):

@@ -10,9 +10,11 @@ the exact float32 gradients instead of reconstructing them from bf16
 halves (the JAX kernel's one-hot MXU lookup is a TPU device).
 
 `perlin_noise`, `turb` and `marble` are the plain PyTorch versions of the
-CUDA kernel's `perlin`, `turb` and `marble` (csrc/megakernel.cu); the
-wavefront's `noise(mode="trilinear" | "none")` and its smootherstep come
-with the wavefront path.
+CUDA kernel's `perlin`, `turb` and `marble` (csrc/megakernel.cu). `noise`
+and `turbulence` are the wavefront's (raytracingweekend_tpu/ops/noise.py
+`noise` and `turb`): points of shape (..., 3), all three interpolation
+modes of the reference (noise.h:100-150) and both smoothsteps
+(noise.h:9-20).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch
 from ..utils.detrng import minstd_stream
 from .rounding import _fma
 
-__all__ = ["NOISE_TABLES", "noise_tables", "perlin_noise", "turb", "marble"]
+__all__ = ["NOISE_TABLES", "noise_tables", "perlin_noise", "turb", "marble",
+           "noise", "turbulence"]
 
 _SIZE = 256
 
@@ -116,3 +119,65 @@ def marble(px, py, pz, scale, perm: torch.Tensor, ranvec: torch.Tensor,
     is taken at the unscaled point."""
     t = turb(px, py, pz, perm, ranvec, depth)
     return 0.5 * (1.0 + torch.sin(_fma(scale, pz, 10.0 * t)))
+
+
+@functools.lru_cache(maxsize=8)
+def _wavefront_tables(device: str):
+    """(ranfloat (256,), ranvec (256, 3), perm int64 (256,)) on `device`."""
+    ranfloat, ranvec, perm, _, _ = NOISE_TABLES
+    return (torch.from_numpy(ranfloat).to(device),
+            torch.from_numpy(ranvec).to(device),
+            torch.from_numpy(perm.astype(np.int64)).to(device))
+
+
+def _smooth(x: torch.Tensor, smoother: bool) -> torch.Tensor:
+    if smoother:
+        # Perlin's quintic smootherstep (noise.h:14-17, the inactive variant)
+        return x * x * x * (x * (x * 6.0 - 15.0) + 10.0)
+    # Hermite cubic (noise.h:9-12, the active #define at noise.h:19)
+    return x * x * (3.0 - 2.0 * x)
+
+
+def noise(p: torch.Tensor, mode: str = "perlin",
+          smoother: bool = False) -> torch.Tensor:
+    """Perlin noise in [-1, 1] at points p (..., 3) (noise.h:89-151).
+    mode: "perlin" (gradient interpolation, the reference's active mode),
+    "trilinear" (scalar-table interpolation) or "none" (raw hash)."""
+    ranfloat, ranvec, perm = _wavefront_tables(str(p.device))
+    if mode == "none":
+        i, j, k = ((4.0 * p[..., a]).to(torch.int32).long() & 255
+                   for a in range(3))
+        return ranfloat[perm[i] ^ perm[j] ^ perm[k]]
+    pf = torch.floor(p)
+    u, v, w = (p[..., a] - pf[..., a] for a in range(3))
+    i, j, k = (pf[..., a].to(torch.int32).long() for a in range(3))
+    uu, vv, ww = (_smooth(x, smoother) for x in (u, v, w))
+    acc = torch.zeros_like(u)
+    for di in (0, 1):
+        for dj in (0, 1):
+            for dk in (0, 1):
+                idx = (perm[(i + di) & 255] ^ perm[(j + dj) & 255]
+                       ^ perm[(k + dk) & 255])
+                wgt = ((uu if di else 1.0 - uu) * (vv if dj else 1.0 - vv)
+                       * (ww if dk else 1.0 - ww))
+                if mode == "trilinear":
+                    val = ranfloat[idx]
+                else:
+                    g = ranvec[idx]
+                    val = (g[..., 0] * (u - di) + g[..., 1] * (v - dj)
+                           + g[..., 2] * (w - dk))
+                acc = acc + wgt * val
+    return acc
+
+
+def turbulence(p: torch.Tensor, depth: int = 7, mode: str = "perlin",
+               smoother: bool = False) -> torch.Tensor:
+    """|fBm| turbulence over `depth` octaves at points p (..., 3)
+    (noise.h:74-86)."""
+    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    wgt = sc = 1.0
+    for _ in range(depth):
+        acc = acc + wgt * noise(p * sc, mode, smoother)
+        wgt *= 0.5
+        sc *= 2.0
+    return acc.abs()

@@ -1,10 +1,18 @@
 """Top-level rendering API + CLI of the PyTorch/CUDA port.
 
-The port of raytracingweekend_tpu/render.py's megakernel route: each launch
-traces `samples_per_launch` samples of every pixel through the CUDA
-megakernel (ops/megakernel.py), and the launches accumulate on the device.
-On `--device cpu` the kernel's plain PyTorch version runs instead (slow:
-for small checks only).
+The port of raytracingweekend_tpu/render.py. Each launch traces
+`samples_per_launch` samples of every pixel, and the launches accumulate
+on the device. Loop modes:
+
+- mega: the fused CUDA megakernel (ops/megakernel.py);
+- regen: the path-regenerative wavefront (ops/integrator.py), JAX's
+  default; tiled: its per-pixel-slot variant; while / scan: the lockstep
+  wavefront. Their closest sphere hit is kernel K7 (ops/intersect.py);
+- auto: mega where the megakernel covers the scene, else regen, as in JAX.
+
+On `--device cpu` every kernel's plain PyTorch version runs instead (slow:
+for small checks only). The wavefront modes draw JAX's random numbers
+(utils/prng.py): with the same seed they trace JAX's samples.
 
 Usage:
     python -m raytracingweekend_tpu_torch.render --scene random_balls \
@@ -13,8 +21,8 @@ Usage:
     python -m raytracingweekend_tpu_torch.render --scene cornell_box \
         --nx 400 --ny 400 --spp 256 --samples-per-launch 64 \
         --max-depth 50 --stats --out cornell.png
-    python -m raytracingweekend_tpu_torch.render --scene earth \
-        --nx 800 --ny 600 --spp 64 --max-depth 50 --out earth.png
+    python -m raytracingweekend_tpu_torch.render --scene random_balls \
+        --mode regen --nx 1200 --ny 800 --spp 8 --max-depth 50 --stats
 
 The default scene is `cornell_box`, the reference's
 (RayTracingWeekend.cpp:201).
@@ -22,7 +30,9 @@ The default scene is `cornell_box`, the reference's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 from dataclasses import dataclass
 
@@ -31,9 +41,17 @@ import torch
 
 from .models import scene_types as st
 from .models.scenes import SCENES, make_scene
+from .ops import camera as camera_mod
 from .ops import megakernel as mk
+from .ops import sampling
+from .ops.integrator import (trace, trace_regenerative, trace_tiled,
+                             trace_with_stats)
+from .ops.packing import device_scene
 from .utils import image as image_mod
+from .utils import prng
 from .utils.config import RenderConfig
+
+WAVEFRONT_MODES = ("regen", "tiled", "while", "scan")
 
 
 def launch_seed(seed: int, launch: int) -> int:
@@ -44,6 +62,63 @@ def launch_seed(seed: int, launch: int) -> int:
         1, np.uint64)[0])
     gen = torch.Generator().manual_seed(pair_seed)
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+
+
+def _camera_rays(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
+                 device):
+    """chunk_spp jittered camera rays per pixel (cpp:227-228), ray k on
+    pixel k % (nx ny), and the trace key."""
+    ds = device_scene(scene, device)
+    n_pix = nx * ny
+    n_rays = n_pix * chunk_spp
+    pix = torch.arange(n_pix, dtype=torch.int64, device=ds.device)
+    i = (pix % nx).repeat(chunk_spp).float()
+    j = torch.div(pix, nx, rounding_mode="floor").repeat(chunk_spp).float()
+    k_u, k_v, k_cam, k_trace = prng.split(key, 4)
+    u = (i + sampling.uniform(k_u, (n_rays,), device=ds.device)) / nx
+    v = (j + sampling.uniform(k_v, (n_rays,), device=ds.device)) / ny
+    o, d, t = camera_mod.get_rays(k_cam, ds.camera, u, v)
+    return o, d, t, k_trace
+
+
+def render_chunk(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
+                 max_depth: int = 100, mode: str = "while", device="cuda"):
+    """Radiance *sum* (ny, nx, 3) over chunk_spp samples per pixel through
+    the lockstep wavefront (`trace` in "while" or "scan" mode); row 0 is
+    the image bottom, like the reference canvas (cpp:247)."""
+    o, d, t, k_trace = _camera_rays(scene, key, nx, ny, chunk_spp, device)
+    rad = trace(k_trace, o, d, t, scene, max_depth=max_depth, mode=mode)
+    return rad.reshape(chunk_spp, ny, nx, 3).sum(dim=0)
+
+
+def render_chunk_with_stats(scene: st.Scene, key, nx: int, ny: int,
+                            chunk_spp: int, max_depth: int = 100,
+                            device="cuda"):
+    """render_chunk ("while") and the number of path segments traced."""
+    o, d, t, k_trace = _camera_rays(scene, key, nx, ny, chunk_spp, device)
+    rad, segs = trace_with_stats(k_trace, o, d, t, scene, max_depth=max_depth)
+    return rad.reshape(chunk_spp, ny, nx, 3).sum(dim=0), segs
+
+
+def render_chunk_regen(scene: st.Scene, key, nx: int, ny: int,
+                       chunk_spp: int, max_depth: int = 100,
+                       n_slots: int = 1 << 19, device="cuda"):
+    """Radiance sums over chunk_spp samples per pixel through the
+    path-regenerative wavefront (integrator.trace_regenerative). Returns
+    ((ny, nx, 3) sums, segment count, loop iterations)."""
+    return trace_regenerative(key, scene, nx, ny, chunk_spp,
+                              max_depth=max_depth, n_slots=n_slots,
+                              device=device)
+
+
+def render_chunk_tiled(scene: st.Scene, key, nx: int, ny: int,
+                       chunk_spp: int, max_depth: int = 100,
+                       n_slots: int = 1 << 19, device="cuda"):
+    """Radiance sums through the scatter-free per-pixel-slot wavefront
+    (integrator.trace_tiled). Returns ((ny, nx, 3) sums, segment count,
+    loop iterations)."""
+    return trace_tiled(key, scene, nx, ny, chunk_spp, max_depth=max_depth,
+                       n_slots=n_slots, device=device)
 
 
 def render_chunk_mega(scene: st.Scene, seed: int, nx: int, ny: int,
@@ -64,6 +139,8 @@ class RenderStats:
     spp_done: int = 0
     segments: float = 0.0
     trace_seconds: float = 0.0
+    # wavefront loop iterations (regen / tiled), 0 for the megakernel
+    iterations: int = 0
     _n: int = 0
     _mean: torch.Tensor | None = None
     _m2: torch.Tensor | None = None
@@ -100,22 +177,33 @@ class RenderStats:
         return float(np.sqrt(self.pixel_variance / self._n))
 
 
+def resolve_mode(scene: st.Scene, mode: str) -> str:
+    """The loop mode `render` takes: auto is mega where the megakernel
+    covers the scene (shaded, `unsupported_reason` None), else regen."""
+    if mode == "auto":
+        return "mega" if mk.unsupported_reason(scene) is None else "regen"
+    if mode not in ("mega",) + WAVEFRONT_MODES:
+        raise ValueError(f"unknown loop mode {mode!r}")
+    return mode
+
+
 def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
            stats: RenderStats | None = None,
            metrics_path: str | None = None) -> torch.Tensor:
     """Render to a linear-radiance canvas (ny, nx, 3) float32 on
     cfg.device, averaged over cfg.spp samples (row 0 = image bottom).
+    Launch k of the wavefront modes draws from
+    fold_in(key(cfg.seed), k), as the JAX package's render does.
 
-    Raises NotImplementedError for a scene or loop mode this slice of the
-    port does not cover."""
-    if cfg.loop_mode not in ("auto", "mega"):
-        raise NotImplementedError(
-            f"loop mode {cfg.loop_mode!r} needs the wavefront integrators "
-            "(ROADMAP Queue 1 item 6)")
-    reason = mk.unsupported_reason(scene)
-    if reason is not None:
-        raise NotImplementedError(f"scene {scene.name!r}: {reason}")
+    Raises NotImplementedError for `mega` on a scene the megakernel does
+    not cover."""
+    mode = resolve_mode(scene, cfg.loop_mode)
+    if mode == "mega":
+        reason = mk.unsupported_reason(scene)
+        if reason is not None:
+            raise NotImplementedError(f"scene {scene.name!r}: {reason}")
     device = torch.device(cfg.device)
+    key = prng.key(cfg.seed)
     chunk = min(cfg.samples_per_launch, cfg.spp)
     want_stats = stats is not None
     collect = stats if want_stats else RenderStats()
@@ -125,13 +213,30 @@ def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
     while done < cfg.spp:
         this = min(chunk, cfg.spp - done)
         t0 = time.perf_counter()
-        part, segs = render_chunk_mega(
-            scene, launch_seed(cfg.seed, launch), cfg.nx, cfg.ny, this,
-            cfg.max_depth, tile_lanes=cfg.tile_lanes, device=device)
+        k_launch = prng.fold_in(key, launch)
+        segs = None
+        if mode == "mega":
+            part, segs = render_chunk_mega(
+                scene, launch_seed(cfg.seed, launch), cfg.nx, cfg.ny, this,
+                cfg.max_depth, tile_lanes=cfg.tile_lanes, device=device)
+        elif mode in ("regen", "tiled"):
+            fn = render_chunk_regen if mode == "regen" else render_chunk_tiled
+            part, segs, iters = fn(scene, k_launch, cfg.nx, cfg.ny, this,
+                                   cfg.max_depth, device=device)
+            collect.iterations += iters
+        elif want_stats:
+            part, segs = render_chunk_with_stats(
+                scene, k_launch, cfg.nx, cfg.ny, this, cfg.max_depth,
+                device=device)
+        else:
+            part = render_chunk(scene, k_launch, cfg.nx, cfg.ny, this,
+                                cfg.max_depth, mode, device=device)
         acc += part
-        segs = float(segs)  # waits for the launch to finish
+        if segs is not None:
+            collect.segments += float(segs)   # waits for the launch
+        else:
+            float(part[0, 0, 0])              # waits for the launch
         launch_secs = time.perf_counter() - t0
-        collect.segments += segs
         collect.trace_seconds += launch_secs
         if want_stats or metrics_path:
             collect.update_variance(part / this)
@@ -147,13 +252,24 @@ def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
                     "rays_per_s": collect.rays_per_s,
                     "pixel_variance": collect.pixel_variance,
                     "mean_std_error": collect.mean_std_error,
-                    "device": str(device),
+                    "device": str(device), "mode": mode,
                 }) + "\n")
         if progress:
             rate = (f", {collect.rays_per_s / 1e6:.1f} M rays/s"
                     if want_stats else "")
             print(f"  spp {done}/{cfg.spp}{rate}", flush=True)
     return acc / cfg.spp
+
+
+def debug_ray(scene: st.Scene, seed: int = 0, device="cuda"):
+    """DEBUG_RAY (cpp:38-43): one centre-pixel ray traced at depth 1.
+    Returns (origin (3,), direction (3,), radiance (3,)) as numpy."""
+    ds = device_scene(scene, device)
+    k_cam, k_tr = prng.split(prng.key(seed))
+    uv = torch.full((1,), 0.5, dtype=torch.float32, device=ds.device)
+    o, d, t = camera_mod.get_rays(k_cam, ds.camera, uv, uv)
+    rad = trace(k_tr, o, d, t, scene, max_depth=1)
+    return (o[0].cpu().numpy(), d[0].cpu().numpy(), rad[0].cpu().numpy())
 
 
 def main(argv=None):
@@ -166,9 +282,13 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--samples-per-launch", type=int, default=8)
     p.add_argument("--out", default="out.png")
-    p.add_argument("--mode", default="auto", choices=("auto", "mega"),
-                   help="integrator loop: auto = mega = the fused megakernel "
-                        "(the port's only integrator so far)")
+    p.add_argument("--mode", default="auto",
+                   choices=("auto", "mega") + WAVEFRONT_MODES,
+                   help="integrator loop: auto = megakernel when the scene "
+                        "supports it else regen, mega = the fused CUDA "
+                        "megakernel, regen = global path regeneration, "
+                        "tiled = scatter-free per-pixel slots, while/scan "
+                        "= lockstep")
     p.add_argument("--tile-lanes", type=int, default=256,
                    help="megakernel tile width: lanes per CUDA block "
                         "(at most 1024)")
@@ -179,6 +299,15 @@ def main(argv=None):
                    help="report path segments/s per launch")
     p.add_argument("--metrics", default=None, metavar="OUT.JSONL",
                    help="append one JSON line of metrics per launch")
+    p.add_argument("--normals", action="store_true",
+                   help="RenderType::Normal debug shading (cpp:135-136); "
+                        "takes the wavefront path")
+    p.add_argument("--debug-ray", action="store_true",
+                   help="DEBUG_RAY analogue (cpp:38-43): trace one "
+                        "centre-pixel ray at depth 1 and print its radiance")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the render into "
+                        "DIR/trace.json (chrome trace format)")
     args = p.parse_args(argv)
 
     cfg = RenderConfig(nx=args.nx, ny=args.ny, spp=args.spp,
@@ -187,10 +316,27 @@ def main(argv=None):
                        loop_mode=args.mode, tile_lanes=args.tile_lanes,
                        device=args.device)
     scene = make_scene(args.scene, cfg.aspect)
+    if args.normals:
+        scene = dataclasses.replace(scene, render_type=st.RENDER_NORMAL)
+    if args.debug_ray:
+        o, d, rad = debug_ray(scene, cfg.seed, cfg.device)
+        print(f"debug ray: origin={o} dir={d} radiance={rad}")
+        return
     stats = RenderStats() if (args.stats or args.metrics) else None
     t0 = time.perf_counter()
-    canvas = render(scene, cfg, progress=True, stats=stats,
-                    metrics_path=args.metrics)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if torch.device(cfg.device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            canvas = render(scene, cfg, progress=True, stats=stats,
+                            metrics_path=args.metrics)
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    else:
+        canvas = render(scene, cfg, progress=True, stats=stats,
+                        metrics_path=args.metrics)
     canvas = canvas.cpu().numpy()
     trace_ms = (time.perf_counter() - t0) * 1000.0
 

@@ -15,9 +15,10 @@ class RenderConfig:
     seed: int = 0
     # Samples per pixel traced by one kernel launch.
     samples_per_launch: int = 8
-    # "auto" and "mega" both take the megakernel; the port has no other
-    # integrator yet (ROADMAP Queue 1 item 6).
-    loop_mode: str = "auto"
+    # "regen" (the path-regenerative wavefront, the JAX package's default),
+    # "tiled", "while", "scan", "mega" (the fused megakernel) or "auto"
+    # (mega where the megakernel covers the scene, else regen).
+    loop_mode: str = "regen"
     # Megakernel tile width: lanes per CUDA block in overdraw mode (at most
     # 1024, the block limit).
     tile_lanes: int = 256

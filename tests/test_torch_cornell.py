@@ -45,7 +45,8 @@ def test_cornell_render_golden_blockwise(name):
     render() (overdraw mode, two launches of 64 + 32 samples)."""
     g = _load_golden(f"{name}_32x32_8192spp.bin")
     cfg = RenderConfig(nx=32, ny=32, spp=96, max_depth=50,
-                       samples_per_launch=64, seed=7, device="cpu")
+                       samples_per_launch=64, seed=7, loop_mode="mega",
+                       device="cpu")
     stats = trender.RenderStats()
     ours = trender.render(make_scene(name, 1.0), cfg, stats=stats)
     assert ours.shape == (32, 32, 3) and ours.device.type == "cpu"

@@ -25,10 +25,14 @@ def test_port_module_list_is_complete():
     mods = _port_modules()
     for expected in ("models.builder", "models.convert",
                      "models.probe_scenes", "models.scenes",
-                     "models.scene_types", "ops._build", "ops.camera",
-                     "ops.integrator", "ops.megakernel", "ops.noise",
-                     "ops.rounding", "render",
-                     "utils.config", "utils.detrng", "utils.image"):
+                     "models.scene_types", "ops._build", "ops.bvh",
+                     "ops.camera", "ops.geometry", "ops.integrator",
+                     "ops.intersect", "ops.linalg", "ops.materials",
+                     "ops.megakernel", "ops.noise", "ops.packing",
+                     "ops.pdfs", "ops.rounding", "ops.sampling",
+                     "ops.syncs", "ops.textures", "render", "utils.config",
+                     "utils.detrng", "utils.image", "utils.prng",
+                     "wavefront_profile"):
         assert f"{PKG}.{expected}" in mods, mods
 
 

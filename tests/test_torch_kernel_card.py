@@ -135,3 +135,83 @@ def test_refused_launch_raises():
     with pytest.raises(RuntimeError, match="launch failed"):
         tk.mega_kernel(*args, 1, dataclasses.replace(plan, cull=False,
                                                      dyn_order=0))
+
+
+def _k7_rays(scene, n, seed):
+    """n rays on the card: half camera rays, half from points near the
+    scene's spheres in random directions, at shutter times in [0, 1)."""
+    from raytracingweekend_tpu_torch.ops import camera as tcamera
+    from raytracingweekend_tpu_torch.ops.packing import device_scene
+    from raytracingweekend_tpu_torch.utils import prng
+    ds = device_scene(scene, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = n // 2
+    s, t = (torch.rand(h, device="cuda", generator=gen) for _ in range(2))
+    o1, d1, tm1 = tcamera.get_rays(prng.key(seed), ds.camera, s, t)
+    act = ds.spheres.active
+    c = ds.spheres.center0[act]
+    pick = torch.randint(0, c.shape[0], (h,), device="cuda", generator=gen)
+    o2 = c[pick] + 3.0 * torch.randn((h, 3), device="cuda", generator=gen)
+    d2 = torch.randn((h, 3), device="cuda", generator=gen)
+    d2 = d2 / d2.norm(dim=-1, keepdim=True)
+    tm2 = torch.rand(h, device="cuda", generator=gen)
+    return (torch.cat([o1, o2]), torch.cat([d1, d2]), torch.cat([tm1, tm2]),
+            ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("random_balls", {}),
+                                     ("cornell_box", {}),
+                                     ("dielectric", {}),
+                                     ("random_balls_large", {})])
+def test_k7_kernel_matches_plain_version_on_card(name, kw):
+    """K7 (csrc/intersect.cu) against its plain version on the same card
+    tensors: every hitting ray's index equal, t to rtol 1e-4 (both write
+    the same FMAs; the plain version's FMA is a float64 product-sum
+    rounded once more). Covers the moving table, the hollow sphere's
+    negative radius, inactive padding rows and, on random_balls_large
+    (3840 slots), the table streamed through shared memory in chunks.
+    Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.ops import intersect as tint
+    scene = make_scene(name, 1.5, **kw)
+    o, d, tm, ds = _k7_rays(scene, 8192 + 77, 3)
+    moving = scene.has_moving_spheres
+    kt, ki = tint.hit_spheres_kernel(o, d, tm, ds.sphere_table, moving)
+    rt, ri = tint.hit_spheres_reference(o, d, tm, ds.sphere_table, moving)
+    torch.cuda.synchronize()
+    hit = rt < 1e30
+    assert hit.float().mean().item() > 0.02
+    assert torch.equal(kt < 1e30, hit)
+    assert torch.equal(ki[hit], ri[hit])
+    assert torch.allclose(kt[hit], rt[hit], rtol=1e-4, atol=0.0)
+    # geometry.hit_spheres launches the kernel for CUDA tensors
+    from raytracingweekend_tpu_torch.ops import geometry as tgeo
+    before = tint.KERNEL_LAUNCHES["K7"]
+    gt, gi = tgeo.hit_spheres(o, d, tm, ds)
+    assert tint.KERNEL_LAUNCHES["K7"] == before + 1
+    assert torch.equal(gt, kt) and torch.equal(gi, ki)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["regen", "tiled", "while"])
+def test_wavefront_renders_through_k7_on_card(mode):
+    """render() in a wavefront mode on the card launches K7 every
+    bounce and gives a finite image near the megakernel's mean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch import render as trender
+    from raytracingweekend_tpu_torch.ops import intersect as tint
+    from raytracingweekend_tpu_torch.utils.config import RenderConfig
+    scene = make_scene("random_balls", 1.5)
+    cfg = RenderConfig(nx=96, ny=64, spp=16, max_depth=20, seed=1,
+                       samples_per_launch=16, loop_mode=mode, device="cuda")
+    before = tint.KERNEL_LAUNCHES["K7"]
+    img = trender.render(scene, cfg)
+    assert tint.KERNEL_LAUNCHES["K7"] > before
+    import dataclasses
+    mega = trender.render(scene, dataclasses.replace(cfg, loop_mode="mega"))
+    assert torch.isfinite(img).all()
+    assert abs(img.mean().item() - mega.mean().item()) < 0.03 * \
+        mega.mean().item()

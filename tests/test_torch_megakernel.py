@@ -185,7 +185,8 @@ def test_render_golden_blockwise(name, golden):
     render() (overdraw mode, two launches of 64 + 32 samples)."""
     g = _load_golden(golden)
     cfg = RenderConfig(nx=32, ny=32, spp=96, max_depth=50,
-                       samples_per_launch=64, seed=7, device="cpu")
+                       samples_per_launch=64, seed=7, loop_mode="mega",
+                       device="cpu")
     stats = trender.RenderStats()
     ours = trender.render(make_scene(name, 1.0), cfg, stats=stats)
     assert ours.shape == (32, 32, 3) and ours.device.type == "cpu"
@@ -236,6 +237,10 @@ def test_cuda_requests_raise_without_a_card():
             tk.trace_mega(1, scene, 8, 8, 1, device="cuda")
         with pytest.raises((RuntimeError, AssertionError)):
             tk.trace_mega(1, scene, 8, 8, 1)
+        with pytest.raises((RuntimeError, AssertionError)):
+            trender.render(scene, RenderConfig(nx=8, ny=8, spp=1,
+                                               loop_mode="mega",
+                                               device="cuda"))
         with pytest.raises((RuntimeError, AssertionError)):
             trender.render(scene, RenderConfig(nx=8, ny=8, spp=1,
                                                device="cuda"))

@@ -110,6 +110,16 @@ def test_scene_from_arrays_bitwise(name):
     _assert_same(ts, ported)
 
 
+def test_scene_from_arrays_bvh_bitwise():
+    """A scene built with use_bvh=True carries its BVH leaves across."""
+    js = jscenes.make_scene("random_balls_large", 1.5, n=10, use_bvh=True)
+    ported = scene_from_arrays(*_leaves(js))
+    assert ported.bvh is not None
+    _assert_same(js, ported)
+    _assert_same(make_scene("random_balls_large", 1.5, n=10, use_bvh=True),
+                 ported)
+
+
 def _nested_checker(bm, st):
     """A checker whose odd child is a noise texture: the JAX package's
     `needs_legacy_textures`, which only the wavefront path renders."""
@@ -122,15 +132,15 @@ def _nested_checker(bm, st):
 
 def test_scene_from_arrays_carries_unported_scenes_and_rejects_them():
     """A checker of a noise texture (`needs_legacy_textures`, the wavefront
-    path) converts field for field, and the slice's host plan refuses it
-    by name instead of rendering it wrong."""
+    path) converts field for field, and the megakernel's host plan refuses
+    it, naming the wavefront, instead of rendering it wrong."""
     js = _nested_checker(jbuilder, jst)
     assert js.needs_legacy_textures
     ported = scene_from_arrays(*_leaves(js))
     _assert_same(js, ported)
     _assert_same(_nested_checker(tbuilder, tst), ported)
     assert not tk.supports_scene(ported)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="wavefront"):
         tk.make_plan(ported, 8, 8, 1)
 
 
@@ -161,17 +171,13 @@ STRESS = ["random_balls_large", "random_balls_huge"]
     ("random_balls_huge", {}), ("random_balls_large", {"use_bvh": True})])
 def test_stress_scenes_bitwise(name, kw):
     """The large-S stress scenes (3604 and 14404 live spheres at their
-    defaults) are built bitwise JAX's; their sphere BVH comes with the
-    wavefront path."""
-    if kw.get("use_bvh"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 6"):
-            make_scene(name, 1.5, **kw)
-        return
+    defaults) are built bitwise JAX's, the sphere BVH of `use_bvh=True`
+    (the wavefront path's) included."""
     js, ts = jscenes.make_scene(name, 1.5, **kw), make_scene(name, 1.5, **kw)
     _assert_same(js, ts)
     n = kw.get("n", 120 if name == "random_balls_huge" else 60)
     assert int(np.sum(np.asarray(ts.spheres.active))) == n * n + 4
+    assert (ts.bvh is not None) == bool(kw.get("use_bvh"))
 
 
 # meta fields of the JAX tables that the port's plan reads

@@ -237,7 +237,8 @@ def test_texture_render_golden_blockwise(name, kw):
     oracle's 4096 spp renders; the earth scenes on the oracle's texels."""
     g = _load_golden(f"{name}_32x32_4096spp.bin")
     cfg = RenderConfig(nx=32, ny=32, spp=96, max_depth=50,
-                       samples_per_launch=64, seed=7, device="cpu")
+                       samples_per_launch=64, seed=7, loop_mode="mega",
+                       device="cpu")
     stats = trender.RenderStats()
     ours = trender.render(make_scene(name, 1.0, **kw), cfg, stats=stats)
     assert ours.shape == (32, 32, 3) and ours.device.type == "cpu"
