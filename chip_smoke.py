@@ -26,7 +26,17 @@ against its plain version on the rays of the first regen iterations of
 rays), the path-regenerative wavefront on `random_balls` at 1200x800, 8
 spp, max_depth 50 (timed, with K7's share), the other wavefront paths
 (regen on the Cornell scenes, tiled, while, normal shading, a non-MIS
-strategy, the BVH scene) and the goldens through regen. It prints one line per phase and each phase's seconds.
+strategy, the BVH scene) and the goldens through regen. Then the gradient
+path (grad.py, ops/mega_grad.py): K7's VJP (geometry.HitSpheres) with the
+kernel forward against the plain forward on random_balls regen rays at
+N = 524,288; one megakernel gradient step at tools/grad_bench.py's
+workload (cornell_box 128x128, 32 spp, depth 8, T = 1024, w.r.t. the
+texture colours: the tape launch, the replay, its value and gradient,
+the replay image against the kernel's, central differences through the
+kernel); an inverse-rendering fit of a perturbed wall colour; and the
+wavefront gradient (`render_diff`) on cornell_box at the same workload and
+on random_balls w.r.t. the radii, checked against the CPU's plain path.
+It prints one line per phase and each phase's seconds.
 Any failure exits non-zero; without a CUDA device it exits non-zero
 before printing any result. The last line is one JSON object naming the
 device.
@@ -44,16 +54,19 @@ import time
 import numpy as np
 import torch
 
+from raytracingweekend_tpu_torch import grad as tgrad
 from raytracingweekend_tpu_torch.models import (builder, probe_scenes,
                                                 scene_types)
 from raytracingweekend_tpu_torch.models.scenes import make_scene
 from raytracingweekend_tpu_torch.ops import _build
 from raytracingweekend_tpu_torch.ops import geometry
 from raytracingweekend_tpu_torch.ops import intersect as k7
+from raytracingweekend_tpu_torch.ops import mega_grad as mg
 from raytracingweekend_tpu_torch.ops import megakernel as mk
 from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
 from raytracingweekend_tpu_torch.render import RenderStats, render
 from raytracingweekend_tpu_torch.utils import image as image_mod
+from raytracingweekend_tpu_torch.utils import prng
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -116,6 +129,26 @@ WAVEFRONT_PATHS = (
     ("cornell_box", {}, 400, 400, 4, "regen",
      {"lambertian_strategy": "hemisphere"}),
     ("random_balls_large", {"use_bvh": True}, 1200, 800, 1, "auto", {}))
+
+# the gradient path: tools/grad_bench.py's workload (cornell_box 128x128,
+# 32 spp, max_depth 8, tape T = 1024, parameters textures.color); the fit
+# of tests/test_mega_grad.py:431-457 (wall colour 1 set to 0.2, 12 Adam
+# steps at lr 0.08, depth 4) at GFIT; K7's VJP on regen rays; the wavefront
+# gradient on random_balls w.r.t. the radii (GRB), checked against the
+# CPU's plain path at GCPU
+GNX, GNY, GSPP, GDEPTH, GT = 128, 128, 32, 8, 1024
+GFIT = (64, 64, 8, 4)           # nx, ny, spp, depth
+GRB = (128, 128, 4, 8)
+GCPU = (16, 16, 2, 8)
+G_MAX_OUT = 0.005               # replay pixels allowed outside the gate
+# texture colour entries of the FD check and their steps: two albedos at
+# tests/test_mega_grad.py's eps 1e-3, and the light's emission (15.0) at
+# 1e-2, the same step relative to its value: at 1e-3 its FD is float32
+# noise (the emission-dominated pixels' 32-sample sums round by ~1e-5 of
+# a 3e-2 change; 5e-3 off at this workload in the first run, 3.3e-4 /
+# 7.5e-5 at eps 1e-3 / 1e-2 on the CPU at 32x32x8)
+G_FD = (((1, 0), 1e-3), ((0, 0), 1e-3), ((3, 2), 1e-2))
+K7_GRAD_RTOL = 1e-5
 
 # FP32 operations of a path segment, counted from csrc/megakernel.cu (add,
 # sub, mul, div, sqrt, rsqrt, log, exp = 1, FMA = 2; compares, min / max,
@@ -935,6 +968,311 @@ def phase_wavefront_goldens() -> None:
 
 
 
+def _with(scene, table, **leaves):
+    import dataclasses
+    return dataclasses.replace(scene, **{table: dataclasses.replace(
+        getattr(scene, table), **leaves)})
+
+
+def _launch_counts() -> dict:
+    return {**mk.KERNEL_LAUNCHES, **k7.KERNEL_LAUNCHES}
+
+
+def _reset_counts() -> None:
+    for counts in (mk.KERNEL_LAUNCHES, k7.KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _host_ms(fn):
+    """fn() timed on the host clock between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _hit_grads(scene, o, d, tm, ds, plain: bool):
+    """Gradients of sum(t over hits) w.r.t. (radius, center0, o, d)
+    through geometry.HitSpheres, its forward the kernel or (plain) its
+    plain version on the same card tensors; and the Function's ms."""
+    rad = ds.spheres.radius.clone().requires_grad_()
+    c0 = ds.spheres.center0.clone().requires_grad_()
+    o, d = o.clone().requires_grad_(), d.clone().requires_grad_()
+    orig = k7.hit_spheres_kernel
+    if plain:
+        k7.hit_spheres_kernel = k7.hit_spheres_reference
+
+    def run():
+        bt, bi = geometry.HitSpheres.apply(
+            o, d, tm, c0, ds.spheres.center1, ds.spheres.time0,
+            ds.spheres.time1, rad, ds.sphere_table,
+            scene.has_moving_spheres, geometry.T_MIN)
+        grads = torch.autograd.grad(torch.where(bt < 1e30, bt, 0.0).sum(),
+                                    [rad, c0, o, d])
+        return bi, grads
+    try:
+        ms, (bi, grads) = _host_ms(run)
+    finally:
+        k7.hit_spheres_kernel = orig
+    return bi, grads, ms
+
+
+def phase_k7_vjp() -> dict:
+    """K7's VJP on the card: HitSpheres with the kernel forward against the
+    same Function with the plain forward, on the rays of the first regen
+    iteration of random_balls (N = 524,288): indices equal, gradients
+    w.r.t. radius, center0, o and d to rtol K7_GRAD_RTOL."""
+    scene = make_scene("random_balls", WNX / WNY)
+    from raytracingweekend_tpu_torch.ops.packing import device_scene
+    ds = device_scene(scene, "cuda")
+    o, d, tm = _capture_regen_rays(scene, 1)[0]
+    _hit_grads(scene, o, d, tm, ds, plain=False)             # warm-up
+    bi_k, g_k, ms_k = _hit_grads(scene, o, d, tm, ds, plain=False)
+    bi_p, g_p, ms_p = _hit_grads(scene, o, d, tm, ds, plain=True)
+    rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+           for a, b in zip(g_k, g_p)]
+    ok = (torch.equal(bi_k, bi_p)
+          and all(torch.isfinite(a).all() for a in g_k)
+          and all(torch.allclose(a, b, rtol=K7_GRAD_RTOL, atol=1e-6)
+                  for a, b in zip(g_k, g_p)))
+    err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
+    print(f"phase 17 K7 VJP (HitSpheres, random_balls regen rays N="
+          f"{o.shape[0]}, S={ds.sphere_table.shape[0]} moving): indices "
+          f"equal {torch.equal(bi_k, bi_p)}, gradients (radius, center0, o, "
+          f"d) kernel-forward vs plain-forward max abs diff {err:.3e}, max "
+          f"rel (to each gradient's largest entry) "
+          f"{', '.join(f'{r:.3e}' for r in rel)} (rtol {K7_GRAD_RTOL}); "
+          f"forward + backward {ms_k:.3f} ms with the kernel, {ms_p:.3f} ms "
+          f"with the plain forward: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("K7's VJP disagrees between the kernel and the plain forward")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+
+
+def phase_mega_grad() -> dict:
+    """One megakernel gradient step at the workload: the tape launch
+    (CUDA events, mean of 5 after a warm-up), the replay forward and its
+    value and gradient (host clock, one each), peak memory, the replay
+    image against the kernel's tape image, and central differences of
+    mean(img^2) through the kernel's tape forward at G_FD (eps 1e-3, rtol
+    2e-3, as tests/test_mega_grad.py:98-108; the emission entry at a step
+    of the same size relative to its value). Launch counts are set to 0
+    before and read after."""
+    scene = make_scene("cornell_box", GNX / GNY)
+    key = prng.key(3)
+    ctx = mg.plan_tape(scene, GNX, GNY, GSPP, max_depth=GDEPTH, T=GT,
+                       device="cuda")
+    _reset_counts()
+    img, tape, seed = mg.tape_forward(key, ctx)              # warm-up
+    tape_ms, (img, tape, seed) = _event_ms(
+        lambda: mg.tape_forward(key, ctx), 5)
+    replay = mg.make_replay(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms, img_r = _host_ms(lambda: replay(scene, tape, seed))
+    fwd_mem = torch.cuda.max_memory_allocated()
+    col0 = np.asarray(scene.textures.color, np.float32)
+    col = torch.tensor(col0, device="cuda", requires_grad=True)
+
+    def value_and_grad():
+        loss = torch.mean(replay(_with(scene, "textures", color=col), tape,
+                                 seed) ** 2)
+        loss.backward()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    vg_ms, loss = _host_ms(value_and_grad)
+    vg_mem = torch.cuda.max_memory_allocated()
+    counts = _launch_counts()
+    close = torch.isclose(img_r, img, rtol=RTOL, atol=ATOL).all(dim=-1)
+    out_frac = 1.0 - close.float().mean().item()
+    err = (img_r - img).abs().max().item()
+
+    def kernel_loss(c):
+        c2 = mg._retabbed(ctx, _with(scene, "textures", color=c))
+        return torch.mean(mg.tape_forward(key, c2)[0].double() ** 2).item()
+
+    fd_rows = []
+    for idx, eps in G_FD:
+        hi, lo = col0.copy(), col0.copy()
+        hi[idx] += eps
+        lo[idx] -= eps
+        # the step the float32 entries really take
+        fd = ((kernel_loss(hi) - kernel_loss(lo))
+              / (float(hi[idx]) - float(lo[idx])))
+        fd_rows.append((idx, eps, fd, col.grad[idx].item()))
+    fd_ok = all(np.isclose(fd, g, rtol=2e-3, atol=1e-6)
+                for _, _, fd, g in fd_rows)
+    grad_ok = bool(torch.isfinite(col.grad).all()) and loss.isfinite()
+    n_iters = ctx["plan"].n_iters
+    print(f"phase 18 megakernel gradient step (cornell_box {GNX}x{GNY}, "
+          f"{GSPP} spp, depth {GDEPTH}, T={GT}, {ctx['n_tiles']} tiles, "
+          f"{n_iters} tape iterations; w.r.t. textures.color): tape forward "
+          f"{tape_ms:.4f} ms (CUDA events, mean of 5), replay forward "
+          f"{fwd_ms:.1f} ms (peak {fwd_mem / 2**30:.3f} GiB), replay value "
+          f"and grad {vg_ms:.1f} ms (peak {vg_mem / 2**30:.3f} GiB), loss "
+          f"{loss.item():.6e}; replay pixels outside rtol {RTOL} / atol "
+          f"{ATOL} of the kernel's image {out_frac:.6f} (allowed "
+          f"{G_MAX_OUT}), max abs diff {err:.3e}; central FD through the "
+          f"kernel (rtol 2e-3): "
+          + "; ".join(f"color{list(i)} eps {e} fd {fd:.6e} vs replay "
+                      f"{g:.6e}" for i, e, fd, g in fd_rows)
+          + f"; launches {counts}: "
+          f"{'ok' if fd_ok and grad_ok and out_frac <= G_MAX_OUT else 'FAIL'}",
+          flush=True)
+    if counts["K2+K3"] < 1:
+        fail("the megakernel gradient step launched no megakernel")
+    if out_frac > G_MAX_OUT or not grad_ok:
+        fail("the replay does not reproduce the kernel's tape image")
+    if not fd_ok:
+        fail("replay gradients disagree with finite differences through "
+             "the kernel")
+    _replay_profile()
+    return dict(tape_ms=tape_ms, fwd_ms=fwd_ms, vg_ms=vg_ms, vg_mem=vg_mem,
+                launches=counts["K2+K3"], max_abs_err=err)
+
+
+def _replay_profile() -> None:
+    """Where a replay iteration's time goes at the workload's width
+    (cornell_box 128x128, 16,384 lanes) over a 4-iteration tape (1 spp,
+    depth 4): one value and gradient unprofiled on the host clock, then
+    one under torch.profiler (CUDA activity): device kernels an
+    iteration, device ms an iteration, the device's busy share, the
+    costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracingweekend_tpu_torch.wavefront_profile import (
+        device_time_by_kernel)
+    scene = make_scene("cornell_box", GNX / GNY)
+    ctx = mg.plan_tape(scene, GNX, GNY, 1, max_depth=4, T=GT, device="cuda")
+    _, tape, seed = mg.tape_forward(prng.key(5), ctx)
+    replay = mg.make_replay(ctx)
+    col = torch.tensor(np.asarray(scene.textures.color, np.float32),
+                       device="cuda", requires_grad=True)
+
+    def step():
+        torch.mean(replay(_with(scene, "textures", color=col), tape,
+                          seed) ** 2).backward()
+
+    step()                                                   # warm-up
+    wall_ms, _ = _host_ms(step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(prof)
+    n_it = ctx["plan"].n_iters
+    busy = sum(ms for ms, _, _ in by_name.values())
+    n_k = sum(n for _, n, _ in by_name.values())
+    top = sorted(((ms, n, k) for k, (ms, n, _) in by_name.items()),
+                 reverse=True)[:6]
+    print(f"phase 18b replay profile (cornell_box {GNX}x{GNY}, {n_it} "
+          f"iterations, value and grad): unprofiled {wall_ms:.1f} ms = "
+          f"{wall_ms / n_it:.2f} ms an iteration; device kernels "
+          f"{n_k / max(n_it, 1):.0f} an iteration, device time "
+          f"{busy / max(n_it, 1):.3f} ms an iteration, busy share "
+          f"{busy / wall_ms:.3f}; top: "
+          + "; ".join(f"{k} {ms:.2f} ms x{n}" for ms, n, k in top),
+          flush=True)
+
+
+def phase_mega_fit() -> dict:
+    """fit_scene_params_mega on the card: cornell_box's wall colour 1 set
+    to 0.2 is recovered from the kernel's target image under the criteria
+    of tests/test_mega_grad.py:431-457 (final loss below half the first,
+    colour within 0.25)."""
+    nx, ny, spp, depth = GFIT
+    scene = make_scene("cornell_box", nx / ny)
+    key = prng.key(0)
+    ctx = mg.plan_tape(scene, nx, ny, spp, max_depth=depth, device="cuda")
+    target, _, _ = mg.tape_forward(key, ctx)
+    color = np.asarray(scene.textures.color, np.float32)
+    bad = color.copy()
+    bad[1] = 0.2
+    losses = []
+    secs, (fitted, final) = _host_ms(lambda: mg.fit_scene_params_mega(
+        _with(scene, "textures", color=bad), target,
+        get_params=lambda sc: sc.textures.color,
+        set_params=lambda sc, p: _with(sc, "textures", color=p),
+        key=key, nx=nx, ny=ny, spp=spp, max_depth=depth, steps=12, lr=0.08,
+        postprocess=lambda p: torch.clamp_min(p, 0.0),
+        log_fn=lambda i, v: losses.append(v), device="cuda"))
+    rec = np.asarray(fitted.textures.color[1])
+    dist = float(np.abs(rec - color[1]).max())
+    ok = final < losses[0] * 0.5 and dist < 0.25
+    print(f"phase 19 megakernel fit (cornell_box {nx}x{ny}, {spp} spp, depth "
+          f"{depth}, T=1024, 12 Adam steps, lr 0.08): losses "
+          f"{', '.join(f'{v:.6e}' for v in losses)}; wall colour {rec} vs "
+          f"{color[1]} (max abs {dist:.4f} < 0.25); {secs / 1e3:.3f} s, "
+          f"{secs / 12:.1f} ms a step: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("fit_scene_params_mega did not recover the wall colour")
+    return dict(step_ms=secs / 12)
+
+
+def _render_diff_vg(scene, table, field, key, nx, ny, spp, depth, device):
+    """render_diff's value and gradient of mean(img) w.r.t. one leaf."""
+    p = torch.tensor(np.asarray(getattr(getattr(scene, table), field),
+                                np.float32), device=device,
+                     requires_grad=True)
+    img = tgrad.render_diff(_with(scene, table, **{field: p}), key, nx, ny,
+                            spp, depth, device=device)
+    img.mean().backward()
+    return img.detach(), p.grad
+
+
+def phase_wavefront_grad() -> dict:
+    """render_diff's value and gradient on the card: cornell_box at the
+    workload w.r.t. textures.color, random_balls at GRB w.r.t. the radii
+    (K7 and its VJP every bounce), with times and peak memory, launch
+    counts set to 0 before and read after; the random_balls gradient
+    against the CPU's plain path on the same key at GCPU."""
+    key = prng.key(0)
+    scene = make_scene("cornell_box", GNX / GNY)
+    _render_diff_vg(scene, "textures", "color", key, 16, 16, 2, GDEPTH,
+                    "cuda")                                  # warm-up
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    c_ms, (img, g) = _host_ms(lambda: _render_diff_vg(
+        scene, "textures", "color", key, GNX, GNY, GSPP, GDEPTH, "cuda"))
+    c_mem = torch.cuda.max_memory_allocated()
+    c_k7 = k7.KERNEL_LAUNCHES["K7"]
+    ok = bool(torch.isfinite(g).all()) and bool(torch.isfinite(img).all())
+    rb = make_scene("random_balls", 1.0)
+    nx, ny, spp, depth = GRB
+    k7.KERNEL_LAUNCHES["K7"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    r_ms, (img_b, g_b) = _host_ms(lambda: _render_diff_vg(
+        rb, "spheres", "radius", key, nx, ny, spp, depth, "cuda"))
+    r_mem = torch.cuda.max_memory_allocated()
+    r_k7 = k7.KERNEL_LAUNCHES["K7"]
+    ok = ok and bool(torch.isfinite(g_b).all()) and int((g_b != 0).sum()) > 0
+    cnx, cny, cspp, cdepth = GCPU
+    _, g_gpu = _render_diff_vg(rb, "spheres", "radius", key, cnx, cny, cspp,
+                               cdepth, "cuda")
+    _, g_cpu = _render_diff_vg(rb, "spheres", "radius", key, cnx, cny, cspp,
+                               cdepth, "cpu")
+    g_gpu = g_gpu.cpu()
+    rel = ((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)).item()
+    ok = ok and rel < 1e-2 and int((g_cpu != 0).sum()) > 0
+    print(f"phase 20 wavefront gradient (render_diff, trace scan): "
+          f"cornell_box {GNX}x{GNY}x{GSPP} depth {GDEPTH} w.r.t. "
+          f"textures.color {c_ms:.1f} ms (peak {c_mem / 2**30:.3f} GiB, K7 "
+          f"launches {c_k7}); random_balls {nx}x{ny}x{spp} depth {depth} "
+          f"w.r.t. radii {r_ms:.1f} ms (peak {r_mem / 2**30:.3f} GiB, K7 "
+          f"launches {r_k7}, {int((g_b != 0).sum())} non-zero radius "
+          f"gradients); card vs CPU plain path at {cnx}x{cny}x{cspp} depth "
+          f"{cdepth}: relative L2 difference of the radius gradients "
+          f"{rel:.3e} (< 1e-2): {'ok' if ok else 'FAIL'}", flush=True)
+    if c_k7 < 1 or r_k7 < 1:
+        fail("the wavefront gradient launched no K7 kernel")
+    if not ok:
+        fail("the wavefront gradient is not finite or disagrees with the "
+             "CPU's")
+    return dict(launches=c_k7 + r_k7, c_ms=c_ms, r_ms=r_ms)
+
+
 def _timed(label: str, fn, *args, **kw):
     """fn(*args, **kw), then one line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -974,6 +1312,10 @@ def main() -> int:
     wave_run = _timed("phase 14", phase_wavefront_main)
     _timed("phase 15", phase_wavefront_paths)
     _timed("phase 16", phase_wavefront_goldens)
+    k7_vjp = _timed("phase 17", phase_k7_vjp)
+    mega_grad = _timed("phase 18", phase_mega_grad)
+    _timed("phase 19", phase_mega_fit)
+    wave_grad = _timed("phase 20", phase_wavefront_grad)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -986,6 +1328,7 @@ def main() -> int:
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:1022",
              launches=cornell_run["launches"],
+             grad_path_launches=mega_grad["launches"],
              max_abs_err=max([parity["K2+K3"]]
                              + [r["max_abs_err"] for r in k23]),
              ms=k23[0]["ms"], plain_ms=k23[0]["plain_ms"],
@@ -1019,7 +1362,9 @@ def main() -> int:
         source="raytracingweekend_tpu_torch/csrc/intersect.cu",
         replaces="raytracingweekend_tpu/ops/pallas_intersect.py:139",
         launches=wave_run["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in k7_rows),
+        grad_path_launches=wave_grad["launches"],
+        max_abs_err=max([r["max_abs_err"] for r in k7_rows]
+                        + [k7_vjp["max_abs_err"]]),
         ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
         bound_ms=k7_main["bound_ms"], route="cuda",
         bound_by=k7_main["bound_by"], library_ms=None))

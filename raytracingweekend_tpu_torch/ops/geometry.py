@@ -7,7 +7,9 @@ primitive table at once:
 
 - spheres: kernel K7 (ops/intersect.py, csrc/intersect.cu) on CUDA
   tensors, its plain version on CPU tensors; the tensor's device decides.
-  A BVH scene traverses its tree instead (ops/bvh.py);
+  `HitSpheres` wraps both for autograd: its backward recomputes only the
+  winning sphere's quadratic (the JAX package's custom VJP of the Pallas
+  kernel). A BVH scene traverses its tree instead (ops/bvh.py);
 - rects: a dense (N x R) test with the translate / rotate_y instancing
   baked into per-rect ray transforms;
 - constant media: analytic convex entry / exit plus the stochastic scatter
@@ -57,16 +59,79 @@ def _miss(n: int, device):
             torch.full((n,), -1, dtype=torch.int64, device=device))
 
 
+def _winner_replay_t(o, d, time, center0, center1, time0, time1, radius,
+                     bi, moving: bool, t_min: float):
+    """The hit t of each ray's winning sphere `bi`, recomputed from the
+    sphere leaves (sphere.h:46-81): an O(N) replay whose autograd graph is
+    the backward of the O(N x S) sweep, the decisions held fixed."""
+    c = center0[bi]
+    if moving:
+        dcv = (center1 - center0)[bi]
+        t0 = time0[bi]
+        dt = (time1 - time0)[bi]
+        inv_dt = torch.where(dt != 0, 1.0 / torch.where(dt != 0, dt, 1.0),
+                             0.0)
+        c = c + ((time - t0) * inv_dt)[:, None] * dcv
+    oc = o - c
+    a = (d * d).sum(-1)
+    b = (oc * d).sum(-1)
+    cc = (oc * oc).sum(-1) - radius[bi] ** 2
+    sq = linalg.safe_sqrt(b * b - a * cc)
+    t_near = (-b - sq) / a
+    return torch.where(t_near > t_min, t_near, (-b + sq) / a)
+
+
+class HitSpheres(torch.autograd.Function):
+    """Closest sphere hit with a gradient: forward K7 (CUDA tensors) or its
+    plain version (CPU tensors) on detached inputs and the detached table;
+    backward `_winner_replay_t` at the forward's winners, differentiated
+    w.r.t. the rays (o, d, time) and the sphere leaves (center0, center1,
+    time0, time1, radius). Misses (t = BIG) carry no gradient; best_i is
+    not differentiable."""
+
+    @staticmethod
+    def forward(ctx, o, d, time, center0, center1, time0, time1, radius,
+                table, moving: bool, t_min: float):
+        hit = (intersect.hit_spheres_kernel if o.is_cuda
+               else intersect.hit_spheres_reference)
+        best_t, best_i = hit(o, d, time, table, moving, t_min)
+        ctx.save_for_backward(o, d, time, center0, center1, time0, time1,
+                              radius, best_t, best_i)
+        ctx.moving, ctx.t_min = moving, t_min
+        ctx.mark_non_differentiable(best_i)
+        return best_t, best_i
+
+    @staticmethod
+    def backward(ctx, g_t, _g_i):
+        *inputs, best_t, best_i = ctx.saved_tensors
+        need = ctx.needs_input_grad[:8]
+        grads = [None] * 8
+        if not any(need):
+            return (*grads, None, None, None)
+        g_t = torch.where(best_t < BIG, g_t, 0.0)
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
+            t = _winner_replay_t(*xs, torch.clamp_min(best_i, 0), ctx.moving,
+                                 ctx.t_min)
+            wanted = [x for x, n in zip(xs, need) if n]
+            got = iter(torch.autograd.grad(t, wanted, g_t,
+                                           allow_unused=True))
+        grads = [next(got) if n else None for n in need]
+        return (*grads, None, None, None)
+
+
 def hit_spheres(o, d, time, ds: packing.DeviceScene, t_min: float = T_MIN):
     """Closest sphere hit (best_t (N,), best_idx (N,) int64) over the
-    scene's K7 table: the CUDA kernel for CUDA tensors, its plain version
-    for CPU tensors. Misses read BIG (callers test best_t < BIG)."""
+    scene's K7 table through `HitSpheres`: the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors, differentiable w.r.t. the
+    rays and the sphere leaves. Misses read BIG (callers test
+    best_t < BIG)."""
     if ds.sphere_table.shape[0] == 0:
         return _miss(o.shape[0], o.device)
-    hit = (intersect.hit_spheres_kernel if o.is_cuda
-           else intersect.hit_spheres_reference)
-    return hit(o, d, time, ds.sphere_table, ds.scene.has_moving_spheres,
-               t_min)
+    sph = ds.spheres
+    return HitSpheres.apply(o, d, time, sph.center0, sph.center1, sph.time0,
+                            sph.time1, sph.radius, ds.sphere_table.detach(),
+                            ds.scene.has_moving_spheres, t_min)
 
 
 def _rect_object_space_components(o, d, rects, transforms: bool):

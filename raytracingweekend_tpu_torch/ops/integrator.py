@@ -11,8 +11,8 @@ radiance, active),
 
 Integrators:
 - `trace` in "while" mode stops once every ray has terminated, in "scan"
-  mode runs max_depth bounces (forward only here: the differentiable path
-  is a later slice of the port);
+  mode runs max_depth bounces with no host read, an autograd graph over
+  the scene's tensor leaves (grad.render_diff);
 - `trace_regenerative`, the production forward path: persistent slots that
   pull the next (pixel, sample) when their path ends;
 - `trace_tiled`: per-pixel slots, scatter-free accumulation.

@@ -57,8 +57,9 @@ import torch
 from ..models import scene_types as st
 from . import _build
 from . import noise as _noise
-from .rounding import _fma
 from .integrator import _block_linear_order
+from .packing import leaf_tensor
+from .rounding import _fma
 
 BIG = 3.0e37
 _HIT_CUT = 1.0e30  # best_t above this == miss
@@ -349,7 +350,7 @@ def _kd_cluster_order(centers: np.ndarray, SB: int) -> np.ndarray:
     return order
 
 
-def build_tables(scene: st.Scene, SB: int = 64):
+def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
     """Host packing of the scene tables, bitwise equal to the JAX
     `build_tables` without its super-group rows and image atlas (the kernel
     reads the scene's float32 `textures.images` as they are). Returns
@@ -362,7 +363,13 @@ def build_tables(scene: st.Scene, SB: int = 64):
     wins, as the reference's strict `t < closest` list sweep), ordered
     along a Morton curve (one cluster) or a kd split with the clusters
     holding the biggest spheres first (several clusters), and padded to a
-    multiple of SB with inert rows (nr2 = +1 never hits)."""
+    multiple of SB with inert rows (nr2 = +1 never hits).
+
+    `order_override` (an (S,) int array, a plan's meta["slot_ext"]: the
+    scene sphere row of each slot, -1 for padding) pins the slot layout
+    instead: a re-tape at updated parameters keeps the slots its winner
+    codes name, while the Morton sort and the radius block order would
+    follow the new geometry."""
     sph = scene.spheres
     act = np.asarray(sph.active)
     c0 = np.asarray(sph.center0, np.float32)
@@ -370,9 +377,10 @@ def build_tables(scene: st.Scene, SB: int = 64):
     t0 = np.asarray(sph.time0, np.float32)
     t1 = np.asarray(sph.time1, np.float32)
     rad = np.asarray(sph.radius, np.float32)
-    mat = np.asarray(sph.mat)
 
     live = np.nonzero(act)[0]
+    if order_override is not None:
+        live = np.zeros(0, np.int64)   # the pinned order replaces the sort
     if live.size:
         geom = np.stack([c0[live, 0], c0[live, 1], c0[live, 2],
                          c1[live, 0], c1[live, 1], c1[live, 2],
@@ -389,314 +397,373 @@ def build_tables(scene: st.Scene, SB: int = 64):
     C = S // SB
     idx_ext = np.full((S,), -1, np.int64)
     idx_ext[:n] = order
-    if C > 1:
+    if order_override is not None:
+        idx_ext = np.asarray(order_override, np.int64)
+        S = idx_ext.size
+        C = S // SB
+        n = int(np.sum(idx_ext >= 0))
+    elif C > 1:
         blocks = idx_ext.reshape(C, SB)
         key_r = np.array([np.abs(rad[b[b >= 0]]).max() if (b >= 0).any()
                           else -1.0 for b in blocks])
         blocks = blocks[np.argsort(-key_r, kind="stable")]
         idx_ext = blocks.reshape(S)
-    actm = idx_ext >= 0
-
-    def pad(x, fill=0.0):
-        out = np.full((S,) + x.shape[1:], fill, x.dtype)
-        out[actm] = x[idx_ext[actm]]
-        return out
-
-    c0p, c1p = pad(c0), pad(c1)
-    t0p, t1p = pad(t0), pad(t1, 1.0)
-    radp = pad(rad)
-    actp = actm.astype(np.float32)
-    dt = t1p - t0p
-    idt = np.where(dt != 0, 1.0 / np.where(dt != 0, dt, 1.0), 0.0)
-    dc = c1p - c0p
-
-    # r2 = -1 on padding rows: nr2 = +1 there, so disc < 0 (never a hit)
-    r2 = np.where(actp > 0, radp ** 2, -1.0).astype(np.float32)
-    sph_tab = np.zeros((S, SPH_LANES), np.float32)
-    for lane, v in ((C_CX, c0p[:, 0]), (C_CY, c0p[:, 1]), (C_CZ, c0p[:, 2]),
-                    (C_DCX, dc[:, 0]), (C_DCY, dc[:, 1]), (C_DCZ, dc[:, 2]),
-                    (C_T0, t0p), (C_IDT, idt), (C_R2, r2),
-                    (C_ACT, actp), (C_NR2, -r2)):
-        sph_tab[:, lane] = v
-
-    # cluster AABBs over the motion-swept spheres (padding rows never
-    # widen a box) and each cluster's per-axis any-moving flags
-    clus_moving = tuple(
-        tuple(bool(np.any(dc[c * SB:(c + 1) * SB, ax] != 0))
-              for ax in range(3))
-        for c in range(C))
-    absr = np.abs(radp)
-    los = np.where(actp[:, None] > 0,
-                   np.minimum(c0p, c1p) - absr[:, None], np.inf)
-    his = np.where(actp[:, None] > 0,
-                   np.maximum(c0p, c1p) + absr[:, None], -np.inf)
-    clus_tab = np.zeros((C, CLUS_LANES), np.float32)
-    for c in range(C):
-        sl = slice(c * SB, (c + 1) * SB)
-        clus_tab[c, K_MINX:K_MINZ + 1] = los[sl].min(axis=0)
-        clus_tab[c, K_MAXX:K_MAXZ + 1] = his[sl].max(axis=0)
-
-    mats = scene.materials
-    tex = scene.textures
-    matp = pad(mat.astype(np.int64))
-    mtype = np.asarray(mats.mtype)[matp]
-    ti = np.asarray(mats.tex)[matp]
-    col_all = np.asarray(tex.color, np.float32)
-    alb = col_all[ti]
-    fuzz = np.asarray(mats.fuzz, np.float32)[matp]
-    ridx = np.asarray(mats.ref_idx, np.float32)[matp]
-    rinv = np.where(radp != 0, 1.0 / np.where(radp != 0, radp, 1.0), 0.0)
-    # texture rows: checker flag and its children's colours; 1 + NOISE_*
-    # and the scale of a noise texture; 1 + image id of an image texture
-    ttype_np = np.asarray(tex.ttype)
-    chk = (ttype_np[ti] == st.TEX_CHECKER).astype(np.float32)
-    evc = col_all[np.asarray(tex.even)[ti]]
-    odc = col_all[np.asarray(tex.odd)[ti]]
-    nmode_np = np.asarray(tex.noise_mode)
-    is_noi = ttype_np[ti] == st.TEX_NOISE
-    noi = np.where(is_noi, 1.0 + nmode_np[ti], 0.0).astype(np.float32)
-    nscale = np.asarray(tex.scale, np.float32)[ti]
-    is_img = ttype_np[ti] == st.TEX_IMAGE
-    imgf = np.where(is_img, 1.0 + np.asarray(tex.image_id)[ti],
-                    0.0).astype(np.float32)
-    imgf = np.where(actm, imgf, 0.0).astype(np.float32)
-
-    attr_tab = np.zeros((A_ROWS, S), np.float32)
-    for row, v in ((A_CX, c0p[:, 0]), (A_CY, c0p[:, 1]), (A_CZ, c0p[:, 2]),
-                   (A_DCX, dc[:, 0]), (A_DCY, dc[:, 1]), (A_DCZ, dc[:, 2]),
-                   (A_T0, t0p), (A_IDT, idt), (A_RINV, rinv),
-                   (A_MTYPE, mtype.astype(np.float32)),
-                   (A_ALBX, alb[:, 0]), (A_ALBY, alb[:, 1]),
-                   (A_ALBZ, alb[:, 2]),
-                   (A_MPARAM, np.where(mtype == st.MAT_METAL, fuzz,
-                                       np.where(mtype == st.MAT_DIELECTRIC,
-                                                ridx, 0.0))
-                    .astype(np.float32)),
-                   (A_CHK, chk), (A_NSCALE, nscale), (A_NOISE, noi),
-                   (A_EVENX, evc[:, 0]), (A_EVENY, evc[:, 1]),
-                   (A_EVENZ, evc[:, 2]),
-                   (A_ODDX, odc[:, 0]), (A_ODDY, odc[:, 1]),
-                   (A_ODDZ, odc[:, 2]), (A_IMG, imgf)):
-        attr_tab[row] = v
-
-    rect_tab, rect_meta = _rect_table(scene)
-    light_tab, light_meta = _light_table(scene)
-    med_tab, med_meta = _medium_table(scene)
-    R = rect_meta["R"]
-    r_mat = np.asarray(scene.rects.mat)
-    rlive = np.nonzero(np.asarray(scene.rects.active))[0]
-    mt_np = np.asarray(mats.mtype)
-    has_light = bool(
-        (R and np.any(mt_np[r_mat[rlive]] == st.MAT_DIFFUSE_LIGHT))
-        or (n and np.any(mtype[actm] == st.MAT_DIFFUSE_LIGHT)))
-    # the noise modes and images that live spheres, rects and media use
-    V = med_meta["V"]
-    noise_modes = {int(m) for m in nmode_np[ti][is_noi & actm]}
-    noise_modes |= {int(f) - 1 for f in np.concatenate(
-        [rect_tab[:R, RT_NOI], med_tab[:V, MD_NOI]]) if f > 0}
-    has_image = bool(np.any(imgf > 0) or np.any(rect_tab[:R, RT_IMG] > 0)
-                     or np.any(med_tab[:V, MD_IMG] > 0))
-    img_hw = (tuple((int(h), int(w)) for h, w in np.asarray(tex.image_hw))
-              if has_image else ())
-
-    cam = scene.camera
-    cam_vec = np.zeros((1, 128), np.float32)
-    for lane, v in ((CAM_OX, cam.origin), (CAM_LLX, cam.lower_left_corner),
-                    (CAM_HX, cam.horizontal), (CAM_VX, cam.vertical),
-                    (CAM_UX, cam.u), (CAM_WX, cam.v)):
-        cam_vec[0, lane:lane + 3] = np.asarray(v, np.float32)
-    cam_vec[0, CAM_LENS] = float(cam.lens_radius)
-    cam_vec[0, CAM_T0] = float(cam.time0)
-    cam_vec[0, CAM_T1] = float(cam.time1)
-
-    # One shared (time0, 1/dt) over the live spheres lets the sweep take
-    # the motion fraction once per ray instead of once per sphere.
-    t0a = t0p[actm]
-    idta = idt[actm]
-    uniform_time = bool(n and np.all(t0a == t0a[0])
-                        and np.all(idta == idta[0]))
     meta = dict(S=S, C=C, SB=SB,
-                uniform_time=uniform_time,
-                ut_t0=float(t0a[0]) if n else 0.0,
-                ut_idt=float(idta[0]) if n else 0.0,
-                moving_axes=tuple(bool(np.any(dc[:, ax] != 0))
-                                  for ax in range(3)),
-                moving=bool(scene.has_moving_spheres),
-                lens=float(cam.lens_radius) > 0.0,
-                has_metal=bool(scene.has_metal),
-                has_dielectric=bool(scene.has_dielectric),
-                bg_gradient=scene.background == st.BG_GRADIENT,
-                has_spheres=n > 0,
-                has_light=has_light,
-                has_checker=bool(scene.has_checker_tex),
-                has_noise=bool(noise_modes),
-                noise_modes=tuple(sorted(noise_modes)),
-                has_image=has_image, n_img=len(img_hw), img_hw=img_hw,
-                has_iso=V > 0, clus_tab=clus_tab, clus_moving=clus_moving,
-                **rect_meta, **light_meta, **med_meta,
                 # scene sphere row of each slot (-1: padding): decodes a
                 # winner tape
-                slot_ext=idx_ext.astype(np.int32))
+                slot_ext=idx_ext.astype(np.int32),
+                **_rect_meta(scene), **_light_meta(scene),
+                **_medium_meta(scene))
+    cam_vec, sph_tab, attr_tab, clus_tab, rect_tab, light_tab, med_tab = (
+        t.numpy() for t in table_rows(scene, scene, meta, "cpu"))
+
+    # the launch's static flags, read off the tables
+    actm = idx_ext >= 0
+    R, V = meta["R"], meta["V"]
+    dc = sph_tab[:, C_DCX:C_DCZ + 1]
+    noise_modes = {int(f) - 1 for f in np.concatenate(
+        [attr_tab[A_NOISE][actm], rect_tab[:R, RT_NOI], med_tab[:V, MD_NOI]])
+        if f > 0}
+    has_image = bool(np.any(attr_tab[A_IMG] > 0)
+                     or np.any(rect_tab[:R, RT_IMG] > 0)
+                     or np.any(med_tab[:V, MD_IMG] > 0))
+    img_hw = (tuple((int(h), int(w)) for h, w in
+                    np.asarray(scene.textures.image_hw)) if has_image else ())
+    light = float(st.MAT_DIFFUSE_LIGHT)
+    # one shared (time0, 1/dt) over the live spheres lets the sweep take
+    # the motion fraction once per ray instead of once per sphere
+    t0a = sph_tab[actm, C_T0]
+    idta = sph_tab[actm, C_IDT]
+    cam = scene.camera
+    meta.update(
+        uniform_time=bool(n and np.all(t0a == t0a[0])
+                          and np.all(idta == idta[0])),
+        ut_t0=float(t0a[0]) if n else 0.0,
+        ut_idt=float(idta[0]) if n else 0.0,
+        moving_axes=tuple(bool(np.any(dc[:, ax] != 0)) for ax in range(3)),
+        moving=bool(scene.has_moving_spheres),
+        lens=float(cam.lens_radius) > 0.0,
+        has_metal=bool(scene.has_metal),
+        has_dielectric=bool(scene.has_dielectric),
+        bg_gradient=scene.background == st.BG_GRADIENT,
+        has_spheres=n > 0,
+        has_light=bool(np.any(attr_tab[A_MTYPE][actm] == light)
+                       or np.any(rect_tab[:R, RT_MTYPE] == light)),
+        has_checker=bool(scene.has_checker_tex),
+        has_noise=bool(noise_modes),
+        noise_modes=tuple(sorted(noise_modes)),
+        has_image=has_image, n_img=len(img_hw), img_hw=img_hw,
+        has_iso=V > 0, clus_tab=clus_tab,
+        # each cluster's per-axis any-moving flags
+        clus_moving=tuple(
+            tuple(bool(np.any(dc[c * SB:(c + 1) * SB, ax] != 0))
+                  for ax in range(3))
+            for c in range(C)))
     return sph_tab, attr_tab, rect_tab, light_tab, med_tab, cam_vec, meta
 
 
-def _texture_lanes(scene: st.Scene, ti: int):
-    """(albedo, checker flag, even, odd, noise flag, noise scale, image
-    flag) of texture row `ti`, as the JAX tables encode them."""
-    tex = scene.textures
-    col = np.asarray(tex.color, np.float32)
-    ttype = int(np.asarray(tex.ttype)[ti])
-    chk = ttype == st.TEX_CHECKER
-    noi = (1.0 + float(np.asarray(tex.noise_mode)[ti])
-           if ttype == st.TEX_NOISE else 0.0)
-    nsc = float(np.asarray(tex.scale)[ti]) if ttype == st.TEX_NOISE else 0.0
-    img = (1.0 + float(np.asarray(tex.image_id)[ti])
-           if ttype == st.TEX_IMAGE else 0.0)
-    return (col[ti], chk, col[int(np.asarray(tex.even)[ti])],
-            col[int(np.asarray(tex.odd)[ti])], noi, nsc, img)
-
-
-def _rect_table(scene: st.Scene):
-    """The live rects, one row each (RT_* lanes), and their static
-    metadata: axis code, rotation / translation presence and the
-    transform group (rects sharing one baked rotate_y + translate)."""
+def _rect_meta(scene: st.Scene) -> dict:
+    """The live rects' static metadata: row, axis code, rotation /
+    translation presence and the transform group (rects sharing one baked
+    rotate_y + translate)."""
     rects = scene.rects
-    mats = scene.materials
     rlive = np.nonzero(np.asarray(rects.active))[0]
-    R = int(rlive.size)
-    rect_tab = np.zeros((max(R, 1), RECT_LANES), np.float32)
-    axes, rot, trans, tf, groups = [], [], [], [], {}
-    r_axis = np.asarray(rects.axis)
-    r_flip = np.asarray(rects.flip, np.float32)
     r_cos = np.asarray(rects.cos_t, np.float32)
     r_sin = np.asarray(rects.sin_t, np.float32)
     r_off = np.asarray(rects.offset, np.float32)
-    r_mat = np.asarray(rects.mat)
-    for i, rr in enumerate(rlive):
-        ax = int(r_axis[rr])
-        axes.append(ax)
+    axes, rot, trans, tf, groups = [], [], [], [], {}
+    for rr in rlive:
+        axes.append(int(np.asarray(rects.axis)[rr]))
         ct_, st_ = float(r_cos[rr]), float(r_sin[rr])
         rot.append((ct_ != 1.0) or (st_ != 0.0))
         trans.append(bool(np.any(r_off[rr] != 0.0)))
         key = (rot[-1], trans[-1], ct_, st_,
                tuple(float(v) for v in r_off[rr]))
         tf.append(groups.setdefault(key, len(groups)))
-        # object-space unit normal by axis code (XY -> z, XZ -> y,
-        # YZ -> x), flipped, then rotated object -> world
-        n_o = [0.0, 0.0, 0.0]
-        n_o[2 - ax if ax != 2 else 0] = float(r_flip[rr])
-        nw = (ct_ * n_o[0] + st_ * n_o[2], n_o[1],
-              -st_ * n_o[0] + ct_ * n_o[2])
-        mi = int(r_mat[rr])
-        alb, chk, even, odd, noi, nsc, img = _texture_lanes(
-            scene, int(np.asarray(mats.tex)[mi]))
-        row = rect_tab[i]
-        if chk:
-            row[RT_CHK] = 1.0
-            row[RT_EVENX:RT_EVENZ + 1] = even
-            row[RT_ODDX:RT_ODDZ + 1] = odd
-        row[RT_NOI], row[RT_NSC], row[RT_IMG] = noi, nsc, img
-        for lane, v in ((RT_A0, rects.a0), (RT_A1, rects.a1),
-                        (RT_B0, rects.b0), (RT_B1, rects.b1),
-                        (RT_K, rects.k)):
-            row[lane] = float(np.asarray(v)[rr])
-        da = row[RT_A1] - row[RT_A0]
-        db = row[RT_B1] - row[RT_B0]
-        row[RT_IDA] = 1.0 / da if da != 0 else 0.0
-        row[RT_IDB] = 1.0 / db if db != 0 else 0.0
-        row[RT_COS] = ct_
-        row[RT_SIN] = st_
-        row[RT_OFFX:RT_OFFZ + 1] = r_off[rr]
-        row[RT_NX:RT_NZ + 1] = nw
-        row[RT_MTYPE] = float(np.asarray(mats.mtype)[mi])
-        row[RT_ALBX:RT_ALBZ + 1] = alb
-        row[RT_FUZZ] = np.asarray(mats.fuzz, np.float32)[mi]
-        row[RT_RIDX] = np.asarray(mats.ref_idx, np.float32)[mi]
-    meta = dict(R=R, rect_axes=tuple(axes), rect_rot=tuple(rot),
-                rect_trans=tuple(trans), rect_tf=tuple(tf),
-                rect_rows=tuple(int(r) for r in rlive))
-    return rect_tab, meta
+    return dict(R=int(rlive.size), rect_axes=tuple(axes),
+                rect_rot=tuple(rot), rect_trans=tuple(trans),
+                rect_tf=tuple(tf), rect_rows=tuple(int(r) for r in rlive))
 
 
-def _light_table(scene: st.Scene):
-    """The MIS lights list, one row each (LT_* lanes), and its static
-    metadata: kind (rect / sphere), axis, rotation, translation."""
-    lights, rects, sph = scene.lights, scene.rects, scene.spheres
+def _light_meta(scene: st.Scene) -> dict:
+    """The MIS lights list's static metadata: kind (rect / sphere), axis,
+    rotation, translation, row."""
+    lights, rects = scene.lights, scene.rects
     L = int(lights.num)
-    light_tab = np.zeros((max(L, 1), LIGHT_LANES), np.float32)
     kinds, axes, rot, trans = [], [], [], []
-    l_kind = np.asarray(lights.kind)
     l_idx = np.asarray(lights.index)
     for i in range(L):
-        kinds.append(int(l_kind[i]))
-        row = light_tab[i]
+        kinds.append(int(np.asarray(lights.kind)[i]))
         if kinds[-1] == st.LIGHT_RECT:
             rr = int(l_idx[i])
             axes.append(int(np.asarray(rects.axis)[rr]))
-            ct_ = float(np.asarray(rects.cos_t, np.float32)[rr])
-            st_ = float(np.asarray(rects.sin_t, np.float32)[rr])
-            off = np.asarray(rects.offset, np.float32)[rr]
-            rot.append((ct_ != 1.0) or (st_ != 0.0))
-            trans.append(bool(np.any(off != 0.0)))
-            for lane, v in ((LT_A0, rects.a0), (LT_A1, rects.a1),
-                            (LT_B0, rects.b0), (LT_B1, rects.b1),
-                            (LT_K, rects.k)):
-                row[lane] = float(np.asarray(v)[rr])
-            row[LT_COS] = ct_
-            row[LT_SIN] = st_
-            row[LT_OFFX:LT_OFFZ + 1] = off
-            row[LT_AREA] = float(
-                (np.asarray(rects.a1)[rr] - np.asarray(rects.a0)[rr])
-                * (np.asarray(rects.b1)[rr] - np.asarray(rects.b0)[rr]))
+            rot.append(float(np.asarray(rects.cos_t, np.float32)[rr]) != 1.0
+                       or float(np.asarray(rects.sin_t, np.float32)[rr])
+                       != 0.0)
+            trans.append(bool(np.any(np.asarray(rects.offset,
+                                                np.float32)[rr] != 0.0)))
         else:
-            si = int(l_idx[i])
             axes.append(0)
             rot.append(False)
             trans.append(False)
-            row[LT_CX:LT_CZ + 1] = np.asarray(sph.center0, np.float32)[si]
-            row[LT_RAD] = float(np.asarray(sph.radius, np.float32)[si])
-    meta = dict(L=L, light_kinds=tuple(kinds), light_axes=tuple(axes),
+    return dict(L=L, light_kinds=tuple(kinds), light_axes=tuple(axes),
                 light_rot=tuple(rot), light_trans=tuple(trans),
                 light_rows=tuple(int(r) for r in l_idx[:L]))
-    return light_tab, meta
 
 
-def _medium_table(scene: st.Scene):
-    """The live constant media, one row each (MD_* lanes), and their
-    static metadata: boundary kind, rotation, translation."""
+def _medium_meta(scene: st.Scene) -> dict:
+    """The live constant media's static metadata: boundary kind, rotation,
+    translation, row."""
     media = scene.media
     vlive = np.nonzero(np.asarray(media.active))[0]
-    V = int(vlive.size)
-    med_tab = np.zeros((max(V, 1), MED_LANES), np.float32)
-    kinds, rot, trans = [], [], []
     m_cos = np.asarray(media.cos_t, np.float32)
     m_sin = np.asarray(media.sin_t, np.float32)
     m_off = np.asarray(media.offset, np.float32)
-    for i, vv in enumerate(vlive):
-        kinds.append(int(np.asarray(media.kind)[vv]))
-        ct_, st_ = float(m_cos[vv]), float(m_sin[vv])
-        rot.append((ct_ != 1.0) or (st_ != 0.0))
-        trans.append(bool(np.any(m_off[vv] != 0.0)))
-        row = med_tab[i]
-        row[MD_P0X:MD_P0Z + 1] = np.asarray(media.p0, np.float32)[vv]
-        row[MD_P1X:MD_P1Z + 1] = np.asarray(media.p1, np.float32)[vv]
-        row[MD_COS] = ct_
-        row[MD_SIN] = st_
-        row[MD_OFFX:MD_OFFZ + 1] = m_off[vv]
-        row[MD_NIRHO] = -1.0 / float(np.asarray(media.density,
-                                                np.float32)[vv])
-        ti = int(np.asarray(scene.materials.tex)[int(
-            np.asarray(media.mat)[vv])])
-        alb, _, _, _, noi, nsc, img = _texture_lanes(scene, ti)
-        row[MD_ALBX:MD_ALBZ + 1] = alb
-        if noi:
-            row[MD_NOI], row[MD_NSC] = noi, nsc
-        elif img:
-            row[MD_IMG] = img
-    meta = dict(V=V, med_kinds=tuple(kinds), med_rot=tuple(rot),
-                med_trans=tuple(trans),
+    return dict(V=int(vlive.size),
+                med_kinds=tuple(int(np.asarray(media.kind)[v])
+                                for v in vlive),
+                med_rot=tuple(float(m_cos[v]) != 1.0 or float(m_sin[v]) != 0.0
+                              for v in vlive),
+                med_trans=tuple(bool(np.any(m_off[v] != 0.0))
+                                for v in vlive),
                 med_rows=tuple(int(v) for v in vlive))
-    return med_tab, meta
+
+
+def table_rows(scene: st.Scene, base: st.Scene, meta: dict, device) -> tuple:
+    """The scene tables (cam_vec, sph_tab, attr_tab, clus_tab, rect_tab,
+    light_tab, med_tab) as float32 torch ops on `device` under meta's slot
+    layout and row lists, with the values from `scene`'s leaves (a tensor
+    leaf keeps its autograd graph: ops/mega_grad.py differentiates the
+    tables) and every structural decision (slot order, material and
+    texture indices, type codes, axis codes, light kinds) from the
+    concrete `base`. The arithmetic is the JAX package's host float32,
+    op for op, so build_tables (which calls it on the CPU) is bitwise
+    JAX's.
+
+    Spheres: centre, motion, t0, 1 / dt (0 for a static sphere), r^2
+    (-1 on padding rows, so nr2 = +1 never hits), each slot's attribute
+    column (material, albedo, fuzz or IOR, checker colours, noise and
+    image flags), and the AABB of each SB-slot cluster's motion-swept
+    spheres. Rects: extents, plane, transform, world normal, material and
+    texture lanes, 1 / extents. Lights: rect extents, plane, transform and
+    area, or sphere centre and radius. Media: boundary, transform,
+    -1 / density, albedo and texture lanes."""
+    f32 = torch.float32
+
+    def leaf(x):
+        return leaf_tensor(x, device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def const(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    slot = np.asarray(meta["slot_ext"], np.int64)
+    S = slot.size
+    actm = slot >= 0
+    act_t = torch.as_tensor(actm, device=device)
+    safe_i = idx(np.where(actm, slot, 0))
+
+    def pad(x, fill=0.0):
+        x = leaf(x)
+        if x.shape[0] == 0:
+            return torch.full((S,) + tuple(x.shape[1:]), fill, dtype=f32,
+                              device=device)
+        m = act_t if x.dim() == 1 else act_t[:, None]
+        return torch.where(m, x[safe_i], fill)
+
+    sph, mats, tex = scene.spheres, scene.materials, scene.textures
+    c0p, c1p = pad(sph.center0), pad(sph.center1)
+    t0p, t1p = pad(sph.time0), pad(sph.time1, 1.0)
+    radp = pad(sph.radius)
+    actp = const(actm.astype(np.float32))
+    dt = t1p - t0p
+    idt = torch.where(dt != 0, 1.0 / torch.where(dt != 0, dt, 1.0), 0.0)
+    dc = c1p - c0p
+    r2 = torch.where(actp > 0, radp * radp, -1.0)
+    sph_tab = torch.zeros((S, SPH_LANES), dtype=f32, device=device)
+    for lane, v in ((C_CX, c0p[:, 0]), (C_CY, c0p[:, 1]),
+                    (C_CZ, c0p[:, 2]), (C_DCX, dc[:, 0]),
+                    (C_DCY, dc[:, 1]), (C_DCZ, dc[:, 2]),
+                    (C_T0, t0p), (C_IDT, idt), (C_R2, r2),
+                    (C_ACT, actp), (C_NR2, -r2)):
+        sph_tab[:, lane] = v
+
+    # cluster AABBs of the current geometry (padding never widens a box)
+    C, SB = meta["C"], meta["SB"]
+    absr = radp.abs()[:, None]
+    los = torch.where(actp[:, None] > 0, torch.minimum(c0p, c1p) - absr,
+                      float("inf"))
+    his = torch.where(actp[:, None] > 0, torch.maximum(c0p, c1p) + absr,
+                      float("-inf"))
+    clus_tab = torch.zeros((C, CLUS_LANES), dtype=f32, device=device)
+    clus_tab[:, K_MINX:K_MINZ + 1] = los.view(C, SB, 3).amin(1)
+    clus_tab[:, K_MAXX:K_MAXZ + 1] = his.view(C, SB, 3).amax(1)
+
+    # attribute rows: structure from base, values from the scene's leaves
+    b_mats, b_tex = base.materials, base.textures
+    base_mat = np.asarray(base.spheres.mat, np.int64)
+    matp = (np.where(actm, base_mat[np.where(actm, slot, 0)], 0)
+            if base_mat.size else np.zeros(S, np.int64))
+    mtype = np.asarray(b_mats.mtype)[matp]
+    ti = np.asarray(b_mats.tex)[matp]
+    ttype = np.asarray(b_tex.ttype)
+    nmode = np.asarray(b_tex.noise_mode)
+    color = leaf(tex.color)
+    alb = color[idx(ti)]
+    fuzz = leaf(mats.fuzz)[idx(matp)]
+    ridx = leaf(mats.ref_idx)[idx(matp)]
+    rinv = torch.where(radp != 0, 1.0 / torch.where(radp != 0, radp, 1.0),
+                       0.0)
+    evc = color[idx(np.asarray(b_tex.even)[ti])]
+    odc = color[idx(np.asarray(b_tex.odd)[ti])]
+    is_noi = ttype[ti] == st.TEX_NOISE
+    imgf = np.where(ttype[ti] == st.TEX_IMAGE,
+                    1.0 + np.asarray(b_tex.image_id)[ti], 0.0)
+    mparam = torch.where(const(mtype == st.MAT_METAL) > 0, fuzz,
+                         torch.where(const(mtype == st.MAT_DIELECTRIC) > 0,
+                                     ridx, 0.0))
+    attr_tab = torch.zeros((A_ROWS, S), dtype=f32, device=device)
+    for row, v in ((A_CX, c0p[:, 0]), (A_CY, c0p[:, 1]),
+                   (A_CZ, c0p[:, 2]), (A_DCX, dc[:, 0]),
+                   (A_DCY, dc[:, 1]), (A_DCZ, dc[:, 2]),
+                   (A_T0, t0p), (A_IDT, idt), (A_RINV, rinv),
+                   (A_MTYPE, const(mtype)),
+                   (A_ALBX, alb[:, 0]), (A_ALBY, alb[:, 1]),
+                   (A_ALBZ, alb[:, 2]), (A_MPARAM, mparam),
+                   (A_CHK, const(ttype[ti] == st.TEX_CHECKER)),
+                   (A_NSCALE, leaf(tex.scale)[idx(ti)]),
+                   (A_NOISE, const(np.where(is_noi, 1.0 + nmode[ti],
+                                               0.0))),
+                   (A_EVENX, evc[:, 0]), (A_EVENY, evc[:, 1]),
+                   (A_EVENZ, evc[:, 2]),
+                   (A_ODDX, odc[:, 0]), (A_ODDY, odc[:, 1]),
+                   (A_ODDZ, odc[:, 2]),
+                   (A_IMG, const(np.where(actm, imgf, 0.0)))):
+        attr_tab[row] = v
+
+    def tex_lanes(t_i):
+        """(albedo, checker flag, even, odd, 1 + noise mode or 0, noise
+        scale or 0, 1 + image id or 0) of texture rows t_i."""
+        tt = ttype[t_i]
+        noi = tt == st.TEX_NOISE
+        return (color[idx(t_i)], tt == st.TEX_CHECKER,
+                color[idx(np.asarray(b_tex.even)[t_i])],
+                color[idx(np.asarray(b_tex.odd)[t_i])],
+                np.where(noi, 1.0 + nmode[t_i], 0.0),
+                torch.where(const(noi) > 0, leaf(tex.scale)[idx(t_i)], 0.0),
+                np.where(tt == st.TEX_IMAGE,
+                         1.0 + np.asarray(b_tex.image_id)[t_i], 0.0))
+
+    # rect rows (live rects of base, in order)
+    R = meta["R"]
+    rect_tab = torch.zeros((max(R, 1), RECT_LANES), dtype=f32,
+                           device=device)
+    if R:
+        rects = scene.rects
+        rr = np.asarray(meta["rect_rows"], np.int64)
+        rj = idx(rr)
+        g = {name: leaf(getattr(rects, name))[rj]
+             for name in ("a0", "a1", "b0", "b1", "k", "cos_t", "sin_t",
+                          "flip")}
+        off = leaf(rects.offset)[rj]
+        ax = np.asarray(base.rects.axis, np.int64)[rr]
+        mi = np.asarray(base.rects.mat, np.int64)[rr]
+        alb_r, chk, ev, od, noi, nsc, img = tex_lanes(
+            np.asarray(b_mats.tex, np.int64)[mi])
+        chk_t = const(chk)[:, None] > 0
+        # object-space normal by axis code (XY -> z, XZ -> y, YZ -> x),
+        # flipped, rotated object -> world
+        n_o = [torch.where(const(ax == a) > 0, g["flip"], 0.0)
+               for a in (2, 1, 0)]
+        ct, sn = g["cos_t"], g["sin_t"]
+        da, db = g["a1"] - g["a0"], g["b1"] - g["b0"]
+        for lane, v in ((RT_A0, g["a0"]), (RT_A1, g["a1"]),
+                        (RT_B0, g["b0"]), (RT_B1, g["b1"]),
+                        (RT_K, g["k"]), (RT_COS, ct), (RT_SIN, sn),
+                        (RT_OFFX, off[:, 0]), (RT_OFFY, off[:, 1]),
+                        (RT_OFFZ, off[:, 2]),
+                        (RT_NX, ct * n_o[0] + sn * n_o[2]),
+                        (RT_NY, n_o[1]),
+                        (RT_NZ, -sn * n_o[0] + ct * n_o[2]),
+                        (RT_MTYPE, const(np.asarray(b_mats.mtype)[mi])),
+                        (RT_ALBX, alb_r[:, 0]), (RT_ALBY, alb_r[:, 1]),
+                        (RT_ALBZ, alb_r[:, 2]),
+                        (RT_FUZZ, leaf(mats.fuzz)[idx(mi)]),
+                        (RT_RIDX, leaf(mats.ref_idx)[idx(mi)]),
+                        (RT_CHK, const(chk)),
+                        (RT_NOI, const(noi)), (RT_NSC, nsc),
+                        (RT_IMG, const(img)),
+                        (RT_IDA, torch.where(
+                            da != 0, 1.0 / torch.where(da != 0, da, 1.0),
+                            0.0)),
+                        (RT_IDB, torch.where(
+                            db != 0, 1.0 / torch.where(db != 0, db, 1.0),
+                            0.0))):
+            rect_tab[:R, lane] = v
+        rect_tab[:R, RT_EVENX:RT_EVENZ + 1] = torch.where(chk_t, ev,
+                                                                0.0)
+        rect_tab[:R, RT_ODDX:RT_ODDZ + 1] = torch.where(chk_t, od, 0.0)
+
+    # light rows (kinds and rows static)
+    L = meta["L"]
+    light_tab = torch.zeros((max(L, 1), LIGHT_LANES), dtype=f32,
+                            device=device)
+    for i in range(L):
+        li = int(meta["light_rows"][i])
+        if meta["light_kinds"][i] == st.LIGHT_RECT:
+            rects = scene.rects
+            v = {name: leaf(getattr(rects, name))[li]
+                 for name in ("a0", "a1", "b0", "b1", "k", "cos_t",
+                              "sin_t")}
+            for lane, name in ((LT_A0, "a0"), (LT_A1, "a1"),
+                               (LT_B0, "b0"), (LT_B1, "b1"),
+                               (LT_K, "k"), (LT_COS, "cos_t"),
+                               (LT_SIN, "sin_t")):
+                light_tab[i, lane] = v[name]
+            light_tab[i, LT_OFFX:LT_OFFZ + 1] = leaf(rects.offset)[li]
+            light_tab[i, LT_AREA] = (v["a1"] - v["a0"]) * (v["b1"]
+                                                              - v["b0"])
+        else:
+            light_tab[i, LT_CX:LT_CZ + 1] = leaf(sph.center0)[li]
+            light_tab[i, LT_RAD] = leaf(sph.radius)[li]
+
+    # medium rows (rows and kinds static)
+    V = meta["V"]
+    med_tab = torch.zeros((max(V, 1), MED_LANES), dtype=f32,
+                          device=device)
+    if V:
+        media = scene.media
+        vr = np.asarray(meta["med_rows"], np.int64)
+        vj = idx(vr)
+        mi = np.asarray(base.media.mat, np.int64)[vr]
+        alb_v, _, _, _, noi, nsc, img = tex_lanes(
+            np.asarray(b_mats.tex, np.int64)[mi])
+        med_tab[:V, MD_P0X:MD_P0Z + 1] = leaf(media.p0)[vj]
+        med_tab[:V, MD_P1X:MD_P1Z + 1] = leaf(media.p1)[vj]
+        med_tab[:V, MD_COS] = leaf(media.cos_t)[vj]
+        med_tab[:V, MD_SIN] = leaf(media.sin_t)[vj]
+        med_tab[:V, MD_OFFX:MD_OFFZ + 1] = leaf(media.offset)[vj]
+        med_tab[:V, MD_NIRHO] = -1.0 / leaf(media.density)[vj]
+        med_tab[:V, MD_ALBX:MD_ALBZ + 1] = alb_v
+        med_tab[:V, MD_NOI] = const(noi)
+        med_tab[:V, MD_NSC] = nsc
+        med_tab[:V, MD_IMG] = const(np.where(noi > 0, 0.0, img))
+
+    cam = scene.camera
+    cam_vec = torch.zeros((1, 128), dtype=f32, device=device)
+    for lane, v in ((CAM_OX, cam.origin),
+                    (CAM_LLX, cam.lower_left_corner),
+                    (CAM_HX, cam.horizontal), (CAM_VX, cam.vertical),
+                    (CAM_UX, cam.u), (CAM_WX, cam.v)):
+        cam_vec[0, lane:lane + 3] = leaf(v)
+    cam_vec[0, CAM_LENS] = leaf(cam.lens_radius)
+    cam_vec[0, CAM_T0] = leaf(cam.time0)
+    cam_vec[0, CAM_T1] = leaf(cam.time1)
+
+    return (cam_vec, sph_tab, attr_tab, clus_tab, rect_tab, light_tab,
+            med_tab)
 
 
 _TABLE_CACHE: dict = {}
@@ -941,22 +1008,25 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     the launch reads none. Tables are copied once per (scene, device),
     layouts once per shape."""
     device = torch.device(device)
-
-    def build():
-        sph, attr, rect, light, med, cam, meta = build_tables_cached(
-            scene, plan.SB)
-        images = (scene.textures.images if plan.img_hw
-                  else np.zeros((1, 1, 1, 3), np.float32))
-        return (*(torch.from_numpy(a).to(device)
-                  for a in (cam, sph, attr, meta["clus_tab"], rect, light,
-                            med)),
-                *_noise.noise_tables(str(device)),
-                torch.from_numpy(np.ascontiguousarray(images, np.float32))
-                .to(device))
-    tabs = _scene_memo(_TABLE_CACHE, scene, ("device", plan.SB, str(device)),
-                       build)
+    tabs = _scene_memo(
+        _TABLE_CACHE, scene, ("device", plan.SB, str(device)),
+        lambda: table_tensors(build_tables_cached(scene, plan.SB), scene,
+                              plan, device))
     pixf, inv = _device_layout(plan.nx, plan.ny, plan.T, str(device))
     return (pixf, *tabs), inv
+
+
+def table_tensors(tabs, scene: st.Scene, plan: MegaPlan, device) -> tuple:
+    """`build_tables`' host tables (and the scene's texels) as the launch's
+    tensors on `device`, in the kernel's argument order after pixf."""
+    sph, attr, rect, light, med, cam, meta = tabs
+    images = (scene.textures.images if plan.img_hw
+              else np.zeros((1, 1, 1, 3), np.float32))
+    return (*(torch.from_numpy(a).to(device)
+              for a in (cam, sph, attr, meta["clus_tab"], rect, light, med)),
+            *_noise.noise_tables(str(device)),
+            torch.from_numpy(np.ascontiguousarray(images, np.float32))
+            .to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -997,10 +1067,20 @@ _INV_PI = _f32(1.0 / math.pi)
 _TWO_PI = _f32(2.0 * math.pi)
 
 
-def _div(a: float, x: torch.Tensor) -> torch.Tensor:
+def _div(a, x: torch.Tensor) -> torch.Tensor:
     """a / x with one rounding (torch evaluates `float / tensor` as
-    x.reciprocal() * a, two roundings)."""
+    x.reciprocal() * a, two roundings); a is a float or a tensor."""
+    if isinstance(a, torch.Tensor):
+        return a / x
     return torch.full_like(x, a) / x
+
+
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) with a finite gradient everywhere: where x <= 0 the
+    value is 0 and no gradient flows, so a masked-off lane cannot turn a
+    zero cotangent into 0 * inf = NaN under autograd."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def _rotate_y_inv(cth, sth, x, z):
@@ -1015,7 +1095,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          light_tab: torch.Tensor, med_tab: torch.Tensor,
                          perm: torch.Tensor, ranvec: torch.Tensor,
                          images: torch.Tensor, seed: int,
-                         plan: MegaPlan) -> torch.Tensor:
+                         plan: MegaPlan,
+                         tape: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of the megakernel, with the arguments of
     `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128),
     attr_tab (24, S), clus_tab (C, 128), rect_tab (max(R, 1), 128),
@@ -1029,8 +1110,21 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     runs until its slowest lane has `spp` samples (overdraw: all its valid
     lanes trace on; exact mode: finished lanes idle); lanes of a finished
     tile freeze. A culled plan sweeps as the culled kernel does, warp by
-    warp of 32 lanes, so row 6 counts the same swept blocks."""
+    warp of 32 lanes, so row 6 counts the same swept blocks.
+
+    With `tape` ((n_tiles, n_iters, T) winner codes of an exact-mode
+    launch) it replays that launch instead (ops/mega_grad.py): each
+    bounce's winner comes from the tape, only the winner's hit distance is
+    recomputed (the taped sphere slot's root, the taped rect's plane, the
+    taped medium's scatter distance), and every tile runs all n_iters
+    iterations out of place, so autograd differentiates the sums w.r.t.
+    every table. The arithmetic is the plain version's op for op; the
+    square roots and the rect-light pdf are written so that masked lanes
+    keep finite gradients, which changes no value a live lane reads."""
     seed = _check_seed(seed)
+    if tape is not None and not (plan.exact and plan.rr_depth is None):
+        raise ValueError("a tape replays an exact-spp launch without "
+                         "Russian roulette")
     dev = pixf.device
     f32 = torch.float32
     n_tiles, _, T = pixf.shape
@@ -1038,7 +1132,9 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     spp = float(plan.spp)
     t_min = plan.t_min
 
-    cam = [float(v) for v in cam_vec.reshape(-1)[:21].tolist()]
+    # camera lanes and table rows as 0-d tensors: float32 arithmetic with
+    # the values a launch reads, differentiable w.r.t. the tables
+    cam = cam_vec.reshape(-1)
     c_ox, c_oy, c_oz = cam[CAM_OX], cam[CAM_OY], cam[CAM_OZ]
     c_llx, c_lly, c_llz = cam[CAM_LLX], cam[CAM_LLY], cam[CAM_LLZ]
     c_hx, c_hy, c_hz = cam[CAM_HX], cam[CAM_HY], cam[CAM_HZ]
@@ -1046,7 +1142,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     c_ux, c_uy, c_uz = cam[CAM_UX], cam[CAM_UY], cam[CAM_UZ]
     c_vvx, c_vvy, c_vvz = cam[CAM_WX], cam[CAM_WY], cam[CAM_WZ]
     c_lens, c_t0 = cam[CAM_LENS], cam[CAM_T0]
-    c_dt = _f32(np.float32(cam[CAM_T1]) - np.float32(c_t0))  # f32 scalar op
+    c_dt = cam[CAM_T1] - c_t0
     inv_nx = _f32(1.0 / plan.nx)
     inv_ny = _f32(1.0 / plan.ny)
 
@@ -1059,10 +1155,11 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                                                     dtype=f32, device=dev)])
     med_ext = torch.cat([med_tab[:V], torch.zeros((1, MED_LANES), dtype=f32,
                                                   device=dev)])
-    rect_rows = rect_tab[:R, :RT_IDB + 1].tolist()
+    rect_rows = list(rect_tab[:R])
+    rect_keys = rect_tab[:R, :RT_IDB + 1].tolist()   # transform groups
     img_hw = torch.tensor(plan.img_hw or ((1, 1),), device=dev)
-    light_rows = light_tab[:L, :LT_RAD + 1].tolist()
-    med_rows = med_tab[:V, :MD_ALBZ + 1].tolist()
+    light_rows = list(light_tab[:L])
+    med_rows = list(med_tab[:V])
     lane_ids = torch.arange(T, dtype=torch.int64, device=dev)
 
     def gen_rays(it, tiles, pxi, pxj):
@@ -1095,13 +1192,14 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     # `addcmul(...).float()` is `_fma` without re-converting its operands
     col64 = {ln: c.double() for ln, c in col.items()}
 
-    def quad(cb, cb64, o, dy, dx64, dz64, time, frac64):
+    def quad(cb, cb64, o, dy, dx64, dz64, time, frac64, guard=None):
         """The closest root > t_min (BIG on a miss) of each (slot, lane)
         pair: the sign-flipped half-b quadratic with a = 1 (unit
         directions). cb / cb64 map a sweep lane to its slot columns in
         float32 / float64, broadcastable against the (1, n) rays o, dy,
         dx64, dz64 and time; frac64 is the uniform shutter's motion
-        fraction (float64), else None."""
+        fraction (float64), else None. Lanes off `guard` take disc = 1
+        (a replay's non-sphere lanes: finite gradients)."""
         if any(plan.moving_axes) and not plan.uniform_time:
             frac64 = ((time - cb[C_T0]) * cb[C_IDT]).double()
         co = []
@@ -1117,7 +1215,9 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         cc = torch.addcmul(cb64[C_NR2], coz64, coz64).float()
         cc = torch.addcmul(cc.double(), coy64, coy64).float()
         cc = torch.addcmul(cc.double(), cox64, cox64).float()
-        disc = torch.addcmul(cc.double().neg_(), nb64, nb64).float()
+        disc = torch.addcmul(cc.double().neg(), nb64, nb64).float()
+        if guard is not None:
+            disc = torch.where(guard, disc, 1.0)
         nb = nb64.float()
         # disc < 0 and disc == 0 both give NaN: a miss
         sq = disc * _rsqrt(disc)
@@ -1276,11 +1376,12 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     _LT_TF = (LT_COS, LT_SIN, LT_OFFX, LT_OFFY, LT_OFFZ)
     _MD_TF = (MD_COS, MD_SIN, MD_OFFX, MD_OFFY, MD_OFFZ)
 
-    def rect_hit(o, d, inv_d):
+    def rect_hit(o, d, inv_d, forced=None):
         """Closest rect (hittable.h:142-267, baked flip / rotate_y /
         translate): (t, winner row; R when none, the winner's planar uv
         when the launch reads images). The first rect with the strictly
-        smallest t wins."""
+        smallest t wins; a replay passes the taped row (`forced`, -1 for
+        none) instead."""
         rb_t = torch.full_like(o[0], BIG)
         rwin = torch.full(o[0].shape, R, dtype=torch.int64, device=dev)
         r_u = r_v = None
@@ -1289,7 +1390,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         groups = {}
         for ri, row in enumerate(rect_rows):
             code = plan.rect_codes[ri]
-            key = (code >> 2, *(row[k] for k in _RT_TF))
+            key = (code >> 2, *(rect_keys[ri][k] for k in _RT_TF))
             if key not in groups:   # one object-space ray per transform
                 ro, rd = object_ray(code >> 2, row, o, d, _RT_TF)
                 groups[key] = ro, rd, reciprocals(code >> 2, rd, inv_d)
@@ -1301,9 +1402,12 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             t_r = (row[RT_K] - ro[i_n]) * ir[i_n]
             pa = _fma(t_r, rd[ia], ro[ia])
             pb = _fma(t_r, rd[ib], ro[ib])
-            ok = ((t_r > t_min) & (t_r < rb_t)
-                  & (pa >= row[RT_A0]) & (pa <= row[RT_A1])
-                  & (pb >= row[RT_B0]) & (pb <= row[RT_B1]))
+            if forced is None:
+                ok = ((t_r > t_min) & (t_r < rb_t)
+                      & (pa >= row[RT_A0]) & (pa <= row[RT_A1])
+                      & (pb >= row[RT_B0]) & (pb <= row[RT_B1]))
+            else:
+                ok = forced == ri
             rb_t = torch.where(ok, t_r, rb_t)
             rwin = torch.where(ok, ri, rwin)
             if r_u is not None:   # uv = planar offset / extent
@@ -1311,10 +1415,11 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 r_v = torch.where(ok, (pb - row[RT_B0]) * row[RT_IDB], r_v)
         return rb_t, rwin, r_u, r_v
 
-    def media_hit(o, d, inv_d, tiles, it):
+    def media_hit(o, d, inv_d, tiles, it, forced=None):
         """Closest constant-medium scatter distance (hittable.h:430-479):
         t_in - log(u) / density inside the boundary, salt 4, one row per
-        medium. Returns (t, winner row; V when none)."""
+        medium. Returns (t, winner row; V when none); a replay passes the
+        taped row (`forced`, -1 for none)."""
         base = _stream_base(seed, tiles, it, 4, lane_ids).reshape(-1)
         md_t = torch.full_like(o[0], BIG)
         mwin = torch.full(o[0].shape, V, dtype=torch.int64, device=dev)
@@ -1326,10 +1431,10 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 ocy = mo[1] - row[MD_P0Y]
                 ocz = mo[2] - row[MD_P0Z]
                 bq = _fma(ocz, md[2], _fma(ocx, md[0], ocy * md[1]))
-                rq2 = _f32(row[MD_P1X] * row[MD_P1X])
+                rq2 = row[MD_P1X] * row[MD_P1X]
                 ccq = _fma(ocz, ocz, _fma(ocx, ocx, ocy * ocy)) - rq2
                 dq = _fma(bq, bq, -ccq)
-                sqq = torch.sqrt(torch.clamp_min(dq, 0.0))
+                sqq = _sqrt0(dq)
                 m_in = -bq - sqq
                 m_out = -bq + sqq
                 m_bh = dq > 0.0
@@ -1345,7 +1450,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             m_in = torch.maximum(m_in, torch.full_like(m_in, t_min))
             u = torch.clamp_min(_uniform_row(base, vi), 1e-38)
             tci = _fma(row[MD_NIRHO], torch.log(u), m_in)
-            ok = m_bh & (m_in < m_out) & (tci < m_out) & (tci < md_t)
+            ok = (m_bh & (m_in < m_out) & (tci < m_out) & (tci < md_t)
+                  if forced is None else forced == vi)
             md_t = torch.where(ok, tci, md_t)
             mwin = torch.where(ok, vi, mwin)
         return md_t, mwin
@@ -1360,9 +1466,9 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         for li, row in enumerate(light_rows):
             code = plan.light_codes[li]
             if code & 1 == st.LIGHT_RECT:
-                pa_s = _fma(ul[1], _f32(row[LT_A1] - row[LT_A0]), row[LT_A0])
-                pb_s = _fma(ul[2], _f32(row[LT_B1] - row[LT_B0]), row[LT_B0])
-                kk = torch.full_like(px_, row[LT_K])
+                pa_s = _fma(ul[1], row[LT_A1] - row[LT_A0], row[LT_A0])
+                pb_s = _fma(ul[2], row[LT_B1] - row[LT_B0], row[LT_B0])
+                kk = row[LT_K].expand_as(px_)
                 ppx, ppy, ppz = ((pa_s, pb_s, kk), (pa_s, kk, pb_s),
                                  (kk, pa_s, pb_s))[code >> 1 & 3]
                 if code >> 3 & 1:   # object -> world: Ry(theta)
@@ -1379,12 +1485,11 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 tcy = row[LT_CY] - py_
                 tcz = row[LT_CZ] - pz_
                 dist2 = _fma(tcz, tcz, _fma(tcx, tcx, tcy * tcy))
-                rad2 = _f32(row[LT_RAD] * row[LT_RAD])
-                ctm = torch.sqrt(torch.clamp_min(
-                    1.0 - _div(rad2, torch.clamp_min(dist2, 1e-20)), 0.0))
+                rad2 = row[LT_RAD] * row[LT_RAD]
+                ctm = _sqrt0(1.0 - _div(rad2, torch.clamp_min(dist2, 1e-20)))
                 zc = _fma(ul[2], ctm - 1.0, 1.0)
                 cpl, spl = _cossin2pi(ul[1])
-                sc = torch.sqrt(torch.clamp_min(_fma(-zc, zc, 1.0), 0.0))
+                sc = _sqrt0(_fma(-zc, zc, 1.0))
                 winv = _rsqrt(torch.clamp_min(dist2, 1e-20))
                 wlx, wly, wlz = tcx * winv, tcy * winv, tcz * winv
                 lux, luy, luz, lvx, lvy, lvz = _onb(wlx, wly, wlz)
@@ -1412,10 +1517,15 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             if code & 1 == st.LIGHT_RECT:
                 q, w = object_ray(code >> 3, row, p, mu, _LT_TF)
                 ia, ib, i_n = ((0, 1, 2), (0, 2, 1), (1, 2, 0))[code >> 1 & 3]
-                t_l = (row[LT_K] - q[i_n]) / w[i_n]
+                # a probe (near) parallel to the plane misses it; its t is
+                # kept finite, and |t| <= 1e9 holds every reachable hit
+                wn_ok = w[i_n].abs() > 1e-20
+                t_l = torch.clamp((row[LT_K] - q[i_n])
+                                  / torch.where(wn_ok, w[i_n], 1.0),
+                                  -1e9, 1e9)
                 hpa = _fma(t_l, w[ia], q[ia])
                 hpb = _fma(t_l, w[ib], q[ib])
-                lh = ((t_l > t_min)
+                lh = (wn_ok & (t_l > t_min)
                       & (hpa >= row[LT_A0]) & (hpa <= row[LT_A1])
                       & (hpb >= row[LT_B0]) & (hpb <= row[LT_B1]))
                 # unit probe direction: dist^2 = t^2, cosine = |d_n|
@@ -1425,17 +1535,16 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 ocx = px_ - row[LT_CX]
                 ocy = py_ - row[LT_CY]
                 ocz = pz_ - row[LT_CZ]
-                rad2 = _f32(row[LT_RAD] * row[LT_RAD])
+                rad2 = row[LT_RAD] * row[LT_RAD]
                 b_l = _fma(ocz, muz, _fma(ocx, mux, ocy * muy))
                 d2l = _fma(ocz, ocz, _fma(ocx, ocx, ocy * ocy))
                 cc_l = d2l - rad2
                 disc_l = _fma(b_l, b_l, -cc_l)
-                sq_l = torch.sqrt(torch.clamp_min(disc_l, 0.0))
+                sq_l = _sqrt0(disc_l)
                 tn_l = -b_l - sq_l
                 t_l = torch.where(tn_l > t_min, tn_l, -b_l + sq_l)
                 lh = (disc_l > 0.0) & (t_l > t_min)
-                ctm = torch.sqrt(torch.clamp_min(
-                    1.0 - _div(rad2, torch.clamp_min(d2l, 1e-20)), 0.0))
+                ctm = _sqrt0(1.0 - _div(rad2, torch.clamp_min(d2l, 1e-20)))
                 solid = _TWO_PI * (1.0 - ctm)
                 pdf_l = 1.0 / torch.clamp_min(solid, 1e-20)
             acc = acc + torch.where(lh, pdf_l, 0.0)
@@ -1491,46 +1600,89 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             albz = torch.where(use_img, tex[:, 2], albz)
         return albx, alby, albz
 
-    def one_iter(state, it, tiles, pxi, pxj, valid):
+    sweep_cols = sph_tab[:, list(SWEEP_LANES)].t()     # (9, S)
+
+    def taped_hits(w, o, d, time, tiles, it):
+        """A replay's intersection: the tape's winner (w: -1 miss, sphere
+        slot, S + rect row, S + R + medium row) and its recomputed hit
+        distance. Returns what the sweeps return for it."""
+        wi = w.to(torch.int64)
+        hit = w >= 0.0
+        is_sph = hit & (wi < S)
+        use_rect = hit & (wi >= S) & (wi < S + R)
+        use_med = hit & (wi >= S + R)
+        bidx = torch.where(is_sph, wi, S)
+        best_t = torch.ones_like(o[0])    # miss lanes: a finite, unread t
+        if plan.has_spheres:
+            slot = torch.clamp_max(bidx, S - 1)
+            cols = sweep_cols.index_select(1, slot)
+            cb = {ln: cols[k] for k, ln in enumerate(SWEEP_LANES)}
+            frac64 = (((time - plan.ut_t0) * plan.ut_idt).double()
+                      if plan.uniform_time else None)
+            t_s = quad(cb, {k: v.double() for k, v in cb.items()}, o, d[1],
+                       d[0].double(), d[2].double(), time, frac64,
+                       guard=is_sph)
+            best_t = torch.where(is_sph, t_s, best_t)
+        rwin = torch.where(use_rect, wi - S, R)
+        mwin = torch.where(use_med, wi - S - R, V)
+        r_u = r_v = None
+        if R or V:
+            inv_d = (1.0 / d[0], 1.0 / d[1], 1.0 / d[2])
+        if R:
+            rb_t, _, r_u, r_v = rect_hit(o, d, inv_d, forced=rwin)
+            best_t = torch.where(use_rect, rb_t, best_t)
+        if V:
+            md_t, _ = media_hit(o, d, inv_d, tiles, it, forced=mwin)
+            best_t = torch.where(use_med, md_t, best_t)
+        return best_t, hit, bidx, use_rect, rwin, r_u, r_v, use_med, mwin
+
+    def one_iter(state, it, tiles, pxi, pxj, valid, w=None):
         (ox, oy, oz, dx, dy, dz, time, tpx, tpy, tpz, rx, ry, rz,
          ax, ay, az, segs, depth, done, iters, blk) = state.unbind(0)
         active = (valid & (done < spp)) if plan.exact else valid
         segs = segs + active.to(f32)
 
-        if plan.cull:
-            # a lane counts a swept block where it counts an iteration
-            s_best, bidx, blk_inc = sweep_culled(
-                ox, oy, oz, dx, dy, dz, time, active,
-                active.to(f32) if plan.exact else torch.ones_like(ox))
-            blk = blk + blk_inc
-        else:
-            s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
-        best_t = s_best
         o, d = (ox, oy, oz), (dx, dy, dz)
-        if R or V:
-            inv_d = (1.0 / dx, 1.0 / dy, 1.0 / dz)
-        if R:
-            rb_t, rwin, r_u, r_v = rect_hit(o, d, inv_d)
-            use_rect = rb_t < s_best
-            best_t = torch.minimum(s_best, rb_t)
-        if V:
-            md_t, mwin = media_hit(o, d, inv_d, tiles, it)
-            use_med = md_t < best_t
-            best_t = torch.minimum(best_t, md_t)
-        hit = best_t < _HIT_CUT
-        # winner code: -1 miss, [0, S) sphere slot, S + r rect, S + R + v
-        wcode = (bidx.to(f32) if plan.has_spheres
-                 else torch.full_like(best_t, -1.0))
-        if R:
-            wcode = torch.where(use_rect, (S + rwin).to(f32), wcode)
-        if V:
-            wcode = torch.where(use_med, (S + R + mwin).to(f32), wcode)
-        wcode = torch.where(active & hit, wcode, -1.0)
+        if w is not None:
+            (best_t, hit, bidx, use_rect, rwin, r_u, r_v, use_med,
+             mwin) = taped_hits(w, o, d, time, tiles, it)
+            wcode = w
+        else:
+            if plan.cull:
+                # a lane counts a swept block where it counts an iteration
+                s_best, bidx, blk_inc = sweep_culled(
+                    ox, oy, oz, dx, dy, dz, time, active,
+                    active.to(f32) if plan.exact else torch.ones_like(ox))
+                blk = blk + blk_inc
+            else:
+                s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
+            best_t = s_best
+            if R or V:
+                inv_d = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+            if R:
+                rb_t, rwin, r_u, r_v = rect_hit(o, d, inv_d)
+                use_rect = rb_t < s_best
+                best_t = torch.minimum(s_best, rb_t)
+            if V:
+                md_t, mwin = media_hit(o, d, inv_d, tiles, it)
+                use_med = md_t < best_t
+                best_t = torch.minimum(best_t, md_t)
+            hit = best_t < _HIT_CUT
+            # winner code: -1 miss, [0, S) sphere slot, S + r rect,
+            # S + R + v medium
+            wcode = (bidx.to(f32) if plan.has_spheres
+                     else torch.full_like(best_t, -1.0))
+            if R:
+                wcode = torch.where(use_rect, (S + rwin).to(f32), wcode)
+            if V:
+                wcode = torch.where(use_med, (S + R + mwin).to(f32), wcode)
+            wcode = torch.where(active & hit, wcode, -1.0)
 
         px_ = _fma(best_t, dx, ox)
         py_ = _fma(best_t, dy, oy)
         pz_ = _fma(best_t, dz, oz)
-        attrs = attr_ext[:, bidx]
+        # gathers as index_select: a replay's backward is then index_add
+        attrs = attr_ext.index_select(1, bidx)
 
         # ---- sphere normal ((p - c(t)) / r, sphere.h:56-66) ----
         scx, scy, scz = attrs[A_CX], attrs[A_CY], attrs[A_CZ]
@@ -1547,7 +1699,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         albx, alby, albz = attrs[A_ALBX], attrs[A_ALBY], attrs[A_ALBZ]
         fuzz = ridx = attrs[A_MPARAM]   # metal fuzz or dielectric IOR
         if R:   # the rect winner's baked normal and material
-            rrow = rect_ext[rwin].t()
+            rrow = rect_ext.index_select(0, rwin).t()
             nx_ = torch.where(use_rect, rrow[RT_NX], nx_)
             ny_ = torch.where(use_rect, rrow[RT_NY], ny_)
             nz_ = torch.where(use_rect, rrow[RT_NZ], nz_)
@@ -1558,7 +1710,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             fuzz = torch.where(use_rect, rrow[RT_FUZZ], fuzz)
             ridx = torch.where(use_rect, rrow[RT_RIDX], ridx)
         if V:   # medium scatter vertex: isotropic, albedo of the medium
-            mrow = med_ext[mwin].t()
+            mrow = med_ext.index_select(0, mwin).t()
             mtype = torch.where(use_med, float(st.MAT_ISOTROPIC), mtype)
             albx = torch.where(use_med, mrow[MD_ALBX], albx)
             alby = torch.where(use_med, mrow[MD_ALBY], alby)
@@ -1667,12 +1819,12 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         onz = sgn * nz_
         nint = torch.where(inside, ridx, 1.0 / torch.clamp_min(ridx, 1e-6))
         cos_exit2 = _fma(-(ridx * ridx), _fma(-ddn, ddn, 1.0), 1.0)
-        cos_exit = torch.sqrt(torch.clamp_min(cos_exit2, 0.0))
+        cos_exit = _sqrt0(cos_exit2)
         cosine = torch.where(inside, cos_exit, -ddn)
         dt = _fma(dz, onz, _fma(dx, onx, dy * ony))
         disc_r = _fma(-(nint * nint), _fma(-dt, dt, 1.0), 1.0)
         canr = disc_r > 0.0
-        sqr = torch.sqrt(torch.clamp_min(disc_r, 0.0))
+        sqr = _sqrt0(disc_r)
         refx = _fma(nint, _fma(-onx, dt, dx), -(onx * sqr))
         refy = _fma(nint, _fma(-ony, dt, dy), -(ony * sqr))
         refz = _fma(nint, _fma(-onz, dt, dz), -(onz * sqr))
@@ -1793,7 +1945,18 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                       device=dev)
     if n_iters:
         out[:, OUT_ROWS:, :] = -1.0
-    running = valid_all.any(dim=1)
+    if tape is not None:
+        # every tile, every taped iteration (a finished lane idles)
+        pxi, pxj = pxi_all.reshape(-1), pxj_all.reshape(-1)
+        valid = valid_all.reshape(-1)
+        state = state.view(STATE_ROWS, -1)
+        for it in range(n_iters):
+            state, wcode, _ = one_iter(state, it, all_tiles, pxi, pxj, valid,
+                                       tape[:, it, :].reshape(-1))
+            out[:, OUT_ROWS + it, :] = wcode.view(n_tiles, T)
+        state = state.view(STATE_ROWS, n_tiles, T)
+    running = (valid_all.any(dim=1) if tape is None
+               else torch.zeros(n_tiles, dtype=torch.bool, device=dev))
     it = 0
     while True:
         run = running.nonzero().squeeze(1)

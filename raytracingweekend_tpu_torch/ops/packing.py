@@ -9,10 +9,14 @@ after intersection sits in two rows per primitive, P = S + R + V rows
 - shading row (P, 16): the primitive's material and its texture, checker
   children's constant colours baked in.
 
-The rows are made on the host in float32 numpy, bitwise the JAX package's,
-and copied to the device once per (scene, device) by `device_scene`, which
-also carries every table of the scene as tensors, the K7 sphere table
-(ops/intersect.py), the light rows of ops/pdfs.py and the BVH arrays.
+`device_scene` packs the rows in float32 torch ops on the device
+(`_torch_rows`), bitwise the JAX package's `pack_geometry`, `pack_shading`
+and light rows, together with every table of the scene as tensors, the
+K7 sphere table (ops/intersect.py) and the BVH arrays, once per (scene,
+device). A differentiable scene (`dataclasses.replace` has put float32
+tensors into some of its continuous leaves) packs the same way, its rows
+differentiable w.r.t. those leaves, and is never cached: each call packs
+it anew at its current values.
 """
 from __future__ import annotations
 
@@ -51,7 +55,23 @@ LANES = 16
 (L_KIND, L_A0, L_A1, L_B0, L_B1, L_K, L_AXIS, L_COS, L_SIN,
  L_OFFX, L_OFFY, L_OFFZ, L_CX, L_CY, L_CZ, L_RAD) = range(16)
 
-_F32 = np.float32
+
+def leaf_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    """A scene leaf as a tensor on `device`: a tensor keeps its autograd
+    graph (moved and cast as needed), anything else is copied from
+    numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def has_tensor_leaves(scene: st.Scene) -> bool:
+    """True when a table or camera field of `scene` holds a torch tensor
+    (a differentiable scene: gradients flow to those leaves)."""
+    return any(isinstance(getattr(tab, f.name), torch.Tensor)
+               for tab in (scene.spheres, scene.rects, scene.media,
+                           scene.materials, scene.textures, scene.camera)
+               for f in dataclasses.fields(tab))
 
 
 def prim_offsets(scene):
@@ -60,102 +80,6 @@ def prim_offsets(scene):
     S = scene.spheres.mat.shape[0]
     R = scene.rects.mat.shape[0]
     return 0, S, S + R
-
-
-def _inv_dt(time0, time1) -> np.ndarray:
-    dt = np.asarray(time1, _F32) - np.asarray(time0, _F32)
-    nz = dt != 0
-    return np.where(nz, _F32(1.0) / np.where(nz, dt, _F32(1.0)), _F32(0.0))
-
-
-def pack_geometry(scene: st.Scene) -> np.ndarray:
-    """(P, 16) float32 geometry rows."""
-    sph = scene.spheres
-    c0 = np.asarray(sph.center0, _F32)
-    g_s = np.zeros((c0.shape[0], LANES), _F32)
-    g_s[:, GS_C0X:GS_C0Z + 1] = c0
-    g_s[:, GS_DCX:GS_DCZ + 1] = np.asarray(sph.center1, _F32) - c0
-    g_s[:, GS_T0] = sph.time0
-    g_s[:, GS_IDT] = _inv_dt(sph.time0, sph.time1)
-    g_s[:, GS_RAD] = sph.radius
-    g_s[:, G_MAT] = sph.mat
-    parts = [g_s]
-    r = scene.rects
-    if r.mat.shape[0]:
-        g_r = np.zeros((r.mat.shape[0], LANES), _F32)
-        g_r[:, GR_OFFX:GR_OFFZ + 1] = r.offset
-        g_r[:, GR_COS] = r.cos_t
-        g_r[:, GR_SIN] = r.sin_t
-        g_r[:, GR_AXIS] = r.axis
-        g_r[:, GR_FLIP] = r.flip
-        g_r[:, GR_A0] = r.a0
-        g_r[:, GR_A1] = r.a1
-        g_r[:, GR_B0] = r.b0
-        g_r[:, GR_B1] = r.b1
-        g_r[:, GR_K] = r.k
-        g_r[:, G_MAT] = r.mat
-        parts.append(g_r)
-    m = scene.media
-    if m.mat.shape[0]:
-        g_m = np.zeros((m.mat.shape[0], LANES), _F32)
-        g_m[:, G_MAT] = m.mat
-        parts.append(g_m)
-    return np.concatenate(parts, axis=0)
-
-
-def _material_rows(scene: st.Scene) -> np.ndarray:
-    """(M, 16) float32: material attributes + flattened texture attributes,
-    the checker children's constant colours baked in."""
-    mats, tex = scene.materials, scene.textures
-    ti = np.asarray(mats.tex)
-    rows = np.zeros((ti.shape[0], LANES), _F32)
-    rows[:, S_MTYPE] = mats.mtype
-    rows[:, S_FUZZ] = mats.fuzz
-    rows[:, S_RIDX] = mats.ref_idx
-    color = np.asarray(tex.color, _F32)
-    rows[:, S_COL:S_COL + 3] = color[ti]
-    rows[:, S_TTYPE] = np.asarray(tex.ttype)[ti]
-    rows[:, S_SCALE] = np.asarray(tex.scale, _F32)[ti]
-    rows[:, S_NMODE] = np.asarray(tex.noise_mode)[ti]
-    rows[:, S_EVEN:S_EVEN + 3] = color[np.asarray(tex.even)[ti]]
-    rows[:, S_ODD:S_ODD + 3] = color[np.asarray(tex.odd)[ti]]
-    rows[:, S_IMG] = np.asarray(tex.image_id)[ti]
-    return rows
-
-
-def pack_shading(scene: st.Scene) -> np.ndarray:
-    """(P, 16) float32 shading rows aligned with pack_geometry's."""
-    mat_rows = _material_rows(scene)
-    cols = [mat_rows[np.asarray(scene.spheres.mat)]]
-    if scene.rects.mat.shape[0]:
-        cols.append(mat_rows[np.asarray(scene.rects.mat)])
-    if scene.media.mat.shape[0]:
-        cols.append(mat_rows[np.asarray(scene.media.mat)])
-    return np.concatenate(cols, axis=0)
-
-
-def light_rows(scene: st.Scene) -> np.ndarray:
-    """(L, 16) float32 rows of each light's sampling attributes: rect
-    extents and transform, or sphere centre and radius (pdfs._light_rows)."""
-    lights = scene.lights
-    kind = np.asarray(lights.kind)
-    index = np.asarray(lights.index)
-    rows = np.zeros((kind.shape[0], 16), _F32)
-    rows[:, L_KIND] = kind
-    r = scene.rects
-    if r.mat.shape[0]:
-        ri = np.where(kind == st.LIGHT_RECT, index, 0)
-        for lane, col in ((L_A0, r.a0), (L_A1, r.a1), (L_B0, r.b0),
-                          (L_B1, r.b1), (L_K, r.k), (L_AXIS, r.axis),
-                          (L_COS, r.cos_t), (L_SIN, r.sin_t)):
-            rows[:, lane] = np.asarray(col)[ri]
-        rows[:, L_OFFX:L_OFFZ + 1] = np.asarray(r.offset, _F32)[ri]
-    sph = scene.spheres
-    if sph.mat.shape[0]:
-        si = np.where(kind == st.LIGHT_SPHERE, index, 0)
-        rows[:, L_CX:L_CZ + 1] = np.asarray(sph.center0, _F32)[si]
-        rows[:, L_RAD] = np.asarray(sph.radius, _F32)[si]
-    return rows
 
 
 @dataclasses.dataclass
@@ -187,6 +111,9 @@ def _to_device(obj, device) -> types.SimpleNamespace:
         if v is None or isinstance(v, int):     # absent images, lights.num
             out[f.name] = v
             continue
+        if isinstance(v, torch.Tensor):         # a differentiable leaf
+            out[f.name] = v.to(device)
+            continue
         a = np.asarray(v)
         if a.dtype.kind in "iu":
             a = a.astype(np.int64)
@@ -201,15 +128,21 @@ def device_scene(scene: st.Scene, device) -> DeviceScene:
     """The scene's DeviceScene on `device`, made once per (scene object,
     device) and dropped from the cache when the scene is collected."""
     device = torch.device(device)
+    if has_tensor_leaves(scene):
+        return _device_scene(scene, device, *_torch_rows(scene, device))
     key = (id(scene), str(device))
     hit = _CACHE.get(key)
     if hit is not None and hit[0]() is scene:
         return hit[1]
+    ds = _device_scene(scene, device, *_torch_rows(scene, device))
+    cache = _CACHE
+    cache[key] = (weakref.ref(scene, lambda _: cache.pop(key, None)), ds)
+    return ds
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    ds = DeviceScene(
+def _device_scene(scene, device, geo, shading, sphere_table,
+                  lights) -> DeviceScene:
+    return DeviceScene(
         scene=types.SimpleNamespace(
             **{f: getattr(scene, f) for f in st.STATIC_FIELDS}),
         device=device,
@@ -220,10 +153,98 @@ def device_scene(scene: st.Scene, device) -> DeviceScene:
         textures=_to_device(scene.textures, device),
         lights=_to_device(scene.lights, device),
         camera=_to_device(scene.camera, device),
-        geo=t(pack_geometry(scene)), shading=t(pack_shading(scene)),
-        sphere_table=t(intersect.pack_spheres(scene.spheres)),
-        light_rows=t(light_rows(scene)),
+        geo=geo, shading=shading, sphere_table=sphere_table,
+        light_rows=lights,
         bvh=None if scene.bvh is None else _to_device(scene.bvh, device))
-    cache = _CACHE
-    cache[key] = (weakref.ref(scene, lambda _: cache.pop(key, None)), ds)
-    return ds
+
+
+def _torch_rows(scene: st.Scene, device):
+    """(geometry rows (P, 16), shading rows (P, 16), K7 sphere table
+    (S, 12), light rows (L, 16)) in float32 torch ops on `device`, as the
+    JAX package computes them (`pack_geometry`, `pack_shading`,
+    `pallas_intersect.pack_spheres` in the port's lanes, pdfs'
+    `_light_rows`), with the structure (type codes, indices, flags) read
+    from the scene's numpy fields. The geometry row holds a sphere's
+    centre, motion, t0, 1 / dt and radius or a rect's transform and
+    extents, the material index at lane 15; the shading row the
+    primitive's material and texture, checker children's colours baked
+    in; the light row a rect light's extents and transform or a sphere
+    light's centre and radius."""
+    f32 = torch.float32
+
+    def leaf(x):
+        return leaf_tensor(x, device)
+
+    def code(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    def idx(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    def rows(n, lanes):
+        tab = torch.zeros((n, LANES), dtype=f32, device=device)
+        for lane, v in lanes:
+            if v.dim() == 2:
+                tab[:, lane:lane + v.shape[1]] = v
+            else:
+                tab[:, lane] = v
+        return tab
+
+    sph, r, m = scene.spheres, scene.rects, scene.media
+    c0, t0, t1 = leaf(sph.center0), leaf(sph.time0), leaf(sph.time1)
+    dc = leaf(sph.center1) - c0
+    dt = t1 - t0
+    inv_dt = torch.where(dt != 0, 1.0 / torch.where(dt != 0, dt, 1.0), 0.0)
+    rad = leaf(sph.radius)
+    parts = [rows(c0.shape[0], ((GS_C0X, c0), (GS_DCX, dc), (GS_T0, t0),
+                                (GS_IDT, inv_dt), (GS_RAD, rad),
+                                (G_MAT, code(sph.mat))))]
+    if r.mat.shape[0]:
+        parts.append(rows(r.mat.shape[0], (
+            (GR_OFFX, leaf(r.offset)), (GR_COS, leaf(r.cos_t)),
+            (GR_SIN, leaf(r.sin_t)), (GR_AXIS, code(r.axis)),
+            (GR_FLIP, leaf(r.flip)), (GR_A0, leaf(r.a0)),
+            (GR_A1, leaf(r.a1)), (GR_B0, leaf(r.b0)), (GR_B1, leaf(r.b1)),
+            (GR_K, leaf(r.k)), (G_MAT, code(r.mat)))))
+    if m.mat.shape[0]:
+        parts.append(rows(m.mat.shape[0], ((G_MAT, code(m.mat)),)))
+    geo = torch.cat(parts)
+
+    mats, tex = scene.materials, scene.textures
+    ti = np.asarray(mats.tex)
+    color = leaf(tex.color)
+    mat_rows = rows(ti.shape[0], (
+        (S_MTYPE, code(mats.mtype)), (S_FUZZ, leaf(mats.fuzz)),
+        (S_RIDX, leaf(mats.ref_idx)), (S_COL, color[idx(ti)]),
+        (S_TTYPE, code(np.asarray(tex.ttype)[ti])),
+        (S_SCALE, leaf(tex.scale)[idx(ti)]),
+        (S_NMODE, code(np.asarray(tex.noise_mode)[ti])),
+        (S_EVEN, color[idx(np.asarray(tex.even)[ti])]),
+        (S_ODD, color[idx(np.asarray(tex.odd)[ti])]),
+        (S_IMG, code(np.asarray(tex.image_id)[ti]))))
+    shading = torch.cat([mat_rows[idx(t.mat)] for t in (sph, r, m)
+                         if t is sph or t.mat.shape[0]])
+
+    table = torch.zeros((c0.shape[0], intersect.LANES), dtype=f32,
+                        device=device)
+    table[:, intersect.K_CX:intersect.K_CZ + 1] = c0
+    table[:, intersect.K_R2] = rad * rad
+    table[:, intersect.K_DCX:intersect.K_DCZ + 1] = dc
+    table[:, intersect.K_T0] = t0
+    table[:, intersect.K_IDT] = inv_dt
+    table[:, intersect.K_ACT] = code(np.asarray(sph.active, bool))
+
+    kind = np.asarray(scene.lights.kind)
+    lr = [(L_KIND, code(kind))]
+    if r.mat.shape[0]:
+        ri = idx(np.where(kind == st.LIGHT_RECT, np.asarray(scene.lights.index),
+                          0))
+        lr += [(lane, leaf(col)[ri]) for lane, col in (
+            (L_A0, r.a0), (L_A1, r.a1), (L_B0, r.b0), (L_B1, r.b1),
+            (L_K, r.k), (L_AXIS, np.asarray(r.axis, np.float32)),
+            (L_COS, r.cos_t), (L_SIN, r.sin_t), (L_OFFX, r.offset))]
+    if sph.mat.shape[0]:
+        si = idx(np.where(kind == st.LIGHT_SPHERE,
+                          np.asarray(scene.lights.index), 0))
+        lr += [(L_CX, c0[si]), (L_RAD, rad[si])]
+    return geo, shading, table, rows(kind.shape[0], lr)

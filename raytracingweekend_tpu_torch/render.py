@@ -55,13 +55,14 @@ WAVEFRONT_MODES = ("regen", "tiled", "while", "scan")
 
 
 def launch_seed(seed: int, launch: int) -> int:
-    """The int32 kernel seed of launch `launch` of a render seeded `seed`,
-    drawn from a torch.Generator seeded by the pair: renders are
-    seed-deterministic and each launch has its own streams."""
-    pair_seed = int(np.random.SeedSequence([seed, launch]).generate_state(
-        1, np.uint64)[0])
-    gen = torch.Generator().manual_seed(pair_seed)
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+    """The int32 kernel seed of launch `launch` of a render seeded `seed`:
+    `randint(fold_in(key(seed), launch), (1, 1), 0, 2**31 - 1)`, the value
+    the JAX package's `render` passes to the same launch. Only the seed is
+    JAX's: the pixels stay bitwise different while the port's `mega` tile
+    width (T = 256) differs from JAX's plan, because the RNG streams are
+    keyed by tile and lane."""
+    k = prng.fold_in(prng.key(seed), launch)
+    return int(prng.randint(k, (1, 1), 0, 2 ** 31 - 1, device="cpu")[0, 0])
 
 
 def _camera_rays(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
@@ -341,7 +342,11 @@ def main(argv=None):
     trace_ms = (time.perf_counter() - t0) * 1000.0
 
     t0 = time.perf_counter()
-    image_mod.write_png(image_mod.postprocess(canvas), args.out)
+    out01 = image_mod.postprocess(canvas)
+    if args.out.endswith(".ppm"):
+        image_mod.write_ppm(out01, args.out)
+    else:
+        image_mod.write_png(out01, args.out)
     write_ms = (time.perf_counter() - t0) * 1000.0
 
     print(f"Trace: {trace_ms:.0f}ms")

@@ -1,4 +1,4 @@
-"""Image I/O: gamma postprocess and PNG writing (reference:
+"""Image I/O: gamma postprocess, PPM and PNG writing (reference:
 RayTracingWeekend.cpp:244, 252-286), and texture loading from the raw RTWI
 format. Pure numpy + zlib; the native codec library of the JAX package is
 not needed here."""
@@ -9,7 +9,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["postprocess", "write_png", "load_image"]
+__all__ = ["postprocess", "write_ppm", "write_png", "load_image"]
 
 
 def postprocess(canvas: np.ndarray) -> np.ndarray:
@@ -22,6 +22,19 @@ def _quantize(canvas01: np.ndarray) -> np.ndarray:
     """int(255.99 * c) quantization (RayTracingWeekend.cpp:268-270)."""
     return (255.99 * np.asarray(canvas01, np.float64)).astype(np.int32).clip(
         0, 255).astype(np.uint8)
+
+
+def write_ppm(canvas01: np.ndarray, path: str) -> None:
+    """P3 PPM, rows written top of image first (cpp:261-275): `canvas01` is
+    (ny, nx, 3) in [0, 1] with row 0 at the image bottom. Byte for byte
+    the JAX package's `write_ppm`."""
+    ny, nx, _ = canvas01.shape
+    q = _quantize(canvas01)
+    lines = [f"P3\n{nx} {ny}\n255\n"]
+    for j in range(ny - 1, -1, -1):
+        lines.append("\n".join(f"{r} {g} {b}" for r, g, b in q[j]) + "\n")
+    with open(path, "w") as f:
+        f.write("".join(lines))
 
 
 def write_png(canvas01: np.ndarray, path: str) -> None:

@@ -84,3 +84,39 @@ def uniform(k: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
     if span != 1.0 or lo != 0.0:
         u = u * span + float(lo)
     return torch.clamp_min(u, float(lo))
+
+
+def randint(k: Key, shape, minval: int, maxval: int,
+            device="cuda") -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval, int32)`: two 32-bit
+    draws per element, from the two keys of `split(k)`, reduced onto the
+    span maxval - minval as JAX reduces them (uint32 arithmetic, wrapping):
+    ((hi % span) * (2^32 % span) + lo % span) % span, with 2^32 % span
+    taken as ((2^16 % span)^2 mod 2^32) % span (which wraps to 0 for a
+    span past 2^16, so there only the low draw counts). An empty range
+    returns minval; bounds are clipped to int32, and a maxval past the
+    int32 maximum widens the span by one (2^32 wraps to 0: the low draw
+    as it is)."""
+    shape = tuple(shape)
+    i32_min, i32_max = -(1 << 31), (1 << 31) - 1
+    out_of_range = maxval > i32_max
+    lo_v = min(max(int(minval), i32_min), i32_max)
+    hi_v = min(max(int(maxval), i32_min), i32_max)
+    span = (hi_v - lo_v) & MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK
+    k1, k2 = split(k)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    if span == 0:
+        offset = lower
+    else:
+        mult = ((((1 << 16) % span) ** 2) & MASK) % span
+        offset = (((higher % span) * mult) & MASK) + lower % span
+        offset = (offset & MASK) % span
+    value = (lo_v + offset) & MASK
+    # the int32 whose bits are value
+    return torch.where(value > i32_max, value - (1 << 32),
+                       value).to(torch.int32)

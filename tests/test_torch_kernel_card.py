@@ -215,3 +215,75 @@ def test_wavefront_renders_through_k7_on_card(mode):
     assert torch.isfinite(img).all()
     assert abs(img.mean().item() - mega.mean().item()) < 0.03 * \
         mega.mean().item()
+
+
+def _k7_grads(scene, o, d, tm, ds, plain: bool):
+    """Gradients of sum(t over hits) w.r.t. (radius, center0, o, d)
+    through geometry.HitSpheres, its forward the kernel or (plain) its
+    plain version on the same card tensors."""
+    from raytracingweekend_tpu_torch.ops import geometry as tgeo
+    from raytracingweekend_tpu_torch.ops import intersect as tint
+    rad = ds.spheres.radius.clone().requires_grad_()
+    c0 = ds.spheres.center0.clone().requires_grad_()
+    o, d = o.clone().requires_grad_(), d.clone().requires_grad_()
+    orig = tint.hit_spheres_kernel
+    if plain:
+        tint.hit_spheres_kernel = tint.hit_spheres_reference
+    try:
+        bt, bi = tgeo.HitSpheres.apply(
+            o, d, tm, c0, ds.spheres.center1, ds.spheres.time0,
+            ds.spheres.time1, rad, ds.sphere_table, scene.has_moving_spheres,
+            0.001)
+    finally:
+        tint.hit_spheres_kernel = orig
+    torch.where(bt < 1e30, bt, 0.0).sum().backward()
+    return bi, [x.grad for x in (rad, c0, o, d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_balls", "cornell_box"])
+def test_k7_function_gradients_on_card(name):
+    """K7's VJP on the card: the Function with the kernel forward gives
+    the indices and, to rtol 1e-5, the gradients of the same Function with
+    the plain forward (cornell_box: one live sphere among padded rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = make_scene(name, 1.5)
+    o, d, tm, ds = _k7_rays(scene, 16384, 5)
+    bi_k, g_k = _k7_grads(scene, o, d, tm, ds, plain=False)
+    bi_p, g_p = _k7_grads(scene, o, d, tm, ds, plain=True)
+    assert torch.equal(bi_k, bi_p)
+    for a, b in zip(g_k, g_p):
+        assert torch.isfinite(a).all()
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+    assert g_k[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_box", "random_balls"])
+def test_replay_matches_kernel_tape_on_card(name):
+    """The replay (ops/mega_grad.py) of the CUDA kernel's tape at 32x32x4,
+    depth 8, T = 1024 reproduces the kernel's image to the replay gate
+    (rtol 1e-3 / atol 5e-5), with a finite texture-colour gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    import numpy as np
+
+    from raytracingweekend_tpu_torch.ops import mega_grad as tmg
+    from raytracingweekend_tpu_torch.utils import prng
+    scene = make_scene(name, 1.0)
+    ctx = tmg.plan_tape(scene, 32, 32, 4, max_depth=8, T=1024,
+                        device="cuda")
+    before = tk.KERNEL_LAUNCHES["K1"] + tk.KERNEL_LAUNCHES["K2+K3"]
+    img, tape, seed = tmg.tape_forward(prng.key(2), ctx)
+    assert tk.KERNEL_LAUNCHES["K1"] + tk.KERNEL_LAUNCHES["K2+K3"] > before
+    col = torch.tensor(np.asarray(scene.textures.color, np.float32),
+                       device="cuda", requires_grad=True)
+    img2 = tmg.make_replay(ctx)(dataclasses.replace(
+        scene, textures=dataclasses.replace(scene.textures, color=col)),
+        tape, seed)
+    assert torch.allclose(img2.detach(), img, rtol=RTOL, atol=ATOL)
+    torch.mean(img2 ** 2).backward()
+    assert torch.isfinite(col.grad).all() and col.grad.abs().sum() > 0

@@ -213,6 +213,38 @@ def test_launch_seeds_are_deterministic_and_distinct():
     assert trender.launch_seed(8, 0) != seeds[0]
 
 
+@pytest.mark.parametrize("seed", [0, 7, 20240601])
+def test_launch_seed_is_jax_per_launch_seed(seed):
+    """Launch k of a render seeded `seed` gets the kernel seed JAX's render
+    passes it: randint(fold_in(key(seed), k), (1, 1), 0, 2**31 - 1)."""
+    for k in range(6):
+        jk = jax.random.fold_in(jax.random.key(seed), k)
+        want = int(np.asarray(jax.random.randint(
+            jk, (1, 1), 0, np.int32(2 ** 31 - 1), dtype=jnp.int32))[0, 0])
+        assert trender.launch_seed(seed, k) == want
+
+
+def test_cli_writes_ppm_as_jax_does(tmp_path):
+    """`--out x.ppm` writes a P3 PPM byte for byte as the JAX package's
+    write_ppm writes the same canvas (and a .png path still gets a PNG)."""
+    from raytracingweekend_tpu.utils import image as jimage
+
+    argv = ["--scene", "cornell_box", "--nx", "6", "--ny", "5", "--spp", "2",
+            "--max-depth", "3", "--device", "cpu", "--mode", "mega"]
+    out = tmp_path / "c.ppm"
+    trender.main(argv + ["--out", str(out)])
+    cfg = RenderConfig(nx=6, ny=5, spp=2, samples_per_launch=2, max_depth=3,
+                       seed=0, loop_mode="mega", device="cpu")
+    canvas = trender.render(make_scene("cornell_box", 6 / 5), cfg).numpy()
+    ref = tmp_path / "ref.ppm"
+    jimage.write_ppm(jimage.postprocess(canvas), str(ref))
+    assert out.read_bytes() == ref.read_bytes()
+    assert out.read_bytes().startswith(b"P3\n6 5\n255\n")
+    png = tmp_path / "c.png"
+    trender.main(argv + ["--out", str(png)])
+    assert png.read_bytes().startswith(b"\x89PNG")
+
+
 @pytest.mark.parametrize("scene_args,scene", [
     (["--scene", "dielectric"], "dielectric"),
     ([], "cornell_box")])   # the default is the reference's scene

@@ -63,3 +63,21 @@ def test_random_int_bitwise():
     j = np.asarray(jsampling.random_int(k, (5000,), 0, 2))
     t = tsampling.random_int(_words(k), (5000,), 0, 2, device="cpu").numpy()
     assert np.array_equal(j, t) and set(np.unique(t)) == {0, 1, 2}
+
+
+RANDINT_RANGES = [(0, 2 ** 31 - 1), (0, 10), (-5, 5), (7, 1000003),
+                  (0, 1 << 16), (0, (1 << 16) + 1), (-(2 ** 31), 2 ** 31 - 1),
+                  (3, 3), (9, 2)]
+
+
+@pytest.mark.parametrize("lo,hi", RANDINT_RANGES)
+def test_randint_bitwise(lo, hi):
+    """`randint` equals jax.random.randint (int32) over 1,000 keys for each
+    range: spans below and above 2^16 (where JAX's 2^32 mod span wraps to
+    0), the full int32 range, empty and inverted ranges."""
+    for s in range(1000):
+        k = jax.random.fold_in(jax.random.key(s), 7 * s + 1)
+        shape = (1, 1) if s % 2 else (3, 2)
+        j = np.asarray(jax.random.randint(k, shape, lo, hi, dtype=jnp.int32))
+        t = prng.randint(_words(k), shape, lo, hi, device="cpu").numpy()
+        assert t.dtype == np.int32 and np.array_equal(j, t), (s, j, t)
