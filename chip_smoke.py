@@ -19,7 +19,13 @@ oracle's texels (tools/reference_oracle/earth.rtwi), `two_perlin_spheres`,
 path, `random_balls_large` (3604 spheres) at 1200x800, 32 spp per launch,
 and `random_balls_huge` (14404) at 16, max_depth 50 (kernel K5: cluster
 culling), where the culled kernel is also held to the dense one bit for
-bit. Each kernel is held to its plain version at its path's full launch
+bit; and the mixed large-S path, the probe `large_mixed` of
+models/probe_scenes.py (random_balls_large's grid with a checker ground, a
+rect light with MIS, an emissive sphere and a medium) at n = 60 (3605
+spheres) 1200x800x32 a launch and n = 120 (14405) x16, depth 50, through
+render(loop_mode="auto") (kernel K5s: the culled sweep ahead of the rects,
+media and textures), held to the dense surfaces kernel bit for bit at
+n = 60. Each kernel is held to its plain version at its path's full launch
 shape. Then the wavefront path (kernel K7, the closest sphere hit): K7
 against its plain version on the rays of the first regen iterations of
 `random_balls`, `random_balls_large` and `random_balls_huge` (N = 524,288
@@ -64,7 +70,8 @@ from raytracingweekend_tpu_torch.ops import intersect as k7
 from raytracingweekend_tpu_torch.ops import mega_grad as mg
 from raytracingweekend_tpu_torch.ops import megakernel as mk
 from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
-from raytracingweekend_tpu_torch.render import RenderStats, render
+from raytracingweekend_tpu_torch.render import (RenderStats, render,
+                                                resolve_mode)
 from raytracingweekend_tpu_torch.utils import image as image_mod
 from raytracingweekend_tpu_torch.utils import prng
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
@@ -91,6 +98,11 @@ PLAIN_TILE_STRIDE = {"two_perlin_spheres": 8, "light_sample": 8}
 LNX, LNY, LLAUNCHES, LDEPTH = 1200, 800, 3, 50
 LARGE_PATH = (("random_balls_large", 32), ("random_balls_huge", 16))
 LARGE_TILE_STRIDE = 4
+# the mixed large-S path (K5s): the probe at random_balls_large's and
+# random_balls_huge's launch shapes; its untextured moving variant (the
+# kTex = false, moving instantiations) against its plain version at MSMALL
+MIXED_PATH = ((60, 32), (120, 16))
+MSMALL = (600, 400, 16)
 RTWI = os.path.join(REPO, "tools", "reference_oracle", "earth.rtwi")
 TEXTURE_PATH = (("earth", {"image_path": RTWI}),
                 ("earth_rect", {"image_path": RTWI}),
@@ -204,6 +216,10 @@ FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
 MATERIALS = ("lambertian", "metal", "dielectric", "light")
 
 
+# nvidia-smi's name and power limit of the card, set by phase 1
+DEVICE_LINE = ""
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -303,12 +319,14 @@ def bound_ms(plan, segments: float, mix: dict, blocks: float = 0.0) -> float:
 
 
 def _kernel_name(mangled: str):
-    """'<kMoving,kUniformTime>', 'surfaces<kMoving,kUniformTime,kTex>' or
-    'culled<kMoving,kUniformTime>' of a mangled mega_kernel /
-    mega_kernel_surfaces / mega_kernel_culled instantiation, else None."""
+    """'<kMoving,kUniformTime>', 'surfaces<kMoving,kUniformTime,kTex>',
+    'culled<kMoving,kUniformTime>' or
+    'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
+    mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
+    instantiation, else None."""
     m = re.search(
-        r"mega_kernel(_surfaces|_culled)?ILb(\d)ELb(\d)E(?:Lb(\d)E)?",
-        mangled)
+        r"mega_kernel(_surfaces|_culled_surfaces|_culled)?ILb(\d)ELb(\d)E"
+        r"(?:Lb(\d)E)?", mangled)
     if not m:
         return None
     args = ",".join(g for g in m.groups()[1:] if g is not None)
@@ -321,7 +339,9 @@ def sweep_sass(lib: str) -> dict:
     loop with the most MUFU.RSQ (one per slot; nvcc unrolls the sweep)
     and no warp vote (the culled kernel's cluster visits vote; its slot
     loop does not), from its branch target to its backward branch.
-    Returns {name: (instructions, slots)}."""
+    Returns {name: (instructions, slots, FFMA, FMUL, FADD)}: split
+    FMUL / FADD pairs where the plain version fuses show as FMUL and FADD
+    counts above the culled sphere kernel's."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -344,8 +364,12 @@ def sweep_sass(lib: str) -> dict:
                  and not any(re.match(r"(VOTE|REDUX)", op)
                              for _, op in ins[a:b + 1])]
         best = max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
-                     b - a + 1) for a, b in inner), default=(0, 0))
-        out[name] = (best[1], best[0])
+                     b - a + 1, a) for a, b in inner), default=(0, 0, 0))
+        ops = [op.split()[0] for _, op in ins[best[2]:best[2] + best[1]]
+               if op.split()]
+        out[name] = (best[1], best[0],
+                     *(sum(o.startswith(k) for o in ops)
+                       for k in ("FFMA", "FMUL", "FADD")))
     return out
 
 
@@ -357,7 +381,9 @@ def phase_device() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
+    global DEVICE_LINE
+    DEVICE_LINE = smi.stdout.strip()
+    print(DEVICE_LINE)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -382,8 +408,10 @@ def phase_build() -> None:
                     f"{spill.group(1) if spill else '?'} B spill, "
                     f"{stack.group(1) if stack else '?'} B stack")
     sweep = sweep_sass(str(lib))
-    per_slot = "; ".join(f"{k}: {n} / {s} = {n / s:.2f}" if s else f"{k}: -"
-                         for k, (n, s) in sorted(sweep.items()))
+    per_slot = "; ".join(
+        f"{k}: {n} / {s} = {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}"
+        f", FADD {fd / s:.2f})" if s else f"{k}: -"
+        for k, (n, s, fa, fm, fd) in sorted(sweep.items()))
     print(f"phase 2 build: {os.path.basename(lib)} nvcc {nvcc_secs:.3f} s, "
           f"build+load {time.perf_counter() - t0:.3f} s; "
           f"instantiations {'; '.join(rows)}; sweep SASS instructions per "
@@ -426,6 +454,14 @@ def _exact_parity(label, scene) -> float:
     return err
 
 
+def large_mixed(n, aspect, **kw):
+    """The probe of the culled surfaces kernel (K5s): random_balls_large's
+    n x n grid with a checker ground, a rect light in the MIS list, an
+    emissive sphere and an isotropic medium."""
+    return probe_scenes.large_mixed_scene(builder, scene_types, n=n,
+                                          aspect=aspect, **kw)
+
+
 def texture_mix():
     """The builder scene with every texture lane: checker sphere and rect,
     marble sphere, smooth and turb noise on rects, a marble medium, an
@@ -450,6 +486,11 @@ def phase_exact_parity() -> dict:
     errs["K5"] = max(_exact_parity(f"{name} (culled, SB 256)",
                                    make_scene(name, 1.0))
                      for name, _ in LARGE_PATH)
+    errs["K5s"] = max(
+        _exact_parity(f"large_mixed n=60{label} (culled surfaces, SB 256)",
+                      large_mixed(60, 1.0, **kw))
+        for label, kw in (("", {}), (" untextured moving",
+                                     dict(textured=False, moving=True))))
     return errs
 
 
@@ -505,14 +546,15 @@ def _goldens(label: str, mode: str, launch_spp: int,
 
 
 def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label,
-           **kw) -> dict:
-    """render() of one scene (make_scene keywords `kw`): one warm-up
-    launch, then `spp` samples in launches of `launch_spp`, with the
-    kernel's launch count set to 0 just before the path and read just
-    after."""
-    scene = make_scene(name, nx / ny, **kw)
+           scene=None, mode="mega", **kw) -> dict:
+    """render() of one scene (make_scene keywords `kw`, or `scene`) in loop
+    mode `mode`: one warm-up launch, then `spp` samples in launches of
+    `launch_spp`, with the kernel's launch count set to 0 just before the
+    path and read just after."""
+    if scene is None:
+        scene = make_scene(name, nx / ny, **kw)
     base = dict(nx=nx, ny=ny, max_depth=depth, samples_per_launch=launch_spp,
-                loop_mode="mega", device="cuda")
+                loop_mode=mode, device="cuda")
     for k in mk.KERNEL_LAUNCHES:
         mk.KERNEL_LAUNCHES[k] = 0
     render(scene, RenderConfig(spp=launch_spp, seed=0, **base))   # warm-up
@@ -537,7 +579,9 @@ def _drive(name, nx, ny, spp, launch_spp, depth, kernel, label,
         fail(f"the {name} path launched no {kernel} kernel")
     if img.shape != (ny, nx, 3) or not np.isfinite(img).all():
         fail(f"{name} image is not finite or has the wrong shape")
-    return dict(launches=launches[kernel], rate=stats.rays_per_s)
+    return dict(launches=launches[kernel], rate=stats.rays_per_s,
+                all_launches=launches,
+                s_per_launch=stats.trace_seconds / n_timed)
 
 
 def phase_main_path() -> dict:
@@ -572,10 +616,16 @@ def phase_large_path() -> dict:
 def phase_culled_vs_dense() -> dict:
     """random_balls_large at its path's launch (1200x800x32), whose dense
     sweep (S = 3712) still fits in shared memory: the culled kernel against
-    the dense one on the same inputs, every output row but the block
-    count, timed in turns (dense, culled, culled, dense)."""
+    the dense one on the same inputs."""
     name, spp = LARGE_PATH[0]
-    scene = make_scene(name, LNX / LNY)
+    return _culled_vs_dense("phase 11 culled vs dense kernel", name,
+                            make_scene(name, LNX / LNY), spp)
+
+
+def _culled_vs_dense(label, name, scene, spp) -> dict:
+    """A culled plan's kernel against the dense plan's on the same inputs
+    at LNX x LNY x spp: every output row but the block count, timed in
+    turns (dense, culled, culled, dense)."""
     _, culled = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
     _, dense = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH,
                             cull=False)
@@ -594,18 +644,76 @@ def phase_culled_vs_dense() -> dict:
     ms_c, ms_d = (sum(runs[k]) / 2 for k in ("culled", "dense"))
     surv = (outs["culled"][:, 6].sum() / (outs["culled"][:, 4].sum()
                                           * culled.C)).item()
-    print(f"phase 11 culled vs dense kernel ({name} {LNX}x{LNY}x{spp} spp, "
-          f"S={culled.S}, C={culled.C}, SB={culled.SB}, near-to-far "
-          f"{culled.dyn_order} buckets): culled {ms_c:.3f} ms, dense "
-          f"{ms_d:.3f} ms per launch (dense, culled, culled, dense: "
-          f"{runs['dense'][0]:.3f} {runs['culled'][0]:.3f} "
+    print(f"{label} ({name} {LNX}x{LNY}x{spp} spp, S={culled.S}, "
+          f"C={culled.C}, SB={culled.SB}, near-to-far {culled.dyn_order} "
+          f"buckets, R={culled.R}, L={culled.L}, V={culled.V}): culled "
+          f"{ms_c:.3f} ms, dense {ms_d:.3f} ms per launch (dense, culled, "
+          f"culled, dense: {runs['dense'][0]:.3f} {runs['culled'][0]:.3f} "
           f"{runs['culled'][1]:.3f} {runs['dense'][1]:.3f}); survival "
           f"{surv:.6f}; pixels, segments, lane iterations and sample counts "
           f"equal: {equal} (max abs err {err:.3e}; segments "
           f"{b[:, 3].sum().item():.6e})", flush=True)
     if not equal:
-        fail("the culled kernel differs from the dense kernel")
-    return dict(max_abs_err=err, dense_ms=ms_d)
+        fail(f"the culled kernel differs from the dense kernel on {name}")
+    return dict(max_abs_err=err, dense_ms=ms_d, culled_ms=ms_c)
+
+
+def phase_mixed_path() -> dict:
+    """The mixed large-S path (K5s): large_mixed at n = 60 (1200x800, 32
+    spp a launch) and n = 120 (x16), depth 50, through render(loop_mode=
+    "auto"), one warm-up and three timed launches each; auto must take the
+    megakernel and launch the culled surfaces kernel and no other. Survival
+    is read from the timed launches' own outputs (swept blocks over lane
+    iterations x C)."""
+    runs = []
+    for n, spp in MIXED_PATH:
+        scene = large_mixed(n, LNX / LNY)
+        if resolve_mode(scene, "auto") != "mega":
+            fail(f"auto does not take the megakernel on large_mixed n={n}")
+        _, plan = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
+        if not (plan.cull and plan.surfaces and plan.textures):
+            fail(f"large_mixed n={n} does not plan the culled surfaces "
+                 "kernel")
+        got = []
+        orig = mk.trace_mega
+
+        def recorded(*a, **kw):
+            res = orig(*a, **kw)
+            got.append((res.blocks, res.lane_iters))
+            return res
+
+        mk.trace_mega = recorded
+        try:
+            run = _drive(f"large_mixed n={n}", LNX, LNY, LLAUNCHES * spp, spp,
+                         LDEPTH, "K5s", "phase 21 mixed large-S path",
+                         scene=scene, mode="auto")
+        finally:
+            mk.trace_mega = orig
+        timed = got[1:]                              # after the warm-up
+        surv = (sum(b.item() for b, _ in timed)
+                / (sum(i.item() for _, i in timed) * plan.C))
+        others = {k: v for k, v in run["all_launches"].items()
+                  if k != "K5s" and v}
+        print(f"phase 21 large_mixed n={n}: auto -> mega, launches "
+              f"{run['all_launches']}; {run['rate']:.6e} segments/s, "
+              f"{run['s_per_launch'] * 1e3:.3f} ms a launch, S={plan.S}, "
+              f"C={plan.C}, SB={plan.SB}, dyn_order={plan.dyn_order}, "
+              f"survival {surv:.6f}; {DEVICE_LINE}", flush=True)
+        if others or run["launches"] != 1 + LLAUNCHES:
+            fail(f"large_mixed n={n} launched {run['all_launches']}, not "
+                 "the culled surfaces kernel alone")
+        runs.append(dict(run, survival=surv, C=plan.C))
+    return dict(launches=sum(r["launches"] for r in runs), runs=runs)
+
+
+def phase_mixed_vs_dense() -> dict:
+    """large_mixed n = 60 at its path's launch, whose dense surfaces sweep
+    (S = 3712) still fits in shared memory: the culled surfaces kernel
+    against the dense surfaces kernel."""
+    n, spp = MIXED_PATH[0]
+    return _culled_vs_dense("phase 22 culled vs dense surfaces kernel",
+                            f"large_mixed n={n}", large_mixed(n, LNX / LNY),
+                            spp)
 
 
 def _event_ms(fn, reps: int) -> tuple[float, object]:
@@ -627,7 +735,7 @@ def _lane_means(out: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
-                     **kw) -> dict:
+                     scene=None, **kw) -> dict:
     """One launch at a path's shape: the kernel and its plain version on
     the same inputs, timed with CUDA events and compared pixel by pixel;
     the bound from the launch's segments and the measured hit mix. With
@@ -635,8 +743,10 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     of the launch only (the others are marked invalid in its copy of the
     pixel table; tiles are independent and keep their RNG streams), and
     the kernel's output is compared on those tiles. A culled plan also
-    compares the swept-block counts (row 6) lane by lane."""
-    scene = make_scene(name, nx / ny, **kw)
+    compares the swept-block counts (row 6) lane by lane. `scene`, when
+    given, replaces make_scene(name, keywords `kw`)."""
+    if scene is None:
+        scene = make_scene(name, nx / ny, **kw)
     _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
     args, _ = mk.device_inputs(scene, plan, "cuda")
     pixf = args[0]
@@ -1307,6 +1417,20 @@ def main() -> int:
         _kernel_vs_plain(name, LNX, LNY, spp, "phase 12",
                          tile_stride=LARGE_TILE_STRIDE)
         for name, spp in LARGE_PATH])
+    mixed_run = _timed("phase 21", phase_mixed_path)
+    mixed_vs_dense = _timed("phase 22", phase_mixed_vs_dense)
+    print(f"phase 23 plain version of the culled surfaces kernel on every "
+          f"{LARGE_TILE_STRIDE}th tile (N = {LARGE_TILE_STRIDE})", flush=True)
+    k5s = _timed("phase 23", lambda: [
+        _kernel_vs_plain(f"large_mixed n={n}", LNX, LNY, spp, "phase 23",
+                         tile_stride=LARGE_TILE_STRIDE,
+                         scene=large_mixed(n, LNX / LNY))
+        for n, spp in MIXED_PATH] + [
+        _kernel_vs_plain("large_mixed n=60 untextured moving", MSMALL[0],
+                         MSMALL[1], MSMALL[2], "phase 23",
+                         tile_stride=LARGE_TILE_STRIDE,
+                         scene=large_mixed(60, MSMALL[0] / MSMALL[1],
+                                           textured=False, moving=True))])
     _timed("phase 13a", k7_build_report)
     k7_rows = _timed("phase 13", phase_k7_vs_plain)
     wave_run = _timed("phase 14", phase_wavefront_main)
@@ -1352,6 +1476,17 @@ def main() -> int:
                              + [r["max_abs_err"] for r in k5]),
              ms=k5[0]["ms"], plain_ms=k5[0]["plain_ms"],
              bound_ms=k5[0]["bound_ms"]),
+        dict(name="megakernel K5s (cluster-culled sweep ahead of rects, "
+                  "lights, media and textures; large_mixed n=60 "
+                  f"1200x800x32 timings, plain version on every "
+                  f"{LARGE_TILE_STRIDE}th tile)",
+             source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
+             replaces="raytracingweekend_tpu/ops/megakernel.py:2529",
+             launches=mixed_run["launches"],
+             max_abs_err=max([parity["K5s"], mixed_vs_dense["max_abs_err"]]
+                             + [r["max_abs_err"] for r in k5s]),
+             ms=k5s[0]["ms"], plain_ms=k5s[0]["plain_ms"],
+             bound_ms=k5s[0]["bound_ms"]),
     ]
     for e in entries:
         e.update(route="cuda", bound_by="operations", library_ms=None)

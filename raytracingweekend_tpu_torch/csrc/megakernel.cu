@@ -8,9 +8,12 @@
 // translate, the one-sample MIS over rect and sphere lights, one-sided
 // emission (K2), the stochastic constant-medium boundaries with isotropic
 // scatter (K3) and, in its kTextures instantiations, checker, Perlin-noise
-// and image textures on spheres, rects and media (K4); and, in
+// and image textures on spheres, rects and media (K4); in
 // mega_kernel_culled, the cluster culling of large sphere tables (K5:
-// _kernel's slab votes and dynamic survivor-list sweep, megakernel.py:553-996).
+// _kernel's slab votes and dynamic survivor-list sweep, megakernel.py:553-996);
+// and, in mega_kernel_culled_surfaces, that culled sweep followed by the
+// rect, medium and texture hit and shading of K2-K4 (K5s: _kernel with
+// `cull` on a scene with rects, lights, media or textures).
 // Plain version beside it: raytracingweekend_tpu_torch/ops/megakernel.py::
 // trace_mega_reference (noise: ops/noise.py).
 //
@@ -59,7 +62,10 @@
 // a warp's), so a warp sweeps only the clusters one of its rays can reach
 // before its running best, in near-to-far order keyed by a
 // __reduce_min_sync of the slab entries. The slots it sweeps stream from
-// L2 as broadcast 16-byte loads, one slot for all 32 lanes.
+// L2 as broadcast 16-byte loads, one slot for all 32 lanes. The culled
+// surfaces kernel (K5s) adds the surfaces tables behind the boxes and
+// bucket slots in shared memory, and runs the surfaces bounce after the
+// sweep on the warp's active lanes.
 //
 // Textures (K4): a Perlin evaluation makes 6 permutation reads and 8
 // gradient reads per octave at data-dependent addresses (marble and turb
@@ -896,12 +902,15 @@ __device__ __forceinline__ void texture_albedo(
 
 // One bounce iteration of one lane in a scene with rects, lights or media
 // (and, with kTex, textures). Returns the winner code (-1 for a miss or an
-// idle lane).
-template <bool kMoving, bool kUniformTime, bool kTex>
+// idle lane). With kSwept the closest sphere hit comes from the caller
+// (the culled kernel's sweep: swept_bidx, swept_best) and `sm` is not
+// read; the rects and media then merge after it as after the dense sweep.
+template <bool kMoving, bool kUniformTime, bool kTex, bool kSwept = false>
 __device__ __forceinline__ int bounce_surfaces(
     const Params& p, const float* sm, const Tables& tb, const TexTables& tx,
     const Cam& cam, Lane& L, bool active, uint32_t tile, uint32_t lane,
-    uint32_t it, float pxi, float pxj) {
+    uint32_t it, float pxi, float pxj, int swept_bidx = 0,
+    float swept_best = 0.f) {
   bool alive = false;
   int code = -1;
   float px = 0.f, py = 0.f, pz = 0.f, ndx = 0.f, ndy = 0.f, ndz = 0.f;
@@ -909,7 +918,12 @@ __device__ __forceinline__ int bounce_surfaces(
     L.segs += 1.f;
     float s_best = kBig;
     int bidx = p.S;
-    if (tb.has_spheres) bidx = sweep<kMoving, kUniformTime>(p, sm, L, s_best);
+    if (kSwept) {
+      s_best = swept_best;
+      bidx = swept_bidx;
+    } else if (tb.has_spheres) {
+      bidx = sweep<kMoving, kUniformTime>(p, sm, L, s_best);
+    }
     const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
     float rb_t, r_u = 0.f, r_v = 0.f;
     const int rwin = rect_hit<kTex>(p, tb, L, idx, idy, idz, rb_t, r_u, r_v);
@@ -1218,22 +1232,16 @@ __global__ void mega_kernel(Params p) {
   out[(size_t)7 * T] = 0.f;
 }
 
-// The kernel of scenes with rects, lights or media, or with textures
-// (kTex). Its lane loop is mega_kernel's with bounce_surfaces; the two stay
-// separate functions so that the sphere-only code (34 SASS instructions per
-// sweep slot) does not depend on the surfaces path, and the kTex = false
-// instantiations compile to the code they had before textures.
-template <bool kMoving, bool kUniformTime, bool kTex>
-__global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
-  // (9, S) sweep SoA, then the rect, light and medium rows (their first
-  // rect_lanes / kLightLanes / med_lanes lanes), the R + L + V static codes
-  // and, with kTex, the image sizes and the Perlin tables
+// Copy a surfaces launch's tables to shared memory from `base`: the rect,
+// light and medium rows (their first rect_lanes / kLightLanes / med_lanes
+// lanes), the R + L + V static codes and, with kTex, the image sizes and
+// the Perlin tables. The caller synchronises the block before reading.
+template <bool kTex>
+__device__ __forceinline__ void stage_surfaces(float* base, const Surfaces& q,
+                                               const Texels& x, Tables& tb,
+                                               TexTables& tx) {
   constexpr int kRL = rect_lanes<kTex>(), kML = med_lanes<kTex>();
-  extern __shared__ float sm[];
-  for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
-    sm[i] = __ldg(p.sph + i);
-  }
-  float* rect = sm + kLanes * p.S;
+  float* rect = base;
   float* light = rect + q.R * kRL;
   float* med = light + q.L * kLightLanes;
   int* codes = reinterpret_cast<int*>(med + q.V * kML);
@@ -1251,9 +1259,9 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
   for (int i = threadIdx.x; i < n_codes; i += blockDim.x) {
     codes[i] = __ldg(q.codes + i);
   }
-  const Tables tb{rect, light, med, codes, q.R, q.L, q.V, q.has_spheres,
-                  q.inv_L};
-  TexTables tx{};
+  tb = Tables{rect, light, med, codes, q.R, q.L, q.V, q.has_spheres,
+              q.inv_L};
+  tx = TexTables{};
   if (kTex) {
     int* perm = codes + n_codes;
     float* rv = reinterpret_cast<float*>(perm + kNoiseSize);
@@ -1266,6 +1274,23 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
     tx = TexTables{perm, rv, codes + q.R + q.L + q.V, x.images, x.img_h,
                    x.img_w};
   }
+}
+
+// The kernel of scenes with rects, lights or media, or with textures
+// (kTex). Its lane loop is mega_kernel's with bounce_surfaces; the two stay
+// separate functions so that the sphere-only code (34 SASS instructions per
+// sweep slot) does not depend on the surfaces path, and the kTex = false
+// instantiations compile to the code they had before textures.
+template <bool kMoving, bool kUniformTime, bool kTex>
+__global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
+  // (9, S) sweep SoA, then the surfaces tables (stage_surfaces)
+  extern __shared__ float sm[];
+  for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
+    sm[i] = __ldg(p.sph + i);
+  }
+  Tables tb;
+  TexTables tx;
+  stage_surfaces<kTex>(sm + kLanes * p.S, q, x, tb, tx);
   __syncthreads();
 
   uint32_t tile, lane;
@@ -1557,6 +1582,102 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
   out[(size_t)7 * T] = 0.f;
 }
 
+// The culled kernel of scenes with rects, lights, media or textures (K5s):
+// mega_kernel_culled's lanes and warp votes, with bounce_surfaces after the
+// culled sphere sweep (the rects and media merge after it, strictly, as
+// after the dense sweep). Every lane of a warp calls sweep_culled; the rest
+// of the bounce, the tape rows, L.iters and the medium's stream run on
+// active lanes only.
+template <bool kMoving, bool kUniformTime, bool kTex>
+__global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
+                                            Texels x) {
+  // (C, 6) cluster boxes, with k.dord C key / bucket slots per warp, then
+  // the surfaces tables (stage_surfaces)
+  extern __shared__ float sm[];
+  for (int i = threadIdx.x; i < kBoxLanes * k.C; i += blockDim.x) {
+    sm[i] = __ldg(k.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
+  }
+  const int warps = blockDim.x >> 5;
+  int* wb = reinterpret_cast<int*>(sm + kBoxLanes * k.C) +
+            (threadIdx.x >> 5) * k.C;
+  Tables tb;
+  TexTables tx;
+  stage_surfaces<kTex>(sm + k.C * (kBoxLanes + (k.dord ? warps : 0)), q, x,
+                       tb, tx);
+  __syncthreads();
+
+  uint32_t tile, lane;
+  if (p.exact) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= (long long)p.n_tiles * p.T) return;  // whole warps
+    tile = (uint32_t)(g / p.T);
+    lane = (uint32_t)(g % p.T);
+  } else {
+    tile = blockIdx.x;
+    lane = threadIdx.x;
+  }
+  const int T = p.T;
+  const float* pix = p.pixf + (size_t)tile * 4 * T;
+  const float pxi = pix[lane];
+  const float pxj = pix[T + lane];
+  const bool valid = pix[2 * T + lane] > 0.f;
+  Cam cam;
+#pragma unroll
+  for (int c = 0; c < kCamLanes; ++c) cam.c[c] = __ldg(p.cam + c);
+
+  Lane L;
+  gen_ray(p, cam, tile, lane, 0xFFFFFFFFu, pxi, pxj, L);  // it = -1
+  L.tpx = L.tpy = L.tpz = 1.f;
+  L.rx = L.ry = L.rz = L.ax = L.ay = L.az = 0.f;
+  L.segs = L.depth = L.iters = 0.f;
+  L.done = valid ? 0.f : p.spp;
+  float blocks = 0.f;
+
+  float* out = p.out + (size_t)tile * (kOutRows + p.n_iters) * T + lane;
+  if (p.exact) {
+    // a lane's iterations are 0 .. iters - 1; it counts a block only then
+    int it = 0;
+    for (; it < p.n_iters && __any_sync(kFull, L.done < p.spp); ++it) {
+      const bool active = L.done < p.spp;
+      float best;
+      const int bidx = sweep_culled<kMoving, kUniformTime>(
+          p, k, sm, wb, L, active, active ? 1.f : 0.f, best, blocks);
+      const int code = bounce_surfaces<kMoving, kUniformTime, kTex, true>(
+          p, nullptr, tb, tx, cam, L, active, tile, lane, it, pxi, pxj, bidx,
+          best);
+      if (active) {
+        L.iters += 1.f;
+        out[(size_t)(kOutRows + it) * T] = (float)code;
+      }
+    }
+    for (it = (int)L.iters; it < p.n_iters; ++it) {
+      out[(size_t)(kOutRows + it) * T] = -1.f;
+    }
+  } else {
+    uint32_t it = 0;
+    int running = __syncthreads_or(valid);
+    while (running) {
+      float best;
+      const int bidx = sweep_culled<kMoving, kUniformTime>(
+          p, k, sm, wb, L, valid, 1.f, best, blocks);
+      bounce_surfaces<kMoving, kUniformTime, kTex, true>(
+          p, nullptr, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj, bidx,
+          best);
+      L.iters += 1.f;
+      ++it;
+      running = __syncthreads_or(L.done < p.spp);
+    }
+  }
+  out[0] = L.ax;
+  out[(size_t)1 * T] = L.ay;
+  out[(size_t)2 * T] = L.az;
+  out[(size_t)3 * T] = L.segs;
+  out[(size_t)4 * T] = L.iters;
+  out[(size_t)5 * T] = L.done;
+  out[(size_t)6 * T] = blocks;
+  out[(size_t)7 * T] = 0.f;
+}
+
 // Launch `kern` with `smem` bytes of dynamic shared memory: one block of T
 // lanes per tile (overdraw), or blocks of kExactBlock lanes (exact).
 template <class Kernel, class... Args>
@@ -1583,34 +1704,47 @@ cudaError_t launch(Kernel kern, size_t smem, const Params& p,
   return cudaGetLastError();
 }
 
-// The sphere kernel (q == nullptr), the culled sphere kernel (k !=
-// nullptr), the surfaces kernel, or the surfaces kernel with textures (x !=
-// nullptr), with their shared memory.
+// The sphere kernel (q == nullptr), the surfaces kernel, or the surfaces
+// kernel with textures (x != nullptr); culled (k != nullptr) or dense; with
+// their shared memory.
 template <bool kMoving, bool kUniformTime>
 cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
                        const Clusters* k, cudaStream_t stream) {
+  // the surfaces tables of stage_surfaces, in words
+  size_t ns = 0;
+  if (q != nullptr) {
+    ns = (size_t)q->L * kLightLanes + q->R + q->L + q->V;
+    ns += x == nullptr
+              ? (size_t)q->R * kRectLanes + (size_t)q->V * kMedLanes
+              : (size_t)q->R * kRectTexLanes + (size_t)q->V * kMedTexLanes +
+                    2 * x->n_img + 4 * kNoiseSize;
+  }
   if (k != nullptr) {
     const int warps = (p.exact ? kExactBlock : p.T) / 32;
-    const size_t words =
-        (size_t)k->C * (kBoxLanes + (k->dord ? warps : 0));
-    return launch(mega_kernel_culled<kMoving, kUniformTime>,
-                  sizeof(float) * words, p, stream, *k);
+    const size_t bytes =
+        sizeof(float) *
+        ((size_t)k->C * (kBoxLanes + (k->dord ? warps : 0)) + ns);
+    if (q == nullptr) {
+      return launch(mega_kernel_culled<kMoving, kUniformTime>, bytes, p,
+                    stream, *k);
+    }
+    if (x == nullptr) {
+      return launch(mega_kernel_culled_surfaces<kMoving, kUniformTime, false>,
+                    bytes, p, stream, *k, *q, Texels{});
+    }
+    return launch(mega_kernel_culled_surfaces<kMoving, kUniformTime, true>,
+                  bytes, p, stream, *k, *q, *x);
   }
-  size_t n = (size_t)kLanes * p.S;
+  const size_t bytes = sizeof(float) * ((size_t)kLanes * p.S + ns);
   if (q == nullptr) {
-    return launch(mega_kernel<kMoving, kUniformTime>, sizeof(float) * n, p,
-                  stream);
+    return launch(mega_kernel<kMoving, kUniformTime>, bytes, p, stream);
   }
-  n += (size_t)q->L * kLightLanes + q->R + q->L + q->V;
   if (x == nullptr) {
-    n += (size_t)q->R * kRectLanes + (size_t)q->V * kMedLanes;
-    return launch(mega_kernel_surfaces<kMoving, kUniformTime, false>,
-                  sizeof(float) * n, p, stream, *q, Texels{});
+    return launch(mega_kernel_surfaces<kMoving, kUniformTime, false>, bytes,
+                  p, stream, *q, Texels{});
   }
-  n += (size_t)q->R * kRectTexLanes + (size_t)q->V * kMedTexLanes +
-       2 * x->n_img + 4 * kNoiseSize;
-  return launch(mega_kernel_surfaces<kMoving, kUniformTime, true>,
-                sizeof(float) * n, p, stream, *q, *x);
+  return launch(mega_kernel_surfaces<kMoving, kUniformTime, true>, bytes, p,
+                stream, *q, *x);
 }
 
 }  // namespace
@@ -1623,8 +1757,9 @@ extern "C" {
 // mega_kernel_surfaces, the kernel with the rect / light / medium parts;
 // `textures` its instantiations with checker, noise and image textures,
 // whose image sizes follow the row codes in `codes`; `cull` the culled
-// sphere kernel over the (C, 128) cluster table `clus` (sph then holds the
-// slot quads of sweep_cluster, not the dense (9, S) SoA).
+// kernels over the (C, 128) cluster table `clus` (sph then holds the slot
+// quads of sweep_cluster, not the dense (9, S) SoA): mega_kernel_culled,
+// or with `surfaces` mega_kernel_culled_surfaces.
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     const float* attr, const float* clus, const float* rect,
                     const float* light, const float* med, const int* codes,
@@ -1641,8 +1776,8 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
       n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
       (!surfaces && (R || L || V || textures)) || n_img < 0 ||
       img_h <= 0 || img_w <= 0 ||
-      (cull && (surfaces || T % 32 || C <= 0 || SB <= 0 ||
-                (long long)C * SB != S || dord < 0))) {
+      (cull && (T % 32 || C <= 0 || SB <= 0 || (long long)C * SB != S ||
+                dord < 0))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;

@@ -7,6 +7,8 @@ tests and `chip_smoke.py` use them.
 """
 import numpy as np
 
+from ..utils.detrng import MinStd
+
 
 def shutter_scene(bm, st):
     """Spheres whose shutters differ: a ball moving in y over [0.25, 0.75],
@@ -78,3 +80,60 @@ def texture_mix_scene(bm, st):
                           b.isotropic(b.image(ramp)))
     b.camera((6, 2, 5), (0, 1, 0), (0, 1, 0), 40.0, 1.0, 0.0, 10.0)
     return b.build(background=st.BG_GRADIENT, name="texture_mix")
+
+
+def large_mixed_scene(bm, st, n=60, textured=True, moving=False,
+                      aspect=1.5):
+    """random_balls_large's n x n grid of jittered balls (the same minstd
+    draws; n = 60 gives 3605 spheres, n = 120 14405) with book-2 features
+    on it, so that a scene past 512 spheres runs the cluster-culled sweep
+    together with rects, lights, media and textures: a checker ground
+    (`textured`; else constant 0.5), a rect area light in the lights list
+    (one-sample MIS), a small emissive sphere among the balls, and an
+    isotropic constant-medium sphere. With `moving` the diffuse balls move
+    as random_balls' do, center1 = center + (0, 0.5 u, 0) over [0, 1].
+    The draws come from a default-seeded MinStd, whose stream is the one
+    every package's scenes draw (utils/detrng.py)."""
+    b = bm.SceneBuilder()
+    eng = MinStd()
+    half = n // 2
+    ground = (b.checker(b.constant((0.2, 0.3, 0.1)),
+                        b.constant((0.9, 0.9, 0.9)))
+              if textured else b.constant((0.5, 0.5, 0.5)))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(ground))
+    for a in range(-half, half):
+        for bb in range(-half, half):
+            choose_mat = eng.uniform()
+            uz = eng.uniform()
+            ux = eng.uniform()
+            center = (a + 0.9 * ux, 0.2, bb + 0.9 * uz)
+            if choose_mat < 0.8:
+                color = (eng.uniform() * eng.uniform(),
+                         eng.uniform() * eng.uniform(),
+                         eng.uniform() * eng.uniform())
+                lam = b.lambertian(b.constant(color))
+                if moving:
+                    c1 = (center[0], center[1] + 0.5 * eng.uniform(),
+                          center[2])
+                    b.sphere(center, 0.2, lam, center1=c1, time0=0.0,
+                             time1=1.0)
+                else:
+                    b.sphere(center, 0.2, lam)
+            elif choose_mat < 0.95:
+                color = (0.5 * (1 + eng.uniform()),
+                         0.5 * (1 + eng.uniform()),
+                         0.5 * (1 + eng.uniform()))
+                b.sphere(center, 0.2, b.metal(color, 0.5 * eng.uniform()))
+            else:
+                b.sphere(center, 0.2, b.dielectric(1.5))
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-4, 1, 0), 1.0, b.lambertian(b.constant((0.4, 0.2, 0.1))))
+    b.sphere((4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+    lamp = b.diffuse_light((4.0, 4.0, 4.0))
+    b.add_light(b.rect("xz", -3.0, 3.0, -3.0, 3.0, 6.0, lamp))
+    b.sphere((2.0, 0.5, 2.0), 0.3, lamp)
+    b.constant_medium_sphere((2.0, 1.0, -2.0), 0.8, 0.5,
+                             b.isotropic((0.9, 0.9, 0.9)))
+    b.camera((13, 4, 3), (0, 0, 0), (0, 1, 0), 30.0, aspect, 0.0, 10.0,
+             0.0, 1.0)
+    return b.build(background=st.BG_GRADIENT, name="large_mixed")

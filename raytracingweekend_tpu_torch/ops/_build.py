@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` of the package into one shared library
-with a plain C interface, in `raytracingweekend_tpu_torch/_build/` (ignored
-by git), at first use; the library's file name carries a hash of the
+`nvcc` compiles every `csrc/*.cu` of the package, one process a source,
+all started together, and links the objects into one shared library with a
+plain C interface, in `raytracingweekend_tpu_torch/_build/` (ignored by
+git), at first use; the library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt. The library is loaded
 with ctypes: no torch.utils.cpp_extension, no ninja, nothing downloaded.
 The build needs the CUDA toolkit (`nvcc` on PATH or under
@@ -24,9 +25,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: the kernels write every FMA out (fmaf) so that they round
 # like their plain PyTorch versions; nvcc contracts nothing else.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas",
+                 "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 
 def _nvcc() -> str:
@@ -50,26 +53,41 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels unless the current build exists. Returns (library
-    path, seconds spent compiling). Raises RuntimeError if nvcc fails; its
-    output (ptxas register and spill report included) is kept beside the
-    library as `<library>.log`."""
+    """Compile the kernels unless the current build exists: one nvcc per
+    source, all started together, then one link. Returns (library path,
+    seconds spent compiling and linking). Raises RuntimeError if nvcc
+    fails; its output (ptxas register and spill report included) is kept
+    beside the library as `<library>.log`."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-                          capture_output=True, text=True)
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    rcs = [proc.returncode for proc in procs]
+    if not any(rcs):
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        rcs.append(link.returncode)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(rcs):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed (exits {rcs}):\n{log}")
     lib.with_name(lib.name + ".log").write_text(log)
     os.replace(tmp, lib)
     return lib, secs

@@ -1,11 +1,12 @@
 """The megakernel: the whole path-trace loop fused in one CUDA kernel.
 
 The port of raytracingweekend_tpu/ops/megakernel.py for scenes of spheres,
-axis rects and constant media (ROADMAP kernels K1-K5: `_kernel` with a
-dense sphere sweep, the rect hit, the one-sample MIS over the lights list,
-one-sided emission, the stochastic medium boundaries with isotropic
-scatter, checker, Perlin-noise and image textures, and the cluster-culled
-sphere sweep of large tables). One launch traces every pixel of a frame:
+axis rects and constant media (ROADMAP kernels K1-K5 and K5s: `_kernel`
+with a dense sphere sweep, the rect hit, the one-sample MIS over the
+lights list, one-sided emission, the stochastic medium boundaries with
+isotropic scatter, checker, Perlin-noise and image textures, and the
+cluster-culled sphere sweep of large tables, alone or ahead of the rects,
+media and textures). One launch traces every pixel of a frame:
 each lane owns one pixel slot and runs
 
     camera ray -> closest hit over every sphere slot, rect and medium ->
@@ -118,8 +119,9 @@ OUT_ROWS = 8
 # kernel: "K1" the dense sphere-only instantiations; "K2+K3" the launches
 # that run the rect, light or medium parts; "K4" those that run textures
 # (a launch of a textured Cornell-like scene counts under both); "K5" the
-# cluster-culled sphere kernel.
-KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0, "K5": 0}
+# cluster-culled sphere kernel; "K5s" the cluster-culled kernel of scenes
+# with rects, lights, media or textures.
+KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0, "K5": 0, "K5s": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -859,17 +861,18 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     T <= 1024. The TPU's 128-lane rounding and 512-lane floor do not
     apply here.
 
-    `cull` (auto: C > 1 on sphere-only scenes) takes the cluster-culled
-    kernel (K5): each warp of 32 lanes votes every cluster's AABB against
-    t_min and its lanes' running best and sweeps only the clusters one of
-    its lanes can reach, in ascending cluster id or, with `dyn_order` > 0
-    buckets (auto: 16 in overdraw mode from C >= 8, else 0), near to far.
-    The JAX package's `dyn_cull` switch has no counterpart: with no fused
-    extraction to feed, its survivor-list sweep differs from interleaved
-    votes only in the visit order, which is `dyn_order`. Scenes with
-    rects, lights, media or textures keep the dense surfaces kernel.
-    Returns (tables, plan); raises ValueError where a launch would not
-    fit the card (T, or a dense sweep past its shared memory)."""
+    `cull` (auto: C > 1, as JAX's, whatever else the scene holds) takes
+    a cluster-culled kernel: K5 on sphere-only scenes, K5s (the culled
+    sweep ahead of the rects, media and textures) on the others. Each warp
+    of 32 lanes votes every cluster's AABB against t_min and its lanes'
+    running best and sweeps only the clusters one of its lanes can reach,
+    in ascending cluster id or, with `dyn_order` > 0 buckets (auto: 16 in
+    overdraw mode from C >= 8, else 0), near to far. The JAX package's
+    `dyn_cull` switch has no counterpart: with no fused extraction to
+    feed, its survivor-list sweep differs from interleaved votes only in
+    the visit order, which is `dyn_order`. Returns (tables, plan); raises
+    ValueError where a launch would not fit the card (T, or the tables a
+    block holds in shared memory)."""
     reason = unsupported_reason(scene)
     if reason is not None:
         raise NotImplementedError(f"scene {scene.name!r}: {reason}")
@@ -910,11 +913,7 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                     noise_modes=meta["noise_modes"], img_hw=meta["img_hw"],
                     C=meta["C"])
     if cull is None:
-        cull = plan.C > 1 and not plan.surfaces
-    if cull and plan.surfaces:
-        raise NotImplementedError(
-            "cluster culling of a scene with rects, lights, media or "
-            "textures (the culled surfaces kernel, ROADMAP Queue 1 item 5)")
+        cull = plan.C > 1
     if cull and T % 32:
         raise ValueError(f"the culled kernel votes per warp of 32 lanes: "
                          f"T={T} must be a multiple of 32")
@@ -926,13 +925,16 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                                dyn_order=int(dyn_order) if cull else 0)
     smem = shared_bytes(plan)
     if smem > SHARED_MAX:
+        what = (f"the culled kernel's {plan.C} cluster boxes"
+                if plan.cull else f"the dense sweep over S={plan.S} slots")
         raise ValueError(
-            f"scene {scene.name!r}: the {'culled' if plan.cull else 'dense'} "
-            f"sweep over S={plan.S} slots needs {smem} bytes of shared "
-            f"memory per block, over the card's {SHARED_MAX} (227 KB); "
-            + ("a sphere-only scene culls past it (cull=None or True)"
-               if not plan.surfaces else "the culled surfaces kernel is "
-               "not ported (ROADMAP Queue 1 item 5)"))
+            f"scene {scene.name!r}: {what}"
+            + (f" and {plan.R} rect, {plan.L} light and {plan.V} medium "
+               "rows" if plan.surfaces else "")
+            + f" need {smem} bytes of shared memory per block, over the "
+            f"card's {SHARED_MAX} (227 KB)"
+            + ("" if plan.cull else "; past C = 1 the plan culls (cull=None "
+               "or True), and holds only the cluster boxes there"))
     return tabs, plan
 
 
@@ -946,15 +948,16 @@ _SMEM_LANES = dict(sweep=len(SWEEP_LANES), rect=RT_RIDX + 1,
 
 def shared_bytes(plan: MegaPlan) -> int:
     """Dynamic shared memory of the plan's launch, as the kernel lays it
-    out: the dense kernels hold the (9, S) sweep table (and the surfaces
-    kernel its rect, light and medium rows, their codes, the image sizes
-    and the Perlin tables); the culled kernel holds the (C, 6) cluster
-    boxes and, in near-to-far order, C bucket slots for each warp."""
+    out: the dense kernels hold the (9, S) sweep table, the culled ones the
+    (C, 6) cluster boxes and, in near-to-far order, C bucket slots for each
+    warp; the surfaces kernels then their rect, light and medium rows,
+    their codes, the image sizes and the Perlin tables."""
     n = _SMEM_LANES
     if plan.cull:
         warps = (256 if plan.exact else plan.T) // 32
-        return 4 * plan.C * (n["box"] + (warps if plan.dyn_order else 0))
-    words = n["sweep"] * plan.S
+        words = plan.C * (n["box"] + (warps if plan.dyn_order else 0))
+    else:
+        words = n["sweep"] * plan.S
     if plan.surfaces:
         tex = plan.textures
         words += (plan.R * (n["rect_tex"] if tex else n["rect"])
@@ -1996,8 +1999,8 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 perm: torch.Tensor, ranvec: torch.Tensor,
                 images: torch.Tensor, seed: int,
                 plan: MegaPlan) -> torch.Tensor:
-    """Launch csrc/megakernel.cu on the current CUDA stream: the culled
-    kernel for a culled plan, else the dense one. Same arguments and
+    """Launch csrc/megakernel.cu on the current CUDA stream: a culled
+    kernel for a culled plan, else a dense one. Same arguments and
     result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
     shape or dtype, a failed build and a refused launch."""
     seed = _check_seed(seed)
@@ -2070,8 +2073,9 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
     if plan.cull:
-        KERNEL_LAUNCHES["K5"] += 1
-    elif not plan.surfaces:
+        KERNEL_LAUNCHES["K5s" if plan.surfaces else "K5"] += 1
+        return out
+    if not plan.surfaces:
         KERNEL_LAUNCHES["K1"] += 1
     if plan.R or plan.L or plan.V or plan.has_light:
         KERNEL_LAUNCHES["K2+K3"] += 1

@@ -23,6 +23,9 @@ Usage:
         --max-depth 50 --stats --out cornell.png
     python -m raytracingweekend_tpu_torch.render --scene random_balls \
         --mode regen --nx 1200 --ny 800 --spp 8 --max-depth 50 --stats
+    python -m raytracingweekend_tpu_torch.render --scene large_mixed_huge \
+        --nx 1200 --ny 800 --spp 32 --samples-per-launch 16 \
+        --max-depth 50 --stats --out large_mixed.png
 
 The default scene is `cornell_box`, the reference's
 (RayTracingWeekend.cpp:201).
@@ -39,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .models import builder, probe_scenes
 from .models import scene_types as st
 from .models.scenes import SCENES, make_scene
 from .ops import camera as camera_mod
@@ -52,6 +56,19 @@ from .utils import prng
 from .utils.config import RenderConfig
 
 WAVEFRONT_MODES = ("regen", "tiled", "while", "scan")
+# builder scenes of models/probe_scenes.py that the CLI renders by name
+# beside the library's: random_balls_large's grid (n x n) with a checker
+# ground, a rect light, an emissive sphere and a medium, whose culled
+# sweep runs ahead of the rects, media and textures (kernel K5s)
+PROBE_SCENES = {"large_mixed": 60, "large_mixed_huge": 120}
+
+
+def cli_scene(name: str, aspect: float) -> st.Scene:
+    """A scene of the library, or a probe scene, by its CLI name."""
+    if name in PROBE_SCENES:
+        return probe_scenes.large_mixed_scene(
+            builder, st, n=PROBE_SCENES[name], aspect=aspect)
+    return make_scene(name, aspect)
 
 
 def launch_seed(seed: int, launch: int) -> int:
@@ -275,7 +292,8 @@ def debug_ray(scene: st.Scene, seed: int = 0, device="cuda"):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--scene", default="cornell_box", choices=sorted(SCENES))
+    p.add_argument("--scene", default="cornell_box",
+                   choices=sorted({*SCENES, *PROBE_SCENES}))
     p.add_argument("--nx", type=int, default=400)
     p.add_argument("--ny", type=int, default=400)
     p.add_argument("--spp", type=int, default=64)
@@ -316,7 +334,7 @@ def main(argv=None):
                        samples_per_launch=args.samples_per_launch,
                        loop_mode=args.mode, tile_lanes=args.tile_lanes,
                        device=args.device)
-    scene = make_scene(args.scene, cfg.aspect)
+    scene = cli_scene(args.scene, cfg.aspect)
     if args.normals:
         scene = dataclasses.replace(scene, render_type=st.RENDER_NORMAL)
     if args.debug_ray:

@@ -103,16 +103,17 @@ def test_make_plan_auto_rules_match_jax(n, exact):
 def test_make_plan_refusals():
     """The dense sweep of random_balls_huge (S = 14464, 36 B a slot) does
     not fit the 227 KB of shared memory a block can use: the plan says so
-    instead of a refused launch. Culling a scene with rects stays for the
-    culled surfaces kernel, and the culled kernel votes per warp."""
+    instead of a refused launch. A scene with rects culls too (the culled
+    surfaces kernel, K5s), and the culled kernels vote per warp."""
     _, huge = _scenes("random_balls_huge")
     _, plan = tk.make_plan(huge, 64, 64, 4)
     assert plan.cull and plan.C == 113 and plan.S == 14464
     assert tk.shared_bytes(plan) < tk.SHARED_MAX
     with pytest.raises(ValueError, match="232448"):
         tk.make_plan(huge, 64, 64, 4, cull=False)
-    with pytest.raises(NotImplementedError, match="culled surfaces"):
-        tk.make_plan(make_scene("cornell_box", 1.0), 8, 8, 1, cull=True)
+    _, plan = tk.make_plan(make_scene("cornell_box", 1.0), 8, 8, 1,
+                           cull=True)
+    assert plan.cull and plan.surfaces and plan.C == 1
     with pytest.raises(ValueError, match="multiple of 32"):
         tk.make_plan(huge, 8, 8, 1, T=48)
 

@@ -118,12 +118,81 @@ def test_culled_kernel_equals_dense_kernel(exact, dyn_order):
     assert 0 < culled.blocks.item() < dense.blocks.item()
 
 
+def _mixed(n=60, **kw):
+    """The probe scene of the culled surfaces kernel (K5s)."""
+    from raytracingweekend_tpu_torch.models import builder, scene_types
+    return probe_scenes.large_mixed_scene(builder, scene_types, n=n,
+                                          aspect=1.0, **kw)
+
+
+# the probe's variants: checker ground (kTex) with static balls; constant
+# ground (no kTex) with moving balls; both
+MIXED = {"textured": {}, "moving": {"textured": False, "moving": True},
+         "textured_moving": {"moving": True}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(MIXED))
+@pytest.mark.parametrize("exact", [True, False])
+def test_culled_surfaces_kernel_matches_plain_version_on_card(exact,
+                                                             variant):
+    """The culled surfaces kernel (K5s) against its plain version on
+    large_mixed(n=60) (C = 29 in overdraw, 15 in exact mode): tapes,
+    radiance and the swept-block counts of row 6, lane by lane, in both
+    kTex instantiations. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = _mixed(**MIXED[variant])
+    _, plan = tk.make_plan(scene, 64, 64, 2, max_depth=8, exact=exact)
+    assert plan.cull and plan.surfaces and plan.R == plan.L == plan.V == 1
+    assert plan.textures == (variant != "moving")
+    assert plan.dyn_order == (0 if exact else 16)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    valid = args[0][:, 2] > 0
+    before = tk.KERNEL_LAUNCHES["K5s"]
+    out_k = tk.mega_kernel(*args, 31337, plan)
+    assert tk.KERNEL_LAUNCHES["K5s"] == before + 1
+    out_r = tk.trace_mega_reference(*args, 31337, plan)
+    torch.cuda.synchronize()
+    rows = slice(0, None) if exact else slice(0, 7)
+    same = (out_k[:, rows] == out_r[:, rows]).all(dim=1) & valid
+    assert same.sum().item() >= 0.99 * valid.sum().item()
+    a = out_k[:, 0:3].transpose(1, 2)[valid]
+    b = out_r[:, 0:3].transpose(1, 2)[valid]
+    assert torch.isclose(a, b, rtol=RTOL, atol=ATOL).all(
+        dim=-1).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyn_order", [0, 16])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("variant", ["textured", "moving"])
+def test_culled_surfaces_kernel_equals_dense_kernel(variant, exact,
+                                                    dyn_order):
+    """On large_mixed(n=30) (SB 128, C = 8) the culled surfaces kernel's
+    image, sample counts and tapes equal the dense surfaces kernel's bit
+    for bit, with fewer blocks swept. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = _mixed(n=30, **MIXED[variant])
+    kw = dict(max_depth=8, exact=exact, SB=128, device="cuda")
+    dense = tk.trace_mega(5, scene, 96, 64, 4, cull=False, **kw)
+    culled = tk.trace_mega(5, scene, 96, 64, 4, dyn_order=dyn_order, **kw)
+    assert torch.equal(culled.image, dense.image)
+    assert culled.segments.item() == dense.segments.item()
+    assert culled.lane_iters.item() == dense.lane_iters.item()
+    if exact:
+        assert torch.equal(culled.tape, dense.tape)
+    assert 0 < culled.blocks.item() < dense.blocks.item()
+
+
 @pytest.mark.cuda
 def test_refused_launch_raises():
     """A dense sweep table past the card's 227 KB of shared memory per
     block (random_balls_huge: 9 lanes x 4 bytes x 14464 slots) is refused
     by CUDA, and the wrapper raises instead of returning an unwritten
-    output; `make_plan` refuses such a plan before any launch."""
+    output; `make_plan` refuses such a plan before any launch. A culled
+    surfaces plan with a bad C, SB or T raises too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import dataclasses
@@ -135,6 +204,47 @@ def test_refused_launch_raises():
     with pytest.raises(RuntimeError, match="launch failed"):
         tk.mega_kernel(*args, 1, dataclasses.replace(plan, cull=False,
                                                      dyn_order=0))
+    mixed = _mixed(n=120)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.make_plan(mixed, 8, 8, 1, cull=False)
+    _, plan = tk.make_plan(mixed, 64, 64, 1, max_depth=3)
+    assert plan.cull and plan.surfaces and plan.C == 113
+    args, _ = tk.device_inputs(mixed, plan, "cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):   # C SB != S
+        tk.mega_kernel(*args, 1, dataclasses.replace(plan, SB=plan.SB + 1))
+    clus2 = torch.cat([args[4], args[4]])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tk.mega_kernel(*args[:4], clus2, *args[5:], 1,
+                       dataclasses.replace(plan, C=2 * plan.C))
+    pixf48, _ = tk._device_layout(64, 64, 48, "cuda")
+    with pytest.raises(ValueError, match="T % 32"):
+        tk.mega_kernel(pixf48, *args[1:], 1,
+                       dataclasses.replace(plan, T=48))
+    out = tk.mega_kernel(*args, 1, plan)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_tape_mode_runs_culled_surfaces_kernel_on_card():
+    """Tape mode on large_mixed(n=30) launches the culled surfaces kernel
+    in exact mode at T = 1024 (SB 256, ascending votes), and the replay of
+    its tape reproduces its image to the replay gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.ops import mega_grad as tmg
+    from raytracingweekend_tpu_torch.utils import prng
+    scene = _mixed(n=30)
+    ctx = tmg.plan_tape(scene, 32, 32, 2, max_depth=5, T=1024,
+                        device="cuda")
+    plan = ctx["plan"]
+    assert plan.cull and plan.surfaces and plan.SB == 256
+    assert plan.dyn_order == 0
+    before = tk.KERNEL_LAUNCHES["K5s"]
+    img, tape, seed = tmg.tape_forward(prng.key(2), ctx)
+    assert tk.KERNEL_LAUNCHES["K5s"] == before + 1
+    img2 = tmg.make_replay(ctx)(scene, tape, seed)
+    close = torch.isclose(img2, img, rtol=RTOL, atol=ATOL).all(dim=-1)
+    assert close.float().mean().item() >= 0.99
 
 
 def _k7_rays(scene, n, seed):
