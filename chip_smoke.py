@@ -42,6 +42,13 @@ the replay image against the kernel's, central differences through the
 kernel); an inverse-rendering fit of a perturbed wall colour; and the
 wavefront gradient (`render_diff`) on cornell_box at the same workload and
 on random_balls w.r.t. the radii, checked against the CPU's plain path.
+Last, the two measurement instruments (raytracingweekend_tpu_torch/tools):
+the sweep twin (kernel K8, the book-1 sweep alone on K1's plan, both
+variants at the book-1 launch's width, held to its plain version bit for
+bit, its implied ceiling beside K1's segments/s and its slot loop's SASS
+beside K1's) and the dot-formulation microbenchmark (kernel K9, every row
+of the tool at S = 512, T = 2048 with its torch.matmul yardstick, held to
+its plain version).
 It prints one line per phase and each phase's seconds.
 Any failure exits non-zero; without a CUDA device it exits non-zero
 before printing any result. The last line is one JSON object naming the
@@ -72,6 +79,8 @@ from raytracingweekend_tpu_torch.ops import megakernel as mk
 from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
+from raytracingweekend_tpu_torch.tools import dot_microbench as k9
+from raytracingweekend_tpu_torch.tools import sweep_twin as k8
 from raytracingweekend_tpu_torch.utils import image as image_mod
 from raytracingweekend_tpu_torch.utils import prng
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
@@ -120,8 +129,9 @@ K7_RTOL = 1e-4
 # FP32 operations per (ray, slot) pair of K7, counted from
 # csrc/intersect.cu as below (they equal the JAX kernel's cost estimate,
 # pallas_intersect.py:156-160): co 3, b 5, cc 6, disc 3, sqrt 1, tn / tf 4;
-# moving centres add the fraction 2 and three FMAs 6
-OPS_K7_PAIR = {False: 22, True: 30}
+# moving centres add the fraction (OPS_SLOT_SHUTTER) and a motion FMA
+# (OPS_AXIS_MOTION) for each axis the centres move along
+OPS_K7_PAIR = 22
 HBM_PEAK = 3.35e12            # H100 SXM bytes/s
 # the goldens through regen, their spp cut to keep the script's time
 # (the wavefront is host-bound: ~2,500 small kernels an iteration)
@@ -169,7 +179,7 @@ K7_GRAD_RTOL = 1e-5
 # of what segments hit is measured in this run (`segment_mix`).
 OPS_SLOT_STATIC = 20          # sweep slot: co 3, nb 5, cc 6, disc 2, rsqrt,
 #                               sq, tn / tf 2
-OPS_SLOT_MOVING = 6           # 3 motion FMAs
+OPS_AXIS_MOTION = 2           # a motion FMA per axis the centres move along
 OPS_SLOT_SHUTTER = 2          # per-slot motion fraction (no uniform shutter)
 OPS_RECT = 6                  # (k - o_n) * 1/d_n, two plane-point FMAs
 OPS_GROUP = {0: 0, 1: 17, 2: 3, 3: 17}   # object-space ray per transform
@@ -179,7 +189,7 @@ OPS_MEDIUM = {0: 38, 1: 32}   # sphere / box medium boundary, with log and
 OPS_RECIPROCALS = 3           # 1/d of a surfaces segment
 OPS_FLOOR = 32                # count 1, hit point 6, ddn + mirror 12,
 #                               normalise 9, throughput 3, depth 1
-OPS_SPHERE_NORMAL = 6         # (p - c) / r (+ 8 with moving centres)
+OPS_SPHERE_NORMAL = 6         # (p - c) / r (+ the centre's motion)
 OPS_SHADE = {"lambertian": 70,  # cosine sample 5, cossin2pi 31, ONB 19,
              #                    direction 15
              "metal": 50,       # ball 44 (cossin2pi, exp(log / 3)), fuzz 6
@@ -213,6 +223,10 @@ OPS_TEXTURE = {"marble": OPS_TURB + 6,   # 10 t, FMA, sin, 0.5 (1 + .)
                "image_rect": 8,           # planar uv 4, texel index 4
                "image_medium": 4}         # texel index at uv (0, 0)
 FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
+# the instruments: K8 held to its plain version at K8_CHECK iterations,
+# K9 at K9_CHECK steps, both at their paths' widths
+K8_CHECK = 4
+K9_S, K9_T, K9_N, K9_REPS, K9_CHECK = 512, 2048, 64, 5, 8
 MATERIALS = ("lambertian", "metal", "dielectric", "light")
 
 
@@ -232,8 +246,9 @@ def ops_per_segment(plan, mix: dict, blocks: float = 1.0) -> float:
     ops = float(OPS_FLOOR)
     if plan.has_spheres:
         slot = OPS_SLOT_STATIC
-        if plan.moving or any(plan.moving_axes):
-            slot += OPS_SLOT_MOVING
+        axes = sum(map(bool, plan.moving_axes))
+        if axes:
+            slot += OPS_AXIS_MOTION * axes
             if not plan.uniform_time:
                 slot += OPS_SLOT_SHUTTER
         if plan.cull:
@@ -242,7 +257,8 @@ def ops_per_segment(plan, mix: dict, blocks: float = 1.0) -> float:
                        if plan.dyn_order else plan.C * OPS_REVOTE))
         else:
             ops += plan.S * slot
-        ops += mix["sphere"] * (OPS_SPHERE_NORMAL + 8 * plan.moving)
+        ops += mix["sphere"] * (OPS_SPHERE_NORMAL + (
+            OPS_SLOT_SHUTTER + OPS_AXIS_MOTION * axes if axes else 0))
     if plan.surfaces:
         ops += OPS_RECIPROCALS + plan.R * OPS_RECT
         groups = {c >> 4: (c >> 2) & 3 for c in plan.rect_codes}
@@ -323,7 +339,14 @@ def _kernel_name(mangled: str):
     'culled<kMoving,kUniformTime>' or
     'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
     mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
-    instantiation, else None."""
+    instantiation, 'twin<kExt>' of the sweep twin's (K8) and
+    'k9<body,unit>' of the microbenchmark's (K9), else None."""
+    twin = re.search(r"sweep_twin_kernelILb(\d)E", mangled)
+    if twin:
+        return f"twin<{twin.group(1)}>"
+    bench = re.search(r"microbench_kernelILi(\d)ELi(\d)E", mangled)
+    if bench:
+        return f"k9<{bench.group(1)},{bench.group(2)}>"
     m = re.search(
         r"mega_kernel(_surfaces|_culled_surfaces|_culled)?ILb(\d)ELb(\d)E"
         r"(?:Lb(\d)E)?", mangled)
@@ -334,11 +357,12 @@ def _kernel_name(mangled: str):
 
 
 def sweep_sass(lib: str) -> dict:
-    """SASS instructions per sphere slot of each kernel instantiation's
-    sweep loop (`cuobjdump -sass` of the built library): the innermost
-    loop with the most MUFU.RSQ (one per slot; nvcc unrolls the sweep)
-    and no warp vote (the culled kernel's cluster visits vote; its slot
-    loop does not), from its branch target to its backward branch.
+    """SASS instructions per sphere slot of each megakernel and sweep twin
+    instantiation's sweep loop (`cuobjdump -sass` of the built library):
+    the innermost loop with the most MUFU.RSQ (one per slot; nvcc unrolls
+    the sweep) and no warp vote (the culled kernel's cluster visits vote;
+    its slot loop does not), from its branch target to its backward
+    branch.
     Returns {name: (instructions, slots, FFMA, FMUL, FADD)}: split
     FMUL / FADD pairs where the plain version fuses show as FMUL and FADD
     counts above the culled sphere kernel's."""
@@ -348,7 +372,7 @@ def sweep_sass(lib: str) -> dict:
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = _kernel_name(func.split(None, 1)[0])
-        if name is None:
+        if name is None or name.startswith("k9"):
             continue
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
@@ -389,7 +413,9 @@ def phase_device() -> None:
           f"CUDA {torch.version.cuda}", flush=True)
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels; print registers, spills and the sweep loops'
+    SASS per slot, which it returns (`sweep_sass`)."""
     t0 = time.perf_counter()
     lib, nvcc_secs = _build.build()
     mk._kernel_lib()
@@ -416,6 +442,7 @@ def phase_build() -> None:
           f"build+load {time.perf_counter() - t0:.3f} s; "
           f"instantiations {'; '.join(rows)}; sweep SASS instructions per "
           f"slot (loop / slots) {per_slot}", flush=True)
+    return sweep
 
 
 def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
@@ -797,7 +824,7 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     if frac < MIN_SAME or frac_blk < MIN_SAME:
         fail(f"kernel disagrees with its plain version on {name}")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
-                bound_ms=bound)
+                bound_ms=bound, segments=segments)
 
 
 def k7_sass(lib: str) -> dict:
@@ -884,12 +911,14 @@ def _capture_regen_rays(scene, n_iters: int) -> list:
     return got
 
 
-def k7_bound_ms(n: int, S: int, moving: bool) -> tuple[float, str]:
+def k7_bound_ms(n: int, S: int, axes: int) -> tuple[float, str]:
     """Least time of one K7 call: every ray against every slot (no early
-    exit), OPS_K7_PAIR operations a pair over the FP32 peak, against its
-    bytes (7 floats a ray and 12 a slot read, 8 bytes a ray written) over
-    the memory rate."""
-    ops_ms = n * S * OPS_K7_PAIR[moving] / FP32_PEAK * 1e3
+    exit), OPS_K7_PAIR operations a pair (and the motion of centres moving
+    along `axes` axes) over the FP32 peak, against its bytes (7 floats a
+    ray and 12 a slot read, 8 bytes a ray written) over the memory rate."""
+    pair = OPS_K7_PAIR + (OPS_SLOT_SHUTTER + OPS_AXIS_MOTION * axes
+                          if axes else 0)
+    ops_ms = n * S * pair / FP32_PEAK * 1e3
     bytes_ms = ((7 * n + 12 * S) * 4 + 8 * n) / HBM_PEAK * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -934,7 +963,9 @@ def phase_k7_vs_plain() -> list:
         ms, _ = _event_ms(kernel, reps)
         plain_ms, _ = _event_ms(
             lambda: k7.hit_spheres_reference(o, d, tm, table, moving), 1)
-        bound, by = k7_bound_ms(n, S, moving)
+        axes = int((table[:, k7.K_DCX:k7.K_DCZ + 1] != 0).any(dim=0).sum()
+                   ) if moving else 0
+        bound, by = k7_bound_ms(n, S, axes)
         hits = (rt < 1e30).float().mean().item()
         print(f"phase 13 K7 kernel vs plain ({name}, rays of the first "
               f"{K7_ITERS} regen iterations at {WNX}x{WNY}x{WSPP}: N={n}, "
@@ -1383,6 +1414,153 @@ def phase_wavefront_grad() -> dict:
     return dict(launches=c_k7 + r_k7, c_ms=c_ms, r_ms=r_ms)
 
 
+def _sm_clock_mhz(fn, n: int) -> tuple[int, int]:
+    """The SM clock and its maximum (MHz) that nvidia-smi reads while n
+    calls of fn() run on the card."""
+    for _ in range(n):
+        fn()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    sm, top = (int(v) for v in smi.stdout.split("\n")[0].split(","))
+    return sm, top
+
+
+def phase_sweep_twin(sweep: dict, k1_path: dict, k1: dict) -> dict:
+    """The sweep twin (K8) on the book-1 plan: both variants held to the
+    plain version bit for bit at K8_CHECK iterations and the book-1
+    launch's width; then the tool's path (`sweep_twin.run`, both variants
+    at the default K), with K8's count set to 0 just before and read just
+    after, its timed launches held to the plain version bit for bit; its
+    implied ceiling beside K1's segments/s (phase 5's path, phase 5b's
+    kernel), its slot loop's SASS beside K1's, and its issue-rate share
+    at the SM clock read under its load."""
+    soa, attr, plan = k8.book1_inputs("cuda")
+    S, T, G = soa.shape[1], plan.T, k8.default_grid(plan)
+    err = 0.0
+
+    def held(K, ext, out_k, attrs_k, label):
+        out_r, attrs_r = k8.sweep_twin_reference(
+            soa, attr, T, G, K, plan.ut_t0, plan.ut_idt, ext)
+        torch.cuda.synchronize()
+        same = torch.equal(out_k, out_r) and (
+            not ext or torch.equal(attrs_k, attrs_r))
+        done = out_k[:, 1].min().item()
+        print(f"phase 24 K8 kernel vs plain ({'ext' if ext else 'quad'}, "
+              f"S={S}, T={T}, G={G}, K={K}, {label}): bit-equal {same}"
+              f"{' with the attribute rows' if ext else ''}, iterations "
+              f"done {done}", flush=True)
+        if not same or done != K:
+            fail("the sweep twin disagrees with its plain version")
+        return (out_k - out_r).abs().max().item()
+
+    for ext in (False, True):
+        out_k, attrs_k = k8.sweep_twin_kernel(
+            soa, attr, T, G, K8_CHECK, plan.ut_t0, plan.ut_idt, ext)
+        err = max(err, held(K8_CHECK, ext, out_k, attrs_k, "one launch"))
+    timed = []
+    k8.KERNEL_LAUNCHES["K8"] = 0
+    rows = k8.run(k8.VARIANTS, k8.DEFAULT_ITERS, G, 3, "cuda", timed)
+    launches = k8.KERNEL_LAUNCHES["K8"]
+    for row in rows:
+        print(f"phase 24 {json.dumps(row)}", flush=True)
+    quad, ext_row = rows
+    K = quad["K"]
+    for (out_k, attrs_k), ext in zip(timed, (False, True)):
+        err = max(err, held(K, ext, out_k, attrs_k, "the timed launch"))
+    plain_ms, _ = _event_ms(lambda: k8.sweep_twin_reference(
+        soa, attr, T, G, K, plan.ut_t0, plan.ut_idt, False), 1)
+    bound = k8.bound_ms(S, T, G, quad["iters_done"], plan.moving_axes)
+    k1_rate = k1["segments"] / (k1["ms"] * 1e-3)
+    twin_rate = quad["implied_ceiling_seg_per_s"]
+    loops = {k: sweep.get(k) for k in ("twin<0>", "twin<1>", "<1,1>")}
+    per_slot = "; ".join(
+        f"{k}: {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}, FADD "
+        f"{fd / s:.2f})" for k, (n, s, fa, fm, fd) in loops.items() if s)
+    mix = {k: tuple(c / v[1] for c in v[2:]) for k, v in loops.items()
+           if v and v[1]}
+    same_mix = "twin<0>" in mix and mix["twin<0>"] == mix.get("<1,1>")
+    # the slot loop's instructions at full issue (four warp-instructions a
+    # cycle on each SM) and the SM clock read under the quad launch's load
+    clock, top = _sm_clock_mhz(lambda: k8.sweep_twin_kernel(
+        soa, attr, T, G, K, plan.ut_t0, plan.ut_idt, False), 12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, slots = loops["twin<0>"][:2] if "twin<0>" in mix else (0, 1)
+    issue_ms = (G * T / 32 * K * S * n / slots / (4 * sms * clock * 1e6)
+                * 1e3)
+    print(f"phase 24 sweep twin (S={S}, T={T}, G={G}, K={K}, launches "
+          f"{launches}): quad {quad['ms']:.3f} ms a launch, implied ceiling "
+          f"{twin_rate:.6e} segments/s ({1e9 / twin_rate:.4f} ns a "
+          f"segment); ext {ext_row['ms']:.3f} ms, "
+          f"{ext_row['implied_ceiling_seg_per_s']:.6e}; plain PyTorch "
+          f"{plain_ms:.3f} ms (one block traced); bound {bound:.3f} ms by "
+          f"operations (moving axes {plan.moving_axes}; share "
+          f"{bound / quad['ms']:.3f}). K1: path "
+          f"{k1_path['rate']:.6e} segments/s (phase 5), kernel "
+          f"{k1_rate:.6e} (phase 5b, {1e9 / k1_rate:.4f} ns a segment); "
+          f"K1 / twin {k1_path['rate'] / twin_rate:.4f} (path), "
+          f"{k1_rate / twin_rate:.4f} (kernel); full - twin "
+          f"{1e9 / k1_rate - 1e9 / twin_rate:.4f} ns a segment; slot loop "
+          f"SASS a slot {per_slot} (twin's FFMA / FMUL / FADD a slot "
+          f"{'equal to' if same_mix else 'DIFFER from'} K1's); SM clock "
+          f"{clock} MHz under the quad launch (max {top}, {sms} SMs): the "
+          f"twin's slot loop at full issue {issue_ms:.3f} ms, issue share "
+          f"{issue_ms / quad['ms']:.3f}", flush=True)
+    if launches < len(rows):
+        fail("the sweep twin's path launched no K8 kernel")
+    if "twin<0>" not in mix:
+        fail("the sweep twin's slot loop is missing from its SASS")
+    return dict(ms=quad["ms"], ext_ms=ext_row["ms"], plain_ms=plain_ms,
+                bound_ms=bound, launches=launches, max_abs_err=err, S=S,
+                T=T, G=G, K=K)
+
+
+def phase_microbench() -> dict:
+    """The microbenchmark (K9): the tool's path (`dot_microbench.run`, every
+    row at S = 512, T = 2048, with its torch.matmul yardstick), with K9's
+    count set to 0 just before and read just after; then every row held to
+    its plain version at K9_CHECK steps within `plain_tolerance`."""
+    k9.KERNEL_LAUNCHES["K9"] = 0
+    rows = k9.run(K9_S, K9_T, K9_N, K9_REPS, "cuda")
+    launches = k9.KERNEL_LAUNCHES["K9"]
+    tables = k9.make_tables(K9_S)
+    out = []
+    for (name, body, unit), row in zip(k9.ROWS, rows):
+        tab = k9.table_for(body, unit, tables, "cuda")
+        got = k9.microbench_kernel(body, unit, tab, K9_S, K9_T, K9_CHECK)
+        plain_ms, want = _event_ms(lambda: k9.microbench_reference(
+            body, unit, tab, K9_S, K9_T, K9_CHECK), 1)
+        err = (got - want).abs()
+        tol = k9.plain_tolerance(body, tab)
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        lib = row["library_us_per_iter"]
+        print(f"phase 25 K9 {name} ({unit}, S={K9_S}, T={K9_T}, steps "
+              f"{K9_N}/{4 * K9_N}): {row['us_per_iter']:.4f} us a step, "
+              f"{row['ops_per_s']:.6e} ops/s, bound "
+              f"{row['bound_us_per_iter']:.4f} us (share "
+              f"{row['bound_us_per_iter'] / row['us_per_iter']:.4f}), "
+              f"torch.matmul "
+              f"{'-' if lib is None else f'{lib:.4f} us a step'}, plain "
+              f"PyTorch {plain_ms * 1e3 / K9_CHECK:.3f} us a step; kernel "
+              f"vs plain at {K9_CHECK} steps: max abs err "
+              f"{err.max().item():.3e} (tolerance {tol.max().item():.3e}), "
+              f"bit-equal {torch.equal(got, want)}", flush=True)
+        if not ok:
+            fail(f"K9 {name} disagrees with its plain version")
+        out.append(dict(name=name, h100_unit=unit,
+                        ms=row["us_per_iter"] * 1e-3,
+                        plain_ms=plain_ms / K9_CHECK,
+                        bound_ms=row["bound_us_per_iter"] * 1e-3,
+                        library_ms=None if lib is None else lib * 1e-3,
+                        max_abs_err=err.max().item()))
+    print(f"phase 25 K9 launches on the tool path {launches}", flush=True)
+    if launches < 2 * len(rows):
+        fail("the microbenchmark's path launched too few K9 kernels")
+    return dict(rows=out, launches=launches)
+
+
 def _timed(label: str, fn, *args, **kw):
     """fn(*args, **kw), then one line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -1394,7 +1572,7 @@ def _timed(label: str, fn, *args, **kw):
 def main() -> int:
     t_start = time.perf_counter()
     _timed("phase 1", phase_device)
-    _timed("phase 2", phase_build)
+    sweep = _timed("phase 2", phase_build)
     parity = _timed("phase 3", phase_exact_parity)
     _timed("phase 4", phase_goldens)
     main_run = _timed("phase 5", phase_main_path)
@@ -1440,6 +1618,8 @@ def main() -> int:
     mega_grad = _timed("phase 18", phase_mega_grad)
     _timed("phase 19", phase_mega_fit)
     wave_grad = _timed("phase 20", phase_wavefront_grad)
+    twin = _timed("phase 24", phase_sweep_twin, sweep, main_run, k1)
+    bench = _timed("phase 25", phase_microbench)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -1503,6 +1683,27 @@ def main() -> int:
         ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
         bound_ms=k7_main["bound_ms"], route="cuda",
         bound_by=k7_main["bound_by"], library_ms=None))
+    entries.append(dict(
+        name=f"K8 sweep twin (the book-1 sweep alone, quad; S={twin['S']}, "
+             f"T={twin['T']}, G={twin['G']}, K={twin['K']} a launch; ext "
+             f"{twin['ext_ms']:.3f} ms)",
+        source="raytracingweekend_tpu_torch/csrc/sweep_twin.cu",
+        replaces="tools/sweep_twin.py:164",
+        launches=twin["launches"], max_abs_err=twin["max_abs_err"],
+        ms=twin["ms"], plain_ms=twin["plain_ms"], bound_ms=twin["bound_ms"],
+        route="cuda", bound_by="operations", library_ms=None))
+    rep = next(r for r in bench["rows"] if r["name"] == "extract f32 default")
+    entries.append(dict(
+        name=f"K9 dot-formulation microbenchmark (extract f32 default on the "
+             f"TF32 tensor cores, S={K9_S}, T={K9_T}, per step; every row "
+             "under rows)",
+        source="raytracingweekend_tpu_torch/csrc/dot_microbench.cu",
+        replaces="tools/dot_microbench.py:64",
+        launches=bench["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in bench["rows"]),
+        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+        route="cuda", bound_by="operations", library_ms=rep["library_ms"],
+        rows=bench["rows"]))
     print(f"chip_smoke total {time.perf_counter() - t_start:.3f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

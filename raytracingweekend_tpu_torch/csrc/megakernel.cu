@@ -82,9 +82,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr float kBig = 3.0e37f;
+using namespace rtw_sweep;  // kBig, the sweep SoA lanes L_*, sweep_slots
 constexpr float kHitCut = 1.0e30f;
 constexpr int kOutRows = 8;
 constexpr int kExactBlock = 256;
@@ -93,8 +95,6 @@ constexpr int kExactBlock = 256;
 enum { A_CX, A_CY, A_CZ, A_DCX, A_DCY, A_DCZ, A_T0, A_IDT, A_RINV, A_MTYPE,
        A_ALBX, A_ALBY, A_ALBZ, A_MPARAM, A_NSCALE, A_CHK, A_EVENX, A_EVENY,
        A_EVENZ, A_ODDX, A_ODDY, A_ODDZ, A_NOISE, A_IMG };
-// sweep SoA lanes (9, S), as ops/megakernel.py SWEEP_LANES
-enum { L_CX, L_CY, L_CZ, L_DCX, L_DCY, L_DCZ, L_T0, L_IDT, L_NR2, kLanes };
 // rect / light / medium lanes, as ops/megakernel.py RT_* / LT_* / MD_*; the
 // shared-memory copy keeps the first k*Lanes of each 128-lane table row,
 // and the texture lanes (RT_CHK.., MD_NOI..) only in texture launches
@@ -260,45 +260,14 @@ __device__ __forceinline__ void gen_ray(const Params& p, const Cam& cam,
   L.dz = dz * inv;
 }
 
-// Closest hit over every slot of the shared-memory table. Returns the
-// winner slot (S on a miss) and its t in `best`.
+// Closest hit over every slot of the shared-memory table (sweep.cuh).
+// Returns the winner slot (S on a miss) and its t in `best`.
 template <bool kMoving, bool kUniformTime>
 __device__ __forceinline__ int sweep(const Params& p, const float* sm,
                                      const Lane& L, float& best) {
-  const int S = p.S;
-  const float tmin = p.t_min;
   const float frac_u = kUniformTime ? (L.time - p.ut_t0) * p.ut_idt : 0.f;
-  int bidx = S;
-  best = kBig;
-  for (int s = 0; s < S; ++s) {
-    float cx = sm[L_CX * S + s];
-    float cy = sm[L_CY * S + s];
-    float cz = sm[L_CZ * S + s];
-    if (kMoving) {
-      const float fr = kUniformTime
-                           ? frac_u
-                           : (L.time - sm[L_T0 * S + s]) * sm[L_IDT * S + s];
-      cx = fmaf(fr, sm[L_DCX * S + s], cx);  // exact on static axes (dc = 0)
-      cy = fmaf(fr, sm[L_DCY * S + s], cy);
-      cz = fmaf(fr, sm[L_DCZ * S + s], cz);
-    }
-    // sign-flipped half-b form with a = 1: co = c - o, nb = dot(co, d) = -b;
-    // nr2 = -r^2 (+1 on padding rows, which then never hit) seeds cc
-    const float cox = cx - L.ox, coy = cy - L.oy, coz = cz - L.oz;
-    const float nb = fmaf(coz, L.dz, fmaf(cox, L.dx, coy * L.dy));
-    const float cc =
-        fmaf(cox, cox, fmaf(coy, coy, fmaf(coz, coz, sm[L_NR2 * S + s])));
-    const float disc = fmaf(nb, nb, -cc);
-    // disc < 0 and disc == 0 (0 * inf) both give NaN, and NaN is a miss
-    const float sq = disc * rsqrtf(disc);
-    const float tn = nb - sq, tf = nb + sq;
-    const float t = tn > tmin ? tn : (tf > tmin ? tf : kBig);
-    if (t < best) {  // strict: the first slot with the smallest t wins
-      best = t;
-      bidx = s;
-    }
-  }
-  return bidx;
+  return sweep_slots<kMoving, kUniformTime>(sm, p.S, L, frac_u, p.t_min,
+                                            best);
 }
 
 __device__ __forceinline__ float attr_at(const Params& p, int row, int slot) {

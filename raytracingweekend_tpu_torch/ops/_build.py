@@ -4,7 +4,8 @@
 all started together, and links the objects into one shared library with a
 plain C interface, in `raytracingweekend_tpu_torch/_build/` (ignored by
 git), at first use; the library's file name carries a hash of the
-sources and flags, so an edited source is rebuilt. The library is loaded
+sources, their shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt. The library is loaded
 with ctypes: no torch.utils.cpp_extension, no ninja, nothing downloaded.
 The build needs the CUDA toolkit (`nvcc` on PATH or under
 /usr/local/cuda/bin) and targets Hopper, sm_90a.
@@ -46,7 +47,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librtw_kernels_{h.hexdigest()[:16]}.so"

@@ -30,7 +30,9 @@ def test_port_module_list_is_complete():
                      "ops.intersect", "ops.linalg", "ops.materials",
                      "ops.mega_grad", "ops.megakernel", "ops.noise", "ops.packing",
                      "ops.pdfs", "ops.rounding", "ops.sampling",
-                     "ops.syncs", "ops.textures", "render", "utils.config",
+                     "ops.syncs", "ops.textures", "render", "tools",
+                     "tools.dot_microbench", "tools.sweep_twin",
+                     "utils.config",
                      "utils.detrng", "utils.image", "utils.prng",
                      "wavefront_profile"):
         assert f"{PKG}.{expected}" in mods, mods

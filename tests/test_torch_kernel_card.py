@@ -397,3 +397,85 @@ def test_replay_matches_kernel_tape_on_card(name):
     assert torch.allclose(img2.detach(), img, rtol=RTOL, atol=ATOL)
     torch.mean(img2 ** 2).backward()
     assert torch.isfinite(col.grad).all() and col.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["quad", "ext"])
+def test_sweep_twin_kernel_matches_plain_version_on_card(variant):
+    """K8 against its plain version at K = 4 on the book-1 plan (S = 488,
+    T = 256, 16 blocks): every iteration count, ox row and (ext) attribute
+    row bit for bit; the twin runs all K iterations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools import sweep_twin as tw
+    soa, attr, plan = tw.book1_inputs("cuda")
+    args = (soa, attr, plan.T, 16, 4, plan.ut_t0, plan.ut_idt,
+            variant == "ext")
+    before = tw.KERNEL_LAUNCHES["K8"]
+    out_k, attrs_k = tw.sweep_twin_kernel(*args)
+    assert tw.KERNEL_LAUNCHES["K8"] == before + 1
+    out_r, attrs_r = tw.sweep_twin_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_r)
+    assert torch.all(out_k[:, 1] == 4.0)
+    if variant == "ext":
+        assert torch.equal(attrs_k, attrs_r)
+    else:
+        assert attrs_k is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,body,unit", [
+    ("lane16 f32 default", "lane16", "tf32"),
+    ("lane16 f32 HIGHEST", "lane16", "fp32"),
+    ("sub16 f32 default", "sub16", "tf32"),
+    ("sub16 f32 HIGHEST", "sub16", "fp32"),
+    ("extract f32 default", "extract", "tf32"),
+    ("extract f32 HIGHEST", "extract", "fp32"),
+    ("extract bf16", "extract", "bf16"),
+    ("elemq ~25 VPU ops", "elemq", "fp32"),
+    ("min+eqmask", "minmask", "fp32")])
+def test_microbench_kernel_matches_plain_version_on_card(name, body, unit):
+    """Each K9 row against its plain version at S = 512, T = 256, 8 steps:
+    within `plain_tolerance` (the products' sum order: (terms + 2) 2^-24
+    of the absolute terms, twice that for extract; the elementwise bodies
+    bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools import dot_microbench as dm
+    assert (name, body, unit) in dm.ROWS
+    tab = dm.table_for(body, unit, dm.make_tables(512), "cuda")
+    out_k = dm.microbench_kernel(body, unit, tab, 512, 256, 8)
+    out_r = dm.microbench_reference(body, unit, tab, 512, 256, 8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_k).all()
+    assert torch.all((out_k - out_r).abs()
+                     <= dm.plain_tolerance(body, tab))
+
+
+@pytest.mark.cuda
+def test_tool_kernels_raise_on_refused_launches():
+    """A launch the card refuses raises, and leaves no error behind: K8
+    past 1024 lanes a block or with a table past a block's 227 KB of
+    shared memory (9 x 4 x 7000 bytes), K9 with an accumulator past it
+    (S = 4096: 256 KB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools import dot_microbench as dm
+    from raytracingweekend_tpu_torch.tools import sweep_twin as tw
+    soa, attr, plan = tw.book1_inputs("cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tw.sweep_twin_kernel(soa, attr, 2048, 1, 1, 0.0, 1.0, False)
+    big = torch.ones((9, 7000), device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tw.sweep_twin_kernel(big, torch.zeros((24, 7000), device="cuda"),
+                             64, 1, 1, 0.0, 1.0, True)
+    tab = torch.zeros((4096, 16), device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dm.microbench_kernel("lane16", "fp32", tab, 4096, 256, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        dm.microbench_kernel("lane16", "fp32", tab[:100], 100, 256, 1)
+    out, _ = tw.sweep_twin_kernel(soa, attr, plan.T, 2, 2, plan.ut_t0,
+                                  plan.ut_idt, False)
+    torch.cuda.synchronize()
+    assert torch.all(out[:, 1] == 2.0)
