@@ -48,7 +48,13 @@ variants at the book-1 launch's width, held to its plain version bit for
 bit, its implied ceiling beside K1's segments/s and its slot loop's SASS
 beside K1's) and the dot-formulation microbenchmark (kernel K9, every row
 of the tool at S = 512, T = 2048 with its torch.matmul yardstick, held to
-its plain version).
+its plain version). Then the Mosaic repros (raytracingweekend_tpu_torch/
+tools/mosaic_repros, kernels K10-K14 in csrc/mosaic_repros.cu): every one
+of their ten formulations at its repro's shapes, held to its plain
+version, each pair's forms to each other and K13's probes to the repro's
+expected arrays, with K10's I2F counts from the build; and the sixth
+repro, the port's tiled integrator at the T = 32768 tile the TPU faults on
+(random_balls 1200x800, 16 spp, depth 8), against T = 65536.
 It prints one line per phase and each phase's seconds.
 Any failure exits non-zero; without a CUDA device it exits non-zero
 before printing any result. The last line is one JSON object naming the
@@ -80,7 +86,9 @@ from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
+from raytracingweekend_tpu_torch.tools import mosaic_repros
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
+from raytracingweekend_tpu_torch.tools.mosaic_repros import tile_32768
 from raytracingweekend_tpu_torch.utils import image as image_mod
 from raytracingweekend_tpu_torch.utils import prng
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
@@ -339,8 +347,13 @@ def _kernel_name(mangled: str):
     'culled<kMoving,kUniformTime>' or
     'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
     mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
-    instantiation, 'twin<kExt>' of the sweep twin's (K8) and
-    'k9<body,unit>' of the microbenchmark's (K9), else None."""
+    instantiation, 'twin<kExt>' of the sweep twin's (K8),
+    'k9<body,unit>' of the microbenchmark's (K9) and 'repro:<name>' of the
+    Mosaic repros' (K10-K14), else None."""
+    repro = re.search(r"repro_(\w+?)_kernel(?:IL[bi](\d+)E)?", mangled)
+    if repro:
+        return (f"repro:{repro.group(1)}"
+                + (f"<{repro.group(2)}>" if repro.group(2) else ""))
     twin = re.search(r"sweep_twin_kernelILb(\d)E", mangled)
     if twin:
         return f"twin<{twin.group(1)}>"
@@ -372,7 +385,7 @@ def sweep_sass(lib: str) -> dict:
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = _kernel_name(func.split(None, 1)[0])
-        if name is None or name.startswith("k9"):
+        if name is None or name.startswith(("k9", "repro:")):
             continue
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
@@ -413,9 +426,25 @@ def phase_device() -> None:
           f"CUDA {torch.version.cuda}", flush=True)
 
 
-def phase_build() -> dict:
-    """Build the kernels; print registers, spills and the sweep loops'
-    SASS per slot, which it returns (`sweep_sass`)."""
+def repro_i2f(lib: str) -> dict:
+    """The integer-to-float conversions (I2F*, I2FP*) in the SASS of K10's
+    two kernels: {'f32 iota': [opcodes], 'int iota + cast': [opcodes]}."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = _kernel_name(func.split(None, 1)[0])
+        form = {"repro:iota_f32": "f32 iota",
+                "repro:iota_int_cast": "int iota + cast"}.get(name)
+        if form:
+            out[form] = sorted(re.findall(r"\bI2FP?\b[.\w]*", func))
+    return out
+
+
+def phase_build() -> tuple:
+    """Build the kernels; print registers, spills, the sweep loops' SASS
+    per slot and K10's I2F counts; returns (`sweep_sass`, `repro_i2f`)."""
     t0 = time.perf_counter()
     lib, nvcc_secs = _build.build()
     mk._kernel_lib()
@@ -438,11 +467,13 @@ def phase_build() -> dict:
         f"{k}: {n} / {s} = {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}"
         f", FADD {fd / s:.2f})" if s else f"{k}: -"
         for k, (n, s, fa, fm, fd) in sorted(sweep.items()))
+    i2f = repro_i2f(str(lib))
     print(f"phase 2 build: {os.path.basename(lib)} nvcc {nvcc_secs:.3f} s, "
           f"build+load {time.perf_counter() - t0:.3f} s; "
-          f"instantiations {'; '.join(rows)}; sweep SASS instructions per "
-          f"slot (loop / slots) {per_slot}", flush=True)
-    return sweep
+          f"{len(rows)} instantiations {'; '.join(rows)}; sweep SASS "
+          f"instructions per slot (loop / slots) {per_slot}; K10 I2F in "
+          f"SASS {i2f}", flush=True)
+    return sweep, i2f
 
 
 def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
@@ -1561,6 +1592,171 @@ def phase_microbench() -> dict:
     return dict(rows=out, launches=launches)
 
 
+# the pallas_call each Mosaic repro formulation replaces
+MOSAIC_REPLACES = {
+    "K10": "tools/mosaic_repros/repro_f32_iota.py:47",
+    "K11": "tools/mosaic_repros/repro_slice_broadcast_layout.py:56",
+    "K12": "tools/mosaic_repros/repro_scalar_reduce.py:55",
+    "K13 A dynamic-sublane-slice":
+        "tools/mosaic_repros/repro_dynamic_cull.py:75",
+    "K13 B dynamic-lane-slice": "tools/mosaic_repros/repro_dynamic_cull.py:92",
+    "K13 C dynamic-trip-fori+smem":
+        "tools/mosaic_repros/repro_dynamic_cull.py:120",
+    "K13 D scalar-compaction-smem":
+        "tools/mosaic_repros/repro_dynamic_cull.py:158",
+    "K14 subslice": "tools/mosaic_repros/repro_dot_k3_subslice.py:56",
+    "K14 dense": "tools/mosaic_repros/repro_dot_k3_subslice.py:64",
+}
+# the repro kernels' names in csrc/mosaic_repros.cu (and template
+# argument) -> the formulation
+MOSAIC_KERNELS = {
+    ("iota_f32", None): "K10 f32 iota",
+    ("iota_int_cast", None): "K10 int iota + cast",
+    ("slice", "true"): "K11 register slice",
+    ("slice", "false"): "K11 ref load",
+    ("scalar_reduce", None): "K12 scalar reduce",
+    ("cull_a", None): "K13 A dynamic-sublane-slice",
+    ("cull_b", None): "K13 B dynamic-lane-slice",
+    ("cull_c", None): "K13 C dynamic-trip-fori+smem",
+    ("cull_d", None): "K13 D scalar-compaction-smem",
+    ("dot_k3", "128"): "K14 subslice",
+    ("dot_k3", "3"): "K14 dense",
+}
+MOSAIC_PAIRS = {"K10": ("f32 iota", "int iota + cast"),
+                "K11": ("register slice", "ref load"),
+                "K14": ("subslice", "dense")}
+
+
+def _mosaic_device_us() -> dict:
+    """Device µs a launch of each repro kernel: one run of the tool at 20
+    launches a formulation under torch.profiler (CUDA activity); {} if
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mosaic_repros.run("cuda", launches=20)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        m = re.search(r"repro_(\w+?)_kernel(?:<(\w+)>)?", ev.key)
+        key = MOSAIC_KERNELS.get(m.groups()) if m else None
+        if key and dev_us > 0 and ev.count:
+            out[key] = dev_us / ev.count
+    return out
+
+
+def phase_mosaic_repros(i2f: dict) -> list:
+    """The Mosaic repros (K10-K14): the tool's path
+    (`mosaic_repros.run`, every formulation at its repro's shapes, 200
+    timed launches each), with every count set to 0 just before and read
+    just after; then every formulation held to its plain version (bit for
+    bit, K14 within 2 ulp of sum |a||b|), each pair's forms to each other
+    and K13's probes to the repro's expected arrays. Returns the kernels
+    line's K10-K14 entries."""
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dot_k3_subslice as k14, repro_dynamic_cull as k13)
+    mosaic_repros.reset_launches()
+    outputs = {}
+    rows = mosaic_repros.run("cuda", outputs=outputs)
+    launches = mosaic_repros.kernel_launches()
+    torch.cuda.synchronize()
+    device_us = _mosaic_device_us()
+    tab, rays = k14.inputs(0, "cuda")
+    tol14 = k14.tolerance(tab, rays)
+    expect13 = k13.expected()
+    by_kernel = {}
+    for row in rows:
+        key = f"{row['kernel']} {row['name']}"
+        got, want = outputs[key]
+        err = (got.double() - want.double()).abs()
+        if row["kernel"] == "K14":
+            rule, held = "within 2 ulp of sum |a||b|", bool(
+                torch.all(err <= tol14))
+        else:
+            rule, held = "bit-equal", torch.equal(got, want)
+        pair = MOSAIC_PAIRS.get(row["kernel"])
+        same = None if pair is None else torch.equal(
+            *(outputs[f"{row['kernel']} {n}"][0] for n in pair))
+        expected = (np.array_equal(got.cpu().numpy(), expect13[row["name"]])
+                    if row["kernel"] == "K13" else row["as_expected"])
+        lib = row["library_us"]
+        dev = device_us.get(key)
+        print(f"phase 26 {key} ({row['shape']}; launches {launches[key]}): "
+              f"{row['us']:.4f} us a launch (mean of 200; device "
+              f"{'not measured' if dev is None else f'{dev:.4f} us'}), plain "
+              f"{row['plain_us']:.4f} us, bound {row['bound_us']:.6f} us by "
+              f"{row['bound_by']} (share {row['bound_us'] / row['us']:.6f}), "
+              f"library {'-' if lib is None else f'{lib:.4f} us'} "
+              f"({row['library']}); kernel vs plain: {rule} {held}, max "
+              f"abs err {err.max().item():.3e}"
+              f"{'' if same is None else f'; forms equal {same}'}; the "
+              f"repro's answer {expected}", flush=True)
+        if not held:
+            fail(f"{key} disagrees with its plain version")
+        if same is False:
+            fail(f"the two forms of {row['kernel']} differ")
+        if not expected:
+            fail(f"{key} does not give the repro's answer")
+        if launches[key] < 1:
+            fail(f"the repros' path launched no {key} kernel")
+        by_kernel.setdefault(row["kernel"], []).append(dict(
+            name=row["name"], ms=row["us"] * 1e-3,
+            device_ms=None if dev is None else dev * 1e-3,
+            plain_ms=row["plain_us"] * 1e-3,
+            bound_ms=row["bound_us"] * 1e-3, bound_by=row["bound_by"],
+            library_ms=None if lib is None else lib * 1e-3,
+            max_abs_err=err.max().item(), launches=launches[key],
+            replaces=(MOSAIC_REPLACES.get(key)
+                      or MOSAIC_REPLACES[row["kernel"]])))
+    print(f"phase 26 K10 I2F in SASS {i2f} (the f32 iota should convert "
+          f"nothing, the int iota its row index)", flush=True)
+    for line in [v for key, m in mosaic_repros.REPROS.items()
+                 for v in m.verdict([r for r in rows
+                                     if r["kernel"] == f"K{key[1:]}"])]:
+        print(f"phase 26 verdict: {line}", flush=True)
+    names = {"K10": "K10 f32 iota vs int iota + cast (24, 256)",
+             "K11": "K11 register slice vs ref load, (1, 512) x (64, 1), "
+                    "W = 256",
+             "K12": "K12 scalar min / max reduce driving a while loop, "
+                    "(8, 128)",
+             "K13": "K13 dynamic-cull probes A-D (every probe under rows)",
+             "K14": "K14 (64, 3) x (3, 256) TF32 wmma, sub-slice vs dense"}
+    entries = []
+    for kernel, forms in by_kernel.items():
+        first = forms[0]
+        entries.append(dict(
+            name=f"{names[kernel]}; per launch, {first['name']} timings",
+            route="cuda",
+            source="raytracingweekend_tpu_torch/csrc/mosaic_repros.cu",
+            replaces=first["replaces"],
+            launches=sum(f["launches"] for f in forms),
+            max_abs_err=max(f["max_abs_err"] for f in forms),
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=first["library_ms"], rows=forms))
+    return entries
+
+
+def phase_tile_32768() -> dict:
+    """The sixth repro: the port's trace_tiled at the T = 1 << 15 tile the
+    TPU faults on (random_balls 1200x800, 16 spp, depth 8), against the
+    same render at T = 1 << 16."""
+    res = tile_32768.run("cuda")
+    t, r = res["tile"], res["reference"]
+    print(f"phase 26b tile T={t['T']} ({res['shape']}, 2^19 slots): "
+          f"{t['seconds']:.3f} s, {t['iterations']} iterations, "
+          f"{t['segments']} segments, K7 launches {res['k7_launches']}, "
+          f"finite {t['finite']}, image mean {t['mean']:.6f}; T={r['T']}: "
+          f"{r['seconds']:.3f} s, mean {r['mean']:.6f}; relative difference "
+          f"{res['mean_rel_diff']:.3e} (limit {tile_32768.MEAN_RTOL})",
+          flush=True)
+    if not res["ok"]:
+        fail("the T = 32768 tile did not finish with a finite image that "
+             "agrees with T = 65536's")
+    return res
+
+
 def _timed(label: str, fn, *args, **kw):
     """fn(*args, **kw), then one line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -1572,7 +1768,7 @@ def _timed(label: str, fn, *args, **kw):
 def main() -> int:
     t_start = time.perf_counter()
     _timed("phase 1", phase_device)
-    sweep = _timed("phase 2", phase_build)
+    sweep, i2f = _timed("phase 2", phase_build)
     parity = _timed("phase 3", phase_exact_parity)
     _timed("phase 4", phase_goldens)
     main_run = _timed("phase 5", phase_main_path)
@@ -1620,6 +1816,8 @@ def main() -> int:
     wave_grad = _timed("phase 20", phase_wavefront_grad)
     twin = _timed("phase 24", phase_sweep_twin, sweep, main_run, k1)
     bench = _timed("phase 25", phase_microbench)
+    repros = _timed("phase 26", phase_mosaic_repros, i2f)
+    _timed("phase 26b", phase_tile_32768)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -1704,6 +1902,7 @@ def main() -> int:
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         route="cuda", bound_by="operations", library_ms=rep["library_ms"],
         rows=bench["rows"]))
+    entries += repros
     print(f"chip_smoke total {time.perf_counter() - t_start:.3f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

@@ -32,6 +32,14 @@ def test_port_module_list_is_complete():
                      "ops.pdfs", "ops.rounding", "ops.sampling",
                      "ops.syncs", "ops.textures", "render", "tools",
                      "tools.dot_microbench", "tools.sweep_twin",
+                     "tools.mosaic_repros", "tools.mosaic_repros.__main__",
+                     "tools.mosaic_repros._common",
+                     "tools.mosaic_repros.repro_dot_k3_subslice",
+                     "tools.mosaic_repros.repro_dynamic_cull",
+                     "tools.mosaic_repros.repro_f32_iota",
+                     "tools.mosaic_repros.repro_scalar_reduce",
+                     "tools.mosaic_repros.repro_slice_broadcast_layout",
+                     "tools.mosaic_repros.tile_32768",
                      "utils.config",
                      "utils.detrng", "utils.image", "utils.prng",
                      "wavefront_profile"):

@@ -479,3 +479,105 @@ def test_tool_kernels_raise_on_refused_launches():
                                   plan.ut_idt, False)
     torch.cuda.synchronize()
     assert torch.all(out[:, 1] == 2.0)
+
+
+# the Mosaic repros (K10-K14): (repro module, form index) of each of the
+# ten formulations
+MOSAIC_FORMS = [("repro_f32_iota", 0), ("repro_f32_iota", 1),
+                ("repro_slice_broadcast_layout", 0),
+                ("repro_slice_broadcast_layout", 1),
+                ("repro_scalar_reduce", 0),
+                ("repro_dynamic_cull", 0), ("repro_dynamic_cull", 1),
+                ("repro_dynamic_cull", 2), ("repro_dynamic_cull", 3),
+                ("repro_dot_k3_subslice", 0), ("repro_dot_k3_subslice", 1)]
+
+
+def _mosaic_pair(mod, form: int):
+    """The formulation's kernel output and plain output on the card, the
+    tolerance between them, and the kernel's launch count delta."""
+    name = mod.__name__.rsplit(".", 1)[1]
+    before = sum(mod.KERNEL_LAUNCHES.values())
+    if name == "repro_f32_iota":
+        fn = (mod.f32_iota_kernel, mod.int_iota_cast_kernel)[form]
+        got, want, tol = fn(device="cuda"), mod.iota_reference(
+            device="cuda"), 0.0
+    elif name == "repro_slice_broadcast_layout":
+        row, col = mod.inputs(1, "cuda")
+        fn = (mod.reg_slice_kernel, mod.ref_load_kernel)[form]
+        got, want, tol = fn(row, col), mod.slice_reference(row, col), 0.0
+    elif name == "repro_scalar_reduce":
+        x = (mod.repro_input("cuda") - 30.0) * 1.5
+        got = mod.scalar_reduce_kernel(x)[:mod.OUT_ROWS]
+        want, tol = mod.scalar_reduce_reference(x)[:mod.OUT_ROWS], 0.0
+    elif name == "repro_dynamic_cull":
+        a = mod.inputs((5, 1, 2, 0), "cuda")
+        got, want, tol = mod.probe(form, a), mod.reference(form, a), 0.0
+    else:
+        tab, rays = mod.inputs(1, "cuda")
+        lhs = tab if form == 0 else tab[:, 0:3].contiguous()
+        fn = (mod.subslice_kernel, mod.dense_kernel)[form]
+        got = fn(lhs, rays)
+        want = mod.subslice_reference(tab, rays)
+        tol = mod.tolerance(tab, rays)
+    torch.cuda.synchronize()
+    return got, want, tol, sum(mod.KERNEL_LAUNCHES.values()) - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repro,form", MOSAIC_FORMS)
+def test_mosaic_repro_kernel_matches_plain_version_on_card(repro, form):
+    """Each K10-K14 formulation against its plain version on inputs other
+    than the tool's (K11 and K14 seed 1, K12 shifted to negative values,
+    K13 the scalars (5, 1, 2, 0)): bit for bit, K14 within 2 ulp of
+    sum |a||b|; one kernel launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    mod = importlib.import_module(
+        f"raytracingweekend_tpu_torch.tools.mosaic_repros.{repro}")
+    got, want, tol, launched = _mosaic_pair(mod, form)
+    assert launched == 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if repro == "repro_dot_k3_subslice":
+        assert torch.all((got - want).abs() <= tol)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repro", ["repro_f32_iota",
+                                   "repro_slice_broadcast_layout",
+                                   "repro_dot_k3_subslice"])
+def test_mosaic_repro_pairs_are_equal_on_card(repro):
+    """The two forms of each pair give the same bits on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    mod = importlib.import_module(
+        f"raytracingweekend_tpu_torch.tools.mosaic_repros.{repro}")
+    first, _, _, _ = _mosaic_pair(mod, 0)
+    second, _, _, _ = _mosaic_pair(mod, 1)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_mosaic_repro_kernels_raise_on_refused_launches():
+    """K11 with W = 2048 threads a block: the card refuses the launch,
+    which raises and leaves no error behind; K11 with W not dividing T and
+    K14 with T not a multiple of 16 raise ValueError before launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+    row = torch.ones((1, 4096), device="cuda")
+    col = torch.ones((4, 1), device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k11.reg_slice_kernel(row, col, 2048)
+    with pytest.raises(ValueError, match="divide"):
+        k11.ref_load_kernel(row[:, :500], col, 256)
+    tab, rays = k14.inputs(0, "cuda")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k14.dense_kernel(tab[:, 0:3].contiguous(), rays[:, :250].contiguous())
+    out = k11.ref_load_kernel(row, col, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(out, row * col)
