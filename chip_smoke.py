@@ -19,7 +19,10 @@ oracle's texels (tools/reference_oracle/earth.rtwi), `two_perlin_spheres`,
 path, `random_balls_large` (3604 spheres) at 1200x800, 32 spp per launch,
 and `random_balls_huge` (14404) at 16, max_depth 50 (kernel K5: cluster
 culling), where the culled kernel is also held to the dense one bit for
-bit; and the mixed large-S path, the probe `large_mixed` of
+bit, with its warp and per-lane survivals (rows 6 and 7: the clusters a
+warp swept, the clusters each lane's own ray needed) and the split of its
+warps' cycles from a build instrumented with clock64 (RTW_SPLIT,
+tools/culled_ab.py); and the mixed large-S path, the probe `large_mixed` of
 models/probe_scenes.py (random_balls_large's grid with a checker ground, a
 rect light with MIS, an emissive sphere and a medium) at n = 60 (3605
 spheres) 1200x800x32 a launch and n = 120 (14405) x16, depth 50, through
@@ -85,6 +88,7 @@ from raytracingweekend_tpu_torch.ops import megakernel as mk
 from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
+from raytracingweekend_tpu_torch.tools import culled_ab
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import mosaic_repros
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
@@ -213,7 +217,8 @@ OPS_REGEN = 34                # new camera ray, per path end
 # cluster culling (K5), per segment: the ray's reciprocals, then C slab
 # votes (6 sub + 6 mul; with near-to-far order these are the geometric
 # votes, and each swept block adds a re-vote) and a re-vote's entry
-# shrink (1 mul); swept blocks pay SB slots each
+# shrink (1 mul); the blocks the lane's own ray needed (row 7) pay SB
+# slots each (the warp's swept blocks, row 6, in the warp-vote bound)
 OPS_VOTE = 12
 OPS_REVOTE = 13
 # textures (K4), per textured hit. One Perlin evaluation: floor and
@@ -236,6 +241,10 @@ FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
 K8_CHECK = 4
 K9_S, K9_T, K9_N, K9_REPS, K9_CHECK = 512, 2048, 64, 5, 8
 MATERIALS = ("lambertian", "metal", "dielectric", "light")
+# what the culled kernels' (K5, K5s) sweep does, for the kernels line
+REDESIGN = (f"a cluster swept only for the lanes whose rays need it, "
+            f"compacted below {mk.K_BCAST} needing lanes, static spheres' "
+            "centre quads staged in shared memory by cp.async")
 
 
 # nvidia-smi's name and power limit of the card, set by phase 1
@@ -246,11 +255,14 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def ops_per_segment(plan, mix: dict, blocks: float = 1.0) -> float:
+def ops_per_segment(plan, mix: dict, blocks: float = 1.0,
+                    needed: float | None = None) -> float:
     """The FP32 operations of an average path segment of `plan` whose
     hits are distributed as `mix` (fractions of segments: miss, medium,
     sphere, and the material of each surface hit; ends = paths ended per
-    segment); a culled plan sweeps `blocks` clusters a segment."""
+    segment); a culled plan re-votes `blocks` clusters a segment and
+    sweeps the slots of `needed` (default `blocks`)."""
+    needed = blocks if needed is None else needed
     ops = float(OPS_FLOOR)
     if plan.has_spheres:
         slot = OPS_SLOT_STATIC
@@ -260,7 +272,7 @@ def ops_per_segment(plan, mix: dict, blocks: float = 1.0) -> float:
             if not plan.uniform_time:
                 slot += OPS_SLOT_SHUTTER
         if plan.cull:
-            ops += (OPS_RECIPROCALS + blocks * plan.SB * slot
+            ops += (OPS_RECIPROCALS + needed * plan.SB * slot
                     + (plan.C * OPS_VOTE + blocks * OPS_REVOTE
                        if plan.dyn_order else plan.C * OPS_REVOTE))
         else:
@@ -331,14 +343,18 @@ def segment_mix(scene) -> dict:
     return mix
 
 
-def bound_ms(plan, segments: float, mix: dict, blocks: float = 0.0) -> float:
+def bound_ms(plan, segments: float, mix: dict, blocks: float = 0.0,
+             needed: float | None = None) -> float:
     """Least time of a launch that traced `segments` path segments (and,
-    culled, swept `blocks` cluster blocks): their FP32 operations over the
-    card's FP32 peak. Bytes do not bound it: the dense kernels' tables sit
-    in shared memory, the culled kernel's slot quads in L2 (231 KB for
-    random_balls_huge), and a launch reads 16 B and writes 32 B per
-    lane."""
-    return (ops_per_segment(plan, mix, blocks / max(segments, 1.0))
+    culled, re-voted `blocks` cluster blocks, the warps' visits of row 6,
+    and swept the `needed` ones its rays need, row 7; default `blocks`):
+    their FP32 operations over the card's FP32 peak. Bytes do not bound it:
+    the dense kernels' tables sit in shared memory, the culled kernel's
+    slot quads in L2 (231 KB for random_balls_huge), and a launch reads 16
+    B and writes 32 B per lane."""
+    seg = max(segments, 1.0)
+    return (ops_per_segment(plan, mix, blocks / seg,
+                            None if needed is None else needed / seg)
             * segments / FP32_PEAK * 1e3)
 
 
@@ -374,11 +390,16 @@ def sweep_sass(lib: str) -> dict:
     instantiation's sweep loop (`cuobjdump -sass` of the built library):
     the innermost loop with the most MUFU.RSQ (one per slot; nvcc unrolls
     the sweep) and no warp vote (the culled kernel's cluster visits vote;
-    its slot loop does not), from its branch target to its backward
-    branch.
-    Returns {name: (instructions, slots, FFMA, FMUL, FADD)}: split
-    FMUL / FADD pairs where the plain version fuses show as FMUL and FADD
-    counts above the culled sphere kernel's."""
+    its slot loops do not), from its branch target to its backward
+    branch. A culled kernel has two: the broadcast loop, inside the visit
+    loop (which ballots), and the compacted one, inside the loop over the
+    needing lanes (which reduces with REDUX and does not ballot), listed as
+    '<name> compacted'.
+    Returns {name: (instructions, slots, FFMA, FMUL, FADD)}, the compacted
+    loops with a sixth item: the instructions of the needing-lane loop
+    outside its slot loops (shuffles, REDUX, merge). Split FMUL / FADD
+    pairs where the plain version fuses show as FMUL and FADD counts above
+    the culled sphere kernel's."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -395,18 +416,41 @@ def sweep_sass(lib: str) -> dict:
             br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
             if br and int(br.group(1), 16) <= a:
                 loops.append((addr[int(br.group(1), 16)], k))
+
+        def has(a, b, pat):
+            return any(re.match(pat, op) for _, op in ins[a:b + 1])
+
+        def outer(a, b):
+            """The smallest loop around (a, b), or None."""
+            return min(((c, d) for c, d in loops
+                        if c <= a and b <= d and (c, d) != (a, b)),
+                       key=lambda cd: cd[1] - cd[0], default=None)
+
+        def pick(cands):
+            return max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
+                         b - a + 1, a) for a, b in cands), default=(0, 0, 0))
+
+        def counts(best):
+            ops = [op.split()[0] for _, op in ins[best[2]:best[2] + best[1]]
+                   if op.split()]
+            return (best[1], best[0],
+                    *(sum(o.startswith(k) for o in ops)
+                      for k in ("FFMA", "FMUL", "FADD")))
+
         inner = [(a, b) for a, b in loops
                  if not any(a <= c and d <= b and (c, d) != (a, b)
                             for c, d in loops)
-                 and not any(re.match(r"(VOTE|REDUX)", op)
-                             for _, op in ins[a:b + 1])]
-        best = max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
-                     b - a + 1, a) for a, b in inner), default=(0, 0, 0))
-        ops = [op.split()[0] for _, op in ins[best[2]:best[2] + best[1]]
-               if op.split()]
-        out[name] = (best[1], best[0],
-                     *(sum(o.startswith(k) for o in ops)
-                       for k in ("FFMA", "FMUL", "FADD")))
+                 and not has(a, b, r"(VOTE|REDUX)")]
+        compact = [(a, b) for a, b in inner
+                   if (o := outer(a, b)) and has(*o, r"REDUX")
+                   and not has(*o, r"VOTE")]
+        out[name] = counts(pick([lp for lp in inner if lp not in compact]))
+        if compact:
+            best = pick(compact)
+            o = outer(best[2], best[2] + best[1] - 1)
+            lane = (o[1] - o[0] + 1) - sum(
+                b - a + 1 for a, b in inner if o[0] <= a and b <= o[1])
+            out[f"{name} compacted"] = (*counts(best), lane)
     return out
 
 
@@ -443,10 +487,13 @@ def repro_i2f(lib: str) -> dict:
 
 
 def phase_build() -> tuple:
-    """Build the kernels; print registers, spills, the sweep loops' SASS
-    per slot and K10's I2F counts; returns (`sweep_sass`, `repro_i2f`)."""
+    """Build the kernels, and beside them the culled kernels' warp-cycle
+    split build (RTW_SPLIT, tools/culled_ab.py), all nvcc started
+    together; print registers, spills, the sweep loops' SASS per slot and
+    K10's I2F counts; returns (`sweep_sass`, `repro_i2f`)."""
     t0 = time.perf_counter()
-    lib, nvcc_secs = _build.build()
+    (lib, nvcc_secs), _ = _build.build_all([((), _build.CSRC),
+                                            (culled_ab.SPLIT, _build.CSRC)])
     mk._kernel_lib()
     log = _build.build_log()
     # one entry per kernel instantiation <kMoving, kUniformTime>: its
@@ -465,8 +512,10 @@ def phase_build() -> tuple:
     sweep = sweep_sass(str(lib))
     per_slot = "; ".join(
         f"{k}: {n} / {s} = {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}"
-        f", FADD {fd / s:.2f})" if s else f"{k}: -"
-        for k, (n, s, fa, fm, fd) in sorted(sweep.items()))
+        f", FADD {fd / s:.2f}"
+        f"{f'; {lane[0]} a needing lane besides' if lane else ''})"
+        if s else f"{k}: -"
+        for k, (n, s, fa, fm, fd, *lane) in sorted(sweep.items()))
     i2f = repro_i2f(str(lib))
     print(f"phase 2 build: {os.path.basename(lib)} nvcc {nvcc_secs:.3f} s, "
           f"build+load {time.perf_counter() - t0:.3f} s; "
@@ -499,13 +548,14 @@ def _exact_parity(label, scene) -> float:
     b = out_r[:, 0:3].transpose(1, 2)[same]
     err = (a - b).abs().max().item()
     close = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
-    blocks = (out_k[:, 6] == out_r[:, 6])[same].float().mean().item()
+    blocks = (out_k[:, 6:8] == out_r[:, 6:8]).all(dim=1)[same].float().mean(
+    ).item()
     print(f"phase 3 exact-spp parity ({label} 64x64, 8 spp, depth 8, "
           f"T=256): tapes equal on {frac:.6f} of lanes (mismatch "
           f"{1 - frac:.6f}), max abs radiance err {err:.3e} "
-          f"(rtol {RTOL}, atol {ATOL}), swept blocks equal on {blocks:.6f} "
-          f"of them: {'ok' if close and blocks == 1.0 else 'FAIL'}",
-          flush=True)
+          f"(rtol {RTOL}, atol {ATOL}), swept and needed blocks (rows 6, 7) "
+          f"equal on {blocks:.6f} of them: "
+          f"{'ok' if close and blocks == 1.0 else 'FAIL'}", flush=True)
     if frac < MIN_SAME or not close or blocks != 1.0:
         fail(f"kernel disagrees with its plain version in exact-spp mode "
              f"({label})")
@@ -663,11 +713,71 @@ def phase_texture_path() -> dict:
     return dict(launches=sum(r["launches"] for r in runs))
 
 
+def _drive_culled(name, scene, spp, kernel, label, mode="mega") -> dict:
+    """_drive of a culled scene at LNX x LNY, `spp` a launch, with each
+    launch's MegaResult recorded: the warp survival (swept blocks, row 6)
+    and the per-lane survival (needed blocks, row 7) of the timed
+    launches, over their lane iterations x C."""
+    _, plan = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
+    got = []
+    orig = mk.trace_mega
+
+    def recorded(*a, **kw):
+        res = orig(*a, **kw)
+        got.append((res.blocks, res.lane_need, res.lane_iters))
+        return res
+
+    mk.trace_mega = recorded
+    try:
+        run = _drive(name, LNX, LNY, LLAUNCHES * spp, spp, LDEPTH, kernel,
+                     label, scene=scene, mode=mode)
+    finally:
+        mk.trace_mega = orig
+    timed = got[1:]                              # after the warm-up
+    iters = sum(i.item() for _, _, i in timed) * plan.C
+    return dict(run, plan=plan,
+                survival=sum(b.item() for b, _, _ in timed) / iters,
+                lane_survival=sum(n.item() for _, n, _ in timed) / iters)
+
+
+def _split(label, name, scene, spp) -> dict:
+    """The culled kernel's warp-cycle split at a cell's launch (LNX x LNY
+    x spp): one launch of the RTW_SPLIT build (tools/culled_ab.py), held
+    to the kernels' own launch on rows 0-7; prints the shares of its
+    warps' cycles."""
+    _, plan = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
+    args, _ = mk.device_inputs(scene, plan, "cuda")
+    s = culled_ab.split(args, plan)
+    ref = mk.mega_kernel(*args, SEED, plan)
+    same = torch.equal(s["out"][:, :mk.OUT_ROWS], ref[:, :mk.OUT_ROWS])
+    sh, raw = s["share"], s["raw"]
+    print(f"{label} split ({name} {LNX}x{LNY}x{spp}, RTW_SPLIT build, "
+          f"instrumented launch {s['ms']:.3f} ms, rows 0-7 equal the "
+          f"kernel's: {same}): of the warps' cycles, key pass and buckets "
+          f"{sh['keys']:.4f}, votes {sh['votes']:.4f}, broadcast sweeps "
+          f"{sh['broadcast']:.4f}, compacted sweeps {sh['compacted']:.4f}, "
+          f"rest (shading, RNG, tile tails) {sh['rest']:.4f}; candidate "
+          f"visits {raw['candidates']}, broadcast {raw['broadcast_visits']}"
+          f", compacted {raw['compacted_visits']}", flush=True)
+    if not same:
+        fail(f"the split build of the culled kernel differs on {name}")
+    return s
+
+
 def phase_large_path() -> dict:
     """The large-S path at full width: each stress scene 1200x800, three
-    timed launches after a warm-up."""
-    runs = [_drive(name, LNX, LNY, LLAUNCHES * spp, spp, LDEPTH, "K5",
-                   "phase 10 large-S path") for name, spp in LARGE_PATH]
+    timed launches after a warm-up, with both survivals; then each
+    cell's warp-cycle split."""
+    runs = []
+    for name, spp in LARGE_PATH:
+        scene = make_scene(name, LNX / LNY)
+        run = _drive_culled(name, scene, spp, "K5", "phase 10 large-S path")
+        print(f"phase 10 {name}: warp survival {run['survival']:.6f}, "
+              f"per-lane survival {run['lane_survival']:.6f} (C="
+              f"{run['plan'].C}, SB={run['plan'].SB})", flush=True)
+        runs.append(run)
+    for name, spp in LARGE_PATH:
+        _split("phase 10", name, make_scene(name, LNX / LNY), spp)
     return dict(launches=sum(r["launches"] for r in runs))
 
 
@@ -682,8 +792,8 @@ def phase_culled_vs_dense() -> dict:
 
 def _culled_vs_dense(label, name, scene, spp) -> dict:
     """A culled plan's kernel against the dense plan's on the same inputs
-    at LNX x LNY x spp: every output row but the block count, timed in
-    turns (dense, culled, culled, dense)."""
+    at LNX x LNY x spp: every output row but the block counts, timed in
+    turns (dense, culled, culled, dense), with both survivals."""
     _, culled = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH)
     _, dense = mk.make_plan(scene, LNX, LNY, spp, max_depth=LDEPTH,
                             cull=False)
@@ -700,15 +810,17 @@ def _culled_vs_dense(label, name, scene, spp) -> dict:
     err = (a - b).abs().max().item()
     equal = torch.equal(a, b)
     ms_c, ms_d = (sum(runs[k]) / 2 for k in ("culled", "dense"))
-    surv = (outs["culled"][:, 6].sum() / (outs["culled"][:, 4].sum()
-                                          * culled.C)).item()
+    iters = outs["culled"][:, 4].sum().item() * culled.C
+    surv = outs["culled"][:, 6].sum().item() / iters
+    lane_surv = outs["culled"][:, 7].sum().item() / iters
     print(f"{label} ({name} {LNX}x{LNY}x{spp} spp, S={culled.S}, "
           f"C={culled.C}, SB={culled.SB}, near-to-far {culled.dyn_order} "
           f"buckets, R={culled.R}, L={culled.L}, V={culled.V}): culled "
           f"{ms_c:.3f} ms, dense {ms_d:.3f} ms per launch (dense, culled, "
           f"culled, dense: {runs['dense'][0]:.3f} {runs['culled'][0]:.3f} "
-          f"{runs['culled'][1]:.3f} {runs['dense'][1]:.3f}); survival "
-          f"{surv:.6f}; pixels, segments, lane iterations and sample counts "
+          f"{runs['culled'][1]:.3f} {runs['dense'][1]:.3f}); warp survival "
+          f"{surv:.6f}, per-lane survival {lane_surv:.6f}; pixels, "
+          f"segments, lane iterations and sample counts "
           f"equal: {equal} (max abs err {err:.3e}; segments "
           f"{b[:, 3].sum().item():.6e})", flush=True)
     if not equal:
@@ -720,9 +832,10 @@ def phase_mixed_path() -> dict:
     """The mixed large-S path (K5s): large_mixed at n = 60 (1200x800, 32
     spp a launch) and n = 120 (x16), depth 50, through render(loop_mode=
     "auto"), one warm-up and three timed launches each; auto must take the
-    megakernel and launch the culled surfaces kernel and no other. Survival
-    is read from the timed launches' own outputs (swept blocks over lane
-    iterations x C)."""
+    megakernel and launch the culled surfaces kernel and no other. Both
+    survivals are read from the timed launches' own outputs (swept and
+    needed blocks over lane iterations x C); then each cell's warp-cycle
+    split."""
     runs = []
     for n, spp in MIXED_PATH:
         scene = large_mixed(n, LNX / LNY)
@@ -732,35 +845,23 @@ def phase_mixed_path() -> dict:
         if not (plan.cull and plan.surfaces and plan.textures):
             fail(f"large_mixed n={n} does not plan the culled surfaces "
                  "kernel")
-        got = []
-        orig = mk.trace_mega
-
-        def recorded(*a, **kw):
-            res = orig(*a, **kw)
-            got.append((res.blocks, res.lane_iters))
-            return res
-
-        mk.trace_mega = recorded
-        try:
-            run = _drive(f"large_mixed n={n}", LNX, LNY, LLAUNCHES * spp, spp,
-                         LDEPTH, "K5s", "phase 21 mixed large-S path",
-                         scene=scene, mode="auto")
-        finally:
-            mk.trace_mega = orig
-        timed = got[1:]                              # after the warm-up
-        surv = (sum(b.item() for b, _ in timed)
-                / (sum(i.item() for _, i in timed) * plan.C))
+        run = _drive_culled(f"large_mixed n={n}", scene, spp, "K5s",
+                            "phase 21 mixed large-S path", mode="auto")
         others = {k: v for k, v in run["all_launches"].items()
                   if k != "K5s" and v}
         print(f"phase 21 large_mixed n={n}: auto -> mega, launches "
               f"{run['all_launches']}; {run['rate']:.6e} segments/s, "
               f"{run['s_per_launch'] * 1e3:.3f} ms a launch, S={plan.S}, "
               f"C={plan.C}, SB={plan.SB}, dyn_order={plan.dyn_order}, "
-              f"survival {surv:.6f}; {DEVICE_LINE}", flush=True)
+              f"warp survival {run['survival']:.6f}, per-lane survival "
+              f"{run['lane_survival']:.6f}; {DEVICE_LINE}", flush=True)
         if others or run["launches"] != 1 + LLAUNCHES:
             fail(f"large_mixed n={n} launched {run['all_launches']}, not "
                  "the culled surfaces kernel alone")
-        runs.append(dict(run, survival=surv, C=plan.C))
+        runs.append(dict(run, C=plan.C))
+    for n, spp in MIXED_PATH:
+        _split("phase 21", f"large_mixed n={n}", large_mixed(n, LNX / LNY),
+               spp)
     return dict(launches=sum(r["launches"] for r in runs), runs=runs)
 
 
@@ -801,8 +902,10 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     of the launch only (the others are marked invalid in its copy of the
     pixel table; tiles are independent and keep their RNG streams), and
     the kernel's output is compared on those tiles. A culled plan also
-    compares the swept-block counts (row 6) lane by lane. `scene`, when
-    given, replaces make_scene(name, keywords `kw`)."""
+    compares the swept- and needed-block counts (rows 6, 7) lane by lane,
+    and its bound counts the slots its rays need (row 7), beside the
+    warp-vote bound (row 6's slots), printed. `scene`, when given,
+    replaces make_scene(name, keywords `kw`)."""
     if scene is None:
         scene = make_scene(name, nx / ny, **kw)
     _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
@@ -829,20 +932,24 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     frac = torch.isclose(a, b, rtol=RTOL, atol=ATOL).all(
         dim=-1).float().mean().item()
     blocks = out_k[:, 6, :].sum().item() if plan.cull else 0.0
+    needed = out_k[:, 7, :].sum().item() if plan.cull else 0.0
     mix = segment_mix(scene)
-    ops = ops_per_segment(plan, mix, blocks / segments)
-    bound = bound_ms(plan, segments, mix, blocks)
+    ops = ops_per_segment(plan, mix, blocks / segments, needed / segments)
+    bound = bound_ms(plan, segments, mix, blocks, needed)
+    warp_bound = bound_ms(plan, segments, mix, blocks)
     part = (f" on every {tile_stride}th tile ({sel.sum().item()} of "
             f"{sel.numel()})" if tile_stride > 1 else "")
     culled = ""
     frac_blk = 1.0
     if plan.cull:
-        frac_blk = (out_k[:, 6, :] == out_r[:, 6, :])[lanes].float().mean(
-        ).item()
-        culled = (f"; C={plan.C}, SB={plan.SB}, survival "
-                  f"{blocks / (out_k[:, 4, :].sum().item() * plan.C):.6f}, "
-                  f"swept-block counts{part} equal on {frac_blk:.6f} of "
-                  f"lanes")
+        frac_blk = (out_k[:, 6:8, :] == out_r[:, 6:8, :]).all(dim=1)[
+            lanes].float().mean().item()
+        iters = out_k[:, 4, :].sum().item() * plan.C
+        culled = (f"; C={plan.C}, SB={plan.SB}, warp survival "
+                  f"{blocks / iters:.6f}, per-lane survival "
+                  f"{needed / iters:.6f}, warp-vote bound {warp_bound:.3f} "
+                  f"ms ({warp_bound / ms:.3f}); swept- and needed-block "
+                  f"counts{part} equal on {frac_blk:.6f} of lanes")
     print(f"{label} kernel vs plain ({name} {nx}x{ny}x{spp} spp, "
           f"T={plan.T}, S={plan.S}, R={plan.R}, L={plan.L}, V={plan.V}): "
           f"kernel {ms:.3f} ms (mean of {reps}) per launch, plain PyTorch "
@@ -1627,6 +1734,11 @@ MOSAIC_PAIRS = {"K10": ("f32 iota", "int iota + cast"),
                 "K14": ("subslice", "dense")}
 
 
+def _device_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
 def _mosaic_device_us() -> dict:
     """Device µs a launch of each repro kernel: one run of the tool at 20
     launches a formulation under torch.profiler (CUDA activity); {} if
@@ -1637,12 +1749,37 @@ def _mosaic_device_us() -> dict:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
+        dev_us = _device_us(ev)
         m = re.search(r"repro_(\w+?)_kernel(?:<(\w+)>)?", ev.key)
         key = MOSAIC_KERNELS.get(m.groups()) if m else None
         if key and dev_us > 0 and ev.count:
             out[key] = dev_us / ev.count
+    return out
+
+
+def _library_device_us(launches: int = 20) -> dict:
+    """Device µs a call of the library yardsticks of K11 and K14 on their
+    repros' inputs, as `_mosaic_device_us` takes the kernels': each call
+    alone under torch.profiler, `launches` times, all its device time over
+    the count ({kernel: µs}; a kernel missing if the profiler saw no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+    row, col = k11.inputs(0, "cuda")
+    tab, rays = k14.inputs(0, "cuda")
+    out = {}
+    for key, fn in (("K11", lambda: torch.mul(row, col)),
+                    ("K14", k14.library(tab, rays))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(_device_us(ev) for ev in prof.key_averages())
+        if dev_us > 0:
+            out[key] = dev_us / launches
     return out
 
 
@@ -1662,6 +1799,7 @@ def phase_mosaic_repros(i2f: dict) -> list:
     launches = mosaic_repros.kernel_launches()
     torch.cuda.synchronize()
     device_us = _mosaic_device_us()
+    lib_device_us = _library_device_us()
     tab, rays = k14.inputs(0, "cuda")
     tol14 = k14.tolerance(tab, rays)
     expect13 = k13.expected()
@@ -1682,13 +1820,16 @@ def phase_mosaic_repros(i2f: dict) -> list:
                     if row["kernel"] == "K13" else row["as_expected"])
         lib = row["library_us"]
         dev = device_us.get(key)
+        lib_dev = lib_device_us.get(row["kernel"]) if lib is not None else None
         print(f"phase 26 {key} ({row['shape']}; launches {launches[key]}): "
               f"{row['us']:.4f} us a launch (mean of 200; device "
               f"{'not measured' if dev is None else f'{dev:.4f} us'}), plain "
               f"{row['plain_us']:.4f} us, bound {row['bound_us']:.6f} us by "
               f"{row['bound_by']} (share {row['bound_us'] / row['us']:.6f}), "
               f"library {'-' if lib is None else f'{lib:.4f} us'} "
-              f"({row['library']}); kernel vs plain: {rule} {held}, max "
+              f"({row['library']}; device "
+              f"{'-' if lib_dev is None else f'{lib_dev:.4f} us'}); "
+              f"kernel vs plain: {rule} {held}, max "
               f"abs err {err.max().item():.3e}"
               f"{'' if same is None else f'; forms equal {same}'}; the "
               f"repro's answer {expected}", flush=True)
@@ -1706,6 +1847,7 @@ def phase_mosaic_repros(i2f: dict) -> list:
             plain_ms=row["plain_us"] * 1e-3,
             bound_ms=row["bound_us"] * 1e-3, bound_by=row["bound_by"],
             library_ms=None if lib is None else lib * 1e-3,
+            library_device_ms=None if lib_dev is None else lib_dev * 1e-3,
             max_abs_err=err.max().item(), launches=launches[key],
             replaces=(MOSAIC_REPLACES.get(key)
                       or MOSAIC_REPLACES[row["kernel"]])))
@@ -1844,27 +1986,28 @@ def main() -> int:
                              + [r["max_abs_err"] for r in k4]),
              ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
              bound_ms=k4[0]["bound_ms"]),
-        dict(name="megakernel K5 (cluster-culled sphere sweep; "
-                  "random_balls_large 1200x800x32 timings, plain version "
-                  f"on every {LARGE_TILE_STRIDE}th tile)",
+        dict(name="megakernel K5 (cluster-culled sphere sweep, "
+                  f"redesigned: {REDESIGN}; random_balls_large 1200x800x32 "
+                  "timings, plain version on every "
+                  f"{LARGE_TILE_STRIDE}th tile)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:753",
              launches=large_run["launches"],
              max_abs_err=max([parity["K5"], vs_dense["max_abs_err"]]
                              + [r["max_abs_err"] for r in k5]),
              ms=k5[0]["ms"], plain_ms=k5[0]["plain_ms"],
-             bound_ms=k5[0]["bound_ms"]),
+             bound_ms=k5[0]["bound_ms"], redesigned=True),
         dict(name="megakernel K5s (cluster-culled sweep ahead of rects, "
-                  "lights, media and textures; large_mixed n=60 "
-                  f"1200x800x32 timings, plain version on every "
-                  f"{LARGE_TILE_STRIDE}th tile)",
+                  f"lights, media and textures, redesigned: {REDESIGN}; "
+                  "large_mixed n=60 1200x800x32 timings, plain version on "
+                  f"every {LARGE_TILE_STRIDE}th tile)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:2529",
              launches=mixed_run["launches"],
              max_abs_err=max([parity["K5s"], mixed_vs_dense["max_abs_err"]]
                              + [r["max_abs_err"] for r in k5s]),
              ms=k5s[0]["ms"], plain_ms=k5s[0]["plain_ms"],
-             bound_ms=k5s[0]["bound_ms"]),
+             bound_ms=k5s[0]["bound_ms"], redesigned=True),
     ]
     for e in entries:
         e.update(route="cuda", bound_by="operations", library_ms=None)

@@ -57,12 +57,19 @@
 //
 // Culling (K5): a dense sweep of S slots costs ~34 instructions a slot and
 // its (9, S) table stops fitting in shared memory near 6400 slots. The
-// culled kernel keeps only the (C, 6) cluster boxes there; each warp votes
-// a cluster with one __any_sync (the TPU kernel's whole-tile any() becomes
-// a warp's), so a warp sweeps only the clusters one of its rays can reach
-// before its running best, in near-to-far order keyed by a
-// __reduce_min_sync of the slab entries. The slots it sweeps stream from
-// L2 as broadcast 16-byte loads, one slot for all 32 lanes. The culled
+// culled kernel keeps only the (C, 6) cluster boxes there; each warp
+// ballots a cluster (the TPU kernel's whole-tile any() becomes a warp's),
+// so a warp visits only the clusters one of its rays can reach before its
+// running best, in near-to-far order keyed by a __reduce_min_sync of the
+// slab entries, and sweeps them for the lanes whose own rays need them.
+// A warp's need is often a few lanes (1 lane on ~10% of visits at
+// random_balls_large): below kBcast needing lanes the warp sweeps the
+// cluster once per needing lane, 32 slots at a time with two warp
+// minimums, instead of all SB slots for all 32 lanes. With static
+// spheres a warp copies the centre quads of the next cluster one of its
+// rays can reach into shared memory (cp.async) while it re-votes and
+// sweeps the current one, and reads them there, broadcast or 32
+// consecutive; moving slots read all their quads through L1. The culled
 // surfaces kernel (K5s) adds the surfaces tables behind the boxes and
 // bucket slots in shared memory, and runs the surfaces bounce after the
 // sweep on the warp's active lanes.
@@ -1335,6 +1342,53 @@ constexpr int kBoxLanes = 6;
 constexpr float kShrink = 0x1.fffff8p-1f;  // float32(1 - 2.4e-7)
 constexpr float kSurvCut = 0.5f * kBig;    // past it a cluster cannot win
 
+// A visit that fewer than kBcast lanes need sweeps the cluster once for
+// each needing lane, 32 slots at a time (sweep_compact); from kBcast
+// needing lanes on, the warp runs the broadcast loop (sweep_cluster). At
+// SB = 128 the broadcast loop costs ~27 instructions a slot for the warp,
+// ~3400 a visit, the compacted sweep ~130 a needing lane and its latency.
+// Chosen on the H100 (PERF.md: flat between 16 and 24).
+constexpr int kBcast = 20;
+// The culled kernels' blocks hold at most kCulledMaxT threads (overdraw
+// T <= 512; exact mode's are kExactBlock): their launch bounds cap a
+// thread at 128 registers, so that two 256-lane blocks fit an SM.
+constexpr int kCulledMaxT = 512;
+
+// Warp-cycle split of the culled kernels, built only with -DRTW_SPLIT
+// (tools/culled_ab.py, chip_smoke.py): clock64 sums of lane 0 of each warp
+// over its lane loop (total), the key pass and buckets, the visit loop
+// (votes and sweeps), the broadcast and the compacted sweeps; then counts
+// of candidate visits, broadcast and compacted sweeps. rtw_split_read
+// returns the sums and clears them.
+enum { kSpTotal, kSpKeys, kSpVisits, kSpBcast, kSpCompact, kSpNCand,
+       kSpNBcast, kSpNCompact, kSplitParts };
+#ifdef RTW_SPLIT
+__device__ unsigned long long g_split[kSplitParts];
+#endif
+struct Split {
+#ifdef RTW_SPLIT
+  long long v[kSplitParts] = {};
+  __device__ __forceinline__ long long now() const { return clock64(); }
+  __device__ __forceinline__ void add(int i, long long t0) {
+    v[i] += clock64() - t0;
+  }
+  __device__ __forceinline__ void count(int i) { v[i] += 1; }
+  __device__ __forceinline__ void flush() const {
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int i = 0; i < kSplitParts; ++i) {
+        atomicAdd(&g_split[i], (unsigned long long)v[i]);
+      }
+    }
+  }
+#else
+  __device__ __forceinline__ long long now() const { return 0; }
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ void count(int) {}
+  __device__ __forceinline__ void flush() const {}
+#endif
+};
+
 // Slab entry (>= t_min) and exit of the lane's ray against box b (min xyz,
 // max xyz), NaN-propagating as the JAX kernel's jnp.minimum / maximum.
 __device__ __forceinline__ void slab(const float* b, const Lane& L, float idx,
@@ -1349,85 +1403,251 @@ __device__ __forceinline__ void slab(const float* b, const Lane& L, float idx,
                 max_nan(tz0, tz1));
 }
 
-// Closest hit over the SB slots of one cluster from `lo`, merged into
-// (best, bidx) strictly (the first visitor keeps a tie): the arithmetic of
-// `sweep`. The slots are 16-byte quads in device memory, Q a slot: (cx, cy,
-// cz, nr2), with motion (dcx, dcy, dcz, 0), without a uniform shutter (t0,
-// 1/dt, 0, 0). Every lane of a warp reads the same slot, a broadcast load
-// through the read-only path; a cluster is 2-6 KB, resident in L1 / L2.
+// Slot quads a slot: (cx, cy, cz, nr2), with motion (dcx, dcy, dcz, 0),
+// without a uniform shutter (t0, 1/dt, 0, 0).
 template <bool kMoving, bool kUniformTime>
-__device__ __forceinline__ void sweep_cluster(const Params& p, int lo, int SB,
+__host__ __device__ constexpr int slot_quads() {
+  return kMoving ? (kUniformTime ? 2 : 3) : 1;
+}
+
+// Words of shared memory ahead of the culled kernels' boxes: each warp's
+// two buffers of a cluster's SB centre quads. A moving slot reads its
+// motion quads from device memory in any case, and staging its centre
+// quad as well measured slower than reading it through L1 (PERF.md), so
+// the moving instantiations stage nothing.
+template <bool kMoving>
+__host__ __device__ constexpr size_t stage_words(int SB, int warps) {
+  return kMoving ? 0 : (size_t)warps * 2 * SB * 4;
+}
+
+// t of the ray (o, d, time) against slot j of a cluster: the arithmetic of
+// `sweep` (the sign-flipped half-b quadratic, near root else far root past
+// tmin), kBig on a miss; never NaN. `qg` is the cluster's quads in device
+// memory (Q a slot), `qa` its centre quads staged in shared memory one a
+// slot (static slots only: stage_words).
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ float slot_t(const float4* qa, const float4* qg,
+                                        int j, float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float time, float frac_u,
+                                        float tmin) {
+  constexpr int Q = slot_quads<kMoving, kUniformTime>();
+  const float4 a = kMoving ? __ldg(qg + j * Q) : qa[j];
+  float cx = a.x, cy = a.y, cz = a.z;
+  if (kMoving) {
+    const float4 m = __ldg(qg + j * Q + 1);
+    float fr = frac_u;
+    if (!kUniformTime) {
+      const float4 tq = __ldg(qg + j * Q + 2);
+      fr = (time - tq.x) * tq.y;
+    }
+    cx = fmaf(fr, m.x, cx);  // exact on static axes (dc = 0)
+    cy = fmaf(fr, m.y, cy);
+    cz = fmaf(fr, m.z, cz);
+  }
+  const float cox = cx - ox, coy = cy - oy, coz = cz - oz;
+  const float nb = fmaf(coz, dz, fmaf(cox, dx, coy * dy));
+  const float cc = fmaf(cox, cox, fmaf(coy, coy, fmaf(coz, coz, a.w)));
+  const float disc = fmaf(nb, nb, -cc);
+  const float sq = disc * rsqrtf(disc);
+  const float tn = nb - sq, tf = nb + sq;
+  return tn > tmin ? tn : (tf > tmin ? tf : kBig);
+}
+
+// The broadcast sweep: closest hit over the SB slots of one cluster (first
+// slot lo; qa, qg as in slot_t) for every lane of the warp, each slot one
+// broadcast read for all 32 lanes. A lane that needs the cluster merges
+// into (best, bidx) strictly (the first visitor keeps a tie); the others
+// sweep against 0, below every t, and keep theirs, so the loop stays
+// warp-uniform and carries no extra predicate.
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ void sweep_cluster(const float4* qa,
+                                              const float4* qg, int lo,
+                                              int SB, bool need,
                                               const Lane& L, float frac_u,
-                                              float& best, int& bidx) {
-  constexpr int Q = kMoving ? (kUniformTime ? 2 : 3) : 1;
-  const float4* q = reinterpret_cast<const float4*>(p.sph) + (size_t)lo * Q;
-  const float tmin = p.t_min;
+                                              float tmin, float& best,
+                                              int& bidx) {
+  float cb = need ? best : 0.f;
+  int ci = bidx;
 #pragma unroll 4
   for (int j = 0; j < SB; ++j) {
-    const float4 a = __ldg(q + j * Q);
-    float cx = a.x, cy = a.y, cz = a.z;
-    if (kMoving) {
-      const float4 m = __ldg(q + j * Q + 1);
-      float fr = frac_u;
-      if (!kUniformTime) {
-        const float4 tq = __ldg(q + j * Q + 2);
-        fr = (L.time - tq.x) * tq.y;
-      }
-      cx = fmaf(fr, m.x, cx);  // exact on static axes (dc = 0)
-      cy = fmaf(fr, m.y, cy);
-      cz = fmaf(fr, m.z, cz);
+    const float t = slot_t<kMoving, kUniformTime>(
+        qa, qg, j, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, L.time, frac_u, tmin);
+    if (t < cb) {
+      cb = t;
+      ci = lo + j;
     }
-    const float cox = cx - L.ox, coy = cy - L.oy, coz = cz - L.oz;
-    const float nb = fmaf(coz, L.dz, fmaf(cox, L.dx, coy * L.dy));
-    const float cc = fmaf(cox, cox, fmaf(coy, coy, fmaf(coz, coz, a.w)));
-    const float disc = fmaf(nb, nb, -cc);
-    const float sq = disc * rsqrtf(disc);
-    const float tn = nb - sq, tf = nb + sq;
-    const float t = tn > tmin ? tn : (tf > tmin ? tf : kBig);
-    if (t < best) {
-      best = t;
-      bidx = lo + j;
-    }
+  }
+  if (need) {
+    best = cb;
+    bidx = ci;
   }
 }
 
-// The culled closest hit of a warp's lanes; every lane of the warp calls
-// it (an idle lane with active = false). A cluster is visited as one vote
-// of the warp: it is swept, for all 32 lanes, when one active lane's ray
-// enters its box before that lane's running best (the entry shrunk by
-// 2.4e-7 so rounding never drops a tie). Visit order: ascending cluster
-// id; or, with q.dord buckets, near to far: each cluster's key is the
-// warp's smallest slab entry over its active lanes (BIG where none
-// enters), keys past kSurvCut are dropped, the rest are bucketed linearly
-// between the smallest key and the largest surviving one, and buckets are
-// visited in order, clusters in ascending id within one. `wb` holds the
-// warp's C keys, then buckets. Each visited cluster adds `inc` to
-// `blocks`. Returns the winner slot (S on a miss) and its t in best.
+// The compacted sweep: for each needing lane r of `need`, in ascending lane
+// order, the warp takes lane r's ray, lane l tests slots l, l + 32, ... of
+// the cluster, the warp reduces (t, slot) to its lexicographic minimum (the
+// first slot with the least t, as the sequential strict loop finds it) by
+// two warp minimums, and lane r merges it strictly. 7 shuffles, SB / 32
+// slots and two REDUX a needing lane, in place of the broadcast loop's SB
+// slots.
 template <bool kMoving, bool kUniformTime>
-__device__ __forceinline__ int sweep_culled(const Params& p,
-                                            const Clusters& q,
-                                            const float* box, int* wb,
-                                            const Lane& L, bool active,
-                                            float inc, float& best,
-                                            float& blocks) {
+__device__ __forceinline__ void sweep_compact(const float4* qa,
+                                              const float4* qg, int lo,
+                                              int SB, unsigned need,
+                                              const Lane& L, float frac_u,
+                                              float tmin, float& best,
+                                              int& bidx) {
+  const int wl = threadIdx.x & 31;
+  do {
+    const int r = __ffs(need) - 1;
+    need &= need - 1;
+    const float ox = __shfl_sync(kFull, L.ox, r);
+    const float oy = __shfl_sync(kFull, L.oy, r);
+    const float oz = __shfl_sync(kFull, L.oz, r);
+    const float dx = __shfl_sync(kFull, L.dx, r);
+    const float dy = __shfl_sync(kFull, L.dy, r);
+    const float dz = __shfl_sync(kFull, L.dz, r);
+    const float tm = kMoving && !kUniformTime ? __shfl_sync(kFull, L.time, r)
+                                              : 0.f;
+    const float fu = kUniformTime ? __shfl_sync(kFull, frac_u, r) : 0.f;
+    float tb = kBig;
+    int jb = SB;
+#pragma unroll 4
+    for (int j = wl; j < SB; j += 32) {
+      const float t = slot_t<kMoving, kUniformTime>(qa, qg, j, ox, oy, oz, dx,
+                                                    dy, dz, tm, fu, tmin);
+      if (t < tb) {
+        tb = t;
+        jb = j;
+      }
+    }
+    // t > t_min > 0 or kBig: its bits order as unsigned ints
+    const unsigned tw = __reduce_min_sync(kFull, __float_as_uint(tb));
+    const unsigned jw = __reduce_min_sync(
+        kFull, __float_as_uint(tb) == tw ? (unsigned)jb : (unsigned)SB);
+    if (wl == r && __uint_as_float(tw) < best) {
+      best = __uint_as_float(tw);
+      bidx = lo + (int)jw;
+    }
+  } while (need);
+}
+
+// Asynchronous copy of a cluster's n centre quads (Q quads a slot in device
+// memory, one a slot in shared memory) by the warp's lanes, one commit
+// group a lane; stage_wait<N> waits until N groups are in flight and makes
+// the warp's copies visible to the warp.
+template <int Q>
+__device__ __forceinline__ void stage_quads(float4* dst, const float4* src,
+                                            int n) {
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src + (size_t)i * Q));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  __syncwarp();
+}
+
+// The culled closest hit of a warp's lanes; every lane of the warp calls
+// it (an idle lane with active = false). A lane needs a cluster when it is
+// active and its ray enters the cluster's box before its running best (the
+// entry shrunk by 2.4e-7 so rounding never drops a tie); the warp visits
+// the cluster when one lane needs it, and sweeps it for the needing lanes
+// only: by broadcast from kBcast needing lanes on, else compacted. Visit
+// order: ascending cluster id; or, with q.dord buckets, near to far: each
+// cluster's key is the warp's smallest slab entry over its active lanes
+// (BIG where none enters), keys past kSurvCut are dropped, the rest are
+// bucketed linearly between the smallest key and the largest surviving
+// one, and buckets are visited in order, clusters in ascending id within
+// one. `wb` holds the warp's C keys, then buckets; `stage` the warp's two
+// buffers of centre quads, the next admitted candidate's copied in while
+// the current one is re-voted and swept. Each visited cluster adds
+// `inc` to `blocks`, and 1 to `needed` on each lane that needed it.
+// Returns the winner slot (S on a miss) and its t in best.
+template <bool kMoving, bool kUniformTime>
+__device__ __forceinline__ int sweep_culled(
+    const Params& p, const Clusters& q, const float* box, int* wb,
+    float4* stage, const Lane& L, bool active, float inc, float& best,
+    float& blocks, float& needed, Split& sp) {
+  constexpr int Q = slot_quads<kMoving, kUniformTime>();
   const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
   const float frac_u = kUniformTime ? (L.time - p.ut_t0) * p.ut_idt : 0.f;
   const float tmin = p.t_min;
+  const int SB = q.SB;
+  const float4* quads = reinterpret_cast<const float4*>(p.sph);
   int bidx = p.S;
   best = kBig;
-  auto visit = [&](int c) {
+  // the lane needs cluster c: its ray enters the box before its best
+  auto needs = [&](int c) {
     float tlo, thi;
     slab(box + kBoxLanes * c, L, idx, idy, idz, tmin, tlo, thi);
-    if (__any_sync(kFull, active && tlo <= thi && tlo * kShrink < best)) {
-      sweep_cluster<kMoving, kUniformTime>(p, c * q.SB, q.SB, L, frac_u,
-                                           best, bidx);
-      blocks += inc;
+    return active && tlo <= thi && tlo * kShrink < best;
+  };
+  auto sweep_one = [&](int c, const float4* qa) {
+    const bool nd = needs(c);
+    const unsigned need = __ballot_sync(kFull, nd);
+    if (need == 0) return;
+    const float4* qg = quads + (size_t)c * SB * Q;
+    const long long t0 = sp.now();
+    if (__popc(need) >= kBcast) {
+      sweep_cluster<kMoving, kUniformTime>(qa, qg, c * SB, SB, nd, L, frac_u,
+                                           tmin, best, bidx);
+      sp.add(kSpBcast, t0);
+      sp.count(kSpNBcast);
+    } else {
+      sweep_compact<kMoving, kUniformTime>(qa, qg, c * SB, SB, need, L,
+                                           frac_u, tmin, best, bidx);
+      sp.add(kSpCompact, t0);
+      sp.count(kSpNCompact);
+    }
+    blocks += inc;
+    needed += nd ? 1.f : 0.f;
+  };
+  // A static candidate is copied into buffer n & 1 while candidate n - 1
+  // is re-voted and swept; a copy the re-vote rejects is dropped. In
+  // ascending order a candidate is first voted against the lanes' running
+  // best (best only falls, so what this vote rejects the re-vote would
+  // too), else every cluster would be copied every bounce; in bucket order
+  // its key already says one lane's ray enters its box, and that vote
+  // measured slower (PERF.md). A moving candidate is voted and swept at
+  // once, through L1.
+  int pend = -1, n = 0;
+  auto visit = [&](int c) {
+    sp.count(kSpNCand);
+    if (kMoving) {
+      sweep_one(c, nullptr);
+      return;
+    }
+    if (q.dord == 0 && !__any_sync(kFull, needs(c))) return;
+    stage_quads<Q>(stage + (n & 1) * SB, quads + (size_t)c * SB * Q, SB);
+    if (pend >= 0) {
+      stage_wait<1>();
+      sweep_one(pend, stage + ((n - 1) & 1) * SB);
+      __syncwarp();  // the next copy overwrites this buffer
+    }
+    pend = c;
+    ++n;
+  };
+  auto finish = [&]() {
+    if (!kMoving && pend >= 0) {
+      stage_wait<0>();
+      sweep_one(pend, stage + ((n - 1) & 1) * SB);
+      __syncwarp();
     }
   };
   if (q.dord == 0) {
+    const long long t0 = sp.now();
     for (int c = 0; c < q.C; ++c) visit(c);
+    finish();
+    sp.add(kSpVisits, t0);
     return bidx;
   }
+  long long t0 = sp.now();
   const int wl = threadIdx.x & 31;
   float kmin = kBig, kmax = -kBig;
   for (int c = 0; c < q.C; ++c) {
@@ -1440,7 +1660,10 @@ __device__ __forceinline__ int sweep_culled(const Params& p,
     kmin = fminf(kmin, key);
     if (key < kSurvCut) kmax = fmaxf(kmax, key);
   }
-  if (kmax == -kBig) return bidx;  // no active lane enters any box
+  if (kmax == -kBig) {  // no active lane enters any box
+    sp.add(kSpKeys, t0);
+    return bidx;
+  }
   const float scale = (float)q.dord / fmaxf(kmax - kmin, kTiny20);
   __syncwarp();
   for (int c = wl; c < q.C; c += 32) {
@@ -1451,6 +1674,8 @@ __device__ __forceinline__ int sweep_culled(const Params& p,
                 : q.dord;
   }
   __syncwarp();
+  sp.add(kSpKeys, t0);
+  t0 = sp.now();
   for (int b = 0; b < q.dord; ++b) {
     for (int c0 = 0; c0 < q.C; c0 += 32) {
       unsigned bits =
@@ -1461,7 +1686,9 @@ __device__ __forceinline__ int sweep_culled(const Params& p,
       }
     }
   }
+  finish();
   __syncwarp();  // the next bounce rewrites wb
+  sp.add(kSpVisits, t0);
   return bidx;
 }
 
@@ -1471,14 +1698,19 @@ __device__ __forceinline__ int sweep_culled(const Params& p,
 // has spp; in exact mode a warp loops until its slowest lane has spp, the
 // others idle, so T % 32 == 0 keeps a warp in one tile.
 template <bool kMoving, bool kUniformTime>
-__global__ void mega_kernel_culled(Params p, Clusters q) {
-  // (C, 6) cluster boxes, then with q.dord C key / bucket slots per warp
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled(Params p, Clusters q) {
+  // (stage_words), (C, 6) cluster boxes, then with q.dord C key / bucket
+  // slots per warp
   extern __shared__ float sm[];
+  const int warps = blockDim.x >> 5, wid = threadIdx.x >> 5;
+  float4* stage = reinterpret_cast<float4*>(sm) +
+                  stage_words<kMoving>(q.SB, 1) / 4 * wid;
+  float* box = sm + stage_words<kMoving>(q.SB, warps);
   for (int i = threadIdx.x; i < kBoxLanes * q.C; i += blockDim.x) {
-    sm[i] = __ldg(q.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
+    box[i] = __ldg(q.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
   }
-  int* wb = reinterpret_cast<int*>(sm + kBoxLanes * q.C) +
-            (threadIdx.x >> 5) * q.C;
+  int* wb = reinterpret_cast<int*>(box + kBoxLanes * q.C) + wid * q.C;
   __syncthreads();
 
   uint32_t tile, lane;
@@ -1506,7 +1738,9 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
   L.rx = L.ry = L.rz = L.ax = L.ay = L.az = 0.f;
   L.segs = L.depth = L.iters = 0.f;
   L.done = valid ? 0.f : p.spp;
-  float blocks = 0.f;
+  float blocks = 0.f, needed = 0.f;
+  Split sp;
+  const long long t_start = sp.now();
 
   float* out = p.out + (size_t)tile * (kOutRows + p.n_iters) * T + lane;
   if (p.exact) {
@@ -1516,7 +1750,8 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
       const bool active = L.done < p.spp;
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
-          p, q, sm, wb, L, active, active ? 1.f : 0.f, best, blocks);
+          p, q, box, wb, stage, L, active, active ? 1.f : 0.f, best,
+          blocks, needed, sp);
       const int code = bounce<kMoving, kUniformTime, true>(
           p, nullptr, cam, L, active, tile, lane, it, pxi, pxj, bidx, best);
       if (active) {
@@ -1533,7 +1768,7 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
     while (running) {
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
-          p, q, sm, wb, L, valid, 1.f, best, blocks);
+          p, q, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
       bounce<kMoving, kUniformTime, true>(p, nullptr, cam, L, valid, tile,
                                           lane, it, pxi, pxj, bidx, best);
       L.iters += 1.f;
@@ -1548,7 +1783,9 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
   out[(size_t)4 * T] = L.iters;
   out[(size_t)5 * T] = L.done;
   out[(size_t)6 * T] = blocks;
-  out[(size_t)7 * T] = 0.f;
+  out[(size_t)7 * T] = needed;
+  sp.add(kSpTotal, t_start);
+  sp.flush();
 }
 
 // The culled kernel of scenes with rects, lights, media or textures (K5s):
@@ -1558,20 +1795,22 @@ __global__ void mega_kernel_culled(Params p, Clusters q) {
 // of the bounce, the tape rows, L.iters and the medium's stream run on
 // active lanes only.
 template <bool kMoving, bool kUniformTime, bool kTex>
-__global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
-                                            Texels x) {
-  // (C, 6) cluster boxes, with k.dord C key / bucket slots per warp, then
-  // the surfaces tables (stage_surfaces)
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q, Texels x) {
+  // (stage_words), (C, 6) cluster boxes, with k.dord C key / bucket slots
+  // per warp, then the surfaces tables (stage_surfaces)
   extern __shared__ float sm[];
+  const int warps = blockDim.x >> 5, wid = threadIdx.x >> 5;
+  float4* stage = reinterpret_cast<float4*>(sm) +
+                  stage_words<kMoving>(k.SB, 1) / 4 * wid;
+  float* box = sm + stage_words<kMoving>(k.SB, warps);
   for (int i = threadIdx.x; i < kBoxLanes * k.C; i += blockDim.x) {
-    sm[i] = __ldg(k.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
+    box[i] = __ldg(k.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
   }
-  const int warps = blockDim.x >> 5;
-  int* wb = reinterpret_cast<int*>(sm + kBoxLanes * k.C) +
-            (threadIdx.x >> 5) * k.C;
+  int* wb = reinterpret_cast<int*>(box + kBoxLanes * k.C) + wid * k.C;
   Tables tb;
   TexTables tx;
-  stage_surfaces<kTex>(sm + k.C * (kBoxLanes + (k.dord ? warps : 0)), q, x,
+  stage_surfaces<kTex>(box + k.C * (kBoxLanes + (k.dord ? warps : 0)), q, x,
                        tb, tx);
   __syncthreads();
 
@@ -1600,7 +1839,9 @@ __global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
   L.rx = L.ry = L.rz = L.ax = L.ay = L.az = 0.f;
   L.segs = L.depth = L.iters = 0.f;
   L.done = valid ? 0.f : p.spp;
-  float blocks = 0.f;
+  float blocks = 0.f, needed = 0.f;
+  Split sp;
+  const long long t_start = sp.now();
 
   float* out = p.out + (size_t)tile * (kOutRows + p.n_iters) * T + lane;
   if (p.exact) {
@@ -1610,7 +1851,8 @@ __global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
       const bool active = L.done < p.spp;
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
-          p, k, sm, wb, L, active, active ? 1.f : 0.f, best, blocks);
+          p, k, box, wb, stage, L, active, active ? 1.f : 0.f, best,
+          blocks, needed, sp);
       const int code = bounce_surfaces<kMoving, kUniformTime, kTex, true>(
           p, nullptr, tb, tx, cam, L, active, tile, lane, it, pxi, pxj, bidx,
           best);
@@ -1628,7 +1870,7 @@ __global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
     while (running) {
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
-          p, k, sm, wb, L, valid, 1.f, best, blocks);
+          p, k, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
       bounce_surfaces<kMoving, kUniformTime, kTex, true>(
           p, nullptr, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj, bidx,
           best);
@@ -1644,7 +1886,9 @@ __global__ void mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q,
   out[(size_t)4 * T] = L.iters;
   out[(size_t)5 * T] = L.done;
   out[(size_t)6 * T] = blocks;
-  out[(size_t)7 * T] = 0.f;
+  out[(size_t)7 * T] = needed;
+  sp.add(kSpTotal, t_start);
+  sp.flush();
 }
 
 // Launch `kern` with `smem` bytes of dynamic shared memory: one block of T
@@ -1692,7 +1936,8 @@ cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
     const int warps = (p.exact ? kExactBlock : p.T) / 32;
     const size_t bytes =
         sizeof(float) *
-        ((size_t)k->C * (kBoxLanes + (k->dord ? warps : 0)) + ns);
+        (stage_words<kMoving>(k->SB, warps) +
+         (size_t)k->C * (kBoxLanes + (k->dord ? warps : 0)) + ns);
     if (q == nullptr) {
       return launch(mega_kernel_culled<kMoving, kUniformTime>, bytes, p,
                     stream, *k);
@@ -1745,8 +1990,8 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
       n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
       (!surfaces && (R || L || V || textures)) || n_img < 0 ||
       img_h <= 0 || img_w <= 0 ||
-      (cull && (T % 32 || C <= 0 || SB <= 0 || (long long)C * SB != S ||
-                dord < 0))) {
+      (cull && (T % 32 || (!exact && T > kCulledMaxT) || C <= 0 ||
+                SB <= 0 || (long long)C * SB != S || dord < 0))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -1789,8 +2034,28 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   return (int)e;
 }
 
+// The culled kernels' policy constants, for the host's plain version and
+// plans: out[0] = kBcast, out[1] = kCulledMaxT.
+void rtw_culled_consts(int* out) {
+  out[0] = kBcast;
+  out[1] = kCulledMaxT;
+}
+
 const char* rtw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef RTW_SPLIT
+// Copy the culled kernels' split sums (kSplitParts of them: Split) to
+// `host` and clear them. Returns the CUDA error (0 on success).
+int rtw_split_read(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_split, sizeof(g_split));
+  if (e == cudaSuccess) {
+    const unsigned long long zero[kSplitParts] = {};
+    e = cudaMemcpyToSymbol(g_split, zero, sizeof(zero));
+  }
+  return (int)e;
+}
+#endif
 
 }  // extern "C"

@@ -112,8 +112,17 @@ MED_LANES = 128
  CAM_LENS, CAM_T0, CAM_T1) = range(21)
 
 # Output rows of one tile: radiance sums xyz, segments, lane iterations,
-# samples done, sweep blocks, zero; exact mode appends n_iters tape rows.
+# samples done, sweep blocks (row 6: a culled launch counts the clusters
+# its warp swept), lane need (row 7: the clusters the lane's own ray needed;
+# 0 when dense); exact mode appends n_iters tape rows.
 OUT_ROWS = 8
+# A culled warp visit that fewer than K_BCAST lanes need is swept once per
+# needing lane (csrc/megakernel.cu kBcast, sweep_compact), from K_BCAST on
+# by broadcast; the answer is the same either way. An overdraw tile of a
+# culled plan holds at most CULLED_MAX_T lanes (kCulledMaxT). The library
+# exports both (rtw_culled_consts); `_kernel_lib` holds them to these.
+K_BCAST = 20
+CULLED_MAX_T = 512
 
 # CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
 # kernel: "K1" the dense sphere-only instantiations; "K2+K3" the launches
@@ -917,6 +926,10 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     if cull and T % 32:
         raise ValueError(f"the culled kernel votes per warp of 32 lanes: "
                          f"T={T} must be a multiple of 32")
+    if cull and not exact and T > CULLED_MAX_T:
+        raise ValueError(f"the culled kernels run blocks of at most "
+                         f"{CULLED_MAX_T} lanes (128 registers a lane): "
+                         f"T={T}")
     if dyn_order is None:
         dyn_order = 16 if plan.C >= 8 and not exact else 0
     if dyn_order < 0:
@@ -948,14 +961,19 @@ _SMEM_LANES = dict(sweep=len(SWEEP_LANES), rect=RT_RIDX + 1,
 
 def shared_bytes(plan: MegaPlan) -> int:
     """Dynamic shared memory of the plan's launch, as the kernel lays it
-    out: the dense kernels hold the (9, S) sweep table, the culled ones the
-    (C, 6) cluster boxes and, in near-to-far order, C bucket slots for each
-    warp; the surfaces kernels then their rect, light and medium rows,
-    their codes, the image sizes and the Perlin tables."""
+    out: the dense kernels hold the (9, S) sweep table, the culled ones
+    (with static spheres) two buffers of a cluster's SB centre quads for
+    each warp, then the (C, 6) cluster boxes and, in near-to-far order, C
+    bucket slots for each warp; the surfaces kernels then their rect,
+    light and medium rows, their codes, the image sizes and the Perlin
+    tables."""
     n = _SMEM_LANES
     if plan.cull:
         warps = (256 if plan.exact else plan.T) // 32
-        words = plan.C * (n["box"] + (warps if plan.dyn_order else 0))
+        # the moving instantiations stage no quads
+        moving = plan.moving or any(plan.moving_axes)
+        words = ((0 if moving else warps * 2 * plan.SB * 4)
+                 + plan.C * (n["box"] + (warps if plan.dyn_order else 0)))
     else:
         words = n["sweep"] * plan.S
     if plan.surfaces:
@@ -1036,11 +1054,12 @@ def table_tensors(tabs, scene: st.Scene, plan: MegaPlan, device) -> tuple:
 # The plain PyTorch version of the kernel
 # ---------------------------------------------------------------------------
 
-# state rows of the plain version (R_BLK: swept cluster blocks)
+# state rows of the plain version (R_BLK: swept cluster blocks, R_NEED:
+# clusters the lane's own ray needed)
 (R_OX, R_OY, R_OZ, R_DX, R_DY, R_DZ, R_TIME, R_TPX, R_TPY, R_TPZ,
  R_RX, R_RY, R_RZ, R_AX, R_AY, R_AZ, R_SEGS, R_DEPTH, R_DONE,
- R_ITERS, R_BLK) = range(21)
-STATE_ROWS = 21
+ R_ITERS, R_BLK, R_NEED) = range(22)
+STATE_ROWS = 22
 
 # (sphere block) x (lanes) elements per sweep step of the plain version,
 # and (cluster or cluster slot) x (lanes) elements per culled chunk
@@ -1099,7 +1118,9 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          perm: torch.Tensor, ranvec: torch.Tensor,
                          images: torch.Tensor, seed: int,
                          plan: MegaPlan,
-                         tape: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         tape: Optional[torch.Tensor] = None,
+                         need_hist: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """The plain PyTorch version of the megakernel, with the arguments of
     `mega_kernel`: pixf (n_tiles, 4, T), cam_vec (1, 128), sph_tab (S, 128),
     attr_tab (24, S), clus_tab (C, 128), rect_tab (max(R, 1), 128),
@@ -1113,7 +1134,10 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
     runs until its slowest lane has `spp` samples (overdraw: all its valid
     lanes trace on; exact mode: finished lanes idle); lanes of a finished
     tile freeze. A culled plan sweeps as the culled kernel does, warp by
-    warp of 32 lanes, so row 6 counts the same swept blocks.
+    warp of 32 lanes, so row 6 counts the same swept blocks and row 7 the
+    same needed ones; `need_hist`, a (33,) int64 tensor on the device,
+    then gains one at k for each swept warp visit that k lanes needed
+    (`visits_by_branch` splits it at K_BCAST).
 
     With `tape` ((n_tiles, n_iters, T) winner codes of an exact-mode
     launch) it replays that launch instead (ops/mega_grad.py): each
@@ -1284,12 +1308,16 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         `plan.dyn_order` buckets of the warp's smallest geometric slab
         entry (stable in id within a bucket; no bucket for a cluster no
         active lane reaches); re-vote each against the lanes' running
-        best and sweep it for the whole warp if one active lane passes.
-        Returns (best_t, winner slot, swept-block increments per lane)."""
+        best: a lane needs it when it is active and its ray enters the box
+        before its best, the warp visits it when one lane needs it, and
+        sweeps it for the needing lanes. Returns (best_t, winner slot,
+        swept-block increments per lane (every lane of a visiting warp),
+        needed-block increments per lane)."""
         n = ox.numel()
         best = torch.full((n,), BIG, dtype=f32, device=dev)
         bidx = torch.full((n,), S, dtype=torch.int64, device=dev)
         blocks = torch.zeros((n,), dtype=f32, device=dev)
+        needed = torch.zeros((n,), dtype=f32, device=dev)
         C, SB, NB = plan.C, plan.SB, plan.dyn_order
         # whole warps per chunk, so the (C or SB, lanes) blocks stay small
         step = 32 * max(1, _CULL_ELEMS // (32 * max(C, SB)))
@@ -1321,13 +1349,20 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             b_ = best[sl]
             bi_ = bidx[sl]
             bl_ = blocks[sl]
+            nd_ = needed[sl]
             for r in range(int(n_vis.max()) if W else 0):
                 cl = order[r].repeat_interleave(32)           # (m,)
                 lo_l = tlo.gather(0, cl[None])[0]
                 hi_l = thi.gather(0, cl[None])[0]
-                vote = (lo_l <= hi_l) & (lo_l * _SHRINK < b_) & act
-                go = (vote.view(W, 32).any(1) & (r < n_vis))
-                lanes = go.repeat_interleave(32).nonzero().squeeze(1)
+                need = ((lo_l <= hi_l) & (lo_l * _SHRINK < b_) & act
+                        & (r < n_vis).repeat_interleave(32))
+                nk = need.view(W, 32).sum(1)                  # (W,)
+                if need_hist is not None:
+                    need_hist.add_(torch.bincount(nk[nk > 0], minlength=33))
+                bl_ += torch.where((nk > 0).repeat_interleave(32), inc[sl],
+                                   0.0)
+                nd_ += need.to(f32)
+                lanes = need.nonzero().squeeze(1)
                 if lanes.numel() == 0:
                     continue
                 slots = cl[lanes][None] * SB + j_slot          # (SB, k)
@@ -1345,8 +1380,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 bi_[lanes] = torch.where(upd, cl[lanes] * SB + cand,
                                          bi_[lanes])
                 b_[lanes] = torch.minimum(b_[lanes], blk_min)
-                bl_[lanes] += inc[sl][lanes]
-        return best, bidx, blocks
+        return best, bidx, blocks, needed
 
     def object_ray(code_tr, row, o, d, lanes):
         """A ray in a rect's, light's or medium's object space (translate,
@@ -1641,7 +1675,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
     def one_iter(state, it, tiles, pxi, pxj, valid, w=None):
         (ox, oy, oz, dx, dy, dz, time, tpx, tpy, tpz, rx, ry, rz,
-         ax, ay, az, segs, depth, done, iters, blk) = state.unbind(0)
+         ax, ay, az, segs, depth, done, iters, blk, nd) = state.unbind(0)
         active = (valid & (done < spp)) if plan.exact else valid
         segs = segs + active.to(f32)
 
@@ -1653,10 +1687,11 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         else:
             if plan.cull:
                 # a lane counts a swept block where it counts an iteration
-                s_best, bidx, blk_inc = sweep_culled(
+                s_best, bidx, blk_inc, nd_inc = sweep_culled(
                     ox, oy, oz, dx, dy, dz, time, active,
                     active.to(f32) if plan.exact else torch.ones_like(ox))
                 blk = blk + blk_inc
+                nd = nd + nd_inc
             else:
                 s_best, bidx = sweep(ox, oy, oz, dx, dy, dz, time)
             best_t = s_best
@@ -1927,7 +1962,7 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             torch.where(alive, rx, 0.0), torch.where(alive, ry, 0.0),
             torch.where(alive, rz, 0.0),
             ax, ay, az, segs, torch.where(alive, depth, 0.0), done, iters,
-            blk])
+            blk, nd])
         return new, wcode, done
 
     # ---- init: the first camera rays use it = -1 ----
@@ -1979,13 +2014,23 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         running[run] = (done.view(n_run, T) < spp).any(dim=1)
         it += 1
 
-    # row 6: swept (cluster, lane) blocks; a dense sweep counts one a
-    # lane-iteration
-    for row, r in ((0, R_AX), (1, R_AY), (2, R_AZ), (3, R_SEGS),
-                   (4, R_ITERS), (5, R_DONE),
-                   (6, R_BLK if plan.cull else R_ITERS)):
+    # row 6: swept (cluster, lane) blocks, a dense sweep one a
+    # lane-iteration; row 7: needed ones, 0 when dense
+    rows = [(0, R_AX), (1, R_AY), (2, R_AZ), (3, R_SEGS), (4, R_ITERS),
+            (5, R_DONE), (6, R_BLK if plan.cull else R_ITERS)]
+    if plan.cull:
+        rows.append((7, R_NEED))
+    for row, r in rows:
         out[:, row, :] = state[r]
     return out
+
+
+def visits_by_branch(need_hist: torch.Tensor) -> dict:
+    """Split a `need_hist` of `trace_mega_reference` at K_BCAST: the warp
+    visits the culled kernel sweeps compacted (1 to K_BCAST - 1 needing
+    lanes) and by broadcast (K_BCAST to 32)."""
+    h = need_hist.tolist()
+    return dict(compacted=sum(h[1:K_BCAST]), broadcast=sum(h[K_BCAST:]))
 
 
 # ---------------------------------------------------------------------------
@@ -1998,11 +2043,14 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 light_tab: torch.Tensor, med_tab: torch.Tensor,
                 perm: torch.Tensor, ranvec: torch.Tensor,
                 images: torch.Tensor, seed: int,
-                plan: MegaPlan) -> torch.Tensor:
+                plan: MegaPlan,
+                lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """Launch csrc/megakernel.cu on the current CUDA stream: a culled
     kernel for a culled plan, else a dense one. Same arguments and
-    result as `trace_mega_reference`. Raises on a CPU tensor, a wrong
-    shape or dtype, a failed build and a refused launch."""
+    result as `trace_mega_reference`. `lib`, a measurement build's library
+    passed through `bind` (tools/culled_ab.py), replaces the kernels'
+    own. Raises on a CPU tensor, a wrong shape or dtype, a failed build
+    and a refused launch."""
     seed = _check_seed(seed)
     n_tiles, _, T = pixf.shape
     S = plan.S
@@ -2039,7 +2087,7 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                          f"T={T} > 1024")
     if plan.cull and T % 32:
         raise ValueError(f"the culled kernel needs T % 32 == 0, got T={T}")
-    lib = _kernel_lib()
+    lib = _kernel_lib() if lib is None else lib
     pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab, perm, \
         ranvec, images = (t.contiguous() for t in (
             pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab,
@@ -2125,12 +2173,16 @@ class MegaResult(NamedTuple):
     T) winner codes (-1 miss, [0, S) sphere slot, S + r rect row, S + R + v
     medium row), None in overdraw mode; blocks: swept (cluster, lane)
     blocks, counted where lane_iters counts an iteration, so that
-    blocks / (lane_iters * C) is the culling's survival (1 when dense)."""
+    blocks / (lane_iters * C) is the culling's warp survival (1 when
+    dense); lane_need: the (cluster, lane) blocks the lanes' own rays
+    needed (row 7), lane_need / (lane_iters * C) the per-lane survival
+    (blocks when dense)."""
     image: torch.Tensor
     segments: torch.Tensor
     lane_iters: torch.Tensor
     tape: Optional[torch.Tensor]
     blocks: torch.Tensor
+    lane_need: torch.Tensor
 
 
 def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
@@ -2162,18 +2214,18 @@ def _epilogue(out: torch.Tensor, inv: torch.Tensor,
     blocked = (sums * scale[..., None]).reshape(n_tiles * T, 3)
     image = blocked[inv].reshape(plan.ny, plan.nx, 3)
     tape = out[:, OUT_ROWS:, :] if plan.exact else None
-    # a dense launch's row 6 counts one sweep of all C clusters
+    # a dense launch's row 6 counts one sweep of all C clusters, every
+    # one of them needed
     blocks = out[:, 6, :].sum() * (1 if plan.cull else plan.C)
+    lane_need = out[:, 7, :].sum() if plan.cull else blocks
     return MegaResult(image=image, segments=out[:, 3, :].sum(),
                       lane_iters=out[:, 4, :].sum(), tape=tape,
-                      blocks=blocks)
+                      blocks=blocks, lane_need=lane_need)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
-    """The built kernel library (ops/_build.py) with the argtypes and
-    restype of its C entry points."""
-    lib = _build.load()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/megakernel.cu, ops/_build.py) with the
+    argtypes and restype of its launch and error entry points."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rtw_mega_launch.argtypes = ([p] * 13    # tensors
                                     + [i] * 17  # sizes, seed, spp, depths,
@@ -2185,3 +2237,25 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     lib.rtw_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    """The built kernel library (ops/_build.py), bound. Raises if its
+    culled kernels' constants (rtw_culled_consts) are not the ones the
+    plain version and `make_plan` use, K_BCAST and CULLED_MAX_T."""
+    lib = bind(_build.load())
+    check_culled_consts(lib)
+    return lib
+
+
+def check_culled_consts(lib) -> None:
+    """Raise RuntimeError unless `lib`'s rtw_culled_consts give
+    (K_BCAST, CULLED_MAX_T)."""
+    got = (ctypes.c_int * 2)()
+    lib.rtw_culled_consts(got)
+    if tuple(got) != (K_BCAST, CULLED_MAX_T):
+        raise RuntimeError(f"the kernel library's (kBcast, kCulledMaxT) "
+                           f"= {tuple(got)}, the plain version's "
+                           f"(K_BCAST, CULLED_MAX_T) = "
+                           f"{(K_BCAST, CULLED_MAX_T)}")

@@ -14,7 +14,9 @@ replay).
   equals its dense one bit for bit (image and segments), as
   `test_dyn_cull_is_bitwise_exact` asserts for sphere scenes.
 - The tables, cluster table and auto plan are JAX's.
-- The plain culled sweep equals the plain dense one bit for bit.
+- The plain culled sweep equals the plain dense one bit for bit, and
+  sweeps a cluster for the lanes whose own rays need it (row 7); the card
+  test's launches hold visits on both sides of K_BCAST.
 - Exact-spp tapes match the JAX tape-mode kernel on >= 99% of 1024 pooled
   lanes, radiance to the replay gate of tests/test_mega_grad.py (rtol
   1e-3, atol 5e-5) on >= 99% of those lanes; the JAX replay of the port's
@@ -142,6 +144,30 @@ def test_culled_sweep_equals_dense_on_probe(probe, exact, dyn_order):
         assert torch.equal(culled.tape, dense.tape)
     assert float(dense.blocks) == float(dense.lane_iters) * 8
     assert 0 < float(culled.blocks) < float(dense.blocks)
+    assert float(dense.lane_need) == float(dense.blocks)
+    assert 0 < float(culled.lane_need) <= float(culled.blocks)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_card_launch_sweeps_both_branches_on_probe(variant, exact):
+    """At the card test's launch (large_mixed(n=60) 64x64, 2 spp, depth
+    8: tests/test_torch_kernel_card.py) row 7 is at most row 6 on every
+    lane and below it in total, and the plain version's per-warp need
+    masks hold visits on both sides of K_BCAST, so the card test runs the
+    compacted and the broadcast sweep of the culled surfaces kernel."""
+    _, ts = _scenes(variant, 60)
+    _, plan = tk.make_plan(ts, 64, 64, 2, max_depth=8, exact=exact)
+    assert plan.cull and plan.surfaces
+    args, _ = tk.device_inputs(ts, plan, "cpu")
+    hist = torch.zeros(33, dtype=torch.int64)
+    out = tk.trace_mega_reference(*args, 31337, plan, need_hist=hist)
+    r6, r7 = out[:, 6], out[:, 7]
+    assert (r7 <= r6).all()
+    assert 0 < r7.sum().item() < r6.sum().item()
+    visits = tk.visits_by_branch(hist)
+    assert visits["compacted"] > 0 and visits["broadcast"] > 0
+    assert (hist * torch.arange(33)).sum().item() == r7.sum().item()
 
 
 @functools.lru_cache(maxsize=None)

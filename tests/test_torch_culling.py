@@ -9,7 +9,11 @@ XLA replay).
   slot orders are bitwise JAX's.
 - Culling only skips clusters that cannot hold the winner, so the culled
   sweep equals the dense one bit for bit: image, segments, lane
-  iterations and tape, in ascending and in near-to-far order.
+  iterations and tape, in ascending and in near-to-far order. It sweeps a
+  visited cluster only for the lanes whose own rays need it: row 7 counts
+  those (at most row 6, the warp's visits), and the card test's launches
+  hold visits on both sides of K_BCAST, so the card covers the compacted
+  and the broadcast sweep.
 - Exact-spp tapes match the JAX tape-mode kernel (SB = 256, interleaved
   votes) on >= 99% of lanes, with radiance on those lanes to the replay
   gate of tests/test_mega_grad.py (rtol 1e-3, atol 5e-5), and the JAX
@@ -118,6 +122,35 @@ def test_make_plan_refusals():
         tk.make_plan(huge, 8, 8, 1, T=48)
 
 
+@pytest.mark.parametrize("exact", [False, True])
+def test_shared_bytes_stage_static_clusters_only(exact):
+    """A culled launch with static spheres holds two buffers of a
+    cluster's SB centre quads (16 B each) for each warp ahead of its boxes
+    and bucket slots; with moving spheres (random_balls, cut into C = 4
+    clusters) it holds none."""
+    _, large = _scenes("random_balls_large", 30)
+    _, book1 = _scenes("random_balls")
+    for scene, staged in ((large, True), (book1, False)):
+        _, plan = tk.make_plan(scene, 64, 64, 2, exact=exact, SB=128)
+        assert plan.cull and plan.C > 1
+        assert (plan.moving or any(plan.moving_axes)) != staged
+        warps = (256 if exact else plan.T) // 32
+        boxes = 4 * plan.C * (6 + (warps if plan.dyn_order else 0))
+        stage = warps * 2 * plan.SB * 16 if staged else 0
+        assert tk.shared_bytes(plan) == stage + boxes
+
+
+def test_make_plan_refuses_wide_culled_tiles():
+    """The culled kernels' launch bounds cap a lane at 128 registers, so
+    their overdraw blocks hold at most CULLED_MAX_T = 512 lanes; exact
+    mode runs blocks of 256 whatever T is."""
+    _, huge = _scenes("random_balls_huge")
+    assert tk.make_plan(huge, 64, 64, 4, T=512)[1].cull
+    with pytest.raises(ValueError, match="at most 512 lanes"):
+        tk.make_plan(huge, 64, 64, 4, T=1024)
+    assert tk.make_plan(huge, 64, 64, 4, T=1024, exact=True)[1].cull
+
+
 @pytest.mark.parametrize("dyn_order", [0, 16])
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("name,n", [("random_balls", None),
@@ -140,6 +173,98 @@ def test_culled_sweep_equals_dense(name, n, exact, dyn_order):
         assert torch.equal(culled.tape, dense.tape)
     assert float(dense.blocks) == float(dense.lane_iters) * C
     assert 0 < float(culled.blocks) < float(culled.lane_iters) * C
+    assert float(dense.lane_need) == float(dense.blocks)
+    assert 0 < float(culled.lane_need) <= float(culled.blocks)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_lane_need_counts_the_rays_own_clusters(exact):
+    """Row 7 (the clusters each lane's own ray needed) is at most row 6
+    (the clusters its warp swept) on every lane, and below it in total on
+    random_balls_large(n=30): a warp visits clusters some of its lanes do
+    not need."""
+    _, ts = _scenes("random_balls_large", 30)
+    _, plan = tk.make_plan(ts, NX, NY, SPP, max_depth=8, exact=exact,
+                           SB=128)
+    args, _ = tk.device_inputs(ts, plan, "cpu")
+    out = tk.trace_mega_reference(*args, 77, plan)
+    r6, r7 = out[:, 6], out[:, 7]
+    assert (r7 <= r6).all()
+    assert 0 < r7.sum().item() < r6.sum().item()
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("name", ["random_balls_large", "random_balls_huge"])
+def test_card_launch_sweeps_both_branches(name, exact):
+    """At the card test's launch (64x64, 2 spp, depth 8:
+    tests/test_torch_kernel_card.py) the plain version's per-warp need
+    masks hold visits on both sides of K_BCAST, so the card test runs the
+    compacted and the broadcast sweep. The histogram's needing lanes sum
+    to row 7; in overdraw mode its visits are row 6 over 32 lanes."""
+    scene = make_scene(name, 1.0)
+    _, plan = tk.make_plan(scene, 64, 64, 2, max_depth=8, exact=exact)
+    args, _ = tk.device_inputs(scene, plan, "cpu")
+    hist = torch.zeros(33, dtype=torch.int64)
+    out = tk.trace_mega_reference(*args, 31337, plan, need_hist=hist)
+    visits = tk.visits_by_branch(hist)
+    assert visits["compacted"] > 0 and visits["broadcast"] > 0
+    assert hist[0] == 0
+    assert (hist * torch.arange(33)).sum().item() == out[:, 7].sum().item()
+    if not exact:
+        assert out[:, 6].sum().item() == 32 * hist.sum().item()
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_one_lane_a_warp_is_compacted(exact):
+    """The card test's forced-compacted launch: random_balls_large(n=30)
+    at 64x64 with the valid row of pixf zeroed on 31 lanes of every 32.
+    Invalid lanes start done, so every visit is needed by one lane (k =
+    1 < K_BCAST), and that lane needs every cluster its warp visits: row
+    7 equals row 6 on it. The image equals the dense sweep's."""
+    _, ts = _scenes("random_balls_large", 30)
+    kw = dict(max_depth=8, exact=exact)
+    _, plan = tk.make_plan(ts, 64, 64, 2, **kw)
+    _, dense = tk.make_plan(ts, 64, 64, 2, cull=False, **kw)
+    assert plan.cull and not dense.cull
+    args, _ = tk.device_inputs(ts, plan, "cpu")
+    pixf = args[0].clone()
+    lone = torch.arange(pixf.shape[2]) % 32 == 0
+    pixf[:, 2, ~lone] = 0.0
+    hist = torch.zeros(33, dtype=torch.int64)
+    out = tk.trace_mega_reference(pixf, *args[1:], 31337, plan,
+                                  need_hist=hist)
+    out_d = tk.trace_mega_reference(pixf, *args[1:], 31337, dense)
+    assert hist[1] > 0 and hist[2:].sum() == 0
+    valid = pixf[:, 2] > 0
+    assert torch.equal(out[:, 7][valid], out[:, 6][valid])
+    assert torch.equal(out[:, :6], out_d[:, :6])
+    if exact:
+        assert torch.equal(out[:, 8:], out_d[:, 8:])
+
+
+class _ConstsLib:
+    """A stand-in for the kernel library's rtw_culled_consts."""
+
+    def __init__(self, consts):
+        self.consts = consts
+
+    def rtw_culled_consts(self, out):
+        out[0], out[1] = self.consts
+
+
+@pytest.mark.parametrize("consts,ok", [
+    ((tk.K_BCAST, tk.CULLED_MAX_T), True),
+    ((tk.K_BCAST + 1, tk.CULLED_MAX_T), False),
+    ((tk.K_BCAST, tk.CULLED_MAX_T // 2), False)])
+def test_k_bcast_is_the_kernels(consts, ok):
+    """The plain version splits visits where the kernel does, and plans
+    refuse the tiles the kernel refuses: loading a library whose exported
+    (kBcast, kCulledMaxT) differ from (K_BCAST, CULLED_MAX_T) raises."""
+    if ok:
+        tk.check_culled_consts(_ConstsLib(consts))
+    else:
+        with pytest.raises(RuntimeError, match="kBcast, kCulledMaxT"):
+            tk.check_culled_consts(_ConstsLib(consts))
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,7 +31,8 @@ def test_port_module_list_is_complete():
                      "ops.mega_grad", "ops.megakernel", "ops.noise", "ops.packing",
                      "ops.pdfs", "ops.rounding", "ops.sampling",
                      "ops.syncs", "ops.textures", "render", "tools",
-                     "tools.dot_microbench", "tools.sweep_twin",
+                     "tools.culled_ab", "tools.dot_microbench",
+                     "tools.sweep_twin",
                      "tools.mosaic_repros", "tools.mosaic_repros.__main__",
                      "tools.mosaic_repros._common",
                      "tools.mosaic_repros.repro_dot_k3_subslice",

@@ -75,8 +75,10 @@ def test_kernel_matches_plain_version_on_card(exact, name):
 @pytest.mark.parametrize("exact", [True, False])
 def test_culled_kernel_matches_plain_version_on_card(exact, name):
     """The culled kernel (K5) against its plain version on the same
-    tensors: tapes, radiance and the swept-block counts of row 6, lane by
-    lane. Skips without a card."""
+    tensors: tapes, radiance, the swept-block counts of row 6 and the
+    needed-block counts of row 7, lane by lane, on a launch whose visits
+    fall on both sides of K_BCAST (the compacted and the broadcast
+    sweep). Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     scene = make_scene(name, 1.0)
@@ -85,9 +87,12 @@ def test_culled_kernel_matches_plain_version_on_card(exact, name):
     args, _ = tk.device_inputs(scene, plan, "cuda")
     valid = args[0][:, 2] > 0
     out_k = tk.mega_kernel(*args, 31337, plan)
-    out_r = tk.trace_mega_reference(*args, 31337, plan)
+    hist = torch.zeros(33, dtype=torch.int64, device="cuda")
+    out_r = tk.trace_mega_reference(*args, 31337, plan, need_hist=hist)
     torch.cuda.synchronize()
-    rows = slice(0, None) if exact else slice(0, 7)
+    visits = tk.visits_by_branch(hist)
+    assert visits["compacted"] > 0 and visits["broadcast"] > 0
+    rows = slice(0, None) if exact else slice(0, 8)
     same = (out_k[:, rows] == out_r[:, rows]).all(dim=1) & valid
     assert same.sum().item() >= 0.99 * valid.sum().item()
     a = out_k[:, 0:3].transpose(1, 2)[valid]
@@ -116,6 +121,40 @@ def test_culled_kernel_equals_dense_kernel(exact, dyn_order):
     if exact:
         assert torch.equal(culled.tape, dense.tape)
     assert 0 < culled.blocks.item() < dense.blocks.item()
+    assert 0 < culled.lane_need.item() <= culled.blocks.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_culled_kernel_one_lane_a_warp_on_card(exact):
+    """The compacted sweep alone: random_balls_large(n=30) at 64x64 with
+    the valid row of pixf zeroed on 31 lanes of every 32, so every visit
+    has one needing lane (invalid lanes start done). The kernel equals its
+    plain version on rows 0-7 (and the tapes) and the dense kernel on rows
+    0-5. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = make_scene("random_balls_large", 1.0, n=30)
+    kw = dict(max_depth=8, exact=exact)
+    _, plan = tk.make_plan(scene, 64, 64, 2, **kw)
+    _, dense = tk.make_plan(scene, 64, 64, 2, cull=False, **kw)
+    assert plan.cull and not dense.cull
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    pixf = args[0].clone()
+    lone = torch.arange(pixf.shape[2], device="cuda") % 32 == 0
+    pixf[:, 2, ~lone] = 0.0
+    out_k = tk.mega_kernel(pixf, *args[1:], 31337, plan)
+    out_d = tk.mega_kernel(pixf, *args[1:], 31337, dense)
+    hist = torch.zeros(33, dtype=torch.int64, device="cuda")
+    out_r = tk.trace_mega_reference(pixf, *args[1:], 31337, plan,
+                                    need_hist=hist)
+    torch.cuda.synchronize()
+    assert hist[1].item() > 0 and hist[2:].sum().item() == 0
+    valid = pixf[:, 2] > 0
+    same = (out_k == out_r).all(dim=1) & valid
+    assert same.sum().item() >= 0.99 * valid.sum().item()
+    assert torch.equal(out_k[:, :6], out_d[:, :6])
+    assert torch.equal(out_k[:, 7][valid], out_k[:, 6][valid])
 
 
 def _mixed(n=60, **kw):
@@ -138,8 +177,9 @@ def test_culled_surfaces_kernel_matches_plain_version_on_card(exact,
                                                              variant):
     """The culled surfaces kernel (K5s) against its plain version on
     large_mixed(n=60) (C = 29 in overdraw, 15 in exact mode): tapes,
-    radiance and the swept-block counts of row 6, lane by lane, in both
-    kTex instantiations. Skips without a card."""
+    radiance, the swept-block counts of row 6 and the needed-block counts
+    of row 7, lane by lane, in both kTex instantiations, on a launch
+    whose visits fall on both sides of K_BCAST. Skips without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     scene = _mixed(**MIXED[variant])
@@ -152,9 +192,12 @@ def test_culled_surfaces_kernel_matches_plain_version_on_card(exact,
     before = tk.KERNEL_LAUNCHES["K5s"]
     out_k = tk.mega_kernel(*args, 31337, plan)
     assert tk.KERNEL_LAUNCHES["K5s"] == before + 1
-    out_r = tk.trace_mega_reference(*args, 31337, plan)
+    hist = torch.zeros(33, dtype=torch.int64, device="cuda")
+    out_r = tk.trace_mega_reference(*args, 31337, plan, need_hist=hist)
     torch.cuda.synchronize()
-    rows = slice(0, None) if exact else slice(0, 7)
+    visits = tk.visits_by_branch(hist)
+    assert visits["compacted"] > 0 and visits["broadcast"] > 0
+    rows = slice(0, None) if exact else slice(0, 8)
     same = (out_k[:, rows] == out_r[:, rows]).all(dim=1) & valid
     assert same.sum().item() >= 0.99 * valid.sum().item()
     a = out_k[:, 0:3].transpose(1, 2)[valid]
@@ -184,6 +227,7 @@ def test_culled_surfaces_kernel_equals_dense_kernel(variant, exact,
     if exact:
         assert torch.equal(culled.tape, dense.tape)
     assert 0 < culled.blocks.item() < dense.blocks.item()
+    assert 0 < culled.lane_need.item() <= culled.blocks.item()
 
 
 @pytest.mark.cuda
