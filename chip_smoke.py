@@ -5,8 +5,12 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card, checks the renderer
+It builds the port's CUDA kernels from the sources in the checkout,
+prints their registers and the sphere sweeps' SASS a slot, checks the dense
+kernels' tile widths (every dense instantiation takes blocks of
+DENSE_MAX_T lanes, a wider tile is refused before any launch, the widest
+agrees with the plain version), holds each kernel against its plain
+PyTorch version on the card, checks the renderer
 against the reference oracle's golden images, and drives the port's four
 paths through `render()`: book-1 `random_balls` at 1200x800, 64 spp per
 launch, max_depth 50 (kernel K1); the Cornell path, `cornell_box` then
@@ -91,6 +95,7 @@ from raytracingweekend_tpu_torch.render import (RenderStats, render,
 from raytracingweekend_tpu_torch.tools import culled_ab
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import mosaic_repros
+from raytracingweekend_tpu_torch.tools import sass
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
 from raytracingweekend_tpu_torch.tools.mosaic_repros import tile_32768
 from raytracingweekend_tpu_torch.utils import image as image_mod
@@ -245,6 +250,11 @@ MATERIALS = ("lambertian", "metal", "dielectric", "light")
 REDESIGN = (f"a cluster swept only for the lanes whose rays need it, "
             f"compacted below {mk.K_BCAST} needing lanes, static spheres' "
             "centre quads staged in shared memory by cp.async")
+# what the dense slot loop (K1, K8) does since its redesign
+REDESIGN_DENSE = ("slots staged in shared memory as a 16-byte quad and only "
+                  "the motion lanes the plan's moving axes need, the loop "
+                  "specialised on that mask, a one-compare hit test, "
+                  f"launch bounds of {mk.DENSE_MAX_T} lanes")
 
 
 # nvidia-smi's name and power limit of the card, set by phase 1
@@ -358,102 +368,6 @@ def bound_ms(plan, segments: float, mix: dict, blocks: float = 0.0,
             * segments / FP32_PEAK * 1e3)
 
 
-def _kernel_name(mangled: str):
-    """'<kMoving,kUniformTime>', 'surfaces<kMoving,kUniformTime,kTex>',
-    'culled<kMoving,kUniformTime>' or
-    'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
-    mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
-    instantiation, 'twin<kExt>' of the sweep twin's (K8),
-    'k9<body,unit>' of the microbenchmark's (K9) and 'repro:<name>' of the
-    Mosaic repros' (K10-K14), else None."""
-    repro = re.search(r"repro_(\w+?)_kernel(?:IL[bi](\d+)E)?", mangled)
-    if repro:
-        return (f"repro:{repro.group(1)}"
-                + (f"<{repro.group(2)}>" if repro.group(2) else ""))
-    twin = re.search(r"sweep_twin_kernelILb(\d)E", mangled)
-    if twin:
-        return f"twin<{twin.group(1)}>"
-    bench = re.search(r"microbench_kernelILi(\d)ELi(\d)E", mangled)
-    if bench:
-        return f"k9<{bench.group(1)},{bench.group(2)}>"
-    m = re.search(
-        r"mega_kernel(_surfaces|_culled_surfaces|_culled)?ILb(\d)ELb(\d)E"
-        r"(?:Lb(\d)E)?", mangled)
-    if not m:
-        return None
-    args = ",".join(g for g in m.groups()[1:] if g is not None)
-    return f"{(m.group(1) or '_')[1:]}<{args}>"
-
-
-def sweep_sass(lib: str) -> dict:
-    """SASS instructions per sphere slot of each megakernel and sweep twin
-    instantiation's sweep loop (`cuobjdump -sass` of the built library):
-    the innermost loop with the most MUFU.RSQ (one per slot; nvcc unrolls
-    the sweep) and no warp vote (the culled kernel's cluster visits vote;
-    its slot loops do not), from its branch target to its backward
-    branch. A culled kernel has two: the broadcast loop, inside the visit
-    loop (which ballots), and the compacted one, inside the loop over the
-    needing lanes (which reduces with REDUX and does not ballot), listed as
-    '<name> compacted'.
-    Returns {name: (instructions, slots, FFMA, FMUL, FADD)}, the compacted
-    loops with a sixth item: the instructions of the needing-lane loop
-    outside its slot loops (shuffles, REDUX, merge). Split FMUL / FADD
-    pairs where the plain version fuses show as FMUL and FADD counts above
-    the culled sphere kernel's."""
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    out = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = _kernel_name(func.split(None, 1)[0])
-        if name is None or name.startswith(("k9", "repro:")):
-            continue
-        ins = [(int(a, 16), op) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
-        addr = {a: k for k, (a, _) in enumerate(ins)}
-        loops = []
-        for k, (a, op) in enumerate(ins):
-            br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
-            if br and int(br.group(1), 16) <= a:
-                loops.append((addr[int(br.group(1), 16)], k))
-
-        def has(a, b, pat):
-            return any(re.match(pat, op) for _, op in ins[a:b + 1])
-
-        def outer(a, b):
-            """The smallest loop around (a, b), or None."""
-            return min(((c, d) for c, d in loops
-                        if c <= a and b <= d and (c, d) != (a, b)),
-                       key=lambda cd: cd[1] - cd[0], default=None)
-
-        def pick(cands):
-            return max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
-                         b - a + 1, a) for a, b in cands), default=(0, 0, 0))
-
-        def counts(best):
-            ops = [op.split()[0] for _, op in ins[best[2]:best[2] + best[1]]
-                   if op.split()]
-            return (best[1], best[0],
-                    *(sum(o.startswith(k) for o in ops)
-                      for k in ("FFMA", "FMUL", "FADD")))
-
-        inner = [(a, b) for a, b in loops
-                 if not any(a <= c and d <= b and (c, d) != (a, b)
-                            for c, d in loops)
-                 and not has(a, b, r"(VOTE|REDUX)")]
-        compact = [(a, b) for a, b in inner
-                   if (o := outer(a, b)) and has(*o, r"REDUX")
-                   and not has(*o, r"VOTE")]
-        out[name] = counts(pick([lp for lp in inner if lp not in compact]))
-        if compact:
-            best = pick(compact)
-            o = outer(best[2], best[2] + best[1] - 1)
-            lane = (o[1] - o[0] + 1) - sum(
-                b - a + 1 for a, b in inner if o[0] <= a and b <= o[1])
-            out[f"{name} compacted"] = (*counts(best), lane)
-    return out
-
-
 def phase_device() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an "
@@ -474,11 +388,11 @@ def repro_i2f(lib: str) -> dict:
     """The integer-to-float conversions (I2F*, I2FP*) in the SASS of K10's
     two kernels: {'f32 iota': [opcodes], 'int iota + cast': [opcodes]}."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     out = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = _kernel_name(func.split(None, 1)[0])
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = sass.kernel_name(func.split(None, 1)[0])
         form = {"repro:iota_f32": "f32 iota",
                 "repro:iota_int_cast": "int iota + cast"}.get(name)
         if form:
@@ -496,26 +410,18 @@ def phase_build() -> tuple:
                                             (culled_ab.SPLIT, _build.CSRC)])
     mk._kernel_lib()
     log = _build.build_log()
-    # one entry per kernel instantiation <kMoving, kUniformTime>: its
-    # registers and spill stores
-    rows = []
-    for m in re.finditer(r"Compiling entry function '([^']*)'(.*?)Used "
-                         r"(\d+) registers", log, re.S):
-        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
-        stack = re.search(r"(\d+) bytes stack frame", m.group(2))
-        name = _kernel_name(m.group(1)) or (
-            f"k7<{int('ILb1E' in m.group(1))}>"
-            if "hit_spheres_kernel" in m.group(1) else m.group(1))
-        rows.append(f"{name}: {m.group(3)} regs, "
-                    f"{spill.group(1) if spill else '?'} B spill, "
-                    f"{stack.group(1) if stack else '?'} B stack")
-    sweep = sweep_sass(str(lib))
+    # one entry per kernel instantiation: its registers, spill stores and
+    # stack
+    rows = [f"{name}: {r} regs, {'?' if sp is None else sp} B spill, "
+            f"{'?' if st is None else st} B stack"
+            for name, (r, sp, st) in sass.registers(log).items()]
+    sweep = sass.sweep_sass(str(lib))
     per_slot = "; ".join(
         f"{k}: {n} / {s} = {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}"
-        f", FADD {fd / s:.2f}"
+        f", FADD {fd / s:.2f}, LDS {ld / s:.2f}"
         f"{f'; {lane[0]} a needing lane besides' if lane else ''})"
         if s else f"{k}: -"
-        for k, (n, s, fa, fm, fd, *lane) in sorted(sweep.items()))
+        for k, (n, s, fa, fm, fd, ld, *lane) in sorted(sweep.items()))
     i2f = repro_i2f(str(lib))
     print(f"phase 2 build: {os.path.basename(lib)} nvcc {nvcc_secs:.3f} s, "
           f"build+load {time.perf_counter() - t0:.3f} s; "
@@ -523,6 +429,46 @@ def phase_build() -> tuple:
           f"instructions per slot (loop / slots) {per_slot}; K10 I2F in "
           f"SASS {i2f}", flush=True)
     return sweep, i2f
+
+
+def phase_dense_widths() -> dict:
+    """The dense kernels' tile widths (ROADMAP F3): the library's block
+    limit of every dense instantiation equals DENSE_MAX_T; make_plan
+    refuses an overdraw tile past it (T = 1024, and DENSE_MAX_T + 32)
+    for K1 (random_balls) and K2-K4 (cornell_box, earth) before any
+    launch, and at the widest accepted T each kernel renders on the card
+    and agrees with its plain version (96x64, 4 spp, depth 8: rows 0-5
+    within rtol / atol on >= MIN_SAME of the lanes). Returns the max abs
+    radiance error."""
+    limits = mk.dense_max_threads(mk._kernel_lib())
+    err = 0.0
+    for kind, name, kw in (("spheres", "random_balls", {}),
+                           ("surfaces", "cornell_box", {}),
+                           ("surfaces", "earth", {"image_path": RTWI})):
+        scene = make_scene(name, 1.5, **kw)
+        top = mk.DENSE_MAX_T
+        for T in (1024, top + 32):
+            try:
+                mk.make_plan(scene, 96, 64, 4, max_depth=8, T=T)
+            except ValueError:
+                continue
+            fail(f"make_plan accepted T={T} past the dense {kind} "
+                 f"kernel's {top} lanes ({name})")
+        pixf, out_k, out_r = _launch_both(scene, 96, 64, 4, 8, False, T=top)
+        valid = pixf[:, 2] > 0
+        close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                              atol=ATOL).all(dim=1)[valid]
+        frac = close.float().mean().item()
+        e = (out_k[:, :3] - out_r[:, :3]).abs().max().item()
+        err = max(err, e)
+        print(f"phase 2b dense {kind} kernel ({name}): block limits "
+              f"{limits[kind]}, make_plan refuses T=1024 and T={top + 32}; "
+              f"at T={top} rows 0-5 within rtol {RTOL}/atol {ATOL} on "
+              f"{frac:.6f} of {valid.sum().item()} lanes, max abs err "
+              f"{e:.3e}", flush=True)
+        if set(limits[kind]) != {top} or frac < MIN_SAME:
+            fail(f"the dense {kind} kernel at its widest tile T={top}")
+    return dict(max_abs_err=err)
 
 
 def _launch_both(scene, nx, ny, spp, depth, exact, T=256):
@@ -971,10 +917,10 @@ def k7_sass(lib: str) -> dict:
     per slot: sqrtf's reciprocal-square-root seed), its instructions per
     slot and its FFMA / FMUL / FADD per slot. {name: dict}."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     out = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
         m = re.search(r"hit_spheres_kernelILb(\d)E", func.split(None, 1)[0])
         if not m:
             continue
@@ -1013,12 +959,12 @@ def k7_build_report() -> dict:
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         kind = "moving" if "ILb1E" in m.group(1) else "static"
         regs[kind] = (int(m.group(3)), int(spill.group(1)) if spill else -1)
-    sass = k7_sass(str(_build.library_path()))
+    loops = k7_sass(str(_build.library_path()))
     print(f"phase 13a K7 build: registers, spill bytes {regs}; slot loop "
-          f"{json.dumps(sass)}", flush=True)
+          f"{json.dumps(loops)}", flush=True)
     if set(regs) != {"moving", "static"}:
         fail("K7's two instantiations are not in the build log")
-    return dict(regs=regs, sass=sass)
+    return dict(regs=regs, sass=loops)
 
 
 def _capture_regen_rays(scene, n_iters: int) -> list:
@@ -1613,13 +1559,17 @@ def phase_sweep_twin(sweep: dict, k1_path: dict, k1: dict) -> dict:
     bound = k8.bound_ms(S, T, G, quad["iters_done"], plan.moving_axes)
     k1_rate = k1["segments"] / (k1["ms"] * 1e-3)
     twin_rate = quad["implied_ceiling_seg_per_s"]
-    loops = {k: sweep.get(k) for k in ("twin<0>", "twin<1>", "<1,1>")}
+    # K1's instantiation for the book-1 plan: the y-only, uniform-shutter
+    # slot loop, which the twin runs too
+    k1_loop = f"<{mk.sweep_axes(plan)},{int(plan.uniform_time)}>"
+    loops = {k: sweep.get(k) for k in ("twin<0>", "twin<1>", k1_loop)}
     per_slot = "; ".join(
         f"{k}: {n / s:.2f} (FFMA {fa / s:.2f}, FMUL {fm / s:.2f}, FADD "
-        f"{fd / s:.2f})" for k, (n, s, fa, fm, fd) in loops.items() if s)
+        f"{fd / s:.2f}, LDS {ld / s:.2f})"
+        for k, (n, s, fa, fm, fd, ld) in loops.items() if s)
     mix = {k: tuple(c / v[1] for c in v[2:]) for k, v in loops.items()
            if v and v[1]}
-    same_mix = "twin<0>" in mix and mix["twin<0>"] == mix.get("<1,1>")
+    same_mix = "twin<0>" in mix and mix["twin<0>"] == mix.get(k1_loop)
     # the slot loop's instructions at full issue (four warp-instructions a
     # cycle on each SM) and the SM clock read under the quad launch's load
     clock, top = _sm_clock_mhz(lambda: k8.sweep_twin_kernel(
@@ -1641,8 +1591,9 @@ def phase_sweep_twin(sweep: dict, k1_path: dict, k1: dict) -> dict:
           f"K1 / twin {k1_path['rate'] / twin_rate:.4f} (path), "
           f"{k1_rate / twin_rate:.4f} (kernel); full - twin "
           f"{1e9 / k1_rate - 1e9 / twin_rate:.4f} ns a segment; slot loop "
-          f"SASS a slot {per_slot} (twin's FFMA / FMUL / FADD a slot "
-          f"{'equal to' if same_mix else 'DIFFER from'} K1's); SM clock "
+          f"SASS a slot {per_slot} (twin's FFMA / FMUL / FADD / LDS a "
+          f"slot {'equal to' if same_mix else 'DIFFER from'} K1's "
+          f"{k1_loop}); SM clock "
           f"{clock} MHz under the quad launch (max {top}, {sms} SMs): the "
           f"twin's slot loop at full issue {issue_ms:.3f} ms, issue share "
           f"{issue_ms / quad['ms']:.3f}", flush=True)
@@ -1911,6 +1862,7 @@ def main() -> int:
     t_start = time.perf_counter()
     _timed("phase 1", phase_device)
     sweep, i2f = _timed("phase 2", phase_build)
+    widths = _timed("phase 2b", phase_dense_widths)
     parity = _timed("phase 3", phase_exact_parity)
     _timed("phase 4", phase_goldens)
     main_run = _timed("phase 5", phase_main_path)
@@ -1961,12 +1913,15 @@ def main() -> int:
     repros = _timed("phase 26", phase_mosaic_repros, i2f)
     _timed("phase 26b", phase_tile_32768)
     entries = [
-        dict(name="megakernel K1 (book-1 sphere path, random_balls)",
+        dict(name="megakernel K1 (book-1 sphere path, random_balls; "
+                  f"redesigned: {REDESIGN_DENSE})",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:371",
              launches=main_run["launches"],
-             max_abs_err=max(k1["max_abs_err"], parity["K1"]),
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"]),
+             max_abs_err=max(k1["max_abs_err"], parity["K1"],
+                             widths["max_abs_err"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             redesigned=True),
         dict(name="megakernel K2+K3 (rects, lights + MIS, emission, media; "
                   "cornell_box timings)",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
@@ -2027,12 +1982,13 @@ def main() -> int:
     entries.append(dict(
         name=f"K8 sweep twin (the book-1 sweep alone, quad; S={twin['S']}, "
              f"T={twin['T']}, G={twin['G']}, K={twin['K']} a launch; ext "
-             f"{twin['ext_ms']:.3f} ms)",
+             f"{twin['ext_ms']:.3f} ms; K1's redesigned slot loop)",
         source="raytracingweekend_tpu_torch/csrc/sweep_twin.cu",
         replaces="tools/sweep_twin.py:164",
         launches=twin["launches"], max_abs_err=twin["max_abs_err"],
         ms=twin["ms"], plain_ms=twin["plain_ms"], bound_ms=twin["bound_ms"],
-        route="cuda", bound_by="operations", library_ms=None))
+        route="cuda", bound_by="operations", library_ms=None,
+        redesigned=True))
     rep = next(r for r in bench["rows"] if r["name"] == "extract f32 default")
     entries.append(dict(
         name=f"K9 dot-formulation microbenchmark (extract f32 default on the "

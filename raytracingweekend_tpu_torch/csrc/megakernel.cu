@@ -47,16 +47,21 @@
 //
 // What bounds it: FP32 issue. Book-1 scenes spend it in the S-slot
 // quadratic, about 20 flops per (sphere, segment); Cornell scenes in the
-// R-rect plane tests and the light-pdf re-intersection. Every table
-// (sphere SoA, then the rect, light and medium rows and their static
+// R-rect plane tests and the light-pdf re-intersection. Every table (the
+// sphere slots, then the rect, light and medium rows and their static
 // codes) is copied once per block into shared memory and broadcast to the
-// threads of a warp; the loops over rects, lights and media run at run
-// time, with each row's axis, kind and transform presence read from its
-// code. The sphere attribute rows stay in global memory and are read once
-// per bounce through the read-only path (__ldg).
+// threads of a warp. The dense sweep's slots are staged as sweep.cuh lays
+// them out: a 16-byte (centre, -r^2) quad a slot and only the motion lanes
+// the instantiation lerps (its template mask of moving axes: static, y
+// only as in book 1, or all), so a book-1 slot costs two shared loads in
+// place of the (9, S) table's seven. The loops over rects, lights and
+// media run at run time, with each row's axis, kind and transform
+// presence read from its code. The sphere attribute rows stay in global
+// memory and are read once per bounce through the read-only path (__ldg).
 //
-// Culling (K5): a dense sweep of S slots costs ~34 instructions a slot and
-// its (9, S) table stops fitting in shared memory near 6400 slots. The
+// Culling (K5): a dense sweep of S slots costs ~25 instructions a slot and
+// its staged slots (16-36 bytes each) stop fitting in shared memory at
+// 6400-14500 slots. The
 // culled kernel keeps only the (C, 6) cluster boxes there; each warp
 // ballots a cluster (the TPU kernel's whole-tile any() becomes a warp's),
 // so a warp visits only the clusters one of its rays can reach before its
@@ -267,14 +272,15 @@ __device__ __forceinline__ void gen_ray(const Params& p, const Cam& cam,
   L.dz = dz * inv;
 }
 
-// Closest hit over every slot of the shared-memory table (sweep.cuh).
-// Returns the winner slot (S on a miss) and its t in `best`.
-template <bool kMoving, bool kUniformTime>
+// Closest hit over every slot of the shared-memory table (sweep.cuh),
+// lerping the centres along the axes of kAxes. Returns the winner slot (S
+// on a miss) and its t in `best`.
+template <int kAxes, bool kUniformTime>
 __device__ __forceinline__ int sweep(const Params& p, const float* sm,
                                      const Lane& L, float& best) {
   const float frac_u = kUniformTime ? (L.time - p.ut_t0) * p.ut_idt : 0.f;
-  return sweep_slots<kMoving, kUniformTime>(sm, p.S, L, frac_u, p.t_min,
-                                            best);
+  return sweep_slots<kAxes, kUniformTime>(sm, p.S, L, frac_u, p.t_min,
+                                          best);
 }
 
 __device__ __forceinline__ float attr_at(const Params& p, int row, int slot) {
@@ -282,10 +288,11 @@ __device__ __forceinline__ float attr_at(const Params& p, int row, int slot) {
 }
 
 // One bounce iteration of one lane. Returns the winner code (-1 for a miss
-// or an idle lane, else the sphere slot). With kSwept the closest hit comes
-// from the caller (the culled kernel's sweep: swept_bidx, swept_best) and
-// `sm` is not read.
-template <bool kMoving, bool kUniformTime, bool kSwept = false>
+// or an idle lane, else the sphere slot). kAxes is the sweep's moving-axis
+// mask (sweep.cuh); any moving mask lerps the winner's centre on all three
+// axes for its normal. With kSwept the closest hit comes from the caller
+// (the culled kernel's sweep: swept_bidx, swept_best) and `sm` is not read.
+template <int kAxes, bool kUniformTime, bool kSwept = false>
 __device__ __forceinline__ int bounce(const Params& p, const float* sm,
                                       const Cam& cam, Lane& L, bool active,
                                       uint32_t tile, uint32_t lane,
@@ -299,7 +306,7 @@ __device__ __forceinline__ int bounce(const Params& p, const float* sm,
     L.segs += 1.f;
     float best = swept_best;
     const int bidx =
-        kSwept ? swept_bidx : sweep<kMoving, kUniformTime>(p, sm, L, best);
+        kSwept ? swept_bidx : sweep<kAxes, kUniformTime>(p, sm, L, best);
     if (best < kHitCut) {
       code = bidx;
       px = fmaf(best, L.dx, L.ox);
@@ -309,7 +316,7 @@ __device__ __forceinline__ int bounce(const Params& p, const float* sm,
       float scx = attr_at(p, A_CX, bidx);
       float scy = attr_at(p, A_CY, bidx);
       float scz = attr_at(p, A_CZ, bidx);
-      if (kMoving) {
+      if (kAxes != kAxesStatic) {
         const float fr =
             (L.time - attr_at(p, A_T0, bidx)) * attr_at(p, A_IDT, bidx);
         scx = fmaf(fr, attr_at(p, A_DCX, bidx), scx);
@@ -881,7 +888,8 @@ __device__ __forceinline__ void texture_albedo(
 // idle lane). With kSwept the closest sphere hit comes from the caller
 // (the culled kernel's sweep: swept_bidx, swept_best) and `sm` is not
 // read; the rects and media then merge after it as after the dense sweep.
-template <bool kMoving, bool kUniformTime, bool kTex, bool kSwept = false>
+// kAxes as in `bounce`.
+template <int kAxes, bool kUniformTime, bool kTex, bool kSwept = false>
 __device__ __forceinline__ int bounce_surfaces(
     const Params& p, const float* sm, const Tables& tb, const TexTables& tx,
     const Cam& cam, Lane& L, bool active, uint32_t tile, uint32_t lane,
@@ -898,7 +906,7 @@ __device__ __forceinline__ int bounce_surfaces(
       s_best = swept_best;
       bidx = swept_bidx;
     } else if (tb.has_spheres) {
-      bidx = sweep<kMoving, kUniformTime>(p, sm, L, s_best);
+      bidx = sweep<kAxes, kUniformTime>(p, sm, L, s_best);
     }
     const float idx = 1.f / L.dx, idy = 1.f / L.dy, idz = 1.f / L.dz;
     float rb_t, r_u = 0.f, r_v = 0.f;
@@ -963,7 +971,7 @@ __device__ __forceinline__ int bounce_surfaces(
           float scx = attr_at(p, A_CX, bidx);
           float scy = attr_at(p, A_CY, bidx);
           float scz = attr_at(p, A_CZ, bidx);
-          if (kMoving) {
+          if (kAxes != kAxesStatic) {
             const float fr =
                 (L.time - attr_at(p, A_T0, bidx)) * attr_at(p, A_IDT, bidx);
             scx = fmaf(fr, attr_at(p, A_DCX, bidx), scx);
@@ -1143,12 +1151,13 @@ __device__ __forceinline__ int bounce_surfaces(
   return code;
 }
 
-template <bool kMoving, bool kUniformTime>
-__global__ void mega_kernel(Params p) {
-  extern __shared__ float sm[];  // (9, S) sweep SoA
-  for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
-    sm[i] = __ldg(p.sph + i);
-  }
+// The sphere kernel (K1). Its launch bounds hold overdraw tiles to
+// kDenseMaxT lanes (sweep.cuh).
+template <int kAxes, bool kUniformTime>
+__global__ void __launch_bounds__(kDenseMaxT)
+    mega_kernel(Params p) {
+  extern __shared__ float sm[];  // staged slots (sweep.cuh)
+  stage_slots<kAxes, kUniformTime>(sm, p.sph, p.S);
   __syncthreads();
 
   uint32_t tile, lane;
@@ -1181,8 +1190,8 @@ __global__ void mega_kernel(Params p) {
   if (p.exact) {
     int it = 0;
     for (; L.done < p.spp && it < p.n_iters; ++it) {
-      const int code = bounce<kMoving, kUniformTime>(p, sm, cam, L, true,
-                                                     tile, lane, it, pxi, pxj);
+      const int code = bounce<kAxes, kUniformTime>(p, sm, cam, L, true, tile,
+                                                   lane, it, pxi, pxj);
       L.iters += 1.f;
       out[(size_t)(kOutRows + it) * T] = (float)code;
     }
@@ -1191,8 +1200,8 @@ __global__ void mega_kernel(Params p) {
     uint32_t it = 0;
     int running = __syncthreads_or(valid);
     while (running) {
-      bounce<kMoving, kUniformTime>(p, sm, cam, L, valid, tile, lane, it, pxi,
-                                    pxj);
+      bounce<kAxes, kUniformTime>(p, sm, cam, L, valid, tile, lane, it, pxi,
+                                  pxj);
       L.iters += 1.f;
       ++it;
       running = __syncthreads_or(L.done < p.spp);
@@ -1254,19 +1263,21 @@ __device__ __forceinline__ void stage_surfaces(float* base, const Surfaces& q,
 
 // The kernel of scenes with rects, lights or media, or with textures
 // (kTex). Its lane loop is mega_kernel's with bounce_surfaces; the two stay
-// separate functions so that the sphere-only code (34 SASS instructions per
-// sweep slot) does not depend on the surfaces path, and the kTex = false
-// instantiations compile to the code they had before textures.
-template <bool kMoving, bool kUniformTime, bool kTex>
-__global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
-  // (9, S) sweep SoA, then the surfaces tables (stage_surfaces)
+// separate functions so that the sphere-only code does not depend on the
+// surfaces path. Its launch bounds hold overdraw tiles to kDenseMaxT
+// lanes and, asking for one such block an SM, leave a thread the 96-126
+// registers it needs (two 256-lane blocks an SM; with the bound alone
+// ptxas held the static form at 64 and spilled 148 B).
+template <int kAxes, bool kUniformTime, bool kTex>
+__global__ void __launch_bounds__(kDenseMaxT, 1)
+    mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
+  // the staged slots (sweep.cuh), then the surfaces tables
   extern __shared__ float sm[];
-  for (int i = threadIdx.x; i < kLanes * p.S; i += blockDim.x) {
-    sm[i] = __ldg(p.sph + i);
-  }
+  stage_slots<kAxes, kUniformTime>(sm, p.sph, p.S);
   Tables tb;
   TexTables tx;
-  stage_surfaces<kTex>(sm + kLanes * p.S, q, x, tb, tx);
+  stage_surfaces<kTex>(sm + slot_words(kAxes, kUniformTime) * p.S, q, x, tb,
+                       tx);
   __syncthreads();
 
   uint32_t tile, lane;
@@ -1299,7 +1310,7 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
   if (p.exact) {
     int it = 0;
     for (; L.done < p.spp && it < p.n_iters; ++it) {
-      const int code = bounce_surfaces<kMoving, kUniformTime, kTex>(
+      const int code = bounce_surfaces<kAxes, kUniformTime, kTex>(
           p, sm, tb, tx, cam, L, true, tile, lane, it, pxi, pxj);
       L.iters += 1.f;
       out[(size_t)(kOutRows + it) * T] = (float)code;
@@ -1309,7 +1320,7 @@ __global__ void mega_kernel_surfaces(Params p, Surfaces q, Texels x) {
     uint32_t it = 0;
     int running = __syncthreads_or(valid);
     while (running) {
-      bounce_surfaces<kMoving, kUniformTime, kTex>(
+      bounce_surfaces<kAxes, kUniformTime, kTex>(
           p, sm, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj);
       L.iters += 1.f;
       ++it;
@@ -1421,10 +1432,11 @@ __host__ __device__ constexpr size_t stage_words(int SB, int warps) {
 }
 
 // t of the ray (o, d, time) against slot j of a cluster: the arithmetic of
-// `sweep` (the sign-flipped half-b quadratic, near root else far root past
-// tmin), kBig on a miss; never NaN. `qg` is the cluster's quads in device
-// memory (Q a slot), `qa` its centre quads staged in shared memory one a
-// slot (static slots only: stage_words).
+// `sweep` (the sign-flipped half-b quadratic, its root slot_root, near
+// root else far root past tmin), kBig on a miss (+inf where slot_root
+// flushes a subnormal disc, a miss too); never NaN. `qg` is the cluster's
+// quads in device memory (Q a slot), `qa` its centre quads staged in
+// shared memory one a slot (static slots only: stage_words).
 template <bool kMoving, bool kUniformTime>
 __device__ __forceinline__ float slot_t(const float4* qa, const float4* qg,
                                         int j, float ox, float oy, float oz,
@@ -1449,7 +1461,7 @@ __device__ __forceinline__ float slot_t(const float4* qa, const float4* qg,
   const float nb = fmaf(coz, dz, fmaf(cox, dx, coy * dy));
   const float cc = fmaf(cox, cox, fmaf(coy, coy, fmaf(coz, coz, a.w)));
   const float disc = fmaf(nb, nb, -cc);
-  const float sq = disc * rsqrtf(disc);
+  const float sq = slot_root(disc);
   const float tn = nb - sq, tf = nb + sq;
   return tn > tmin ? tn : (tf > tmin ? tf : kBig);
 }
@@ -1522,7 +1534,7 @@ __device__ __forceinline__ void sweep_compact(const float4* qa,
         jb = j;
       }
     }
-    // t > t_min > 0 or kBig: its bits order as unsigned ints
+    // t > t_min > 0, kBig or +inf: its bits order as unsigned ints
     const unsigned tw = __reduce_min_sync(kFull, __float_as_uint(tb));
     const unsigned jw = __reduce_min_sync(
         kFull, __float_as_uint(tb) == tw ? (unsigned)jb : (unsigned)SB);
@@ -1700,6 +1712,7 @@ __device__ __forceinline__ int sweep_culled(
 template <bool kMoving, bool kUniformTime>
 __global__ void __launch_bounds__(kCulledMaxT, 1)
     mega_kernel_culled(Params p, Clusters q) {
+  constexpr int kAx = kMoving ? kAxesAll : kAxesStatic;  // bounce's normal
   // (stage_words), (C, 6) cluster boxes, then with q.dord C key / bucket
   // slots per warp
   extern __shared__ float sm[];
@@ -1752,7 +1765,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
       const int bidx = sweep_culled<kMoving, kUniformTime>(
           p, q, box, wb, stage, L, active, active ? 1.f : 0.f, best,
           blocks, needed, sp);
-      const int code = bounce<kMoving, kUniformTime, true>(
+      const int code = bounce<kAx, kUniformTime, true>(
           p, nullptr, cam, L, active, tile, lane, it, pxi, pxj, bidx, best);
       if (active) {
         L.iters += 1.f;
@@ -1769,8 +1782,8 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
           p, q, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
-      bounce<kMoving, kUniformTime, true>(p, nullptr, cam, L, valid, tile,
-                                          lane, it, pxi, pxj, bidx, best);
+      bounce<kAx, kUniformTime, true>(p, nullptr, cam, L, valid, tile, lane,
+                                      it, pxi, pxj, bidx, best);
       L.iters += 1.f;
       ++it;
       running = __syncthreads_or(L.done < p.spp);
@@ -1797,6 +1810,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
 template <bool kMoving, bool kUniformTime, bool kTex>
 __global__ void __launch_bounds__(kCulledMaxT, 1)
     mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q, Texels x) {
+  constexpr int kAx = kMoving ? kAxesAll : kAxesStatic;  // bounce's normal
   // (stage_words), (C, 6) cluster boxes, with k.dord C key / bucket slots
   // per warp, then the surfaces tables (stage_surfaces)
   extern __shared__ float sm[];
@@ -1853,7 +1867,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
       const int bidx = sweep_culled<kMoving, kUniformTime>(
           p, k, box, wb, stage, L, active, active ? 1.f : 0.f, best,
           blocks, needed, sp);
-      const int code = bounce_surfaces<kMoving, kUniformTime, kTex, true>(
+      const int code = bounce_surfaces<kAx, kUniformTime, kTex, true>(
           p, nullptr, tb, tx, cam, L, active, tile, lane, it, pxi, pxj, bidx,
           best);
       if (active) {
@@ -1871,7 +1885,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
       float best;
       const int bidx = sweep_culled<kMoving, kUniformTime>(
           p, k, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
-      bounce_surfaces<kMoving, kUniformTime, kTex, true>(
+      bounce_surfaces<kAx, kUniformTime, kTex, true>(
           p, nullptr, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj, bidx,
           best);
       L.iters += 1.f;
@@ -1919,10 +1933,12 @@ cudaError_t launch(Kernel kern, size_t smem, const Params& p,
 
 // The sphere kernel (q == nullptr), the surfaces kernel, or the surfaces
 // kernel with textures (x != nullptr); culled (k != nullptr) or dense; with
-// their shared memory.
-template <bool kMoving, bool kUniformTime>
+// their shared memory. The dense kernels' slot loop lerps the axes of
+// kAxes; the culled kernels' lerps all three when kAxes moves any.
+template <int kAxes, bool kUniformTime>
 cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
                        const Clusters* k, cudaStream_t stream) {
+  constexpr bool kMoving = kAxes != kAxesStatic;
   // the surfaces tables of stage_surfaces, in words
   size_t ns = 0;
   if (q != nullptr) {
@@ -1949,17 +1965,38 @@ cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
     return launch(mega_kernel_culled_surfaces<kMoving, kUniformTime, true>,
                   bytes, p, stream, *k, *q, *x);
   }
-  const size_t bytes = sizeof(float) * ((size_t)kLanes * p.S + ns);
+  const size_t bytes =
+      sizeof(float) * ((size_t)slot_words(kAxes, kUniformTime) * p.S + ns);
   if (q == nullptr) {
-    return launch(mega_kernel<kMoving, kUniformTime>, bytes, p, stream);
+    return launch(mega_kernel<kAxes, kUniformTime>, bytes, p, stream);
   }
   if (x == nullptr) {
-    return launch(mega_kernel_surfaces<kMoving, kUniformTime, false>, bytes,
-                  p, stream, *q, Texels{});
+    return launch(mega_kernel_surfaces<kAxes, kUniformTime, false>, bytes, p,
+                  stream, *q, Texels{});
   }
-  return launch(mega_kernel_surfaces<kMoving, kUniformTime, true>, bytes, p,
+  return launch(mega_kernel_surfaces<kAxes, kUniformTime, true>, bytes, p,
                 stream, *q, *x);
 }
+
+// The dense kernels' (axes, uniform shutter) forms, as rtw_mega_launch
+// dispatches them, and each form's instantiations: the sphere kernel, the
+// surfaces kernel without and with textures (rtw_dense_consts).
+constexpr int kDenseForm[][2] = {
+    {kAxesStatic, 0}, {kAxisY, 1}, {kAxesAll, 1}, {kAxesAll, 0}};
+constexpr int kDenseForms = sizeof(kDenseForm) / sizeof(kDenseForm[0]);
+const void* const kDenseKernels[3][kDenseForms] = {{
+    (const void*)mega_kernel<kAxesStatic, false>,
+    (const void*)mega_kernel<kAxisY, true>,
+    (const void*)mega_kernel<kAxesAll, true>,
+    (const void*)mega_kernel<kAxesAll, false>}, {
+    (const void*)mega_kernel_surfaces<kAxesStatic, false, false>,
+    (const void*)mega_kernel_surfaces<kAxisY, true, false>,
+    (const void*)mega_kernel_surfaces<kAxesAll, true, false>,
+    (const void*)mega_kernel_surfaces<kAxesAll, false, false>}, {
+    (const void*)mega_kernel_surfaces<kAxesStatic, false, true>,
+    (const void*)mega_kernel_surfaces<kAxisY, true, true>,
+    (const void*)mega_kernel_surfaces<kAxesAll, true, true>,
+    (const void*)mega_kernel_surfaces<kAxesAll, false, true>}};
 
 }  // namespace
 
@@ -1973,7 +2010,10 @@ extern "C" {
 // whose image sizes follow the row codes in `codes`; `cull` the culled
 // kernels over the (C, 128) cluster table `clus` (sph then holds the slot
 // quads of sweep_cluster, not the dense (9, S) SoA): mega_kernel_culled,
-// or with `surfaces` mega_kernel_culled_surfaces.
+// or with `surfaces` mega_kernel_culled_surfaces. `axes` is the slot loop's
+// moving-axis mask (ops/megakernel.py sweep_axes): 0 static, 2 y only
+// (with uniform_time), 7 all axes; the culled kernels lerp all three axes
+// for any other than 0.
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     const float* attr, const float* clus, const float* rect,
                     const float* light, const float* med, const int* codes,
@@ -1982,15 +2022,18 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     int S, int R, int L, int V, int n_iters, int seed,
                     int spp, int max_depth, int rr_depth, int n_img,
                     int img_h, int img_w, int C, int SB, int dord, int exact,
-                    int lens, int bg_gradient, int moving, int uniform_time,
+                    int lens, int bg_gradient, int axes, int uniform_time,
                     int surfaces, int has_spheres, int textures, int cull,
                     float inv_nx, float inv_ny, float t_min, float ut_t0,
                     float ut_idt, float inv_L, void* stream) {
   if (n_tiles <= 0 || T <= 0 || S <= 0 || R < 0 || L < 0 || V < 0 ||
-      n_iters < 0 || (!exact && T > 1024) || (exact && n_iters <= 0) ||
+      n_iters < 0 || (exact && n_iters <= 0) ||
+      (!exact && T > (cull ? kCulledMaxT : kDenseMaxT)) ||
+      (axes != kAxesStatic && axes != kAxesAll &&
+       !(axes == kAxisY && uniform_time)) ||
       (!surfaces && (R || L || V || textures)) || n_img < 0 ||
       img_h <= 0 || img_w <= 0 ||
-      (cull && (T % 32 || (!exact && T > kCulledMaxT) || C <= 0 ||
+      (cull && (T % 32 || C <= 0 ||
                 SB <= 0 || (long long)C * SB != S || dord < 0))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -2025,13 +2068,40 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   const Clusters* kp = cull ? &k : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (moving) {
-    e = uniform_time ? launch_one<true, true>(p, qp, xp, kp, s)
-                     : launch_one<true, false>(p, qp, xp, kp, s);
+  if (axes == kAxesStatic) {
+    e = launch_one<kAxesStatic, false>(p, qp, xp, kp, s);
+  } else if (axes == kAxisY) {  // uniform_time, checked above
+    e = launch_one<kAxisY, true>(p, qp, xp, kp, s);
   } else {
-    e = launch_one<false, false>(p, qp, xp, kp, s);
+    e = uniform_time ? launch_one<kAxesAll, true>(p, qp, xp, kp, s)
+                     : launch_one<kAxesAll, false>(p, qp, xp, kp, s);
   }
   return (int)e;
+}
+
+// The dense kernels' forms, for the host's plans and checks
+// (ops/megakernel.py check_dense_consts): for each of the first n forms
+// (kDenseForm), out[6 i ..] = (axes, uniform shutter, slot_words, then
+// cudaFuncGetAttributes(...).maxThreadsPerBlock of its sphere, surfaces
+// and textured surfaces kernels). Returns kDenseForms, or minus the CUDA
+// error.
+int rtw_dense_consts(int* out, int n) {
+  for (int i = 0; i < n && i < kDenseForms; ++i) {
+    int* row = out + 6 * i;
+    row[0] = kDenseForm[i][0];
+    row[1] = kDenseForm[i][1];
+    row[2] = slot_words(kDenseForm[i][0], kDenseForm[i][1] != 0);
+    for (int k = 0; k < 3; ++k) {
+      cudaFuncAttributes a;
+      const cudaError_t e = cudaFuncGetAttributes(&a, kDenseKernels[k][i]);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // clear it, or the next launch reports it
+        return -(int)e;
+      }
+      row[3 + k] = a.maxThreadsPerBlock;
+    }
+  }
+  return kDenseForms;
 }
 
 // The culled kernels' policy constants, for the host's plain version and

@@ -4,13 +4,18 @@
 // ceiling instrument for the book-1 megakernel: the same sphere table, the
 // same moving-centre quadratic and the same serial bounce dependency, but
 // no shading, RNG, regeneration or state rows. Here it bounds the port's
-// K1 (csrc/megakernel.cu::mega_kernel), so it sweeps K1's (9, S) SoA of
-// the port's book-1 plan with K1's slot loop (sweep.cuh, shared), and
-// "K1 - twin" is what shading, RNG and tile tails really cost on the card.
+// K1 (csrc/megakernel.cu::mega_kernel), so it stages the (9, S) SoA of the
+// port's book-1 plan as K1 does and sweeps it with the slot loop of K1's
+// book-1 instantiation (sweep.cuh, shared: centres moving along y only,
+// one shutter window), and "K1 - twin" is what shading, RNG and tile tails
+// really cost on the card. The table's x and z motion lanes must be zero,
+// as the book-1 plan's are (tools/sweep_twin.py::book1_inputs checks).
 // Plain version beside it: raytracingweekend_tpu_torch/tools/sweep_twin.py::
 // sweep_twin_reference.
 //
-// One block per grid step, T <= 1024 lanes a block, one thread a lane. The
+// One block per grid step, T <= kDenseMaxT lanes a block (K1's launch
+// bounds: ptxas then gives `quad` 32 registers, eight 256-lane blocks an
+// SM, 7% faster than the 40 of a 768 bound), one thread a lane. The
 // TPU runs its G grid steps one after another; here the G blocks run at
 // once, and every block computes the same rays (the tool's rays depend
 // only on the lane, :80-92). Per iteration a lane sweeps every slot of the
@@ -34,19 +39,19 @@
 // sum), the sweep's are K1's, and the root is K1's disc * rsqrtf(disc)
 // (NaN on a miss, and NaN is a miss). The plain version writes the same.
 //
-// What bounds it: FP32 issue, as K1. K1's loop spends 26 FP32 operations
-// a slot (three motion FMAs, then the quadratic and its root, 20); the
-// book-1 plan moves centres along y only, so the work needs 22 of them
-// (tools/sweep_twin.py::bound_ms counts from the plan); the table sits
-// in shared memory and is read as a broadcast; the launch
-// moves ~36 S bytes in and 8 (or 104 with ext) bytes a lane out.
+// What bounds it: FP32 issue, as K1. The loop spends 22 FP32 operations a
+// slot (the y motion FMA, then the quadratic and its root, 20;
+// tools/sweep_twin.py::bound_ms counts from the plan); the staged slots
+// sit in shared memory, 20 bytes a slot read as two broadcasts (a 16-byte
+// quad and dcy); the launch moves ~36 S bytes in and 8 (or 104 with ext)
+// bytes a lane out.
 #include <cuda_runtime.h>
 
 #include "sweep.cuh"
 
 namespace {
 
-using namespace rtw_sweep;  // kBig, the sweep SoA lanes, sweep_slots
+using namespace rtw_sweep;  // kBig, the slot layout and loop
 constexpr float kTmin = 0.001f;
 constexpr int kAttrRows = 24;
 
@@ -54,17 +59,19 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, time;
 };
 
+// The slot loop's instantiation: K1's for the book-1 plan
+constexpr int kTwinAxes = kAxisY;
+
 template <bool kExt>
-__global__ void sweep_twin_kernel(const float* __restrict__ soa,
+__global__ void __launch_bounds__(kDenseMaxT)
+    sweep_twin_kernel(const float* __restrict__ soa,
                                   const float* __restrict__ attr,
                                   float* __restrict__ out,
                                   float* __restrict__ attrs_out, int S,
                                   int K, float ut_t0, float ut_idt,
                                   float inv_T) {
-  extern __shared__ float sm[];  // (9, S) sweep SoA
-  for (int i = threadIdx.x; i < kLanes * S; i += blockDim.x) {
-    sm[i] = __ldg(soa + i);
-  }
+  extern __shared__ float sm[];  // staged slots (sweep.cuh)
+  stage_slots<kTwinAxes, true>(sm, soa, S);
   __syncthreads();
 
   const int T = blockDim.x;
@@ -81,11 +88,10 @@ __global__ void sweep_twin_kernel(const float* __restrict__ soa,
   for (int r = 0; r < kAttrRows; ++r) af[r] = 0.f;
 
   for (int it = 0; it < K; ++it) {
-    // ---- K1's slot loop (sweep.cuh, as megakernel.cu `sweep<true, true>`)
+    // ---- K1's slot loop (sweep.cuh, as megakernel.cu `sweep<kAxisY, true>`)
     float best;
-    const int bidx = sweep_slots<true, true>(sm, S, ray,
-                                             (ray.time - ut_t0) * ut_idt,
-                                             kTmin, best);
+    const int bidx = sweep_slots<kTwinAxes, true>(
+        sm, S, ray, (ray.time - ut_t0) * ut_idt, kTmin, best);
     if (kExt && best < kBig) {
 #pragma unroll
       for (int r = 0; r < kAttrRows; ++r) {
@@ -140,8 +146,10 @@ extern "C" {
 // (G, 2, T) float32 (ox, iterations), attrs_out (G, 24, T) float32 when
 // ext != 0 (else unused). G blocks of T lanes, at most K iterations.
 // Returns cudaGetLastError() after the launch (0 on success): a launch the
-// device refuses (T > 1024, or the table past a block's shared memory)
-// returns its error.
+// device refuses (T > kDenseMaxT, or the staged table past a block's
+// shared memory)
+// returns its error. The table's x and z motion lanes must be zero (the
+// slot loop lerps y only).
 int rtw_sweep_twin_launch(const float* soa, const float* attr, float* out,
                           float* attrs_out, int S, int T, int G, int K,
                           int ext, float ut_t0, float ut_idt, float inv_T,
@@ -150,7 +158,8 @@ int rtw_sweep_twin_launch(const float* soa, const float* attr, float* out,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * kLanes * (size_t)S;
+  const size_t smem =
+      sizeof(float) * slot_words(kTwinAxes, true) * (size_t)S;
   if (ext) {
     return (int)launch(sweep_twin_kernel<true>, G, T, smem, st, soa, attr,
                        out, attrs_out, S, K, ut_t0, ut_idt, inv_T);

@@ -7,7 +7,8 @@ git), at first use; the library's file name carries a hash of the
 sources, their shared headers (`csrc/*.cuh`) and the flags, so an edited
 source or header is rebuilt. A measurement build (the `-D` defines of
 tools/culled_ab.py's instrumented kernels, or another checkout's `csrc/`)
-builds its `megakernel.cu` alone into a library of its own. The library
+builds its `megakernel.cu` and `sweep_twin.cu` (K1-K5s and K8, which share
+the dense slot loop) alone into a library of its own. The library
 is loaded with ctypes: no torch.utils.cpp_extension, no ninja, nothing
 downloaded.
 The build needs the CUDA toolkit (`nvcc` on PATH or under
@@ -49,7 +50,7 @@ def _nvcc() -> str:
 def _sources(defines: tuple, csrc: Path) -> list:
     if not defines and Path(csrc) == CSRC:
         return sorted(CSRC.glob("*.cu"))
-    return [Path(csrc) / "megakernel.cu"]
+    return [Path(csrc) / "megakernel.cu", Path(csrc) / "sweep_twin.cu"]
 
 
 def _flags(defines: tuple) -> tuple:

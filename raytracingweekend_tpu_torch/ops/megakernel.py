@@ -123,6 +123,18 @@ OUT_ROWS = 8
 # exports both (rtw_culled_consts); `_kernel_lib` holds them to these.
 K_BCAST = 20
 CULLED_MAX_T = 512
+# The dense kernels' (K1-K4) overdraw tiles hold at most DENSE_MAX_T
+# lanes: their launch bounds (csrc/sweep.cuh kDenseMaxT). The library
+# exports each dense instantiation's limit (rtw_dense_consts);
+# `_kernel_lib` holds them to this.
+DENSE_MAX_T = 512
+# Moving-axis masks of the dense slot loop's instantiations (csrc/sweep.cuh
+# kAxesStatic, kAxisY, kAxesAll; bit a = axis a), and the (mask, uniform
+# shutter) forms each dense kernel is instantiated for, in the order of
+# rtw_dense_consts
+AXES_STATIC, AXIS_Y, AXES_ALL = 0, 2, 7
+DENSE_FORMS = ((AXES_STATIC, False), (AXIS_Y, True), (AXES_ALL, True),
+               (AXES_ALL, False))
 
 # CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
 # kernel: "K1" the dense sphere-only instantiations; "K2+K3" the launches
@@ -150,6 +162,17 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return torch.rsqrt(x)
     return (1.0 / torch.sqrt(x.double())).float()
+
+
+_F32_MIN_NORMAL = float(np.finfo(np.float32).tiny)
+
+
+def _rsqrt_ftz(x: torch.Tensor) -> torch.Tensor:
+    """`_rsqrt` of x with a subnormal x flushed to a zero of its sign
+    first, as the sphere sweeps' root (csrc/sweep.cuh slot_root,
+    rsqrt.approx.ftz) takes it: +inf (-inf) there, so a subnormal
+    discriminant is a miss."""
+    return _rsqrt(torch.where(x.abs() < _F32_MIN_NORMAL, x * 0.0, x))
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -867,8 +890,9 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     slots, or of 256 in exact mode (JAX's tape plan, whose winner codes
     are these slot numbers). `SB` overrides the cluster size. T defaults
     to 256 lanes; in overdraw mode it is the CUDA block size, so
-    T <= 1024. The TPU's 128-lane rounding and 512-lane floor do not
-    apply here.
+    T <= DENSE_MAX_T (512) or, culled, CULLED_MAX_T (512); exact mode
+    runs blocks of 256 and takes any T up to 1024. The TPU's 128-lane
+    rounding and 512-lane floor do not apply here.
 
     `cull` (auto: C > 1, as JAX's, whatever else the scene holds) takes
     a cluster-culled kernel: K5 on sphere-only scenes, K5s (the culled
@@ -930,6 +954,10 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
         raise ValueError(f"the culled kernels run blocks of at most "
                          f"{CULLED_MAX_T} lanes (128 registers a lane): "
                          f"T={T}")
+    if not cull and not exact and T > DENSE_MAX_T:
+        raise ValueError(f"the dense kernels run blocks of at most "
+                         f"{DENSE_MAX_T} lanes (their launch bounds): "
+                         f"T={T}")
     if dyn_order is None:
         dyn_order = 16 if plan.C >= 8 and not exact else 0
     if dyn_order < 0:
@@ -954,28 +982,54 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
 # Shared memory a block can use on an H100 (sm_90), and the float32 lanes
 # of each table row that the kernels copy there (csrc/megakernel.cu)
 SHARED_MAX = 232448
-_SMEM_LANES = dict(sweep=len(SWEEP_LANES), rect=RT_RIDX + 1,
+_SMEM_LANES = dict(rect=RT_RIDX + 1,
                    rect_tex=RT_IDB + 1, light=LT_RAD + 1, med=MD_ALBZ + 1,
                    med_tex=MD_IMG + 1, box=K_MAXZ + 1, noise=4 * 256)
 
 
+def sweep_axes(plan: MegaPlan) -> int:
+    """The moving-axis mask of the plan's slot loop (bit a: the centres
+    move along axis a), as the kernel is instantiated for it: AXES_STATIC,
+    AXIS_Y (book 1: centres moving along y only, under one shutter
+    window) or AXES_ALL for any other motion, which lerps static axes
+    exactly (fmaf(fr, 0, c) == c); a scene marked moving whose centres
+    stay put takes AXES_ALL too, as the kernel's moving forms did before
+    masks."""
+    mask = sum(1 << a for a, m in enumerate(plan.moving_axes) if m)
+    if mask == 0:
+        return AXES_ALL if plan.moving else AXES_STATIC
+    return AXIS_Y if mask == AXIS_Y and plan.uniform_time else AXES_ALL
+
+
+def slot_words(axes: int, uniform_time: bool) -> int:
+    """4-byte words a slot of the dense sweep's staged layout takes
+    (csrc/sweep.cuh slot_words): the (cx, cy, cz, nr2) quad, then the
+    motion lanes the slot loop reads: dcy alone (y only), or (dcx, dcy,
+    dcz, t0) and, without a uniform shutter, 1 / dt (all axes)."""
+    if axes == AXES_STATIC:
+        return 4
+    if axes == AXIS_Y:
+        return 5
+    return 8 if uniform_time else 9
+
+
 def shared_bytes(plan: MegaPlan) -> int:
     """Dynamic shared memory of the plan's launch, as the kernel lays it
-    out: the dense kernels hold the (9, S) sweep table, the culled ones
-    (with static spheres) two buffers of a cluster's SB centre quads for
-    each warp, then the (C, 6) cluster boxes and, in near-to-far order, C
-    bucket slots for each warp; the surfaces kernels then their rect,
-    light and medium rows, their codes, the image sizes and the Perlin
-    tables."""
+    out: the dense kernels hold the staged slots (`slot_words` a slot),
+    the culled ones (with static spheres) two buffers of a cluster's SB
+    centre quads for each warp, then the (C, 6) cluster boxes and, in
+    near-to-far order, C bucket slots for each warp; the surfaces kernels
+    then their rect, light and medium rows, their codes, the image sizes
+    and the Perlin tables."""
     n = _SMEM_LANES
     if plan.cull:
         warps = (256 if plan.exact else plan.T) // 32
         # the moving instantiations stage no quads
-        moving = plan.moving or any(plan.moving_axes)
+        moving = sweep_axes(plan) != AXES_STATIC
         words = ((0 if moving else warps * 2 * plan.SB * 4)
                  + plan.C * (n["box"] + (warps if plan.dyn_order else 0)))
     else:
-        words = n["sweep"] * plan.S
+        words = slot_words(sweep_axes(plan), plan.uniform_time) * plan.S
     if plan.surfaces:
         tex = plan.textures
         words += (plan.R * (n["rect_tex"] if tex else n["rect"])
@@ -1246,8 +1300,9 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         if guard is not None:
             disc = torch.where(guard, disc, 1.0)
         nb = nb64.float()
-        # disc < 0 and disc == 0 both give NaN: a miss
-        sq = disc * _rsqrt(disc)
+        # disc < 0 and disc == 0 both give NaN, a subnormal disc +inf (the
+        # flush): a miss
+        sq = disc * _rsqrt_ftz(disc)
         tf = (nb + sq).masked_fill_(~((nb + sq) > t_min), BIG)
         tn = nb - sq
         return torch.where(tn > t_min, tn, tf)
@@ -2082,9 +2137,10 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
                                    for h, w in plan.img_hw):
         raise ValueError(f"images {tuple(images.shape)} do not hold the "
                          f"plan's images {plan.img_hw}")
-    if not plan.exact and T > 1024:
-        raise ValueError(f"overdraw mode runs one tile per CUDA block: "
-                         f"T={T} > 1024")
+    limit = CULLED_MAX_T if plan.cull else DENSE_MAX_T
+    if not plan.exact and T > limit:
+        raise ValueError(f"overdraw mode runs one tile per CUDA block of "
+                         f"at most {limit} lanes: T={T}")
     if plan.cull and T % 32:
         raise ValueError(f"the culled kernel needs T % 32 == 0, got T={T}")
     lib = _kernel_lib() if lib is None else lib
@@ -2112,7 +2168,7 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
             -1 if plan.rr_depth is None else plan.rr_depth,
             n_img, img_h, img_w, plan.C, plan.SB, plan.dyn_order,
             int(plan.exact), int(plan.lens), int(plan.bg_gradient),
-            int(plan.moving or any(plan.moving_axes)), int(plan.uniform_time),
+            sweep_axes(plan), int(plan.uniform_time),
             int(plan.surfaces), int(plan.has_spheres), int(plan.textures),
             int(plan.cull),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
@@ -2134,13 +2190,14 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
 
 def _sweep_table(sph_tab: torch.Tensor, plan: MegaPlan) -> torch.Tensor:
     """The sphere slots as the kernel reads them. Dense: the (9, S) SoA
-    of SWEEP_LANES, copied to shared memory. Culled: (S, 4 Q) float32, Q
-    16-byte quads a slot read through the read-only path: (cx, cy, cz,
-    nr2), with moving spheres (dcx, dcy, dcz, 0), without a uniform
-    shutter (t0, 1/dt, 0, 0)."""
+    of SWEEP_LANES, which the kernel stages in shared memory in its own
+    layout (csrc/sweep.cuh: the lanes its slot loop reads). Culled: (S,
+    4 Q) float32, Q 16-byte quads a slot read through the read-only path:
+    (cx, cy, cz, nr2), with moving spheres (dcx, dcy, dcz, 0), without a
+    uniform shutter (t0, 1/dt, 0, 0)."""
     if not plan.cull:
         return sph_tab[:, list(SWEEP_LANES)].t().contiguous()
-    moving = plan.moving or any(plan.moving_axes)
+    moving = sweep_axes(plan) != AXES_STATIC
     q = 1 if not moving else (2 if plan.uniform_time else 3)
     quads = sph_tab.new_zeros((plan.S, 4 * q))
     quads[:, 0:4] = sph_tab[:, [C_CX, C_CY, C_CZ, C_NR2]]
@@ -2243,10 +2300,58 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _kernel_lib() -> ctypes.CDLL:
     """The built kernel library (ops/_build.py), bound. Raises if its
     culled kernels' constants (rtw_culled_consts) are not the ones the
-    plain version and `make_plan` use, K_BCAST and CULLED_MAX_T."""
+    plain version and `make_plan` use, K_BCAST and CULLED_MAX_T, or its
+    dense kernels' forms, staged slot words and block limits not
+    DENSE_FORMS, `slot_words` and DENSE_MAX_T (check_dense_consts)."""
     lib = bind(_build.load())
     check_culled_consts(lib)
+    check_dense_consts(lib)
     return lib
+
+
+def dense_consts(lib) -> list:
+    """`lib`'s dense kernel forms (rtw_dense_consts): one (axes, uniform
+    shutter, staged slot words, block limit of the sphere kernel, of the
+    surfaces kernel, of the textured surfaces kernel) a form. Raises if
+    the library has another number of forms than DENSE_FORMS or a CUDA
+    error."""
+    n = len(DENSE_FORMS)
+    got = (ctypes.c_int * (6 * n))()
+    rc = lib.rtw_dense_consts(got, n)
+    if rc != n:
+        raise RuntimeError(f"rtw_dense_consts returned {rc}, not {n} forms"
+                           + (f" (CUDA error {-rc})" if rc < 0 else ""))
+    return [tuple(got[6 * i:6 * i + 6]) for i in range(n)]
+
+
+def dense_max_threads(lib) -> dict:
+    """`lib`'s dense kernels' block limits (CUDA's maxThreadsPerBlock of
+    each instantiation) by kernel: {"spheres": [one a DENSE_FORMS form],
+    "surfaces": [the forms without textures, then with]}."""
+    rows = dense_consts(lib)
+    return {"spheres": [r[3] for r in rows],
+            "surfaces": [r[4] for r in rows] + [r[5] for r in rows]}
+
+
+def check_dense_consts(lib) -> None:
+    """Raise RuntimeError unless `lib`'s dense kernels are instantiated
+    for DENSE_FORMS, in that order, stage `slot_words` a slot (what
+    `shared_bytes` counts) and take blocks of exactly DENSE_MAX_T lanes
+    for their kernel (the limit `make_plan` holds overdraw tiles to)."""
+    rows = dense_consts(lib)
+    forms = [(a, bool(u)) for a, u, *_ in rows]
+    words = [w for _, _, w, *_ in rows]
+    if forms != list(DENSE_FORMS) or words != [
+            slot_words(a, u) for a, u in DENSE_FORMS]:
+        raise RuntimeError(f"the kernel library's dense forms {forms} "
+                           f"stage {words} words a slot, the plan's "
+                           f"DENSE_FORMS {list(DENSE_FORMS)} "
+                           f"{[slot_words(a, u) for a, u in DENSE_FORMS]}")
+    for kind, limits in dense_max_threads(lib).items():
+        if set(limits) != {DENSE_MAX_T}:
+            raise RuntimeError(f"the kernel library's dense {kind} kernels "
+                               f"take at most {limits} lanes a block, "
+                               f"DENSE_MAX_T = {DENSE_MAX_T}")
 
 
 def check_culled_consts(lib) -> None:

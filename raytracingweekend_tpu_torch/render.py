@@ -310,7 +310,8 @@ def main(argv=None):
                         "= lockstep")
     p.add_argument("--tile-lanes", type=int, default=256,
                    help="megakernel tile width: lanes per CUDA block "
-                        "(at most 1024)")
+                        "in overdraw mode, at most 512 (the kernels' "
+                        "launch bounds); exact mode takes up to 1024")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda launches the CUDA kernel, cpu "
                         "runs its plain PyTorch version")

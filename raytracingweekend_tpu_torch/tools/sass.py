@@ -1,0 +1,139 @@
+"""The SASS of a kernel library build (ops/_build.py): each megakernel,
+sweep twin, microbenchmark and Mosaic repro instantiation's name, its
+registers, spills and stack from nvcc's ptxas report, and the sphere
+sweeps' slot loops, counted instruction by instruction (`cuobjdump -sass`
+from the CUDA toolkit beside nvcc). chip_smoke.py's phase 2 prints them
+for the kernels' build; tools/culled_ab.py for each build it times.
+"""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+
+from ..ops import _build
+
+
+def kernel_name(mangled: str):
+    """'<kAxes,kUniformTime>', 'surfaces<kAxes,kUniformTime,kTex>',
+    'culled<kMoving,kUniformTime>' or
+    'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
+    mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
+    instantiation (kAxes: the dense slot loop's moving-axis mask,
+    mk.sweep_axes), 'twin<kExt>' of the sweep twin's (K8),
+    'k9<body,unit>' of the microbenchmark's (K9) and 'repro:<name>' of the
+    Mosaic repros' (K10-K14), else None."""
+    repro = re.search(r"repro_(\w+?)_kernel(?:IL[bi](\d+)E)?", mangled)
+    if repro:
+        return (f"repro:{repro.group(1)}"
+                + (f"<{repro.group(2)}>" if repro.group(2) else ""))
+    twin = re.search(r"sweep_twin_kernelILb(\d)E", mangled)
+    if twin:
+        return f"twin<{twin.group(1)}>"
+    bench = re.search(r"microbench_kernelILi(\d)ELi(\d)E", mangled)
+    if bench:
+        return f"k9<{bench.group(1)},{bench.group(2)}>"
+    m = re.search(
+        r"mega_kernel(_surfaces|_culled_surfaces|_culled)?I((?:L[ib]\d+E)+)E",
+        mangled)
+    if not m:
+        return None
+    args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+    return f"{(m.group(1) or '_')[1:]}<{args}>"
+
+
+def sweep_sass(lib: str) -> dict:
+    """SASS instructions per sphere slot of each megakernel and sweep twin
+    instantiation's sweep loop (`cuobjdump -sass` of the built library):
+    the innermost loop with the most MUFU.RSQ (one per slot; nvcc unrolls
+    the sweep) and no warp vote (the culled kernel's cluster visits vote;
+    its slot loops do not), from its branch target to its backward
+    branch. A culled kernel has two: the broadcast loop, inside the visit
+    loop (which ballots), and the compacted one, inside the loop over the
+    needing lanes (which reduces with REDUX and does not ballot), listed as
+    '<name> compacted'.
+    Returns {name: (instructions, slots, FFMA, FMUL, FADD, LDS)} (LDS:
+    the shared-memory loads), the compacted loops with a seventh item: the
+    instructions of the needing-lane loop outside its slot loops
+    (shuffles, REDUX, merge). Split FMUL / FADD pairs where the plain
+    version fuses show as FMUL and FADD counts above the culled sphere
+    kernel's."""
+    return slot_loops(cuobjdump(lib))
+
+
+def cuobjdump(lib: str) -> str:
+    """`cuobjdump -sass` of the library at `lib` (the toolkit's, beside
+    nvcc)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def slot_loops(text: str) -> dict:
+    """`sweep_sass` of the SASS listing `text`."""
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(func.split(None, 1)[0])
+        if name is None or name.startswith(("k9", "repro:")):
+            continue
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
+        addr = {a: k for k, (a, _) in enumerate(ins)}
+        loops = []
+        for k, (a, op) in enumerate(ins):
+            br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
+            if br and int(br.group(1), 16) <= a:
+                loops.append((addr[int(br.group(1), 16)], k))
+
+        def has(a, b, pat):
+            return any(re.match(pat, op) for _, op in ins[a:b + 1])
+
+        def outer(a, b):
+            """The smallest loop around (a, b), or None."""
+            return min(((c, d) for c, d in loops
+                        if c <= a and b <= d and (c, d) != (a, b)),
+                       key=lambda cd: cd[1] - cd[0], default=None)
+
+        def pick(cands):
+            return max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]),
+                         b - a + 1, a) for a, b in cands), default=(0, 0, 0))
+
+        def counts(best):
+            ops = [op.split()[0] for _, op in ins[best[2]:best[2] + best[1]]
+                   if op.split()]
+            return (best[1], best[0],
+                    *(sum(o.startswith(k) for o in ops)
+                      for k in ("FFMA", "FMUL", "FADD", "LDS")))
+
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)
+                 and not has(a, b, r"(VOTE|REDUX)")]
+        compact = [(a, b) for a, b in inner
+                   if (o := outer(a, b)) and has(*o, r"REDUX")
+                   and not has(*o, r"VOTE")]
+        out[name] = counts(pick([lp for lp in inner if lp not in compact]))
+        if compact:
+            best = pick(compact)
+            o = outer(best[2], best[2] + best[1] - 1)
+            lane = (o[1] - o[0] + 1) - sum(
+                b - a + 1 for a, b in inner if o[0] <= a and b <= o[1])
+            out[f"{name} compacted"] = (*counts(best), lane)
+    return out
+
+
+def registers(log: str) -> dict:
+    """{instantiation: (registers, spill store bytes, stack bytes)} from
+    nvcc's ptxas report `log` (-Xptxas -v; None where it says nothing)."""
+    rows = {}
+    for m in re.finditer(r"Compiling entry function '([^']*)'(.*?)Used "
+                         r"(\d+) registers", log, re.S):
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        stack = re.search(r"(\d+) bytes stack frame", m.group(2))
+        name = kernel_name(m.group(1)) or (
+            f"k7<{int('ILb1E' in m.group(1))}>"
+            if "hit_spheres_kernel" in m.group(1) else m.group(1))
+        rows[name] = (int(m.group(3)),
+                      int(spill.group(1)) if spill else None,
+                      int(stack.group(1)) if stack else None)
+    return rows

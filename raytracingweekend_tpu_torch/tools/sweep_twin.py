@@ -2,11 +2,12 @@
 
 The port of tools/sweep_twin.py, a ceiling instrument for the book-1
 megakernel. It runs only the sweep, with the port's book-1 plan (the (9, S)
-sphere SoA that K1 stages in shared memory, S = 488 at T = 256 lanes a
-tile), K1's slot loop, and the tool's serial bounce dependency: each
-iteration's rays come from the last sweep's t (the tool's coupling
-stand-in, :116-126), and the loop runs while it < K and any lane of the
-block hit. So its time is a floor for K1's, and "K1 - twin" is what
+sphere SoA, staged in shared memory as K1 stages it, S = 488 at T = 256
+lanes a tile), the slot loop of K1's book-1 instantiation (centres moving
+along y only, one shutter window), and the tool's serial bounce
+dependency: each iteration's rays come from the last sweep's t (the
+tool's coupling stand-in, :116-126), and the loop runs while it < K and
+any lane of the block hit. So its time is a floor for K1's, and "K1 - twin" is what
 shading, RNG, regeneration and tile tails really cost on the card.
 
     python -m raytracingweekend_tpu_torch.tools.sweep_twin [--iters 200]
@@ -61,9 +62,9 @@ VARIANTS = ("quad", "ext")
 # (FMA = 2; compares, min / max and selects not counted): a slot's
 # quadratic and root (co 3, nb 5, cc 6, disc 2, rsqrt, sq, tn / tf 2) and
 # a motion FMA for each axis along which the plan's centres move (book-1:
-# y only; K1's loop also runs the x and z ones, on zero deltas), and a
-# lane-iteration's motion fraction 2 plus the coupling 16 (five FMAs and
-# their five products, the time step)
+# y only, as the slot loop lerps), and a lane-iteration's motion fraction
+# 2 plus the coupling 16 (five FMAs and their five products, the time
+# step)
 OPS_SLOT_STATIC = 20
 OPS_AXIS_MOTION = 2
 OPS_LANE_ITER = 18
@@ -77,12 +78,14 @@ KERNEL_LAUNCHES = {"K8": 0}
 def book1_inputs(device) -> tuple:
     """The port's book-1 plan (random_balls, 1200x800, 64 spp, depth 50):
     (soa (9, S) float32, attr (24, S) float32, plan) on `device`; soa holds
-    the sweep lanes (ops/megakernel.py SWEEP_LANES) as K1 stages them."""
+    the sweep lanes (ops/megakernel.py SWEEP_LANES) that K1 stages."""
     scene = make_scene("random_balls", NX / NY)
     tabs, plan = mk.make_plan(scene, NX, NY, SPP, max_depth=DEPTH)
-    if not plan.uniform_time or plan.cull or plan.surfaces:
+    if (not plan.uniform_time or plan.cull or plan.surfaces
+            or mk.sweep_axes(plan) != mk.AXIS_Y):
         raise ValueError("the twin needs the book-1 plan: one dense "
-                         "cluster, one shutter window")
+                         "cluster, one shutter window, centres moving "
+                         "along y only")
     sph, attr = tabs[0], tabs[1]
     soa = np.ascontiguousarray(sph[:, list(mk.SWEEP_LANES)].T)
     return (torch.from_numpy(soa).to(device),
@@ -113,16 +116,16 @@ def initial_rays(T: int, device) -> tuple:
 def slot_t(col: torch.Tensor, rays: tuple, fr: torch.Tensor) -> torch.Tensor:
     """K1's hit distance of each ray against each slot of col (9, B): (T, B)
     float32, BIG where the slot is missed. rays are (T, 1) columns and fr
-    the rays' motion fraction; the quadratic takes |d| = 1, as K1's."""
+    the rays' motion fraction; the centres move along y only and the
+    quadratic takes |d| = 1, as K1's book-1 instantiation."""
     ox, oy, oz, dx, dy, dz = rays[:6]
-    cx = _fma(fr, col[3], col[0])
+    cx, cz = col[0], col[2]
     cy = _fma(fr, col[4], col[1])
-    cz = _fma(fr, col[5], col[2])
     cox, coy, coz = cx - ox, cy - oy, cz - oz
     nb = _fma(coz, dz, _fma(cox, dx, coy * dy))
     cc = _fma(cox, cox, _fma(coy, coy, _fma(coz, coz, col[8])))
     disc = _fma(nb, nb, -cc)
-    sq = disc * mk._rsqrt(disc)         # NaN where disc <= 0: a miss
+    sq = disc * mk._rsqrt_ftz(disc)     # NaN where disc <= 0: a miss
     tn, tf = nb - sq, nb + sq
     big = torch.full_like(tn, BIG)
     return torch.where(tn > T_MIN, tn, torch.where(tf > T_MIN, tf, big))
@@ -184,10 +187,14 @@ def sweep_twin_reference(soa: torch.Tensor, attr: torch.Tensor, T: int,
 
 
 def sweep_twin_kernel(soa: torch.Tensor, attr: torch.Tensor, T: int, G: int,
-                      K: int, ut_t0: float, ut_idt: float, ext: bool):
+                      K: int, ut_t0: float, ut_idt: float, ext: bool,
+                      lib: ctypes.CDLL | None = None):
     """Launch csrc/sweep_twin.cu on the current CUDA stream. Same arguments
-    and result as `sweep_twin_reference`. Raises on a CPU tensor, a wrong
-    shape or dtype, a failed build and a refused launch."""
+    and result as `sweep_twin_reference`; soa's x and z motion lanes must
+    be zero (`book1_inputs`). `lib`, another build's library passed
+    through `bind` (tools/culled_ab.py --parent), replaces the kernels'
+    own. Raises on a CPU tensor, a wrong shape or dtype, a failed build
+    and a refused launch."""
     S = soa.shape[-1]
     for name, t, shape in (("soa", soa, (len(mk.SWEEP_LANES), S)),
                            ("attr", attr, (A_ROWS, S))):
@@ -205,7 +212,7 @@ def sweep_twin_kernel(soa: torch.Tensor, attr: torch.Tensor, T: int, G: int,
     out = torch.empty((G, 2, T), dtype=torch.float32, device=soa.device)
     attrs = (torch.empty((G, A_ROWS, T), dtype=torch.float32,
                          device=soa.device) if ext else out)
-    lib = _kernel_lib()
+    lib = _kernel_lib() if lib is None else lib
     with torch.cuda.device(soa.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rtw_sweep_twin_launch(
@@ -283,7 +290,12 @@ def bound_ms(S: int, T: int, G: int, iters: float,
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     """The built kernel library (ops/_build.py) with K8's argtypes."""
-    lib = _build.load()
+    return bind(_build.load())
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build holding csrc/sweep_twin.cu, ops/_build.py) with the
+    argtypes and restype of K8's launch and error entry points."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rtw_sweep_twin_launch.argtypes = [p, p, p, p, i, i, i, i, i, f, f, f,
                                           p]

@@ -19,8 +19,9 @@ class RenderConfig:
     # "tiled", "while", "scan", "mega" (the fused megakernel) or "auto"
     # (mega where the megakernel covers the scene, else regen).
     loop_mode: str = "regen"
-    # Megakernel tile width: lanes per CUDA block in overdraw mode (at most
-    # 1024, the block limit).
+    # Megakernel tile width: lanes per CUDA block in overdraw mode, at most
+    # 512, the kernels' launch bounds (ops/megakernel.py DENSE_MAX_T and
+    # CULLED_MAX_T); exact mode takes up to 1024.
     tile_lanes: int = 256
     # Torch device the render runs on ("cuda" launches the CUDA kernel,
     # "cpu" runs its plain PyTorch version).

@@ -105,16 +105,21 @@ def test_make_plan_auto_rules_match_jax(n, exact):
 
 
 def test_make_plan_refusals():
-    """The dense sweep of random_balls_huge (S = 14464, 36 B a slot) does
-    not fit the 227 KB of shared memory a block can use: the plan says so
-    instead of a refused launch. A scene with rects culls too (the culled
-    surfaces kernel, K5s), and the culled kernels vote per warp."""
+    """The dense sweep stages a static slot in 16 B: random_balls_huge's
+    (S = 14464, 231,424 B) fits the 227 KB of shared memory a block can
+    use, random_balls_large at n = 122 (S = 14976, 239,616 B) does not,
+    and the plan says so instead of a refused launch. A scene with rects
+    culls too (the culled surfaces kernel, K5s), and the culled kernels
+    vote per warp."""
     _, huge = _scenes("random_balls_huge")
     _, plan = tk.make_plan(huge, 64, 64, 4)
     assert plan.cull and plan.C == 113 and plan.S == 14464
     assert tk.shared_bytes(plan) < tk.SHARED_MAX
+    _, dense = tk.make_plan(huge, 64, 64, 4, cull=False)
+    assert tk.shared_bytes(dense) == 16 * 14464 <= tk.SHARED_MAX
+    wider = make_scene("random_balls_large", 1.0, n=122)
     with pytest.raises(ValueError, match="232448"):
-        tk.make_plan(huge, 64, 64, 4, cull=False)
+        tk.make_plan(wider, 64, 64, 4, cull=False)
     _, plan = tk.make_plan(make_scene("cornell_box", 1.0), 8, 8, 1,
                            cull=True)
     assert plan.cull and plan.surfaces and plan.C == 1

@@ -70,6 +70,88 @@ def test_kernel_matches_plain_version_on_card(exact, name):
         assert close.float().mean().item() >= 0.99
 
 
+def _mask_scene(name):
+    """A sphere-only scene for each slot-loop mask: static (dielectric,
+    and random_balls_large(n=16) swept densely, 264 slots), y only
+    (random_balls), all axes with per-slot shutters (the probe
+    `shutter`)."""
+    if name == "random_balls_large":
+        return make_scene(name, 1.0, n=16)
+    return _scene(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,axes", [("dielectric", 0),
+                                       ("random_balls_large", 0),
+                                       ("random_balls", 2), ("shutter", 7)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_dense_masks_match_plain_version_on_card(exact, name, axes):
+    """Each instantiation of the dense slot loop (static, y only, all
+    axes) against the plain version on the same tensors: exact mode's
+    tapes on >= 99% of lanes and their radiance; overdraw's rows 0-5 on
+    >= 99% of lanes, rows 6-7 exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = _mask_scene(name)
+    _, plan = tk.make_plan(scene, 64, 64, 4, max_depth=8, exact=exact,
+                           cull=False)
+    assert tk.sweep_axes(plan) == axes and not plan.surfaces
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    valid = args[0][:, 2] > 0
+    before = tk.KERNEL_LAUNCHES["K1"]
+    out_k = tk.mega_kernel(*args, 4242, plan)
+    assert tk.KERNEL_LAUNCHES["K1"] == before + 1
+    out_r = tk.trace_mega_reference(*args, 4242, plan)
+    torch.cuda.synchronize()
+    if exact:
+        same = (out_k[:, 8:] == out_r[:, 8:]).all(dim=1) & valid
+        assert same.sum().item() >= 0.99 * valid.sum().item()
+        a = out_k[:, 0:3].transpose(1, 2)[same]
+        b = out_r[:, 0:3].transpose(1, 2)[same]
+        assert torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+    else:
+        close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                              atol=ATOL).all(dim=1)[valid]
+        assert close.float().mean().item() >= 0.99
+        assert torch.equal(out_k[:, 6:8], out_r[:, 6:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind", [("random_balls", "spheres"),
+                                       ("cornell_box", "surfaces"),
+                                       ("earth", "surfaces")])
+def test_widest_dense_tile_matches_plain_version_on_card(name, kind):
+    """ROADMAP F3: every dense instantiation of the library takes blocks
+    of exactly DENSE_MAX_T lanes (its launch bounds); at that width an
+    overdraw launch of K1 (random_balls) and of K2-K4 (cornell_box,
+    earth), 512 lanes, agrees with its plain version, and T = 1024 and
+    DENSE_MAX_T + 32 raise ValueError in make_plan and trace_mega before
+    any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    assert set(tk.dense_max_threads(tk._kernel_lib())[kind]) == {
+        tk.DENSE_MAX_T}
+    scene = make_scene(name, 1.5)
+    top = tk.DENSE_MAX_T
+    for T in (1024, top + 32):
+        before = dict(tk.KERNEL_LAUNCHES)
+        with pytest.raises(ValueError, match=f"at most {top} lanes"):
+            tk.make_plan(scene, 96, 64, 4, max_depth=8, T=T)
+        with pytest.raises(ValueError, match=f"at most {top} lanes"):
+            tk.trace_mega(1, scene, 96, 64, 4, max_depth=8, T=T)
+        assert tk.KERNEL_LAUNCHES == before
+    _, plan = tk.make_plan(scene, 96, 64, 4, max_depth=8, T=top)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    out_k = tk.mega_kernel(*args, 777, plan)
+    out_r = tk.trace_mega_reference(*args, 777, plan)
+    torch.cuda.synchronize()
+    assert out_k.shape[2] == top
+    valid = args[0][:, 2] > 0
+    close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                          atol=ATOL).all(dim=1)[valid]
+    assert close.float().mean().item() >= 0.99
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["random_balls_large", "random_balls_huge"])
 @pytest.mark.parametrize("exact", [True, False])
@@ -233,14 +315,14 @@ def test_culled_surfaces_kernel_equals_dense_kernel(variant, exact,
 @pytest.mark.cuda
 def test_refused_launch_raises():
     """A dense sweep table past the card's 227 KB of shared memory per
-    block (random_balls_huge: 9 lanes x 4 bytes x 14464 slots) is refused
-    by CUDA, and the wrapper raises instead of returning an unwritten
-    output; `make_plan` refuses such a plan before any launch. A culled
-    surfaces plan with a bad C, SB or T raises too."""
+    block (random_balls_large at n = 122: 16 bytes x 14976 static slots)
+    is refused by CUDA, and the wrapper raises instead of returning an
+    unwritten output; `make_plan` refuses such a plan before any launch. A
+    culled surfaces plan with a bad C, SB or T raises too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import dataclasses
-    scene = make_scene("random_balls_huge", 1.0)
+    scene = make_scene("random_balls_large", 1.0, n=122)
     with pytest.raises(ValueError, match="shared memory"):
         tk.make_plan(scene, 8, 8, 1, cull=False)
     _, plan = tk.make_plan(scene, 8, 8, 1)
@@ -453,6 +535,7 @@ def test_sweep_twin_kernel_matches_plain_version_on_card(variant):
         pytest.skip("needs an NVIDIA GPU")
     from raytracingweekend_tpu_torch.tools import sweep_twin as tw
     soa, attr, plan = tw.book1_inputs("cuda")
+    assert tk.sweep_axes(plan) == tk.AXIS_Y   # K1's book-1 instantiation
     args = (soa, attr, plan.T, 16, 4, plan.ut_t0, plan.ut_idt,
             variant == "ext")
     before = tw.KERNEL_LAUNCHES["K8"]
@@ -500,9 +583,9 @@ def test_microbench_kernel_matches_plain_version_on_card(name, body, unit):
 @pytest.mark.cuda
 def test_tool_kernels_raise_on_refused_launches():
     """A launch the card refuses raises, and leaves no error behind: K8
-    past 1024 lanes a block or with a table past a block's 227 KB of
-    shared memory (9 x 4 x 7000 bytes), K9 with an accumulator past it
-    (S = 4096: 256 KB)."""
+    past 1024 lanes a block or with a staged table past a block's 227 KB
+    of shared memory (20 bytes x 12000 slots), K9 with an accumulator
+    past it (S = 4096: 256 KB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from raytracingweekend_tpu_torch.tools import dot_microbench as dm
@@ -510,9 +593,9 @@ def test_tool_kernels_raise_on_refused_launches():
     soa, attr, plan = tw.book1_inputs("cuda")
     with pytest.raises(RuntimeError, match="launch failed"):
         tw.sweep_twin_kernel(soa, attr, 2048, 1, 1, 0.0, 1.0, False)
-    big = torch.ones((9, 7000), device="cuda")
+    big = torch.ones((9, 12000), device="cuda")
     with pytest.raises(RuntimeError, match="launch failed"):
-        tw.sweep_twin_kernel(big, torch.zeros((24, 7000), device="cuda"),
+        tw.sweep_twin_kernel(big, torch.zeros((24, 12000), device="cuda"),
                              64, 1, 1, 0.0, 1.0, True)
     tab = torch.zeros((4096, 16), device="cuda")
     with pytest.raises(RuntimeError, match="launch failed"):
