@@ -33,8 +33,9 @@ spheres) 1200x800x32 a launch and n = 120 (14405) x16, depth 50, through
 render(loop_mode="auto") (kernel K5s: the culled sweep ahead of the rects,
 media and textures), held to the dense surfaces kernel bit for bit at
 n = 60. Each kernel is held to its plain version at its path's full launch
-shape. Then the wavefront path (kernel K7, the closest sphere hit): K7
-against its plain version on the rays of the first regen iterations of
+shape. Then the wavefront path (kernel K7, the closest sphere hit): K7's
+registers, spills and slot loop SASS a ray-slot pair, and K7 against its
+plain version bit for bit on the rays of the first regen iterations of
 `random_balls`, `random_balls_large` and `random_balls_huge` (N = 524,288
 rays), the path-regenerative wavefront on `random_balls` at 1200x800, 8
 spp, max_depth 50 (timed, with K7's share), the other wavefront paths
@@ -55,11 +56,13 @@ variants at the book-1 launch's width, held to its plain version bit for
 bit, its implied ceiling beside K1's segments/s and its slot loop's SASS
 beside K1's) and the dot-formulation microbenchmark (kernel K9, every row
 of the tool at S = 512, T = 2048 with its torch.matmul yardstick, held to
-its plain version). Then the Mosaic repros (raytracingweekend_tpu_torch/
-tools/mosaic_repros, kernels K10-K14 in csrc/mosaic_repros.cu): every one
-of their ten formulations at its repro's shapes, held to its plain
-version, each pair's forms to each other and K13's probes to the repro's
-expected arrays, with K10's I2F counts from the build; and the sixth
+its plain version, its registers and spills). Then the Mosaic repros
+(raytracingweekend_tpu_torch/tools/mosaic_repros, kernels K10-K14 in
+csrc/mosaic_repros.cu): every one of their ten formulations at its
+repro's shapes, held to its plain version, each pair's forms to each
+other and K13's probes to the repro's expected arrays, with K10's I2F
+counts from the build and the spread of K11's two forms against
+torch.mul on the device clock over several profiles; and the sixth
 repro, the port's tiled integrator at the T = 32768 tile the TPU faults on
 (random_balls 1200x800, 16 spp, depth 8), against T = 65536.
 It prints one line per phase and each phase's seconds.
@@ -142,7 +145,8 @@ SEED = 20240601
 WNX, WNY, WSPP, WDEPTH = 1200, 800, 8, 50
 K7_SCENES = ("random_balls", "random_balls_large", "random_balls_huge")
 K7_ITERS = 3
-K7_RTOL = 1e-4
+# K7's staged forms (kAxes, kUniform), one instantiation each
+K7_FORMS = ((0, 1), (2, 1), (7, 1), (7, 0))
 # FP32 operations per (ray, slot) pair of K7, counted from
 # csrc/intersect.cu as below (they equal the JAX kernel's cost estimate,
 # pallas_intersect.py:156-160): co 3, b 5, cc 6, disc 3, sqrt 1, tn / tf 4;
@@ -245,6 +249,8 @@ FP32_PEAK = 67e12             # H100 SXM, outside the tensor cores
 # K9 at K9_CHECK steps, both at their paths' widths
 K8_CHECK = 4
 K9_S, K9_T, K9_N, K9_REPS, K9_CHECK = 512, 2048, 64, 5, 8
+# K11's spread against torch.mul: device-clock profiles a form
+K11_ROUNDS = 5
 MATERIALS = ("lambertian", "metal", "dielectric", "light")
 # what the culled kernels' (K5, K5s) sweep does, for the kernels line
 REDESIGN = (f"a cluster swept only for the lanes whose rays need it, "
@@ -256,6 +262,19 @@ REDESIGN_DENSE = ("slots staged in shared memory as a 16-byte quad and only "
                   "specialised on that mask, a one-compare hit test, "
                   f"launch bounds of {mk.DENSE_MAX_T} lanes")
 
+# what K7 and K9 do since their redesign
+REDESIGN_K7 = ("slots staged in shared memory as a 16-byte quad (r^2 = -inf "
+               "on inactive slots) and only the table's motion lanes, the "
+               "motion fraction once a ray under one shutter window, the "
+               "exact root without sqrt.rn's range check, rays "
+               "register-blocked a thread, "
+               "long tables streamed by cp.async, rays read in place")
+REDESIGN_K9 = ("8 columns a block of 16 warps (every SM, 32 warps an SM), "
+               "parity buffers for fewer block barriers a step, mma.sync "
+               "tensor-core tiles with register-held A fragments, the FP32 "
+               "extract's sums split over the warps in a fixed order, "
+               "minmask's columns on two warps each, joined by a named "
+               "barrier")
 
 # nvidia-smi's name and power limit of the card, set by phase 1
 DEVICE_LINE = ""
@@ -911,155 +930,108 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
                 bound_ms=bound, segments=segments)
 
 
-def k7_sass(lib: str) -> dict:
-    """K7's slot loop in the SASS of the built library, per instantiation
-    (`moving` / `static`): the innermost loop with the most MUFU.RSQ (one
-    per slot: sqrtf's reciprocal-square-root seed), its instructions per
-    slot and its FFMA / FMUL / FADD per slot. {name: dict}."""
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    out = {}
-    for func in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.search(r"hit_spheres_kernelILb(\d)E", func.split(None, 1)[0])
-        if not m:
-            continue
-        ins = [(int(a, 16), op) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
-        addr = {a: k for k, (a, _) in enumerate(ins)}
-        loops = [(addr[int(br.group(1), 16)], k)
-                 for k, (a, op) in enumerate(ins)
-                 for br in [re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)]
-                 if br and int(br.group(1), 16) <= a
-                 and int(br.group(1), 16) in addr]
-        best = None
-        for a, b in loops:
-            body = [op for _, op in ins[a:b + 1]]
-            slots = sum("MUFU.RSQ" in op for op in body)
-            if slots and (best is None or slots > best[0]):
-                best = (slots, body)
-        if best is None:
-            continue
-        slots, body = best
-        count = {k: sum(op.split()[0].startswith(k) for op in body
-                        if op.split()) / slots
-                 for k in ("FFMA", "FMUL", "FADD")}
-        out["moving" if m.group(1) == "1" else "static"] = dict(
-            sass_per_slot=len(body) / slots, slots_unrolled=slots, **count)
-    return out
-
-
 def k7_build_report() -> dict:
-    """Registers and spills of K7's instantiations (ptxas) and its slot
-    loop's SASS."""
-    regs = {}
-    for m in re.finditer(r"Compiling entry function '([^']*hit_spheres_"
-                         r"kernel[^']*)'(.*?)Used (\d+) registers",
-                         _build.build_log(), re.S):
-        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
-        kind = "moving" if "ILb1E" in m.group(1) else "static"
-        regs[kind] = (int(m.group(3)), int(spill.group(1)) if spill else -1)
-    loops = k7_sass(str(_build.library_path()))
-    print(f"phase 13a K7 build: registers, spill bytes {regs}; slot loop "
+    """Registers and spills of K7's instantiations (ptxas), its slot
+    loop's SASS a ray-slot pair (tools/sass.py k7_loops) and its staging
+    constants."""
+    regs = {k: v for k, v in sass.registers(_build.build_log()).items()
+            if k.startswith("k7")}
+    loops = sass.k7_loops(sass.cuobjdump(str(_build.library_path())))
+    consts = k7.k7_consts()
+    print(f"phase 13a K7 build: {consts['rays']} rays a thread, "
+          f"{consts['threads']} threads a block, {consts['chunk']} slots a "
+          f"streamed chunk; registers, spill and stack bytes "
+          f"{json.dumps(regs)}; slot loop a ray-slot pair "
           f"{json.dumps(loops)}", flush=True)
-    if set(regs) != {"moving", "static"}:
-        fail("K7's two instantiations are not in the build log")
-    return dict(regs=regs, sass=loops)
+    forms = {f"k7<{a},{u}>" for a, u in K7_FORMS}
+    if set(regs) != forms or set(loops) != forms:
+        fail("K7's four instantiations are not in the build log and SASS")
+    if any(sp for _, sp, _ in regs.values()):
+        fail("K7 spills")
+    return dict(regs=regs, sass=loops, **consts)
 
 
 def _capture_regen_rays(scene, n_iters: int) -> list:
     """The (o, d, time) K7 gets in the first n_iters iterations of a regen
     launch at the main path's shape (copies; the launch stops there)."""
-    got = []
-    orig = geometry.hit_spheres
-
-    class _Enough(Exception):
-        pass
-
-    def record(o, d, time, ds, t_min=geometry.T_MIN):
-        got.append((o.clone(), d.clone(), time.clone()))
-        if len(got) >= n_iters:
-            raise _Enough
-        return orig(o, d, time, ds, t_min)
-
-    geometry.hit_spheres = record
-    try:
-        render(scene, RenderConfig(nx=WNX, ny=WNY, spp=WSPP,
-                                   samples_per_launch=WSPP,
-                                   max_depth=WDEPTH, seed=2,
-                                   loop_mode="regen", device="cuda"))
-    except _Enough:
-        pass
-    finally:
-        geometry.hit_spheres = orig
-    return got
+    return culled_ab.capture_regen_rays(scene, n_iters, WNX, WNY, WSPP,
+                                        WDEPTH)
 
 
-def k7_bound_ms(n: int, S: int, axes: int) -> tuple[float, str]:
+def k7_bound_ms(n: int, S: int, axes: int,
+                uniform: bool) -> tuple[float, str]:
     """Least time of one K7 call: every ray against every slot (no early
-    exit), OPS_K7_PAIR operations a pair (and the motion of centres moving
-    along `axes` axes) over the FP32 peak, against its bytes (7 floats a
-    ray and 12 a slot read, 8 bytes a ray written) over the memory rate."""
-    pair = OPS_K7_PAIR + (OPS_SLOT_SHUTTER + OPS_AXIS_MOTION * axes
-                          if axes else 0)
-    ops_ms = n * S * pair / FP32_PEAK * 1e3
-    bytes_ms = ((7 * n + 12 * S) * 4 + 8 * n) / HBM_PEAK * 1e3
+    exit), OPS_K7_PAIR operations a pair and the motion of centres moving
+    along `axes` axes (a motion FMA an axis a pair; the motion fraction a
+    pair, or once a ray when every slot shares one shutter window,
+    `uniform`) over the FP32 peak, against its bytes (7 floats a ray and
+    12 a slot read, 12 bytes a ray written: best_t and the int64 best_i)
+    over the memory rate."""
+    pair = OPS_K7_PAIR + OPS_AXIS_MOTION * axes
+    ops = n * S * pair
+    if axes:
+        ops += OPS_SLOT_SHUTTER * (n if uniform else n * S)
+    ops_ms = ops / FP32_PEAK * 1e3
+    bytes_ms = ((7 * n + 12 * S) * 4 + 12 * n) / HBM_PEAK * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
 def phase_k7_vs_plain() -> list:
     """K7 against its plain version on the rays of the first K7_ITERS
-    regen iterations of each K7 scene at the main path's shape: indices
-    equal on every hitting ray, t to rtol K7_RTOL; kernel, plain and bound
-    ms per call."""
+    regen iterations of each K7 scene at the main path's shape, bit for
+    bit (best_t and best_i of every ray, every call); kernel, plain and
+    bound ms per call (the kernel on the scene's staged layout, as the
+    wavefront calls it)."""
+    from raytracingweekend_tpu_torch.ops.packing import device_scene
     rows = []
     for name in K7_SCENES:
         scene = make_scene(name, WNX / WNY)
         t0 = time.perf_counter()
         rays = _capture_regen_rays(scene, K7_ITERS)
-        from raytracingweekend_tpu_torch.ops.packing import device_scene
-        table = device_scene(scene, "cuda").sphere_table
+        ds = device_scene(scene, "cuda")
+        table, lay = ds.sphere_table, ds.sphere_layout
         moving = scene.has_moving_spheres
         n, S = rays[0][0].shape[0], table.shape[0]
         errs, bit = [], []
         for o, d, tm in rays:
-            kt, ki = k7.hit_spheres_kernel(o, d, tm, table, moving)
-            rt, ri = k7.hit_spheres_reference(o, d, tm, table, moving)
+            kt, ki = k7.hit_spheres_kernel(o, d, tm, table, moving,
+                                           layout=lay)
+            rt, ri = k7.hit_spheres_reference(o, d, tm, table, moving,
+                                              layout=lay)
             torch.cuda.synchronize()
             hit = rt < 1e30
-            if not (torch.equal(kt < 1e30, hit)
-                    and torch.equal(ki[hit], ri[hit])
-                    and torch.allclose(kt[hit], rt[hit], rtol=K7_RTOL,
-                                       atol=0.0)):
-                fail(f"K7 disagrees with its plain version on {name}")
             errs.append((kt[hit] - rt[hit]).abs().max().item()
                         if hit.any() else 0.0)
-            bit.append(torch.equal(kt, rt))
+            bit.append(torch.equal(kt, rt) and torch.equal(ki, ri))
         o, d, tm = rays[0]
 
         def kernel():
-            return k7.hit_spheres_kernel(o, d, tm, table, moving)
+            return k7.hit_spheres_kernel(o, d, tm, table, moving, layout=lay)
 
         once, _ = _event_ms(kernel, 1)
         reps = max(5, min(200, int(300.0 / max(once, 1e-3))))
         _event_ms(kernel, reps)
         ms, _ = _event_ms(kernel, reps)
         plain_ms, _ = _event_ms(
-            lambda: k7.hit_spheres_reference(o, d, tm, table, moving), 1)
+            lambda: k7.hit_spheres_reference(o, d, tm, table, moving,
+                                             layout=lay), 1)
         axes = int((table[:, k7.K_DCX:k7.K_DCZ + 1] != 0).any(dim=0).sum()
                    ) if moving else 0
-        bound, by = k7_bound_ms(n, S, axes)
+        bound, by = k7_bound_ms(n, S, axes, lay.uniform)
         hits = (rt < 1e30).float().mean().item()
         print(f"phase 13 K7 kernel vs plain ({name}, rays of the first "
               f"{K7_ITERS} regen iterations at {WNX}x{WNY}x{WSPP}: N={n}, "
-              f"S={S}, {'moving' if moving else 'static'}): indices equal "
-              f"on every hitting ray ({hits:.4f} of rays hit), t within "
-              f"rtol {K7_RTOL}, max abs err {max(errs):.3e}, bitwise equal "
-              f"calls {sum(bit)}/{len(bit)}; kernel {ms:.4f} ms (mean of "
-              f"{reps}), plain PyTorch {plain_ms:.3f} ms, bound {bound:.4f} "
-              f"ms by {by} (share {bound / ms:.3f}); "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
+              f"S={S}, {'moving' if moving else 'static'}, staged form "
+              f"k7<{lay.axes},{int(lay.uniform)}>): bitwise equal calls "
+              f"(best_t and best_i of every ray) {sum(bit)}/{len(bit)} "
+              f"({hits:.4f} of rays hit), max abs err {max(errs):.3e}; "
+              f"kernel {ms:.4f} ms (mean of {reps}), plain PyTorch "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by} (share "
+              f"{bound / ms:.3f}); {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        if not all(bit):
+            fail(f"K7 differs from its plain version on {name}")
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, max_abs_err=max(errs), S=S))
     return rows
@@ -1611,6 +1583,13 @@ def phase_microbench() -> dict:
     row at S = 512, T = 2048, with its torch.matmul yardstick), with K9's
     count set to 0 just before and read just after; then every row held to
     its plain version at K9_CHECK steps within `plain_tolerance`."""
+    regs = {k: v for k, v in sass.registers(_build.build_log()).items()
+            if k.startswith("k9")}
+    print(f"phase 25 K9 build: {k9.COLS} columns a block of {k9.WARPS} "
+          f"warps ({K9_T // k9.COLS} blocks at T={K9_T}); registers, spill "
+          f"and stack bytes {json.dumps(regs)}", flush=True)
+    if len(regs) != len(k9.ROWS) or any(sp for _, sp, _ in regs.values()):
+        fail("K9's nine instantiations are not in the build log, or spill")
     k9.KERNEL_LAUNCHES["K9"] = 0
     rows = k9.run(K9_S, K9_T, K9_N, K9_REPS, "cuda")
     launches = k9.KERNEL_LAUNCHES["K9"]
@@ -1624,6 +1603,9 @@ def phase_microbench() -> dict:
         err = (got - want).abs()
         tol = k9.plain_tolerance(body, tab)
         ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        # the FP32 rows (the extract's sums in the plain version's order)
+        # bit for bit
+        ok = ok and (unit != "fp32" or torch.equal(got, want))
         lib = row["library_us_per_iter"]
         print(f"phase 25 K9 {name} ({unit}, S={K9_S}, T={K9_T}, steps "
               f"{K9_N}/{4 * K9_N}): {row['us_per_iter']:.4f} us a step, "
@@ -1734,6 +1716,36 @@ def _library_device_us(launches: int = 20) -> dict:
     return out
 
 
+def _k11_spread(rounds: int = K11_ROUNDS, launches: int = 20) -> dict:
+    """K11's two forms and its yardstick torch.mul on the repro's inputs,
+    device µs a call, each in `rounds` profiles of `launches` calls (as
+    `_mosaic_device_us` takes them), in turns; the ratios of each form to
+    torch.mul a round. {} if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_slice_broadcast_layout as k11)
+    row, col = k11.inputs(0, "cuda")
+    fns = {"register slice": lambda: k11.reg_slice_kernel(row, col),
+           "ref load": lambda: k11.ref_load_kernel(row, col),
+           "torch.mul": lambda: torch.mul(row, col)}
+    us = {k: [] for k in fns}
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(launches):
+                    fn()
+                torch.cuda.synchronize()
+            dev = sum(_device_us(ev) for ev in prof.key_averages())
+            if dev <= 0:
+                return {}
+            us[key].append(dev / launches)
+    ratio = {k: [a / b for a, b in zip(us[k], us["torch.mul"])]
+             for k in ("register slice", "ref load")}
+    return dict(us=us, ratio=ratio)
+
+
 def phase_mosaic_repros(i2f: dict) -> list:
     """The Mosaic repros (K10-K14): the tool's path
     (`mosaic_repros.run`, every formulation at its repro's shapes, 200
@@ -1804,6 +1816,20 @@ def phase_mosaic_repros(i2f: dict) -> list:
                       or MOSAIC_REPLACES[row["kernel"]])))
     print(f"phase 26 K10 I2F in SASS {i2f} (the f32 iota should convert "
           f"nothing, the int iota its row index)", flush=True)
+    spread = _k11_spread()
+    if spread:
+        for k, r in spread["ratio"].items():
+            us, mul = spread["us"][k], spread["us"]["torch.mul"]
+            print(f"phase 26 K11 {k} / torch.mul on the device clock, "
+                  f"{K11_ROUNDS} profiles of 20 calls in turns: "
+                  f"{', '.join(f'{x:.4f}' for x in r)} (min {min(r):.4f}, "
+                  f"median {sorted(r)[len(r) // 2]:.4f}, max {max(r):.4f}); "
+                  f"device us {', '.join(f'{x:.4f}' for x in us)}, "
+                  f"torch.mul {', '.join(f'{x:.4f}' for x in mul)}",
+                  flush=True)
+    else:
+        print("phase 26 K11 spread: not measured (the profiler saw no "
+              "device time)", flush=True)
     for line in [v for key, m in mosaic_repros.REPROS.items()
                  for v in m.verdict([r for r in rows
                                      if r["kernel"] == f"K{key[1:]}"])]:
@@ -1818,6 +1844,8 @@ def phase_mosaic_repros(i2f: dict) -> list:
     entries = []
     for kernel, forms in by_kernel.items():
         first = forms[0]
+        if kernel == "K11" and spread:
+            first["device_ratio_to_library"] = spread["ratio"]
         entries.append(dict(
             name=f"{names[kernel]}; per launch, {first['name']} timings",
             route="cuda",
@@ -1969,7 +1997,8 @@ def main() -> int:
     k7_main = k7_rows[0]
     entries.append(dict(
         name="K7 wavefront closest sphere hit (random_balls regen rays "
-             f"N=524288, S={k7_main['S']} moving; per call)",
+             f"N=524288, S={k7_main['S']} moving; per call; redesigned: "
+             f"{REDESIGN_K7})",
         source="raytracingweekend_tpu_torch/csrc/intersect.cu",
         replaces="raytracingweekend_tpu/ops/pallas_intersect.py:139",
         launches=wave_run["launches"],
@@ -1978,7 +2007,8 @@ def main() -> int:
                         + [k7_vjp["max_abs_err"]]),
         ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
         bound_ms=k7_main["bound_ms"], route="cuda",
-        bound_by=k7_main["bound_by"], library_ms=None))
+        bound_by=k7_main["bound_by"], library_ms=None, redesigned=True,
+        rows=k7_rows))
     entries.append(dict(
         name=f"K8 sweep twin (the book-1 sweep alone, quad; S={twin['S']}, "
              f"T={twin['T']}, G={twin['G']}, K={twin['K']} a launch; ext "
@@ -1993,14 +2023,14 @@ def main() -> int:
     entries.append(dict(
         name=f"K9 dot-formulation microbenchmark (extract f32 default on the "
              f"TF32 tensor cores, S={K9_S}, T={K9_T}, per step; every row "
-             "under rows)",
+             f"under rows; redesigned: {REDESIGN_K9})",
         source="raytracingweekend_tpu_torch/csrc/dot_microbench.cu",
         replaces="tools/dot_microbench.py:64",
         launches=bench["launches"],
         max_abs_err=max(r["max_abs_err"] for r in bench["rows"]),
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         route="cuda", bound_by="operations", library_ms=rep["library_ms"],
-        rows=bench["rows"]))
+        rows=bench["rows"], redesigned=True))
     entries += repros
     print(f"chip_smoke total {time.perf_counter() - t_start:.3f} s",
           flush=True)

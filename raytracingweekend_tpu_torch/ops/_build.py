@@ -5,10 +5,11 @@ all started together, and links the objects into one shared library with a
 plain C interface, in `raytracingweekend_tpu_torch/_build/` (ignored by
 git), at first use; the library's file name carries a hash of the
 sources, their shared headers (`csrc/*.cuh`) and the flags, so an edited
-source or header is rebuilt. A measurement build (the `-D` defines of
-tools/culled_ab.py's instrumented kernels, or another checkout's `csrc/`)
-builds its `megakernel.cu` and `sweep_twin.cu` (K1-K5s and K8, which share
-the dense slot loop) alone into a library of its own. The library
+source or header is rebuilt. A measurement build, into a library of its
+own: another checkout's `csrc/` builds every source there; the `-D`
+defines of tools/culled_ab.py's instrumented kernels build `megakernel.cu`
+and `sweep_twin.cu` (K1-K5s and K8, which share the dense slot loop)
+alone. The library
 is loaded with ctypes: no torch.utils.cpp_extension, no ninja, nothing
 downloaded.
 The build needs the CUDA toolkit (`nvcc` on PATH or under
@@ -48,8 +49,8 @@ def _nvcc() -> str:
 
 
 def _sources(defines: tuple, csrc: Path) -> list:
-    if not defines and Path(csrc) == CSRC:
-        return sorted(CSRC.glob("*.cu"))
+    if not defines:
+        return sorted(Path(csrc).glob("*.cu"))
     return [Path(csrc) / "megakernel.cu", Path(csrc) / "sweep_twin.cu"]
 
 

@@ -83,7 +83,8 @@ def _winner_replay_t(o, d, time, center0, center1, time0, time1, radius,
 
 class HitSpheres(torch.autograd.Function):
     """Closest sphere hit with a gradient: forward K7 (CUDA tensors) or its
-    plain version (CPU tensors) on detached inputs and the detached table;
+    plain version (CPU tensors) on detached inputs and the detached table
+    (its staged `layout` when given, else staged from the table);
     backward `_winner_replay_t` at the forward's winners, differentiated
     w.r.t. the rays (o, d, time) and the sphere leaves (center0, center1,
     time0, time1, radius). Misses (t = BIG) carry no gradient; best_i is
@@ -91,10 +92,10 @@ class HitSpheres(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, o, d, time, center0, center1, time0, time1, radius,
-                table, moving: bool, t_min: float):
+                table, moving: bool, t_min: float, layout=None):
         hit = (intersect.hit_spheres_kernel if o.is_cuda
                else intersect.hit_spheres_reference)
-        best_t, best_i = hit(o, d, time, table, moving, t_min)
+        best_t, best_i = hit(o, d, time, table, moving, t_min, layout)
         ctx.save_for_backward(o, d, time, center0, center1, time0, time1,
                               radius, best_t, best_i)
         ctx.moving, ctx.t_min = moving, t_min
@@ -107,7 +108,7 @@ class HitSpheres(torch.autograd.Function):
         need = ctx.needs_input_grad[:8]
         grads = [None] * 8
         if not any(need):
-            return (*grads, None, None, None)
+            return (*grads, None, None, None, None)
         g_t = torch.where(best_t < BIG, g_t, 0.0)
         with torch.enable_grad():
             xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
@@ -117,12 +118,13 @@ class HitSpheres(torch.autograd.Function):
             got = iter(torch.autograd.grad(t, wanted, g_t,
                                            allow_unused=True))
         grads = [next(got) if n else None for n in need]
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def hit_spheres(o, d, time, ds: packing.DeviceScene, t_min: float = T_MIN):
     """Closest sphere hit (best_t (N,), best_idx (N,) int64) over the
-    scene's K7 table through `HitSpheres`: the CUDA kernel for CUDA
+    scene's K7 table (staged once a DeviceScene, `sphere_layout`) through
+    `HitSpheres`: the CUDA kernel for CUDA
     tensors, its plain version for CPU tensors, differentiable w.r.t. the
     rays and the sphere leaves. Misses read BIG (callers test
     best_t < BIG)."""
@@ -131,7 +133,8 @@ def hit_spheres(o, d, time, ds: packing.DeviceScene, t_min: float = T_MIN):
     sph = ds.spheres
     return HitSpheres.apply(o, d, time, sph.center0, sph.center1, sph.time0,
                             sph.time1, sph.radius, ds.sphere_table.detach(),
-                            ds.scene.has_moving_spheres, t_min)
+                            ds.scene.has_moving_spheres, t_min,
+                            ds.sphere_layout)
 
 
 def _rect_object_space_components(o, d, rects, transforms: bool):

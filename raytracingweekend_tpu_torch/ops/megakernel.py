@@ -59,6 +59,7 @@ from ..models import scene_types as st
 from . import _build
 from . import noise as _noise
 from .integrator import _block_linear_order
+from .intersect import AXES_ALL, AXES_STATIC, AXIS_Y, slot_words
 from .packing import leaf_tensor
 from .rounding import _fma
 
@@ -128,11 +129,10 @@ CULLED_MAX_T = 512
 # exports each dense instantiation's limit (rtw_dense_consts);
 # `_kernel_lib` holds them to this.
 DENSE_MAX_T = 512
-# Moving-axis masks of the dense slot loop's instantiations (csrc/sweep.cuh
-# kAxesStatic, kAxisY, kAxesAll; bit a = axis a), and the (mask, uniform
-# shutter) forms each dense kernel is instantiated for, in the order of
-# rtw_dense_consts
-AXES_STATIC, AXIS_Y, AXES_ALL = 0, 2, 7
+# The (moving-axis mask, uniform shutter) forms each dense kernel is
+# instantiated for, in the order of rtw_dense_consts (the masks and
+# `slot_words`: the staged slot forms the dense sweep shares with K7,
+# ops/intersect.py)
 DENSE_FORMS = ((AXES_STATIC, False), (AXIS_Y, True), (AXES_ALL, True),
                (AXES_ALL, False))
 
@@ -999,18 +999,6 @@ def sweep_axes(plan: MegaPlan) -> int:
     if mask == 0:
         return AXES_ALL if plan.moving else AXES_STATIC
     return AXIS_Y if mask == AXIS_Y and plan.uniform_time else AXES_ALL
-
-
-def slot_words(axes: int, uniform_time: bool) -> int:
-    """4-byte words a slot of the dense sweep's staged layout takes
-    (csrc/sweep.cuh slot_words): the (cx, cy, cz, nr2) quad, then the
-    motion lanes the slot loop reads: dcy alone (y only), or (dcx, dcy,
-    dcz, t0) and, without a uniform shutter, 1 / dt (all axes)."""
-    if axes == AXES_STATIC:
-        return 4
-    if axes == AXIS_Y:
-        return 5
-    return 8 if uniform_time else 9
 
 
 def shared_bytes(plan: MegaPlan) -> int:

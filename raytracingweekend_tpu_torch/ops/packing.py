@@ -21,6 +21,7 @@ it anew at its current values.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import types
 import weakref
 
@@ -102,6 +103,13 @@ class DeviceScene:
     sphere_table: torch.Tensor
     light_rows: torch.Tensor
     bvh: types.SimpleNamespace | None
+
+    @functools.cached_property
+    def sphere_layout(self) -> intersect.SphereLayout:
+        """The K7 table staged as the kernel reads it (made at first use:
+        one host read of its form)."""
+        return intersect.sphere_layout(self.sphere_table,
+                                       self.scene.has_moving_spheres)
 
 
 def _to_device(obj, device) -> types.SimpleNamespace:

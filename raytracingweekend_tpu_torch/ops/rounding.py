@@ -19,3 +19,23 @@ def _f64(x):
 def _fma(a, b, c) -> torch.Tensor:
     """a * b + c in float32 with one rounding."""
     return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+
+
+def _fma_rn(a, b, c) -> torch.Tensor:
+    """a * b + c in float32 rounded once, as fmaf, for results in float32's
+    normal range. `_fma` rounds the exact product's float64 sum and then
+    to float32, which differs from one rounding only where the float64 sum
+    falls exactly on a float32 tie while the exact sum does not; there the
+    sum moves one float64 ulp toward the exact value (its error recovered
+    by TwoSum) before the float32 rounding."""
+    p = _f64(a) * _f64(b)                # exact
+    c = _f64(c)
+    s = p + c
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if bool(tie.any()):
+        bb = s - p
+        e = (p - (s - bb)) + (c - bb)    # s + e == p + c exactly
+        step = torch.where((e > 0) == (s > 0), 1, -1)
+        nudged = (s.view(torch.int64) + step).view(torch.float64)
+        s = torch.where(tie & ((e > 0) | (e < 0)), nudged, s)
+    return s.to(torch.float32)

@@ -1,15 +1,16 @@
-"""The megakernel's sweeps (dense: K1-K4 and the twin K8; culled: K5, K5s)
+"""The megakernel's sweeps (dense: K1-K4 and the twin K8; culled: K5, K5s),
+the wavefront's closest sphere hit (K7) and the dot microbenchmark (K9)
 on the card against other checkouts', and the split of the culled
 kernels' warps' cycles.
 
 Times the shipped kernels with CUDA events on each cell at its path's
 launch shape and, with `--parent DIR` (repeatable), other checkouts'
-`csrc/megakernel.cu` and `csrc/sweep_twin.cu` (ones with the same C entry
-points, such as the parent commit unpacked by `git archive`, built alone
-into a library of their own) in turns (shipped, parents, parents in
-reverse, shipped), held to the shipped kernel bit for bit: a dense cell
-on every output row and tape row, a culled cell on every row but row 7
-(an older kernel writes 0 there), the twin on its rows. `--split`
+kernels (their whole `csrc/`, such as the parent commit unpacked by `git
+archive`, built into a library of their own) in turns (shipped, parents,
+parents in reverse, shipped), held to the shipped kernel bit for bit: a
+dense cell on every output row and tape row, a culled cell on every row
+but row 7 (an older kernel writes 0 there), the twin on its rows, K7 on
+best_t and best_i. `--split`
 launches each culled cell once more on the build instrumented with
 clock64 (-DRTW_SPLIT) and prints the shares of its warps' cycles: the
 key pass and buckets, the votes, the broadcast and the compacted sweeps,
@@ -22,19 +23,30 @@ y-only slot loop), the probe `shutter` (per-slot shutters, the all-axes
 loop), a static sphere scene (random_balls_large swept densely,
 1200x800x8), book 1 in exact mode (1200x800x4), cornell_box 400x400x64
 (K2+K3), earth 800x600x64 on earth.rtwi (K4), and the sweep twin at
-K = 200 (K8). All nvcc builds start together. Card only:
+K = 200 (K8). K7 cells: the rays of the first regen iteration of
+random_balls (S = 512), random_balls_large (3840) and random_balls_huge
+(14592) at the wavefront's main shape (1200x800x8: N = 524,288 rays), ms
+a call of the wrapper and of the launch alone (K7's first version, a
+build without `rtw_k7_consts`, reads the rays as a (7, N) copy and writes
+an int32 index: its wrapper's copy and widening are outside its launch).
+The K9 cell: its nine rows at the tool's S = 512, T = 2048, µs a step
+(the tool's slope between N and 4 N steps), rows 0-7 after 8 steps beside
+the shipped build's (bit-equal where the sum order is the same). All
+nvcc builds start together. Card only:
 
     python -m raytracingweekend_tpu_torch.tools.culled_ab \\
-        [--cells large,huge,...,twin] [--reps 3] [--parent DIR]... \\
-        [--split]
+        [--cells large,huge,...,twin,k7_book1,k7_large,k7_huge,k9] \\
+        [--reps 3] [--parent DIR]... [--split]
 
 One JSON row a measurement on stdout, the card's name and power limit
-first.
+first, then each build's registers and spills and its slot loops' SASS
+(K7's a ray-slot pair).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 from pathlib import Path
 
@@ -43,9 +55,12 @@ import torch
 from raytracingweekend_tpu_torch.models import (builder, probe_scenes,
                                                 scene_types)
 from raytracingweekend_tpu_torch.models.scenes import make_scene
-from raytracingweekend_tpu_torch.ops import _build
+from raytracingweekend_tpu_torch.ops import _build, geometry
+from raytracingweekend_tpu_torch.ops import intersect as k7
 from raytracingweekend_tpu_torch.ops import megakernel as mk
+from raytracingweekend_tpu_torch.ops.packing import device_scene
 from raytracingweekend_tpu_torch.tools import card_line, sass
+from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
 
 NX, NY, DEPTH, SEED = 1200, 800, 50, 20240601
@@ -69,6 +84,15 @@ CELLS = {"large": ("random_balls_large", {}, 32, {}),
          "twin": ("sweep twin", {}, 0, {})}
 # the cells' image shapes other than NX x NY
 SHAPES = {"cornell": (400, 400), "earth": (800, 600)}
+# K7's cells (their scene) at the wavefront's main shape NX x NY x K7_SPP,
+# and the regen launch's seed
+K7_CELLS = {"k7_book1": "random_balls", "k7_large": "random_balls_large",
+            "k7_huge": "random_balls_huge"}
+K7_SPP, K7_SEED, K7_REPS = 8, 2, 20
+# K9's cell: the tool's S and T, the slope's N, rows compared after
+# K9_CHECK steps
+K9_S, K9_T, K9_N, K9_CHECK = 512, 2048, 64, 8
+ALL_CELLS = (*CELLS, *K7_CELLS, "k9")
 # the instrumented build's defines
 SPLIT = ("RTW_SPLIT",)
 SPLIT_KEYS = ("total", "keys", "visits", "broadcast", "compacted",
@@ -94,6 +118,90 @@ def cell_inputs(cell: str, nx: int | None = None, ny: int | None = None,
                                {**kw, **plan_kw}.items()])
     args, _ = mk.device_inputs(scene, plan, device)
     return label, args, plan
+
+
+def capture_regen_rays(scene, n_iters: int, nx: int = NX, ny: int = NY,
+                       spp: int = K7_SPP, depth: int = DEPTH,
+                       seed: int = K7_SEED) -> list:
+    """The (o, d, time) K7 gets in the first n_iters iterations of a regen
+    launch at nx x ny x spp on the card (copies; the launch stops
+    there)."""
+    from raytracingweekend_tpu_torch.render import render
+    from raytracingweekend_tpu_torch.utils.config import RenderConfig
+    got = []
+    orig = geometry.hit_spheres
+
+    class _Enough(Exception):
+        pass
+
+    def record(o, d, time, ds, t_min=geometry.T_MIN):
+        got.append((o.clone(), d.clone(), time.clone()))
+        if len(got) >= n_iters:
+            raise _Enough
+        return orig(o, d, time, ds, t_min)
+
+    geometry.hit_spheres = record
+    try:
+        render(scene, RenderConfig(nx=nx, ny=ny, spp=spp,
+                                   samples_per_launch=spp, max_depth=depth,
+                                   seed=seed, loop_mode="regen",
+                                   device="cuda"))
+    except _Enough:
+        pass
+    finally:
+        geometry.hit_spheres = orig
+    return got
+
+
+def _k7_first_version(lib) -> bool:
+    """A build of K7's first version (no `rtw_k7_consts` export: rays as
+    one (7, N) array, an int32 index)."""
+    return not hasattr(lib, "rtw_k7_consts")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argtypes of every kernel this tool times on a build: the
+    megakernels', K8's, K9's and K7's (its first version's where the
+    build has that)."""
+    lib = k9.bind(k8.bind(mk.bind(lib)))
+    if not _k7_first_version(lib):
+        return k7.bind(lib)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtw_hit_spheres_launch.argtypes = [p, p, p, p, i, i, i, f, p]
+    lib.rtw_hit_spheres_launch.restype = ctypes.c_int
+    return lib
+
+
+def _k7_calls(lib, o, d, tm, table, moving, lay) -> tuple:
+    """(wrapper, launch alone) of one build's K7 on these rays: callables
+    returning (best_t, best_i int64) and (best_t, best_i as written)."""
+    if not _k7_first_version(lib):
+        def wrapper():
+            return k7.hit_spheres_kernel(o, d, tm, table, moving, layout=lay,
+                                         lib=lib)
+        return wrapper, wrapper
+    n, S = o.shape[0], table.shape[0]
+
+    def packed():
+        return (torch.cat([o.t(), d.t(), tm[None]]).contiguous(),
+                torch.empty((n,), dtype=torch.float32, device=o.device),
+                torch.empty((n,), dtype=torch.int32, device=o.device))
+
+    def launch(rays, best_t, best_i):
+        rc = lib.rtw_hit_spheres_launch(
+            rays.data_ptr(), table.data_ptr(), best_t.data_ptr(),
+            best_i.data_ptr(), n, S, int(moving), float(geometry.T_MIN),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K7 launch failed: CUDA error {rc} "
+                               f"({lib.rtw_error_string(rc).decode()})")
+        return best_t, best_i
+
+    def wrapper():
+        t, i = launch(*packed())
+        return t, i.long()
+
+    return wrapper, functools.partial(launch, *packed())
 
 
 def split_lib() -> ctypes.CDLL:
@@ -160,16 +268,19 @@ def _same(out, ref, dense: bool) -> bool:
 
 
 def build_report(label: str, path: Path) -> dict:
-    """One build's megakernel and sweep twin instantiations: registers,
-    spill and stack bytes (nvcc's ptxas report beside the library, when it
-    was built here) and their slot loops' SASS (sass.sweep_sass)."""
+    """One build's megakernel, sweep twin, K7 and K9 instantiations:
+    registers, spill and stack bytes (nvcc's ptxas report beside the
+    library, when it was built here) and their slot loops' SASS
+    (sass.slot_loops; K7's a ray-slot pair, sass.k7_loops)."""
     log = path.with_name(path.name + ".log")
     regs = sass.registers(log.read_text()) if log.exists() else {}
-    mine = ("<", "surfaces<", "culled", "twin<")
+    mine = ("<", "surfaces<", "culled", "twin<", "k7", "k9")
+    listing = sass.cuobjdump(str(path))
     return {"build": label,
             "registers": {k: v for k, v in regs.items()
                           if k.startswith(mine)},
-            "sweep_sass": sass.sweep_sass(str(path))}
+            "sweep_sass": sass.slot_loops(listing),
+            "k7_sass": sass.k7_loops(listing)}
 
 
 def _twin_rows(libs: dict, reps: int) -> list:
@@ -197,7 +308,63 @@ def _twin_rows(libs: dict, reps: int) -> list:
                  ms=sum(t) / len(t), turns=t) for k, t in times.items()]
 
 
-def run(cells=tuple(CELLS), reps: int = 3, parents=(),
+def _k7_rows(cell: str, libs: dict) -> list:
+    """K7 on the first regen iteration's rays of the cell's scene, every
+    build in turns (K7_REPS calls a turn), held to the shipped build bit
+    for bit: one row a build."""
+    scene = make_scene(K7_CELLS[cell], NX / NY)
+    o, d, tm = capture_regen_rays(scene, 1)[0]
+    ds = device_scene(scene, "cuda")
+    table, lay = ds.sphere_table, ds.sphere_layout
+    moving = scene.has_moving_spheres
+    calls = {k: _k7_calls(lib, o, d, tm, table, moving, lay)
+             for k, lib in libs.items()}
+    ref_t, ref_i = calls["shipped"][0]()
+    times = {k: {"ms": [], "launch_ms": []} for k in libs}
+    for k in [*libs, *reversed(libs)]:
+        wrapper, launch = calls[k]
+        times[k]["ms"].append(_timed(wrapper, K7_REPS)[0])
+        times[k]["launch_ms"].append(_timed(launch, K7_REPS)[0])
+        got_t, got_i = wrapper()
+        if not (torch.equal(got_t, ref_t) and torch.equal(got_i, ref_i)):
+            raise RuntimeError(f"the {k} build's K7 differs from the "
+                               f"shipped build's on {K7_CELLS[cell]}")
+    return [dict(cell=cell, kernel="K7", scene=K7_CELLS[cell],
+                 N=o.shape[0], S=table.shape[0],
+                 form=f"k7<{lay.axes},{int(lay.uniform)}>", build=k,
+                 ms=sum(t["ms"]) / len(t["ms"]),
+                 launch_ms=sum(t["launch_ms"]) / len(t["launch_ms"]),
+                 turns=t, bitwise_equal=True) for k, t in times.items()]
+
+
+def _k9_rows(libs: dict, reps: int) -> list:
+    """K9's nine rows, µs a step by the tool's slope (`reps` launches a
+    point), every build in turns; rows 0-7 after K9_CHECK steps beside the
+    shipped build's."""
+    tables = k9.make_tables(K9_S)
+    rows = []
+    for name, body, unit in k9.ROWS:
+        tab = k9.table_for(body, unit, tables, "cuda")
+        calls = {k: functools.partial(k9.microbench_kernel, body, unit, tab,
+                                      K9_S, K9_T, lib=lib)
+                 for k, lib in libs.items()}
+        ref = calls["shipped"](K9_CHECK)
+        times = {k: [] for k in libs}
+        for k in [*libs, *reversed(libs)]:
+            times[k].append(k9._slope_us(calls[k], K9_N, reps, "cuda"))
+        for k, t in times.items():
+            got = calls[k](K9_CHECK)
+            rows.append(dict(cell="k9", kernel="K9", name=name,
+                             h100_unit=unit, S=K9_S, T=K9_T, build=k,
+                             us_per_iter=sum(t) / len(t), turns=t,
+                             bound_us_per_iter=k9.bound_us(body, unit, K9_S,
+                                                           K9_T),
+                             equal_to_shipped=torch.equal(got, ref),
+                             max_abs_diff=(got - ref).abs().max().item()))
+    return rows
+
+
+def run(cells=ALL_CELLS, reps: int = 3, parents=(),
         with_split: bool = False) -> list:
     """Build, then time the shipped kernels (and each parent's, labelled
     by its directory's name) on each cell in turns; returns the rows (also
@@ -215,13 +382,16 @@ def run(cells=tuple(CELLS), reps: int = 3, parents=(),
                       "build_s": max(s for _, s in done)}), flush=True)
     for k, (path, _) in zip(["shipped", *pdirs], done):
         print(json.dumps(build_report(k, path)), flush=True)
-    libs = {"shipped": k8.bind(mk._kernel_lib())}
+    libs = {"shipped": bind(mk._kernel_lib())}
     for k, d in pdirs.items():
-        libs[k] = k8.bind(mk.bind(_build.load((), d)))
+        libs[k] = bind(_build.load((), d))
     rows = []
     for cell in cells:
-        if cell == "twin":
-            for row in _twin_rows(libs, reps):
+        if cell in ("twin", "k9", *K7_CELLS):
+            got = (_twin_rows(libs, reps) if cell == "twin" else
+                   _k9_rows(libs, reps) if cell == "k9" else
+                   _k7_rows(cell, libs))
+            for row in got:
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             continue
@@ -264,10 +434,11 @@ def run(cells=tuple(CELLS), reps: int = 3, parents=(),
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--cells", default=",".join(CELLS),
-                   help=f"comma-separated of {', '.join(CELLS)}")
+    p.add_argument("--cells", default=",".join(ALL_CELLS),
+                   help=f"comma-separated of {', '.join(ALL_CELLS)}")
     p.add_argument("--reps", type=int, default=3,
-                   help="timed launches a turn")
+                   help="timed launches a turn (K7: K7_REPS calls; K9: "
+                        "launches a point of its slope)")
     p.add_argument("--parent", action="append", default=[],
                    help="another checkout whose kernels to time too "
                         "(repeatable)")
@@ -275,7 +446,7 @@ def main(argv=None) -> None:
                    help="take each culled cell's warp-cycle split")
     a = p.parse_args(argv)
     cells = tuple(c for c in a.cells.split(",") if c)
-    bad = [c for c in cells if c not in CELLS]
+    bad = [c for c in cells if c not in ALL_CELLS]
     if bad:
         p.error(f"unknown cells {bad}")
     run(cells, a.reps, a.parent, a.split)

@@ -63,8 +63,9 @@ ROWS = (("lane16 f32 default", "lane16", "tf32"),
         ("elemq ~25 VPU ops", "elemq", "fp32"),
         ("min+eqmask", "minmask", "fp32"))
 A_ROWS = 24
-COLS = 16      # accumulator columns a block owns (T % COLS == 0)
-S_ALIGN = 64   # S % 64 == 0: the extract's four slot quarters of k-steps
+COLS = 8       # accumulator columns a block owns (T % COLS == 0)
+S_ALIGN = 64   # S % 64 == 0: a thread's rows g + 64 i
+WARPS = 16     # warps a block: the FP32 extract's row chunks
 # H100 SXM peaks (dense), FLOP/s
 PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # FP32 operations a (row, column) element of a step: elemq's frac 2,
@@ -138,11 +139,17 @@ def _step(body: str, unit: str, a: torch.Tensor,
     if body == "extract":
         mask = (a == 0.0).float()
         if unit == "fp32":
-            # in slot order; at * mask is exact, so each add is the fmaf
-            r = torch.zeros((A_ROWS, T), dtype=torch.float32,
-                            device=a.device)
-            for s in range(S):
-                r = r + tab[:, s:s + 1] * mask[s:s + 1]
+            # the kernel's order: each warp's S / WARPS rows in row order,
+            # then the warps' sums in warp order; at * mask is exact, so
+            # each add is the kernel's fmaf or add
+            span = S // WARPS
+            r = None
+            for w0 in range(0, S, span):
+                q = torch.zeros((A_ROWS, T), dtype=torch.float32,
+                                device=a.device)
+                for s in range(w0, w0 + span):
+                    q = q + tab[:, s:s + 1] * mask[s:s + 1]
+                r = q if r is None else r + q
         else:
             r = _product(tab, mask.to(tab.dtype), unit)
         pad = torch.zeros_like(a)
@@ -195,11 +202,12 @@ def _expected_table(body: str, unit: str, S: int) -> tuple:
 
 
 def microbench_kernel(body: str, unit: str, tab: torch.Tensor, S: int, T: int,
-                      n: int) -> torch.Tensor:
+                      n: int, lib=None) -> torch.Tensor:
     """Launch csrc/dot_microbench.cu on the current CUDA stream. Same
     arguments and result as `microbench_reference`; S % 64 == 0 and
-    T % 16 == 0. Raises on a CPU tensor, a wrong shape or dtype, a failed
-    build and a refused launch."""
+    T % 8 == 0. `lib` is another build of the kernel with the same C
+    interface (a measurement build). Raises on a CPU tensor, a wrong shape
+    or dtype, a failed build and a refused launch."""
     _check_pair(body, unit)
     if not tab.is_cuda:
         raise ValueError(f"microbench_kernel needs a CUDA tensor; the table "
@@ -213,7 +221,7 @@ def microbench_kernel(body: str, unit: str, tab: torch.Tensor, S: int, T: int,
                          f"{COLS}, n={n} >= 0")
     tab = tab.contiguous()
     out = torch.empty((8, T), dtype=torch.float32, device=tab.device)
-    lib = _kernel_lib()
+    lib = lib or _kernel_lib()
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rtw_microbench_launch(BODIES.index(body), UNITS.index(unit),
@@ -347,16 +355,21 @@ def run(S: int = 512, T: int = 2048, N: int = 64, reps: int = 5,
     return rows
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
-    """The built kernel library (ops/_build.py) with K9's argtypes."""
-    lib = _build.load()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set K9's argtypes on a kernel library (the shipped build or a
+    measurement build)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rtw_microbench_launch.argtypes = [i, i, p, p, i, i, i, p]
     lib.rtw_microbench_launch.restype = ctypes.c_int
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     lib.rtw_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    """The built kernel library (ops/_build.py) with K9's argtypes."""
+    return bind(_build.load())
 
 
 def main(argv=None) -> int:

@@ -21,8 +21,9 @@ def kernel_name(mangled: str):
     mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
     instantiation (kAxes: the dense slot loop's moving-axis mask,
     mk.sweep_axes), 'twin<kExt>' of the sweep twin's (K8),
-    'k9<body,unit>' of the microbenchmark's (K9) and 'repro:<name>' of the
-    Mosaic repros' (K10-K14), else None."""
+    'k9<body,unit>' of the microbenchmark's (K9), 'k7<kAxes,kUniform>' of
+    the closest sphere hit's (K7; 'k7<kMoving>' of its first version) and
+    'repro:<name>' of the Mosaic repros' (K10-K14), else None."""
     repro = re.search(r"repro_(\w+?)_kernel(?:IL[bi](\d+)E)?", mangled)
     if repro:
         return (f"repro:{repro.group(1)}"
@@ -33,6 +34,10 @@ def kernel_name(mangled: str):
     bench = re.search(r"microbench_kernelILi(\d)ELi(\d)E", mangled)
     if bench:
         return f"k9<{bench.group(1)},{bench.group(2)}>"
+    k7 = re.search(r"hit_spheres_kernelIL(?:i(\d)ELb(\d)|b(\d))E", mangled)
+    if k7:
+        return (f"k7<{k7.group(1)},{k7.group(2)}>" if k7.group(1)
+                else f"k7<{k7.group(3)}>")
     m = re.search(
         r"mega_kernel(_surfaces|_culled_surfaces|_culled)?I((?:L[ib]\d+E)+)E",
         mangled)
@@ -74,16 +79,9 @@ def slot_loops(text: str) -> dict:
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         name = kernel_name(func.split(None, 1)[0])
-        if name is None or name.startswith(("k9", "repro:")):
+        if name is None or name.startswith(("k7", "k9", "repro:")):
             continue
-        ins = [(int(a, 16), op) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
-        addr = {a: k for k, (a, _) in enumerate(ins)}
-        loops = []
-        for k, (a, op) in enumerate(ins):
-            br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
-            if br and int(br.group(1), 16) <= a:
-                loops.append((addr[int(br.group(1), 16)], k))
+        ins, loops = _loops(func)
 
         def has(a, b, pat):
             return any(re.match(pat, op) for _, op in ins[a:b + 1])
@@ -122,6 +120,62 @@ def slot_loops(text: str) -> dict:
     return out
 
 
+def _loops(func: str) -> tuple:
+    """The instructions [(address, text)] of one function's SASS and its
+    loops [(first, last)]: each backward branch and its target, as
+    indices into the instructions."""
+    ins = [(int(a, 16), op) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", func)]
+    addr = {a: k for k, (a, _) in enumerate(ins)}
+    loops = []
+    for k, (a, op) in enumerate(ins):
+        br = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
+        if br and int(br.group(1), 16) <= a:
+            loops.append((addr[int(br.group(1), 16)], k))
+    return ins, loops
+
+
+def k7_loops(text: str) -> dict:
+    """K7's slot loop in each instantiation of the SASS listing `text`:
+    the innermost loop with the most MUFU.RSQ (the root's seed, one a
+    ray-slot pair; a thread sweeps several rays, the loop is unrolled and
+    has a remainder loop beside it, both inside the loop over chunks),
+    counted per pair:
+    instructions, FFMA, FMUL, FADD, LDS (shared loads, a slot's serving
+    every ray of the thread) and BRA, with the pairs a loop iteration.
+    {k7<kAxes,kUniform>: dict}."""
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(func.split(None, 1)[0])
+        if name is None or not name.startswith("k7"):
+            continue
+        ins, loops = _loops(func)
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)]
+        best = max(((sum("MUFU.RSQ" in op for _, op in ins[a:b + 1]), a, b)
+                    for a, b in inner), default=(0, 0, 0))
+        pairs, a, b = best
+        if not pairs:
+            continue
+        ops = [o.split(".")[0] for o in _opcodes(ins[a:b + 1])]
+        count = {k: ops.count(k) / pairs
+                 for k in ("FFMA", "FMUL", "FADD", "LDS", "BRA")}
+        out[name] = dict(sass_per_pair=(b - a + 1) / pairs,
+                         pairs_an_iteration=pairs, **count)
+    return out
+
+
+def _opcodes(ins) -> list:
+    """The opcodes of SASS instructions, predicates (@P0, @!P1) dropped."""
+    ops = []
+    for _, op in ins:
+        words = [w for w in op.split() if not w.startswith("@")]
+        if words:
+            ops.append(words[0])
+    return ops
+
+
 def registers(log: str) -> dict:
     """{instantiation: (registers, spill store bytes, stack bytes)} from
     nvcc's ptxas report `log` (-Xptxas -v; None where it says nothing)."""
@@ -130,9 +184,7 @@ def registers(log: str) -> dict:
                          r"(\d+) registers", log, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         stack = re.search(r"(\d+) bytes stack frame", m.group(2))
-        name = kernel_name(m.group(1)) or (
-            f"k7<{int('ILb1E' in m.group(1))}>"
-            if "hit_spheres_kernel" in m.group(1) else m.group(1))
+        name = kernel_name(m.group(1)) or m.group(1)
         rows[name] = (int(m.group(3)),
                       int(spill.group(1)) if spill else None,
                       int(stack.group(1)) if stack else None)

@@ -1,8 +1,9 @@
-"""The host side of the sweeps' A/B tool
+"""The host side of the kernels' A/B tool
 (raytracingweekend_tpu_torch/tools/culled_ab.py) and of the measurement
 builds it names (ops/_build.py): the tool times the dense (K1-K4, K8) and
-culled (K5 / K5s) kernels on the card only, so here it is held to its
-builds, its cells and its refusal without a card."""
+culled (K5 / K5s) kernels, K7 and K9 on the card only, so here it is held
+to its builds, its cells, K7's slot loop count (tools/sass.py), its
+interface test and its refusal without a card."""
 from pathlib import Path
 
 import pytest
@@ -10,7 +11,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from raytracingweekend_tpu_torch.ops import _build  # noqa: E402
-from raytracingweekend_tpu_torch.tools import culled_ab  # noqa: E402
+from raytracingweekend_tpu_torch.tools import culled_ab, sass  # noqa: E402
+
+# a K7 slot loop as cuobjdump lists it: two ray-slot pairs an iteration
+LISTING = """
+\tFunction : _ZN12_GLOBAL__N_118hit_spheres_kernelILi2ELb1EEEvNS_4RaysE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FFMA R5, R4, R4, R3 ;
+        /*0030*/                   MUFU.RSQ R6, R5 ;
+        /*0040*/              @P0   BRA 0x100 ;
+        /*0050*/                   FMUL R7, R5, R6 ;
+        /*0060*/                   MUFU.RSQ R6, R5 ;
+        /*0070*/              @P1   BRA 0x10 ;
+        /*0080*/                   EXIT ;
+\tFunction : _ZN12_GLOBAL__N_118hit_spheres_kernelILb1EEEvPKfPK6float4iifPfPi
+        /*0000*/                   MUFU.RSQ R6, R5 ;
+        /*0010*/                   FADD R7, R5, R6 ;
+        /*0020*/                   BRA 0x0 ;
+"""
 
 
 def test_variant_defines():
@@ -28,17 +47,84 @@ def test_variant_defines():
 
 def test_measurement_builds_are_libraries_of_their_own(tmp_path):
     """Each build (defines, or another checkout's csrc/) hashes to its
-    own library; another checkout builds its megakernel.cu and
-    sweep_twin.cu (the kernels that share the dense slot loop) alone."""
+    own library; another checkout builds every source of its csrc/ (the
+    megakernels and K8, K7, K9 and the rest)."""
     other = tmp_path / "csrc"
     other.mkdir()
-    (other / "megakernel.cu").write_text("// another checkout\n")
-    (other / "sweep_twin.cu").write_text("// its sweep twin\n")
+    for name in ("sweep_twin.cu", "megakernel.cu", "intersect.cu",
+                 "sweep.cuh"):
+        (other / name).write_text(f"// another checkout's {name}\n")
     paths = {_build.library_path(d, c) for d, c in [
         ((), _build.CSRC), (culled_ab.SPLIT, _build.CSRC), ((), other)]}
     assert len(paths) == 3
-    assert _build._sources((), other) == [Path(other) / "megakernel.cu",
+    assert _build._sources((), other) == [Path(other) / "intersect.cu",
+                                          Path(other) / "megakernel.cu",
                                           Path(other) / "sweep_twin.cu"]
+
+
+def test_k7_sass_names_and_slot_loop():
+    """K7's instantiations are named by form (first version: by its
+    moving flag), and its slot loop is counted a ray-slot pair."""
+    assert sass.kernel_name(
+        "_ZN12_GLOBAL__N_118hit_spheres_kernelILi7ELb0EEEvNS_4RaysE") == \
+        "k7<7,0>"
+    got = sass.k7_loops(LISTING)
+    assert got["k7<2,1>"] == dict(sass_per_pair=3.5, pairs_an_iteration=2,
+                                  FFMA=0.5, FMUL=0.5, FADD=0.0, LDS=0.5,
+                                  BRA=1.0)
+    assert got["k7<1>"]["sass_per_pair"] == 3.0
+    # the megakernels' slot loop report leaves K7 out
+    assert sass.slot_loops(LISTING) == {}
+
+
+def test_k7_first_version_is_told_by_its_exports():
+    """A build without `rtw_k7_consts` is K7's first version's
+    interface."""
+    class Lib:
+        rtw_k7_consts = object()
+
+    assert not culled_ab._k7_first_version(Lib())
+    assert culled_ab._k7_first_version(object())
+
+
+def test_bind_gives_each_k7_interface_its_own_argtypes():
+    """A build is bound to the K7 interface it exports: the shipped one
+    (19 arguments, with `rtw_k7_consts`) or the first version's (9), so no
+    build is called through the other's signature."""
+    from types import SimpleNamespace
+
+    class Lib:
+        """Every entry point a build exports, `rtw_k7_consts` if asked."""
+
+        def __init__(self, consts):
+            if consts:
+                self.rtw_k7_consts = SimpleNamespace()
+
+        def __getattr__(self, name):
+            if name == "rtw_k7_consts":
+                raise AttributeError(name)
+            setattr(self, name, SimpleNamespace())
+            return getattr(self, name)
+
+    new = culled_ab.bind(Lib(True))
+    first = culled_ab.bind(Lib(False))
+    assert len(new.rtw_hit_spheres_launch.argtypes) == 19
+    assert len(first.rtw_hit_spheres_launch.argtypes) == 9
+
+
+def test_k7_and_k9_cells_are_cells(monkeypatch):
+    """The K7 cells name the three K7 scenes, the K9 cell its nine rows;
+    all are taken by --cells and run by default."""
+    assert set(culled_ab.K7_CELLS.values()) == {
+        "random_balls", "random_balls_large", "random_balls_huge"}
+    assert set(culled_ab.ALL_CELLS) == {*culled_ab.CELLS,
+                                        *culled_ab.K7_CELLS, "k9"}
+    seen = {}
+    monkeypatch.setattr(culled_ab, "run", lambda *a: seen.update(args=a))
+    culled_ab.main(["--cells", "k7_huge,k9"])
+    assert seen["args"][0] == ("k7_huge", "k9")
+    culled_ab.main([])
+    assert seen["args"][0] == culled_ab.ALL_CELLS
 
 
 @pytest.mark.parametrize("cell,surfaces,exact,moving,dyn_order", [

@@ -146,6 +146,31 @@ def test_plain_version_matches_tool_body(name, body, unit, tables):
             assert not np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("S0", [64, 512, 1024])
+def test_extract_fp32_sums_in_the_kernels_order(S0):
+    """The FP32 extract's plain step sums in csrc/dot_microbench.cu's
+    order: each warp's S / 16 rows in row order from 0, then the 16
+    warps' sums in warp order (float32 adds in numpy here), then
+    a * 0.5 + sum rounded once."""
+    at = dm.make_tables(S0)["at"]
+    rng = np.random.default_rng(5)
+    a = np.where(rng.uniform(size=(S0, 8)) < 0.5, 0.0,
+                 rng.normal(size=(S0, 8))).astype(np.float32)
+    got = dm._step("extract", "fp32", torch.from_numpy(a),
+                   torch.from_numpy(at)).numpy()
+    span = S0 // dm.WARPS
+    m = (a == 0).astype(np.float32)
+    total = None
+    for w in range(dm.WARPS):
+        q = np.zeros((24, 8), np.float32)
+        for s in range(w * span, (w + 1) * span):
+            q = q + at[:, s:s + 1] * m[s:s + 1]
+        total = q if total is None else total + q
+    want = a * np.float32(0.5)
+    want[:24] += total
+    assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
+
+
 def test_tables_follow_the_tool():
     """The tool's inputs: normals from default_rng(0), drawn in its order
     (mx, mxt, at, sph), as float32."""

@@ -169,6 +169,141 @@ def test_k7_plain_version_ties_blocks_and_inactive_rows():
     assert bi[:2].tolist() == [300, 300] and bt[0].item() == 3.5
 
 
+# the port's lanes -> the JAX kernel's
+_JAX_LANES = {tint.K_CX: jpi._CX, tint.K_CY: jpi._CY, tint.K_CZ: jpi._CZ,
+              tint.K_R2: jpi._R2, tint.K_DCX: jpi._DCX, tint.K_DCY: jpi._DCY,
+              tint.K_DCZ: jpi._DCZ, tint.K_T0: jpi._T0, tint.K_IDT: jpi._IDT,
+              tint.K_ACT: jpi._ACT}
+# synthetic tables: name -> (moving, expected (axes, one window))
+TABLES = {"static_inactive": (False, (tint.AXES_STATIC, True)),
+          "shutters": (True, (tint.AXES_ALL, False)),
+          "y_one_window": (True, (tint.AXIS_Y, True)),
+          "xz_one_window": (True, (tint.AXES_ALL, True)),
+          "still": (True, (tint.AXES_ALL, True)),
+          "dt_zero": (True, (tint.AXES_ALL, True)),
+          "all_inactive": (True, (tint.AXES_ALL, True))}
+
+
+def _synthetic_table(name, S=300, seed=11):
+    """(S, 12) float32 table of `name` (TABLES): spheres in a 10-unit box,
+    a third of the slots inactive (rows that would hit, and move along x:
+    the axis mask must not see them)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    tab = np.zeros((S, tint.LANES), f32)
+    tab[:, tint.K_CX:tint.K_CZ + 1] = rng.uniform(-5, 5, (S, 3))
+    tab[:, tint.K_R2] = rng.uniform(0.3, 1.0, S) ** 2
+    tab[:, tint.K_ACT] = 1.0
+    off = rng.uniform(size=S) < 1 / 3
+    tab[off, tint.K_ACT] = 0.0
+    tab[off, tint.K_DCX] = 2.0
+    moves = rng.uniform(size=S) < 0.7
+    if name == "shutters":
+        # per-slot windows; some with time1 == time0 (1/dt = 0) and motion
+        tab[:, tint.K_DCX:tint.K_DCZ + 1] = rng.normal(size=(S, 3)) * moves[
+            :, None]
+        tab[:, tint.K_T0] = rng.uniform(0.0, 0.5, S)
+        tab[:, tint.K_IDT] = np.where(rng.uniform(size=S) < 0.2, 0.0,
+                                      1.0 / rng.uniform(0.2, 1.0, S))
+    elif name in ("y_one_window", "xz_one_window", "dt_zero"):
+        axes = {"y_one_window": [1], "xz_one_window": [0, 2],
+                "dt_zero": [0, 1, 2]}[name]
+        for a in axes:
+            tab[~off, tint.K_DCX + a] = rng.normal(size=(~off).sum()) * \
+                moves[~off]
+        tab[:, tint.K_T0] = 0.25
+        tab[:, tint.K_IDT] = 0.0 if name == "dt_zero" else 1.0 / f32(0.75)
+    elif name == "still":
+        tab[~off, tint.K_DCX] = 0.0
+        tab[:, tint.K_T0], tab[:, tint.K_IDT] = 0.0, 1.0
+    elif name == "all_inactive":
+        tab[:, tint.K_ACT] = 0.0
+        tab[:, tint.K_IDT] = 1.0
+    return tab.astype(f32)
+
+
+def _synthetic_rays(n=2048, seed=12):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[::7] *= 3.0                    # |d| != 1: a != 1
+    tm = rng.uniform(size=n).astype(np.float32)
+    return o, d, tm
+
+
+def _jax_hit(tab, o, d, tm, moving):
+    j = np.zeros((tab.shape[0], jpi._SPH_LANES), np.float32)
+    for ours, theirs in _JAX_LANES.items():
+        j[:, theirs] = tab[:, ours]
+    rays = jpi.pack_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm))
+    return (np.asarray(x) for x in jpi.hit_spheres_pallas(
+        rays, jnp.asarray(j), moving=moving, t_min=0.001, tile=512,
+        interpret=True))
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_k7_staged_forms_match_jax_kernel(name):
+    """Each staged form of the table (`sphere_layout`: the axis mask, the
+    one-window test, r^2 = -inf on inactive slots) through the plain
+    version, bit for bit against the JAX kernel in interpret mode, with an
+    int64 index: inactive slots, per-slot shutters, 1/dt = 0 with motion,
+    motion along y alone, along x and z, none."""
+    moving, form = TABLES[name]
+    tab = _synthetic_table(name)
+    o, d, tm = _synthetic_rays()
+    lay = tint.sphere_layout(torch.from_numpy(tab), moving)
+    assert (lay.axes, lay.uniform) == form
+    assert lay.staged.shape == (lay.S * lay.words,)
+    r2 = lay.staged[:4 * lay.S].view(lay.S, 4)[:, 3].numpy()
+    act = tab[:, tint.K_ACT] > 0
+    assert np.all(np.isneginf(r2[~act]))
+    assert r2[act].tobytes() == tab[act, tint.K_R2].tobytes()
+    if lay.uniform and moving and act.any():
+        assert (lay.t0, lay.idt) == (float(tab[act][0, tint.K_T0]),
+                                     float(tab[act][0, tint.K_IDT]))
+    jt, ji = _jax_hit(tab, o, d, tm, moving)
+    bt, bi = tint.hit_spheres_reference(*_t(o, d, tm), torch.from_numpy(tab),
+                                        moving, layout=lay)
+    assert bi.dtype == torch.int64
+    hit = jt < 1e30
+    if name == "all_inactive":
+        assert not hit.any()
+    else:
+        assert 0.05 < hit.mean() < 1.0
+    assert bt.numpy().tobytes() == jt.tobytes()
+    assert np.array_equal(bi.numpy()[hit], ji[hit])
+    assert np.all(bi.numpy()[~hit] == 0)
+
+
+def test_k7_plain_version_reads_strided_rays():
+    """Rays that are views with other strides (o, d from one (N, 6) block,
+    time a column) give the contiguous rays' result."""
+    tab = torch.from_numpy(_synthetic_table("shutters"))
+    o, d, tm = _synthetic_rays(512)
+    block = torch.from_numpy(np.concatenate([o, d, tm[:, None]], axis=1))
+    want = tint.hit_spheres_reference(*_t(o, d, tm), tab, True)
+    got = tint.hit_spheres_reference(block[:, 0:3], block[:, 3:6],
+                                     block[:, 6], tab, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fma_rn_rounds_once():
+    """`_fma_rn` is fmaf: where the float64 sum falls on a float32 tie the
+    exact value decides (`_fma`, rounding twice, ties to even there)."""
+    from raytracingweekend_tpu_torch.ops.rounding import _fma, _fma_rn
+    a = torch.tensor([1 + 2 ** -23, -(1 + 2 ** -23), 1 + 2 ** -23, 3.0])
+    b = torch.tensor([1 - 2 ** -24] * 3 + [0.5])
+    c = torch.tensor([2 ** -47 * (1 + 2 ** -23), -2 ** -47 * (1 + 2 ** -23),
+                      2 ** -47 * (1 - 2 ** -24), float("inf")])
+    assert _fma_rn(a, b, c).tolist() == [1 + 2 ** -23, -(1 + 2 ** -23), 1.0,
+                                         float("inf")]
+    assert _fma(a, b, c)[:2].tolist() == [1.0, -1.0]
+    rng = np.random.default_rng(3)
+    x, y, z = (torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+               for _ in range(3))
+    assert torch.equal(_fma_rn(x, y, z), _fma(x, y, z))
+
+
 def test_k7_kernel_refuses_cpu_tensors():
     o = torch.zeros((4, 3))
     table = torch.zeros((8, tint.LANES))

@@ -402,12 +402,12 @@ def _k7_rays(scene, n, seed):
                                      ("random_balls_large", {})])
 def test_k7_kernel_matches_plain_version_on_card(name, kw):
     """K7 (csrc/intersect.cu) against its plain version on the same card
-    tensors: every hitting ray's index equal, t to rtol 1e-4 (both write
-    the same FMAs; the plain version's FMA is a float64 product-sum
-    rounded once more). Covers the moving table, the hollow sphere's
-    negative radius, inactive padding rows and, on random_balls_large
-    (3840 slots), the table streamed through shared memory in chunks.
-    Skips without a card."""
+    tensors, bit for bit (both write the same FMAs, the plain version's
+    rounded once): best_t and the int64 best_i of every ray. Covers the
+    moving table (y only, one window), the hollow sphere's negative
+    radius, inactive padding rows and, on random_balls_large (3840 slots),
+    the table streamed through shared memory in chunks. Skips without a
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from raytracingweekend_tpu_torch.ops import intersect as tint
@@ -419,15 +419,96 @@ def test_k7_kernel_matches_plain_version_on_card(name, kw):
     torch.cuda.synchronize()
     hit = rt < 1e30
     assert hit.float().mean().item() > 0.02
-    assert torch.equal(kt < 1e30, hit)
-    assert torch.equal(ki[hit], ri[hit])
-    assert torch.allclose(kt[hit], rt[hit], rtol=1e-4, atol=0.0)
+    assert ki.dtype == torch.int64
+    assert torch.equal(kt, rt) and torch.equal(ki, ri)
     # geometry.hit_spheres launches the kernel for CUDA tensors
     from raytracingweekend_tpu_torch.ops import geometry as tgeo
     before = tint.KERNEL_LAUNCHES["K7"]
     gt, gi = tgeo.hit_spheres(o, d, tm, ds)
     assert tint.KERNEL_LAUNCHES["K7"] == before + 1
     assert torch.equal(gt, kt) and torch.equal(gi, ki)
+
+
+def _k7_table(kind: str, S: int, gen) -> torch.Tensor:
+    """A synthetic (S, 12) K7 table on the card: spheres in a 10-unit box,
+    a third inactive; `shutters` gives every slot its own window (a fifth
+    with 1/dt = 0 and motion), `all_inactive` clears every active flag."""
+    from raytracingweekend_tpu_torch.ops import intersect as tint
+    tab = torch.zeros((S, tint.LANES), device="cuda")
+    tab[:, tint.K_CX:tint.K_CZ + 1] = (torch.rand((S, 3), device="cuda",
+                                                  generator=gen) - 0.5) * 10
+    tab[:, tint.K_R2] = (0.3 + 0.7 * torch.rand(S, device="cuda",
+                                                generator=gen)) ** 2
+    tab[:, tint.K_ACT] = (torch.rand(S, device="cuda", generator=gen)
+                          > 1 / 3).float()
+    if kind == "shutters":
+        tab[:, tint.K_DCX:tint.K_DCZ + 1] = torch.randn(
+            (S, 3), device="cuda", generator=gen)
+        tab[:, tint.K_T0] = 0.5 * torch.rand(S, device="cuda", generator=gen)
+        idt = 1.0 / (0.2 + 0.8 * torch.rand(S, device="cuda", generator=gen))
+        zero = torch.rand(S, device="cuda", generator=gen) < 0.2
+        tab[:, tint.K_IDT] = torch.where(zero, 0.0, idt)
+    if kind == "all_inactive":
+        tab[:, tint.K_ACT] = 0.0
+    return tab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_balls", "random_balls_large",
+                                  "random_balls_huge", "ragged",
+                                  "all_inactive", "shutters", "strided",
+                                  "tiny_disc"])
+def test_k7_kernel_bitwise_on_card(case):
+    """K7 against its plain version bit for bit (best_t, int64 best_i) on
+    the card: the three K7 scenes at their table sizes (S = 512, 3840,
+    14592: one chunk, streamed chunks), N not a multiple of the block's
+    rays (threads x rays a thread), a table of inactive slots only,
+    per-slot shutters (1/dt = 0 with motion on a fifth of the slots, 1500
+    slots streamed), rays that are strided views, and directions scaled
+    by 1e-16 (discriminants near 1e-32, below the root's 2^-100 scaling
+    threshold, hits at t ~ 1e16). Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.ops import intersect as tint
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    block = tint.k7_consts()
+    if case.startswith("random_balls"):
+        scene = make_scene(case, 1.5)
+        o, d, tm, ds = _k7_rays(scene, 8192 + 77, 3)
+        table, moving = ds.sphere_table, scene.has_moving_spheres
+        assert table.shape[0] == {"random_balls": 512,
+                                  "random_balls_large": 3840,
+                                  "random_balls_huge": 14592}[case]
+    else:
+        scene = make_scene("random_balls", 1.5)
+        n = (3 * block["threads"] * block["rays"] + 1 if case == "ragged"
+             else 4096)
+        o, d, tm, ds = _k7_rays(scene, n, 4)
+        table, moving = ds.sphere_table, True
+        if case in ("all_inactive", "shutters"):
+            table = _k7_table(case, 1500, gen)
+            o = (torch.rand((n, 3), device="cuda", generator=gen) - 0.5) * 12
+        if case == "tiny_disc":
+            d = d * 1e-16
+        if case == "strided":
+            wide = torch.zeros((n, 8), device="cuda")
+            wide[:, 0:3], wide[:, 3:6], wide[:, 6] = o, d, tm
+            o, d, tm = wide[:, 0:3], wide[:, 3:6], wide[:, 6]
+            assert not o.is_contiguous()
+    lay = tint.sphere_layout(table, moving)
+    kt, ki = tint.hit_spheres_kernel(o, d, tm, table, moving, layout=lay)
+    rt, ri = tint.hit_spheres_reference(o, d, tm, table, moving, layout=lay)
+    torch.cuda.synchronize()
+    hit = rt < 1e30
+    if case == "all_inactive":
+        assert not hit.any()
+    else:
+        assert hit.float().mean().item() > 0.02
+    if case == "shutters":
+        assert (lay.axes, lay.uniform) == (tint.AXES_ALL, False)
+    if case == "tiny_disc":
+        assert (kt[hit] > 1e10).all()
+    assert torch.equal(kt, rt) and torch.equal(ki, ri)
 
 
 @pytest.mark.cuda
@@ -562,30 +643,70 @@ def test_sweep_twin_kernel_matches_plain_version_on_card(variant):
     ("extract bf16", "extract", "bf16"),
     ("elemq ~25 VPU ops", "elemq", "fp32"),
     ("min+eqmask", "minmask", "fp32")])
-def test_microbench_kernel_matches_plain_version_on_card(name, body, unit):
-    """Each K9 row against its plain version at S = 512, T = 256, 8 steps:
-    within `plain_tolerance` (the products' sum order: (terms + 2) 2^-24
-    of the absolute terms, twice that for extract; the elementwise bodies
-    bit for bit)."""
+@pytest.mark.parametrize("S", [64, 512, 1024, 1152])
+def test_microbench_kernel_matches_plain_version_on_card(name, body, unit,
+                                                         S):
+    """Each K9 row against its plain version at T = 256, 8 steps, at S =
+    64 (a row a thread, the FP32 extract's sums 4 rows a warp), 512 (the
+    tool's: 8 rows a thread, 32 a warp), 1024 and 1152 (past the rows kept
+    in registers: lane16 / sub16 TF32 tiles and minmask elements read from
+    shared memory): the FP32 and elementwise
+    rows bit for bit (the FP32 extract sums in the plain version's order),
+    the tensor-core rows within `plain_tolerance` (the products' sum
+    order: (terms + 2) 2^-24 of the absolute terms, twice that for
+    extract)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from raytracingweekend_tpu_torch.tools import dot_microbench as dm
     assert (name, body, unit) in dm.ROWS
-    tab = dm.table_for(body, unit, dm.make_tables(512), "cuda")
-    out_k = dm.microbench_kernel(body, unit, tab, 512, 256, 8)
-    out_r = dm.microbench_reference(body, unit, tab, 512, 256, 8)
+    tab = dm.table_for(body, unit, dm.make_tables(S), "cuda")
+    out_k = dm.microbench_kernel(body, unit, tab, S, 256, 8)
+    out_r = dm.microbench_reference(body, unit, tab, S, 256, 8)
     torch.cuda.synchronize()
     assert torch.isfinite(out_k).all()
     assert torch.all((out_k - out_r).abs()
                      <= dm.plain_tolerance(body, tab))
+    if unit == "fp32":
+        assert torch.equal(out_k, out_r)
+
+
+# the largest S (a multiple of 64) whose block the first K9 design
+# launched, by its shared memory (16 columns a block: the accumulator
+# 64 S bytes and the body's tables, within 227 KB)
+K9_FIRST_VERSION_MAX_S = {("lane16", "tf32"): 1792, ("lane16", "fp32"): 1792,
+                          ("sub16", "tf32"): 1792, ("sub16", "fp32"): 1792,
+                          ("extract", "tf32"): 832, ("extract", "fp32"): 1152,
+                          ("extract", "bf16"): 1344, ("elemq", "fp32"): 2304,
+                          ("minmask", "fp32"): 3584}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,unit", sorted(K9_FIRST_VERSION_MAX_S))
+def test_microbench_kernel_launches_the_first_versions_widths(body, unit):
+    """Every K9 row launches at the largest S the first design did, and
+    agrees there with its plain version (T = 64, 2 steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools import dot_microbench as dm
+    S = K9_FIRST_VERSION_MAX_S[(body, unit)]
+    tab = dm.table_for(body, unit, dm.make_tables(S), "cuda")
+    out_k = dm.microbench_kernel(body, unit, tab, S, 64, 2)
+    out_r = dm.microbench_reference(body, unit, tab, S, 64, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_k).all()
+    assert torch.all((out_k - out_r).abs()
+                     <= dm.plain_tolerance(body, tab))
+    if unit == "fp32":
+        assert torch.equal(out_k, out_r)
 
 
 @pytest.mark.cuda
 def test_tool_kernels_raise_on_refused_launches():
     """A launch the card refuses raises, and leaves no error behind: K8
     past 1024 lanes a block or with a staged table past a block's 227 KB
-    of shared memory (20 bytes x 12000 slots), K9 with an accumulator
-    past it (S = 4096: 256 KB)."""
+    of shared memory (20 bytes x 12000 slots), K9 with a block's rows past
+    it (S = 4096: the (4096, 8) accumulator and the (4096, 16) matrix,
+    384 KB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from raytracingweekend_tpu_torch.tools import dot_microbench as dm
