@@ -6,11 +6,15 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout,
-prints their registers and the sphere sweeps' SASS a slot, checks the dense
-kernels' tile widths (every dense instantiation takes blocks of
-DENSE_MAX_T lanes, a wider tile is refused before any launch, the widest
-agrees with the plain version), holds each kernel against its plain
-PyTorch version on the card, checks the renderer
+prints their registers and the sphere sweeps' SASS a slot, and each
+surfaces form's registers, spills (none allowed), rect and light loops,
+MUFU and loads, checks the dense kernels' tile widths (every dense
+instantiation takes blocks of DENSE_MAX_T lanes, a wider tile is refused
+before any launch, the widest agrees with the plain version, on a scene
+of every static surfaces form), holds each kernel against its plain
+PyTorch version on the card (with the surfaces kernel's cycle split and
+grid tail beside its bound for cornell_box, cornell_smoke, earth and
+two_perlin_spheres), checks the renderer
 against the reference oracle's golden images, and drives the port's four
 paths through `render()`: book-1 `random_balls` at 1200x800, 64 spp per
 launch, max_depth 50 (kernel K1); the Cornell path, `cornell_box` then
@@ -133,6 +137,16 @@ LARGE_TILE_STRIDE = 4
 MIXED_PATH = ((60, 32), (120, 16))
 MSMALL = (600, 400, 16)
 RTWI = os.path.join(REPO, "tools", "reference_oracle", "earth.rtwi")
+# a scene that plans each static surfaces form (ops/megakernel.py
+# SURFACE_FORMS: image, rects + image, noise, rects + noise, checker,
+# rects + lights, every untextured feature, every feature)
+SURFACE_SCENES = (("earth", {"image_path": RTWI}),
+                  ("earth_rect", {"image_path": RTWI}),
+                  ("two_perlin_spheres", {}), ("light_sample", {}),
+                  ("checker_spheres", {}), ("cornell_box", {}),
+                  ("cornell_smoke", {}), ("texture_mix", {}))
+# the cells of the surfaces split (phases 7, 9)
+SPLIT_CELLS = ("cornell_box", "cornell_smoke", "earth", "two_perlin_spheres")
 TEXTURE_PATH = (("earth", {"image_path": RTWI}),
                 ("earth_rect", {"image_path": RTWI}),
                 ("two_perlin_spheres", {}), ("light_sample", {}),
@@ -269,6 +283,17 @@ REDESIGN_K7 = ("slots staged in shared memory as a 16-byte quad (r^2 = -inf "
                "exact root without sqrt.rn's range check, rays "
                "register-blocked a thread, "
                "long tables streamed by cp.async, rays read in place")
+# what the surfaces kernels (K2+K3, K4) do since their redesign
+REDESIGN_SURFACES = ("one instantiation a feature set (rects, MIS lights, "
+                     "media, image, checker, noise textures) picked by "
+                     "make_plan, so a form compiles only what its scenes "
+                     "use; rects staged in runs by transform group and "
+                     "axis (two float4 a row, compile-time plane lanes, a "
+                     "branchless test, ties to the lower row); the camera "
+                     "vector in shared memory; the sweep up to the last "
+                     "live slot; Perlin gradients as float4; overdraw "
+                     "blocks longest tile first (learned from the last "
+                     "launch); exact-mode blocks of 64 lanes")
 REDESIGN_K9 = ("8 columns a block of 16 warps (every SM, 32 warps an SM), "
                "parity buffers for fewer block barriers a step, mma.sync "
                "tensor-core tiles with register-held A fragments, the FP32 "
@@ -447,6 +472,27 @@ def phase_build() -> tuple:
           f"{len(rows)} instantiations {'; '.join(rows)}; sweep SASS "
           f"instructions per slot (loop / slots) {per_slot}; K10 I2F in "
           f"SASS {i2f}", flush=True)
+    # the surfaces kernels (K2-K4, K5s): every form's registers, spills
+    # and stack, its rect loops' and light loop's SASS (a rect row an
+    # iteration, a light an iteration), its MUFU and its loads by space
+    regs = sass.registers(log)
+    surf = sass.surface_loops(sass.cuobjdump(str(lib)))
+    for name, rep_ in sorted(surf.items()):
+        r, sp, st = regs.get(name, (None, None, None))
+        print(f"phase 2 surfaces {name}: {r} regs, {sp} B spill, {st} B "
+              f"stack; {rep_['instructions']} SASS; rect loops "
+              f"{rep_['rect_loops']} a row, light loops "
+              f"{rep_['light_loops']} a light; MUFU {rep_['MUFU']}; LDS "
+              f"{rep_['LDS']}, LD {rep_['LD']}, LDG {rep_['LDG']}, LDL "
+              f"{rep_['LDL']}, STL {rep_['STL']}", flush=True)
+    spills = {k: v[1] for k, v in regs.items()
+              if "surfaces" in k and v[1]}
+    forms = mk.surface_forms(mk._kernel_lib())
+    print(f"phase 2 surfaces forms (axes, uniform shutter, features, block "
+          f"limit, registers, local bytes): {forms}", flush=True)
+    if spills or len(surf) != len(forms) + 6:
+        fail(f"surfaces instantiations spill {spills} or are not all "
+             f"listed ({len(surf)} of {len(forms)} + 6 culled)")
     return sweep, i2f
 
 
@@ -460,11 +506,12 @@ def phase_dense_widths() -> dict:
     within rtol / atol on >= MIN_SAME of the lanes). Returns the max abs
     radiance error."""
     limits = mk.dense_max_threads(mk._kernel_lib())
+    limits["surfaces"] += [r[3] for r in mk.surface_forms(mk._kernel_lib())]
     err = 0.0
     for kind, name, kw in (("spheres", "random_balls", {}),
-                           ("surfaces", "cornell_box", {}),
-                           ("surfaces", "earth", {"image_path": RTWI})):
-        scene = make_scene(name, 1.5, **kw)
+                           *(("surfaces", n, k) for n, k in SURFACE_SCENES)):
+        scene = (texture_mix() if name == "texture_mix"
+                 else make_scene(name, 1.5, **kw))
         top = mk.DENSE_MAX_T
         for T in (1024, top + 32):
             try:
@@ -474,17 +521,19 @@ def phase_dense_widths() -> dict:
             fail(f"make_plan accepted T={T} past the dense {kind} "
                  f"kernel's {top} lanes ({name})")
         pixf, out_k, out_r = _launch_both(scene, 96, 64, 4, 8, False, T=top)
+        _, plan = mk.make_plan(scene, 96, 64, 4, max_depth=8, T=top)
         valid = pixf[:, 2] > 0
         close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
                               atol=ATOL).all(dim=1)[valid]
         frac = close.float().mean().item()
         e = (out_k[:, :3] - out_r[:, :3]).abs().max().item()
         err = max(err, e)
-        print(f"phase 2b dense {kind} kernel ({name}): block limits "
-              f"{limits[kind]}, make_plan refuses T=1024 and T={top + 32}; "
-              f"at T={top} rows 0-5 within rtol {RTOL}/atol {ATOL} on "
-              f"{frac:.6f} of {valid.sum().item()} lanes, max abs err "
-              f"{e:.3e}", flush=True)
+        print(f"phase 2b dense {kind} kernel ({name}, form "
+              f"{plan.feat:#04x}): block limits {limits[kind]}, make_plan "
+              f"refuses T=1024 and T={top + 32}; at T={top} rows 0-5 within "
+              f"rtol {RTOL}/atol {ATOL} on {frac:.6f} of "
+              f"{valid.sum().item()} lanes, max abs err {e:.3e}",
+              flush=True)
         if set(limits[kind]) != {top} or frac < MIN_SAME:
             fail(f"the dense {kind} kernel at its widest tile T={top}")
     return dict(max_abs_err=err)
@@ -726,6 +775,35 @@ def _split(label, name, scene, spp) -> dict:
           f", compacted {raw['compacted_visits']}", flush=True)
     if not same:
         fail(f"the split build of the culled kernel differs on {name}")
+    return s
+
+
+def _surface_split(label, name, nx, ny, spp, run, **kw) -> dict:
+    """The dense surfaces kernel's cycle split at a path's launch: one
+    overdraw launch of the RTW_SPLIT build (tools/culled_ab.py
+    split_surfaces), held to the kernels' own launch on every output row;
+    prints each part's share of the lanes' cycles, the grid tail and,
+    beside them, the kernel's ms and bound from `run` (_kernel_vs_plain's
+    result at the same shape)."""
+    scene = make_scene(name, nx / ny, **kw)
+    _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
+    args, _ = mk.device_inputs(scene, plan, "cuda")
+    s = culled_ab.split_surfaces(args, plan)
+    ref = mk.mega_kernel(*args, SEED, plan)
+    same = torch.equal(s["out"], ref)
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in s["share"].items() if v)
+    g = s["grid"]
+    print(f"{label} split ({name} {nx}x{ny}x{spp}, form {plan.feat:#04x}, "
+          f"RTW_SPLIT build, instrumented launch {s['ms']:.3f} ms, rows "
+          f"equal the kernel's: {same}): of the lanes' cycles {parts}; grid "
+          f"tail {g['tail_share']:.4f} of {g['span_ms']:.3f} ms ({g['blocks']} "
+          f"blocks, at most {g['most_blocks_an_sm']} an SM, the longest "
+          f"{g['longest_block_ms']:.3f} ms, mean {g['mean_block_ms']:.3f}); "
+          f"kernel "
+          f"{run['ms']:.3f} ms, bound {run['bound_ms']:.3f} ms "
+          f"({run['bound_ms'] / run['ms']:.3f})", flush=True)
+    if not same:
+        fail(f"the split build of the surfaces kernel differs on {name}")
     return s
 
 
@@ -1903,10 +1981,15 @@ def main() -> int:
     k23 = _timed("phase 7", lambda: [
         _kernel_vs_plain(name, CNX, CNY, CLAUNCH, "phase 7")
         for name in CORNELL_PATH])
+    for name, run in zip(CORNELL_PATH, k23):
+        _surface_split("phase 7", name, CNX, CNY, CLAUNCH, run)
     k4 = _timed("phase 9", lambda: [
         _kernel_vs_plain(name, TNX, TNY, TSPP, "phase 9",
                          tile_stride=PLAIN_TILE_STRIDE.get(name, 1), **kw)
         for name, kw in TEXTURE_PATH])
+    for (name, kw), run in zip(TEXTURE_PATH, k4):
+        if name in SPLIT_CELLS:
+            _surface_split("phase 9", name, TNX, TNY, TSPP, run, **kw)
     print(f"phase 12 plain version of the culled kernel on every "
           f"{LARGE_TILE_STRIDE}th tile (N = {LARGE_TILE_STRIDE})", flush=True)
     k5 = _timed("phase 12", lambda: [
@@ -1951,7 +2034,7 @@ def main() -> int:
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              redesigned=True),
         dict(name="megakernel K2+K3 (rects, lights + MIS, emission, media; "
-                  "cornell_box timings)",
+                  f"cornell_box timings; redesigned: {REDESIGN_SURFACES})",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:1022",
              launches=cornell_run["launches"],
@@ -1959,16 +2042,17 @@ def main() -> int:
              max_abs_err=max([parity["K2+K3"]]
                              + [r["max_abs_err"] for r in k23]),
              ms=k23[0]["ms"], plain_ms=k23[0]["plain_ms"],
-             bound_ms=k23[0]["bound_ms"]),
+             bound_ms=k23[0]["bound_ms"], redesigned=True),
         dict(name="megakernel K4 (checker, Perlin noise, image textures; "
-                  "earth on earth.rtwi timings)",
+                  "earth on earth.rtwi timings; redesigned: "
+                  f"{REDESIGN_SURFACES})",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:1410",
              launches=texture_run["launches"],
              max_abs_err=max([parity["K4"]]
                              + [r["max_abs_err"] for r in k4]),
              ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
-             bound_ms=k4[0]["bound_ms"]),
+             bound_ms=k4[0]["bound_ms"], redesigned=True),
         dict(name="megakernel K5 (cluster-culled sphere sweep, "
                   f"redesigned: {REDESIGN}; random_balls_large 1200x800x32 "
                   "timings, plain version on every "

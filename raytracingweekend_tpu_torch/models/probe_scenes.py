@@ -137,3 +137,24 @@ def large_mixed_scene(bm, st, n=60, textured=True, moving=False,
     b.camera((13, 4, 3), (0, 0, 0), (0, 1, 0), 30.0, aspect, 0.0, 10.0,
              0.0, 1.0)
     return b.build(background=st.BG_GRADIENT, name="large_mixed")
+
+
+def rect_tie_scene(bm, st):
+    """Two coplanar rects that cover the same square, so every camera ray
+    that reaches the square meets both at the same t: row 1 (red), moved
+    into place by a translate along x (transform group 1, whose
+    object-space ray keeps the world z and 1 / d_z), and row 2 (green),
+    untransformed (group 0, with row 0, a floor). The winner is the first
+    row with the strictly smallest t, row 1, although the surfaces kernels
+    test group 0's rects first (ops/megakernel.py rect_runs)."""
+    b = bm.SceneBuilder()
+    b.rect("xz", -4.0, 4.0, -4.0, 4.0, -2.0,
+           b.lambertian(b.constant((0.5, 0.5, 0.5))))
+    b.rect("xy", -1.5, 0.5, -1.0, 1.0, 0.0,
+           b.lambertian(b.constant((0.8, 0.1, 0.1))),
+           translate=(0.5, 0.0, 0.0))
+    b.rect("xy", -1.0, 1.0, -1.0, 1.0, 0.0,
+           b.lambertian(b.constant((0.1, 0.8, 0.1))))
+    b.camera((0.3, 0.2, 4.0), (0.0, 0.0, 0.0), (0, 1, 0), 40.0, 1.0, 0.0,
+             10.0)
+    return b.build(background=st.BG_GRADIENT, name="rect_tie")

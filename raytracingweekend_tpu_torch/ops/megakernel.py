@@ -135,6 +135,26 @@ DENSE_MAX_T = 512
 # ops/intersect.py)
 DENSE_FORMS = ((AXES_STATIC, False), (AXIS_Y, True), (AXES_ALL, True),
                (AXES_ALL, False))
+# The features a surfaces instantiation compiles (csrc/megakernel.cu kF*):
+# rects, the MIS lights, constant media, image, checker and noise
+# textures; a form holding a feature set serves every scene whose features
+# it holds, bit for bit.
+F_RECTS, F_LIGHTS, F_MEDIA, F_IMAGE, F_CHECKER, F_NOISE = 1, 2, 4, 8, 16, 32
+F_TEX = F_IMAGE | F_CHECKER | F_NOISE
+F_SURF = F_RECTS | F_LIGHTS | F_MEDIA
+F_ALL = F_SURF | F_TEX
+# The dense surfaces kernel's forms, (axes, uniform shutter, features), in
+# the order of rtw_surface_forms: the static form, which every surfaces
+# scene of the library plans, one a feature set of its scenes (earth,
+# earth_rect, two_perlin_spheres, light_sample, checker_spheres,
+# cornell_box, then cornell_smoke and the untextured rest, texture_mix and
+# the textured rest); the moving forms the general two. `surface_form`
+# plans the first that serves the scene.
+SURFACE_FORMS = tuple(
+    (AXES_STATIC, False, f) for f in (
+        F_IMAGE, F_RECTS | F_IMAGE, F_NOISE, F_RECTS | F_NOISE, F_CHECKER,
+        F_RECTS | F_LIGHTS, F_SURF, F_ALL)) + tuple(
+    (a, u, f) for a, u in DENSE_FORMS[1:] for f in (F_SURF, F_ALL))
 
 # CUDA kernel launches through `mega_kernel` in this process, by ROADMAP
 # kernel: "K1" the dense sphere-only instantiations; "K2+K3" the launches
@@ -862,11 +882,24 @@ class MegaPlan:
     cull: bool = False          # cluster-culled sweep (K5) instead of dense
     dyn_order: int = 0          # culled visit order: near-to-far buckets,
     #                             0 = ascending cluster id
+    feat: int = 0               # the surfaces form's features (F_*): a
+    #                             dense plan's SURFACE_FORMS entry, F_ALL
+    #                             or F_SURF culled; 0 without surfaces
 
     @property
     def textures(self) -> bool:
         """The launch evaluates checker, noise or image albedos (K4)."""
         return bool(self.has_checker or self.noise_modes or self.img_hw)
+
+    @property
+    def needs(self) -> int:
+        """The surfaces features (F_*) the scene's rows use: rects, MIS
+        lights, media, and each texture kind."""
+        return ((F_RECTS if self.R else 0) | (F_LIGHTS if self.L else 0)
+                | (F_MEDIA if self.V else 0)
+                | (F_IMAGE if self.img_hw else 0)
+                | (F_CHECKER if self.has_checker else 0)
+                | (F_NOISE if self.noise_modes else 0))
 
     @property
     def surfaces(self) -> bool:
@@ -964,6 +997,10 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
         raise ValueError(f"dyn_order={dyn_order} must be >= 0")
     plan = dataclasses.replace(plan, cull=bool(cull),
                                dyn_order=int(dyn_order) if cull else 0)
+    if plan.surfaces:
+        plan = dataclasses.replace(plan, feat=(
+            (F_ALL if plan.textures else F_SURF) if plan.cull
+            else surface_form(plan)))
     smem = shared_bytes(plan)
     if smem > SHARED_MAX:
         what = (f"the culled kernel's {plan.C} cluster boxes"
@@ -979,12 +1016,38 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     return tabs, plan
 
 
+def surface_form(plan: MegaPlan, forms=None) -> int:
+    """The features of the dense surfaces form that `plan` launches: the
+    first of `forms` (default SURFACE_FORMS, the library's) of its (axes,
+    uniform shutter) form that holds every feature the scene uses
+    (`MegaPlan.needs`) and has textures exactly when the scene does.
+    Raises ValueError when no built form serves it."""
+    forms = SURFACE_FORMS if forms is None else forms
+    need, axes = plan.needs, sweep_axes(plan)
+    # the form rtw_mega_launch dispatches: static slots take the static
+    # form, y-only motion has one shutter window
+    uniform = axes == AXIS_Y or (axes == AXES_ALL and plan.uniform_time)
+    for a, u, feat in forms:
+        if ((a, u) == (axes, uniform) and feat & need == need
+                and bool(feat & F_TEX) == plan.textures):
+            return feat
+    raise ValueError(
+        f"no surfaces form of the kernel library serves the plan (axes "
+        f"{axes}, uniform shutter {uniform}, features {need:#04x}): built "
+        f"{[f for f in forms if f[:2] == (axes, uniform)]}")
+
+
 # Shared memory a block can use on an H100 (sm_90), and the float32 lanes
-# of each table row that the kernels copy there (csrc/megakernel.cu)
+# of each table row that the kernels copy there (csrc/megakernel.cu);
+# noise: the Perlin permutation and its gradients as float4
 SHARED_MAX = 232448
 _SMEM_LANES = dict(rect=RT_RIDX + 1,
                    rect_tex=RT_IDB + 1, light=LT_RAD + 1, med=MD_ALBZ + 1,
-                   med_tex=MD_IMG + 1, box=K_MAXZ + 1, noise=4 * 256)
+                   med_tex=MD_IMG + 1, box=K_MAXZ + 1, noise=5 * 256)
+# the staged camera vector's words, and a rect's words in the runs and
+# their group headers (csrc/megakernel.cu Tables::runs, grp)
+_CAM_WORDS = CAM_T1 + 1
+_RUN_WORDS = 12
 
 
 def sweep_axes(plan: MegaPlan) -> int:
@@ -1007,21 +1070,26 @@ def shared_bytes(plan: MegaPlan) -> int:
     the culled ones (with static spheres) two buffers of a cluster's SB
     centre quads for each warp, then the (C, 6) cluster boxes and, in
     near-to-far order, C bucket slots for each warp; the surfaces kernels
-    then their rect, light and medium rows, their codes, the image sizes
-    and the Perlin tables."""
+    then, from a float4 boundary, their rect runs and group headers, the
+    camera vector, their rect, light and medium rows, their codes, the
+    image sizes and the Perlin tables (csrc/megakernel.cu
+    surface_words)."""
     n = _SMEM_LANES
     if plan.cull:
         warps = (256 if plan.exact else plan.T) // 32
-        # the moving instantiations stage no quads
+        # the moving instantiations stage no quads; the surfaces tables
+        # start on a float4 boundary
         moving = sweep_axes(plan) != AXES_STATIC
         words = ((0 if moving else warps * 2 * plan.SB * 4)
-                 + plan.C * (n["box"] + (warps if plan.dyn_order else 0)))
+                 + -(-plan.C * (n["box"] + (warps if plan.dyn_order else 0))
+                     // 4) * 4)
     else:
         words = slot_words(sweep_axes(plan), plan.uniform_time) * plan.S
     if plan.surfaces:
         tex = plan.textures
-        words += (plan.R * (n["rect_tex"] if tex else n["rect"])
-                  + plan.L * n["light"]
+        words += (plan.R * (_RUN_WORDS
+                            + (n["rect_tex"] if tex else n["rect"]))
+                  + _CAM_WORDS + plan.L * n["light"]
                   + plan.V * (n["med_tex"] if tex else n["med"])
                   + plan.R + plan.L + plan.V)
         if tex:
@@ -1069,14 +1137,38 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     and ranvec (256, 3) float32 are the Perlin tables; images is the
     scene's (n_img, Hmax, Wmax, 3) float32 texels, or one zero texel when
     the launch reads none. Tables are copied once per (scene, device),
-    layouts once per shape."""
+    layouts once per shape; a dense surfaces overdraw plan gets its own
+    copy of the layout per scene, whose pad row carries the tile order its
+    launches learn (`_longest_first`)."""
     device = torch.device(device)
     tabs = _scene_memo(
         _TABLE_CACHE, scene, ("device", plan.SB, str(device)),
         lambda: table_tensors(build_tables_cached(scene, plan.SB), scene,
                               plan, device))
     pixf, inv = _device_layout(plan.nx, plan.ny, plan.T, str(device))
+    if _orders_tiles(plan):
+        pixf = _scene_memo(_TABLE_CACHE, scene,
+                           ("tile order", plan.nx, plan.ny, plan.T,
+                            str(device)), pixf.clone)
     return (pixf, *tabs), inv
+
+
+def _orders_tiles(plan: MegaPlan) -> bool:
+    """The launch runs its blocks in the order of the layout's pad row:
+    the dense surfaces kernels in overdraw mode (csrc/megakernel.cu)."""
+    return plan.surfaces and not plan.cull and not plan.exact
+
+
+def _longest_first(pixf: torch.Tensor, out: torch.Tensor) -> None:
+    """Order the next launch's blocks longest first (on the device, in
+    place): lane 0 of entry b of the layout's pad row gets 1 + the tile
+    with the b-th most bounce iterations in `out` (row 4, which every lane
+    of an overdraw tile shares). A launch's tiles are the same in any
+    order, bit for bit; started first, the longest tiles no longer run
+    alone on a few SMs at the end of the launch (PERF.md §6: the grid
+    tail). The order carries from launch to launch of one layout."""
+    order = torch.argsort(out[:, 4, 0], descending=True, stable=True)
+    pixf[:, 3, 0] = order.to(pixf.dtype) + 1.0
 
 
 def table_tensors(tabs, scene: st.Scene, plan: MegaPlan, device) -> tuple:
@@ -2137,10 +2229,11 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
             pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab,
             perm, ranvec, images))
     sph = _sweep_table(sph_tab, plan)
-    # the rect, light and medium codes, then (height, width) per image
+    # the rect, light and medium codes, (height, width) per image, then
+    # the rect runs (`rect_runs`)
     codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes
-                       + tuple(v for hw in plan.img_hw for v in hw),
-                       str(pixf.device))
+                       + tuple(v for hw in plan.img_hw for v in hw)
+                       + rect_runs(plan.rect_codes), str(pixf.device))
     out = torch.empty((n_tiles, OUT_ROWS + plan.n_iters, T),
                       dtype=torch.float32, device=pixf.device)
     with torch.cuda.device(pixf.device):
@@ -2157,13 +2250,15 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
             n_img, img_h, img_w, plan.C, plan.SB, plan.dyn_order,
             int(plan.exact), int(plan.lens), int(plan.bg_gradient),
             sweep_axes(plan), int(plan.uniform_time),
-            int(plan.surfaces), int(plan.has_spheres), int(plan.textures),
+            plan.feat, int(plan.has_spheres), int(plan.textures),
             int(plan.cull),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
             plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
+    if _orders_tiles(plan):
+        _longest_first(pixf, out)
     if plan.cull:
         KERNEL_LAUNCHES["K5s" if plan.surfaces else "K5"] += 1
         return out
@@ -2194,6 +2289,35 @@ def _sweep_table(sph_tab: torch.Tensor, plan: MegaPlan) -> torch.Tensor:
     if q > 2:
         quads[:, 8:10] = sph_tab[:, [C_T0, C_IDT]]
     return quads
+
+
+@functools.lru_cache(maxsize=32)
+def rect_runs(rect_codes: tuple) -> tuple:
+    """The order in which the surfaces kernels test the rects (csrc/
+    megakernel.cu Tables::runs), from the rows' static codes: runs of one
+    transform group and one axis, groups in their number's order, axes 0,
+    1, 2 within a group, rows in row order within a run. As ints: G (the
+    groups), the rect row at each run position, then one header a group:
+    its first row | rotated << 24 | translated << 25, and its rows along
+    axis 0, 1 and 2. Empty without rects. The kernel merges the rows in
+    this order keeping the lower row on an equal t, so its winner is the
+    row loop's: the first row with the strictly smallest t."""
+    if not rect_codes:
+        return ()
+    G = 1 + max(c >> 4 for c in rect_codes)
+    order = sorted(range(len(rect_codes)),
+                   key=lambda r: (rect_codes[r] >> 4, rect_codes[r] & 3, r))
+    heads = []
+    for g in range(G):
+        rows = [r for r, c in enumerate(rect_codes) if c >> 4 == g]
+        if not rows:
+            raise ValueError(f"rect transform groups must be numbered "
+                             f"0..G-1 with no gap: {rect_codes}")
+        flags = (rect_codes[rows[0]] >> 2) & 3
+        heads += [rows[0] | flags << 24,
+                  *(sum(rect_codes[r] & 3 == a for r in rows)
+                    for a in range(3))]
+    return (G, *order, *heads)
 
 
 @functools.lru_cache(maxsize=32)
@@ -2290,10 +2414,13 @@ def _kernel_lib() -> ctypes.CDLL:
     culled kernels' constants (rtw_culled_consts) are not the ones the
     plain version and `make_plan` use, K_BCAST and CULLED_MAX_T, or its
     dense kernels' forms, staged slot words and block limits not
-    DENSE_FORMS, `slot_words` and DENSE_MAX_T (check_dense_consts)."""
+    DENSE_FORMS, `slot_words` and DENSE_MAX_T (check_dense_consts), or
+    its surfaces forms and their block limits not SURFACE_FORMS and
+    DENSE_MAX_T (check_surface_forms)."""
     lib = bind(_build.load())
     check_culled_consts(lib)
     check_dense_consts(lib)
+    check_surface_forms(lib)
     return lib
 
 
@@ -2340,6 +2467,36 @@ def check_dense_consts(lib) -> None:
             raise RuntimeError(f"the kernel library's dense {kind} kernels "
                                f"take at most {limits} lanes a block, "
                                f"DENSE_MAX_T = {DENSE_MAX_T}")
+
+
+def surface_forms(lib) -> list:
+    """`lib`'s dense surfaces instantiations (rtw_surface_forms): one
+    (axes, uniform shutter, features, block limit, registers, local bytes)
+    a form. Raises on a CUDA error."""
+    n = len(SURFACE_FORMS)
+    got = (ctypes.c_int * (6 * n))()
+    rc = lib.rtw_surface_forms(got, n)
+    if rc < 0:
+        raise RuntimeError(f"rtw_surface_forms: CUDA error {-rc}")
+    return [tuple(got[6 * i:6 * i + 6]) for i in range(min(rc, n))] + [
+        None] * max(rc - n, 0)
+
+
+def check_surface_forms(lib) -> None:
+    """Raise RuntimeError unless `lib`'s surfaces instantiations are
+    SURFACE_FORMS, in that order (the forms `surface_form` plans), each
+    taking blocks of exactly DENSE_MAX_T lanes."""
+    rows = surface_forms(lib)
+    forms = [None if r is None else (r[0], bool(r[1]), r[2]) for r in rows]
+    if forms != list(SURFACE_FORMS):
+        raise RuntimeError(f"the kernel library's surfaces forms {forms}, "
+                           f"the plan's SURFACE_FORMS "
+                           f"{list(SURFACE_FORMS)}")
+    limits = [r[3] for r in rows]
+    if set(limits) != {DENSE_MAX_T}:
+        raise RuntimeError(f"the kernel library's surfaces forms take at "
+                           f"most {limits} lanes a block, DENSE_MAX_T = "
+                           f"{DENSE_MAX_T}")
 
 
 def check_culled_consts(lib) -> None:

@@ -1,7 +1,7 @@
 """The megakernel's sweeps (dense: K1-K4 and the twin K8; culled: K5, K5s),
 the wavefront's closest sphere hit (K7) and the dot microbenchmark (K9)
-on the card against other checkouts', and the split of the culled
-kernels' warps' cycles.
+on the card against other checkouts', the split of the culled kernels'
+warps' cycles and of the dense surfaces kernel's lanes' cycles.
 
 Times the shipped kernels with CUDA events on each cell at its path's
 launch shape and, with `--parent DIR` (repeatable), other checkouts'
@@ -10,37 +10,44 @@ archive`, built into a library of their own) in turns (shipped, parents,
 parents in reverse, shipped), held to the shipped kernel bit for bit: a
 dense cell on every output row and tape row, a culled cell on every row
 but row 7 (an older kernel writes 0 there), the twin on its rows, K7 on
-best_t and best_i. `--split`
-launches each culled cell once more on the build instrumented with
-clock64 (-DRTW_SPLIT) and prints the shares of its warps' cycles: the
-key pass and buckets, the votes, the broadcast and the compacted sweeps,
-and the rest (shading, RNG, tile tails). Culled cells: the four large-S
-cells of chip_smoke.py, random_balls_large in exact mode (the gradient
-path's mode: clusters visited in ascending id), large_mixed with moving
-balls, and book 1's random_balls cut into C = 4 clusters (moving,
-ascending id). Dense cells: book 1 (random_balls 1200x800x64, K1's
-y-only slot loop), the probe `shutter` (per-slot shutters, the all-axes
-loop), a static sphere scene (random_balls_large swept densely,
-1200x800x8), book 1 in exact mode (1200x800x4), cornell_box 400x400x64
-(K2+K3), earth 800x600x64 on earth.rtwi (K4), and the sweep twin at
-K = 200 (K8). K7 cells: the rays of the first regen iteration of
-random_balls (S = 512), random_balls_large (3840) and random_balls_huge
-(14592) at the wavefront's main shape (1200x800x8: N = 524,288 rays), ms
-a call of the wrapper and of the launch alone (K7's first version, a
-build without `rtw_k7_consts`, reads the rays as a (7, N) copy and writes
-an int32 index: its wrapper's copy and widening are outside its launch).
-The K9 cell: its nine rows at the tool's S = 512, T = 2048, µs a step
-(the tool's slope between N and 4 N steps), rows 0-7 after 8 steps beside
-the shipped build's (bit-equal where the sum order is the same). All
-nvcc builds start together. Card only:
+best_t and best_i. `--split` launches each culled cell once more on the
+build instrumented with clock64 (-DRTW_SPLIT) and prints the shares of
+its warps' cycles: the key pass and buckets, the votes, the broadcast
+and the compacted sweeps, and the rest (shading, RNG, tile tails); and
+each dense surfaces
+cell in overdraw mode: the shares of its lanes' cycles in the sweep, the
+rects, the media, each material's shading (the lambertian's light sample
+and light pdf apart), each texture kind, regeneration and the overdraw
+barrier, and the grid tail (the share of the launch during which fewer
+than all SMs hold a block, from each block's start and end on the global
+timer). Culled cells: the four large-S cells of chip_smoke.py,
+random_balls_large in exact mode (the gradient path's mode: clusters
+visited in ascending id), large_mixed with moving balls, and book 1's
+random_balls cut into C = 4 clusters (moving, ascending id). Dense
+cells: book 1 (random_balls 1200x800x64, K1's y-only slot loop), the
+probe `shutter` (per-slot shutters, the all-axes loop), a static sphere
+scene (random_balls_large swept densely, 1200x800x8), book 1 in exact
+mode (1200x800x4), the surfaces cells (K2-K4): cornell_box and
+cornell_smoke 400x400x64, cornell_box 128x128x32 in exact mode at
+T = 1024, depth 8 (`cornell_exact`: the gradient path's tape forward),
+earth 800x600x64 on earth.rtwi, two_perlin_spheres and checker_spheres
+800x600x64; and the sweep twin at K = 200 (K8). K7 cells: the rays of the
+first regen iteration of random_balls (S = 512), random_balls_large
+(3840) and random_balls_huge (14592) at the wavefront's main shape
+(1200x800x8: N = 524,288 rays), ms a call. The K9 cell: its nine rows at
+the tool's S = 512, T = 2048, µs a step (the tool's slope between N and
+4 N steps), rows 0-7 after 8 steps beside the shipped build's (bit-equal
+where the sum order is the same). All nvcc builds start together. Card
+only:
 
     python -m raytracingweekend_tpu_torch.tools.culled_ab \\
-        [--cells large,huge,...,twin,k7_book1,k7_large,k7_huge,k9] \\
+        [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9] \\
         [--reps 3] [--parent DIR]... [--split]
 
 One JSON row a measurement on stdout, the card's name and power limit
-first, then each build's registers and spills and its slot loops' SASS
-(K7's a ray-slot pair).
+first, then each build's registers and spills, its slot loops' SASS
+(K7's a ray-slot pair) and its surfaces kernels' rect and light loops,
+MUFU and loads (`sass.surface_loops`).
 """
 from __future__ import annotations
 
@@ -80,10 +87,23 @@ CELLS = {"large": ("random_balls_large", {}, 32, {}),
          "dense_static": ("random_balls_large", {}, 8, dict(cull=False)),
          "dense_exact": ("random_balls", {}, 4, dict(exact=True)),
          "cornell": ("cornell_box", {}, 64, {}),
+         "cornell_smoke": ("cornell_smoke", {}, 64, {}),
+         "cornell_exact": ("cornell_box", {}, 32,
+                           dict(exact=True, T=1024, rr_depth=None)),
          "earth": ("earth", dict(image_path=RTWI), 64, {}),
+         "perlin": ("two_perlin_spheres", {}, 64, {}),
+         "checker": ("checker_spheres", {}, 64, {}),
          "twin": ("sweep twin", {}, 0, {})}
-# the cells' image shapes other than NX x NY
-SHAPES = {"cornell": (400, 400), "earth": (800, 600)}
+# the cells' image shapes other than NX x NY, and depths other than DEPTH
+# (cornell_exact: the gradient path's tape forward, mega_grad.plan_tape at
+# tools/grad_bench.py's workload)
+SHAPES = {"cornell": (400, 400), "cornell_smoke": (400, 400),
+          "cornell_exact": (128, 128), "earth": (800, 600),
+          "perlin": (800, 600), "checker": (800, 600)}
+DEPTHS = {"cornell_exact": 8}
+# the dense surfaces cells (K2-K4) that --split takes
+SURFACE_CELLS = ("cornell", "cornell_smoke", "cornell_exact", "earth",
+                 "perlin", "checker")
 # K7's cells (their scene) at the wavefront's main shape NX x NY x K7_SPP,
 # and the regen launch's seed
 K7_CELLS = {"k7_book1": "random_balls", "k7_large": "random_balls_large",
@@ -97,15 +117,20 @@ ALL_CELLS = (*CELLS, *K7_CELLS, "k9")
 SPLIT = ("RTW_SPLIT",)
 SPLIT_KEYS = ("total", "keys", "visits", "broadcast", "compacted",
               "candidates", "broadcast_visits", "compacted_visits")
+# the dense surfaces kernel's split parts (csrc/megakernel.cu SurfSplit)
+SURF_KEYS = ("total", "sweep", "rects", "media", "lambertian", "light_dir",
+             "light_pdf", "metal", "dielectric", "emission", "isotropic",
+             "noise", "checker", "image", "regen", "barrier")
 
 
 def cell_inputs(cell: str, nx: int | None = None, ny: int | None = None,
-                depth: int = DEPTH, device: str = "cuda"):
+                depth: int | None = None, device: str = "cuda"):
     """(label, launch args, plan) of a megakernel cell at nx x ny (default:
-    its shape), its spp a launch."""
+    its shape) and depth (default: its own), its spp a launch."""
     name, kw, spp, plan_kw = CELLS[cell]
     nx = nx or SHAPES.get(cell, (NX, NY))[0]
     ny = ny or SHAPES.get(cell, (NX, NY))[1]
+    depth = DEPTHS.get(cell, DEPTH) if depth is None else depth
     if name == "large_mixed":
         scene = probe_scenes.large_mixed_scene(builder, scene_types,
                                                aspect=nx / ny, **kw)
@@ -153,55 +178,19 @@ def capture_regen_rays(scene, n_iters: int, nx: int = NX, ny: int = NY,
     return got
 
 
-def _k7_first_version(lib) -> bool:
-    """A build of K7's first version (no `rtw_k7_consts` export: rays as
-    one (7, N) array, an int32 index)."""
-    return not hasattr(lib, "rtw_k7_consts")
-
-
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The argtypes of every kernel this tool times on a build: the
-    megakernels', K8's, K9's and K7's (its first version's where the
-    build has that)."""
-    lib = k9.bind(k8.bind(mk.bind(lib)))
-    if not _k7_first_version(lib):
-        return k7.bind(lib)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtw_hit_spheres_launch.argtypes = [p, p, p, p, i, i, i, f, p]
-    lib.rtw_hit_spheres_launch.restype = ctypes.c_int
-    return lib
+    megakernels', K8's, K9's and K7's."""
+    return k7.bind(k9.bind(k8.bind(mk.bind(lib))))
 
 
-def _k7_calls(lib, o, d, tm, table, moving, lay) -> tuple:
-    """(wrapper, launch alone) of one build's K7 on these rays: callables
-    returning (best_t, best_i int64) and (best_t, best_i as written)."""
-    if not _k7_first_version(lib):
-        def wrapper():
-            return k7.hit_spheres_kernel(o, d, tm, table, moving, layout=lay,
-                                         lib=lib)
-        return wrapper, wrapper
-    n, S = o.shape[0], table.shape[0]
-
-    def packed():
-        return (torch.cat([o.t(), d.t(), tm[None]]).contiguous(),
-                torch.empty((n,), dtype=torch.float32, device=o.device),
-                torch.empty((n,), dtype=torch.int32, device=o.device))
-
-    def launch(rays, best_t, best_i):
-        rc = lib.rtw_hit_spheres_launch(
-            rays.data_ptr(), table.data_ptr(), best_t.data_ptr(),
-            best_i.data_ptr(), n, S, int(moving), float(geometry.T_MIN),
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"K7 launch failed: CUDA error {rc} "
-                               f"({lib.rtw_error_string(rc).decode()})")
-        return best_t, best_i
-
-    def wrapper():
-        t, i = launch(*packed())
-        return t, i.long()
-
-    return wrapper, functools.partial(launch, *packed())
+def _k7_call(lib, o, d, tm, table, moving, lay):
+    """One build's K7 on these rays: a callable returning (best_t,
+    best_i)."""
+    def call():
+        return k7.hit_spheres_kernel(o, d, tm, table, moving, layout=lay,
+                                     lib=lib)
+    return call
 
 
 def split_lib() -> ctypes.CDLL:
@@ -241,6 +230,85 @@ def split(args, plan) -> dict:
     return dict(raw=raw, share=share, ms=a.elapsed_time(b), out=out)
 
 
+def split_surfaces(args, plan) -> dict:
+    """One overdraw launch of the instrumented build's dense surfaces
+    kernel: its lanes' cycle sums (SURF_KEYS), each part's share of the
+    lane loop's cycles (the rest: what no part holds), each block's start,
+    end and SM (`grid_tail`), the instrumented launch's ms and its
+    output."""
+    lib = split_lib()
+    lib.rtw_split_surfaces_read.argtypes = [ctypes.c_void_p]
+    lib.rtw_split_surfaces_read.restype = ctypes.c_int
+    lib.rtw_split_blocks.argtypes = [ctypes.c_void_p]
+    lib.rtw_split_blocks.restype = ctypes.c_int
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    blocks = torch.zeros((args[0].shape[0], 3), dtype=torch.int64,
+                         device=args[0].device)
+    mk.mega_kernel(*args, SEED, plan, lib=lib)        # warm-up
+    torch.cuda.synchronize()
+    sums = (ctypes.c_ulonglong * len(SURF_KEYS))()
+    _check(lib.rtw_split_surfaces_read(sums), lib)    # clear
+    _check(lib.rtw_split_blocks(blocks.data_ptr()), lib)
+    try:
+        a.record()
+        out = mk.mega_kernel(*args, SEED, plan, lib=lib)
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        _check(lib.rtw_split_blocks(None), lib)
+    _check(lib.rtw_split_surfaces_read(sums), lib)
+    raw = dict(zip(SURF_KEYS, map(int, sums)))
+    tot = max(raw["total"], 1)
+    share = {k: raw[k] / tot for k in SURF_KEYS[1:]}
+    share["rest"] = 1.0 - sum(share.values())
+    n_sm = torch.cuda.get_device_properties(
+        args[0].device).multi_processor_count
+    return dict(raw=raw, share=share, ms=a.elapsed_time(b), out=out,
+                grid=grid_tail(blocks.cpu().numpy(), n_sm))
+
+
+def grid_tail(rec, n_sm: int) -> dict:
+    """The grid's tail from each block's (start ns, end ns, SM id) `rec`:
+    the share of the launch (first start to last end) during which fewer
+    than n_sm SMs hold a block, the launch's span, the blocks a launch,
+    the most blocks one SM held at once, and the blocks' longest and mean
+    durations."""
+    import numpy as np
+    rec = np.asarray(rec, np.int64)
+    t0, t1 = int(rec[:, 0].min()), int(rec[:, 1].max())
+    events, most = [], 0
+    for sm in np.unique(rec[:, 2]):
+        iv = sorted(map(tuple, rec[rec[:, 2] == sm][:, :2].tolist()))
+        edges = sorted([(a, 1) for a, _ in iv] + [(b, -1) for _, b in iv],
+                       key=lambda e: (e[0], e[1]))
+        held = 0
+        for _, d in edges:
+            held += d
+            most = max(most, held)
+        lo, hi = iv[0]
+        for a, b in iv[1:]:                  # the SM's busy intervals
+            if a > hi:
+                events += [(lo, 1), (hi, -1)]
+                lo = a
+            hi = max(hi, b)
+        events += [(lo, 1), (hi, -1)]
+    events.sort(key=lambda e: (e[0], e[1]))
+    busy, prev, under = 0, t0, 0
+    for t, d in events:
+        if busy < n_sm:
+            under += t - prev
+        busy += d
+        prev = t
+    under += t1 - prev
+    span = max(t1 - t0, 1)
+    dur = rec[:, 1] - rec[:, 0]
+    return dict(tail_share=under / span, span_ms=span / 1e6,
+                blocks=int(rec.shape[0]), sms=int(np.unique(rec[:, 2]).size),
+                most_blocks_an_sm=most, longest_block_ms=int(dur.max()) / 1e6,
+                mean_block_ms=float(dur.mean()) / 1e6)
+
+
 def _check(rc: int, lib) -> None:
     if rc:
         raise RuntimeError(f"rtw_split_read failed: CUDA error {rc} "
@@ -270,8 +338,9 @@ def _same(out, ref, dense: bool) -> bool:
 def build_report(label: str, path: Path) -> dict:
     """One build's megakernel, sweep twin, K7 and K9 instantiations:
     registers, spill and stack bytes (nvcc's ptxas report beside the
-    library, when it was built here) and their slot loops' SASS
-    (sass.slot_loops; K7's a ray-slot pair, sass.k7_loops)."""
+    library, when it was built here), their slot loops' SASS
+    (sass.slot_loops; K7's a ray-slot pair, sass.k7_loops) and the
+    surfaces kernels' loops and loads (sass.surface_loops)."""
     log = path.with_name(path.name + ".log")
     regs = sass.registers(log.read_text()) if log.exists() else {}
     mine = ("<", "surfaces<", "culled", "twin<", "k7", "k9")
@@ -280,7 +349,8 @@ def build_report(label: str, path: Path) -> dict:
             "registers": {k: v for k, v in regs.items()
                           if k.startswith(mine)},
             "sweep_sass": sass.slot_loops(listing),
-            "k7_sass": sass.k7_loops(listing)}
+            "k7_sass": sass.k7_loops(listing),
+            "surfaces_sass": sass.surface_loops(listing)}
 
 
 def _twin_rows(libs: dict, reps: int) -> list:
@@ -317,24 +387,21 @@ def _k7_rows(cell: str, libs: dict) -> list:
     ds = device_scene(scene, "cuda")
     table, lay = ds.sphere_table, ds.sphere_layout
     moving = scene.has_moving_spheres
-    calls = {k: _k7_calls(lib, o, d, tm, table, moving, lay)
+    calls = {k: _k7_call(lib, o, d, tm, table, moving, lay)
              for k, lib in libs.items()}
-    ref_t, ref_i = calls["shipped"][0]()
-    times = {k: {"ms": [], "launch_ms": []} for k in libs}
+    ref_t, ref_i = calls["shipped"]()
+    times = {k: [] for k in libs}
     for k in [*libs, *reversed(libs)]:
-        wrapper, launch = calls[k]
-        times[k]["ms"].append(_timed(wrapper, K7_REPS)[0])
-        times[k]["launch_ms"].append(_timed(launch, K7_REPS)[0])
-        got_t, got_i = wrapper()
+        times[k].append(_timed(calls[k], K7_REPS)[0])
+        got_t, got_i = calls[k]()
         if not (torch.equal(got_t, ref_t) and torch.equal(got_i, ref_i)):
             raise RuntimeError(f"the {k} build's K7 differs from the "
                                f"shipped build's on {K7_CELLS[cell]}")
     return [dict(cell=cell, kernel="K7", scene=K7_CELLS[cell],
                  N=o.shape[0], S=table.shape[0],
                  form=f"k7<{lay.axes},{int(lay.uniform)}>", build=k,
-                 ms=sum(t["ms"]) / len(t["ms"]),
-                 launch_ms=sum(t["launch_ms"]) / len(t["launch_ms"]),
-                 turns=t, bitwise_equal=True) for k, t in times.items()]
+                 ms=sum(t) / len(t), turns=t, bitwise_equal=True)
+            for k, t in times.items()]
 
 
 def _k9_rows(libs: dict, reps: int) -> list:
@@ -420,6 +487,14 @@ def run(cells=ALL_CELLS, reps: int = 3, parents=(),
                        turns=times[k])
             rows.append(row)
             print(json.dumps(row), flush=True)
+        if with_split and cell in SURFACE_CELLS and not plan.exact:
+            s = split_surfaces(args, plan)
+            if not torch.equal(s["out"], ref):
+                raise RuntimeError(f"the split build differs on {name}")
+            row = dict(base, build="split", instrumented_ms=s["ms"],
+                       share=s["share"], grid=s["grid"], raw=s["raw"])
+            rows.append(row)
+            print(json.dumps(row), flush=True)
         if with_split and plan.cull:
             s = split(args, plan)
             if not torch.equal(s["out"][:, :mk.OUT_ROWS],
@@ -443,7 +518,8 @@ def main(argv=None) -> None:
                    help="another checkout whose kernels to time too "
                         "(repeatable)")
     p.add_argument("--split", action="store_true",
-                   help="take each culled cell's warp-cycle split")
+                   help="take each culled cell's warp-cycle split and each "
+                        "dense surfaces cell's cycle split and grid tail")
     a = p.parse_args(argv)
     cells = tuple(c for c in a.cells.split(",") if c)
     bad = [c for c in cells if c not in ALL_CELLS]

@@ -1,9 +1,11 @@
 """The SASS of a kernel library build (ops/_build.py): each megakernel,
 sweep twin, microbenchmark and Mosaic repro instantiation's name, its
-registers, spills and stack from nvcc's ptxas report, and the sphere
-sweeps' slot loops, counted instruction by instruction (`cuobjdump -sass`
-from the CUDA toolkit beside nvcc). chip_smoke.py's phase 2 prints them
-for the kernels' build; tools/culled_ab.py for each build it times.
+registers, spills and stack from nvcc's ptxas report, the sphere sweeps'
+slot loops, counted instruction by instruction, and the surfaces
+kernels' rect and light loops with their MUFU and load counts
+(`cuobjdump -sass` from the CUDA toolkit beside nvcc). chip_smoke.py's
+phase 2 prints them for the kernels' build; tools/culled_ab.py for each
+build it times.
 """
 from __future__ import annotations
 
@@ -15,14 +17,15 @@ from ..ops import _build
 
 
 def kernel_name(mangled: str):
-    """'<kAxes,kUniformTime>', 'surfaces<kAxes,kUniformTime,kTex>',
+    """'<kAxes,kUniformTime>', 'surfaces<kAxes,kUniformTime,kFeat>',
     'culled<kMoving,kUniformTime>' or
     'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
     mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
     instantiation (kAxes: the dense slot loop's moving-axis mask,
-    mk.sweep_axes), 'twin<kExt>' of the sweep twin's (K8),
-    'k9<body,unit>' of the microbenchmark's (K9), 'k7<kAxes,kUniform>' of
-    the closest sphere hit's (K7; 'k7<kMoving>' of its first version) and
+    mk.sweep_axes; kFeat: the surfaces form's features, mk.F_*; a build
+    before the forms names kTex there), 'twin<kExt>' of the sweep twin's
+    (K8), 'k9<body,unit>' of the microbenchmark's (K9),
+    'k7<kAxes,kUniform>' of the closest sphere hit's (K7) and
     'repro:<name>' of the Mosaic repros' (K10-K14), else None."""
     repro = re.search(r"repro_(\w+?)_kernel(?:IL[bi](\d+)E)?", mangled)
     if repro:
@@ -34,10 +37,9 @@ def kernel_name(mangled: str):
     bench = re.search(r"microbench_kernelILi(\d)ELi(\d)E", mangled)
     if bench:
         return f"k9<{bench.group(1)},{bench.group(2)}>"
-    k7 = re.search(r"hit_spheres_kernelIL(?:i(\d)ELb(\d)|b(\d))E", mangled)
+    k7 = re.search(r"hit_spheres_kernelILi(\d)ELb(\d)E", mangled)
     if k7:
-        return (f"k7<{k7.group(1)},{k7.group(2)}>" if k7.group(1)
-                else f"k7<{k7.group(3)}>")
+        return f"k7<{k7.group(1)},{k7.group(2)}>"
     m = re.search(
         r"mega_kernel(_surfaces|_culled_surfaces|_culled)?I((?:L[ib]\d+E)+)E",
         mangled)
@@ -163,6 +165,55 @@ def k7_loops(text: str) -> dict:
                  for k in ("FFMA", "FMUL", "FADD", "LDS", "BRA")}
         out[name] = dict(sass_per_pair=(b - a + 1) / pairs,
                          pairs_an_iteration=pairs, **count)
+    return out
+
+
+def surface_loops(text: str) -> dict:
+    """Each surfaces instantiation's (dense and culled) counts in the SASS
+    listing `text`: its instructions; MUFU by function, and its loads
+    from shared memory (LDS), through generic addresses (LD), from global
+    memory (LDG) and local memory (LDL, with STL: spills and stack); and
+    its innermost loops over rects and lights with their instructions:
+    a rect loop reads shared memory, tests bounds (four or more FSETP),
+    takes no MUFU, no min / max (the culled kernels' slab loops) and no
+    warp vote or shuffle; the light loop takes roots and divides
+    (MUFU.RSQ and MUFU.RCP) and reads shared memory. The redesigned
+    kernel's rect loops run one row an iteration (`rect_run`, unroll 1),
+    its light loop one light. {name: dict}."""
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(func.split(None, 1)[0])
+        if name is None or "surfaces" not in name:
+            continue
+        ins, loops = _loops(func)
+        ops = _opcodes(ins)
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)]
+        rects, lights = [], []
+        for a, b in sorted(set(inner)):
+            body = _opcodes(ins[a:b + 1])
+            mufu = [o for o in body if o.startswith("MUFU")]
+            n_fsetp = sum(o.startswith("FSETP") for o in body)
+            has_lds = any(o.startswith("LDS") for o in body)
+            if ("MUFU.RSQ" in mufu and "MUFU.RCP" in mufu and has_lds):
+                lights.append(b - a + 1)
+            elif (not mufu and has_lds and n_fsetp >= 4
+                  and not any(o.startswith(("FMNMX", "VOTE", "REDUX",
+                                            "SHFL")) for o in body)):
+                rects.append(b - a + 1)
+        kinds = sorted({o.split(".")[1] for o in ops
+                        if o.startswith("MUFU.")})
+        out[name] = dict(
+            instructions=len(ops),
+            MUFU={k: sum(o.startswith(f"MUFU.{k}") for o in ops)
+                  for k in kinds},
+            LDS=sum(o.startswith("LDS") for o in ops),
+            LD=sum(o == "LD" or o.startswith("LD.") for o in ops),
+            LDG=sum(o.startswith("LDG") for o in ops),
+            LDL=sum(o.startswith("LDL") for o in ops),
+            STL=sum(o.startswith("STL") for o in ops),
+            rect_loops=rects, light_loops=lights)
     return out
 
 

@@ -2,8 +2,9 @@
 (raytracingweekend_tpu_torch/tools/culled_ab.py) and of the measurement
 builds it names (ops/_build.py): the tool times the dense (K1-K4, K8) and
 culled (K5 / K5s) kernels, K7 and K9 on the card only, so here it is held
-to its builds, its cells, K7's slot loop count (tools/sass.py), its
-interface test and its refusal without a card."""
+to its builds, its cells, its split's parts and grid tail, the loop
+counts of tools/sass.py (K7's slot loop, the surfaces kernels' rect and
+light loops) and its refusal without a card."""
 from pathlib import Path
 
 import pytest
@@ -25,11 +26,42 @@ LISTING = """
         /*0060*/                   MUFU.RSQ R6, R5 ;
         /*0070*/              @P1   BRA 0x10 ;
         /*0080*/                   EXIT ;
-\tFunction : _ZN12_GLOBAL__N_118hit_spheres_kernelILb1EEEvPKfPK6float4iifPfPi
+\tFunction : _ZN12_GLOBAL__N_118hit_spheres_kernelILi0ELb1EEEvNS_4RaysE
         /*0000*/                   MUFU.RSQ R6, R5 ;
         /*0010*/                   FADD R7, R5, R6 ;
         /*0020*/                   BRA 0x0 ;
 """
+# a surfaces kernel as cuobjdump lists it: a rect row loop (bounds tests,
+# no MUFU), a light loop (a root and a division), a slab loop (min / max:
+# not a rect loop) and the loads
+SURFACES = r"""
+\tFunction : _ZN12_GLOBAL__N_120mega_kernel_surfacesILi0ELb0ELi3EEEv6Params8Surfaces6Texels
+        /*0000*/                   LDS.128 R20, [R24] ;
+        /*0010*/                   LDS.128 R24, [R24+0x10] ;
+        /*0020*/                   FADD R25, R20, -R70 ;
+        /*0030*/                   FMUL R20, R25, R16 ;
+        /*0040*/                   FSETP.GT.AND P0, PT, R20, R69, PT ;
+        /*0050*/                   FSETP.GE.AND P0, PT, R67, R21, P0 ;
+        /*0060*/                   FSETP.LE.AND P0, PT, R67, R22, P0 ;
+        /*0070*/                   FSETP.GE.AND P0, PT, R68, R23, P0 ;
+        /*0080*/                   FSEL R64, R20, R64, P0 ;
+        /*0090*/              @P1   BRA 0x0 ;
+        /*00a0*/                   LDS R16, [R72] ;
+        /*00b0*/                   MUFU.RSQ R19, R20 ;
+        /*00c0*/                   MUFU.RCP R17, R21 ;
+        /*00d0*/                   FADD R66, R17, R66 ;
+        /*00e0*/              @!P4  BRA 0xa0 ;
+        /*00f0*/                   LDS R16, [R72] ;
+        /*0100*/                   FMNMX R1, R2, R3, !PT ;
+        /*0110*/                   FSETP.GT.AND P0, PT, R20, R69, PT ;
+        /*0120*/                   FSETP.GE.AND P0, PT, R67, R21, P0 ;
+        /*0130*/                   FSETP.LE.AND P0, PT, R67, R22, P0 ;
+        /*0140*/                   FSETP.GE.AND P0, PT, R68, R23, P0 ;
+        /*0150*/              @P2   BRA 0xf0 ;
+        /*0160*/                   LDG.E.CONSTANT R2, [R4.64] ;
+        /*0170*/                   LD.E R3, [R6.64] ;
+        /*0180*/                   EXIT ;
+""".replace("\\t", "\t")
 
 
 def test_variant_defines():
@@ -63,8 +95,8 @@ def test_measurement_builds_are_libraries_of_their_own(tmp_path):
 
 
 def test_k7_sass_names_and_slot_loop():
-    """K7's instantiations are named by form (first version: by its
-    moving flag), and its slot loop is counted a ray-slot pair."""
+    """K7's instantiations are named by form, and its slot loop is
+    counted a ray-slot pair."""
     assert sass.kernel_name(
         "_ZN12_GLOBAL__N_118hit_spheres_kernelILi7ELb0EEEvNS_4RaysE") == \
         "k7<7,0>"
@@ -72,44 +104,71 @@ def test_k7_sass_names_and_slot_loop():
     assert got["k7<2,1>"] == dict(sass_per_pair=3.5, pairs_an_iteration=2,
                                   FFMA=0.5, FMUL=0.5, FADD=0.0, LDS=0.5,
                                   BRA=1.0)
-    assert got["k7<1>"]["sass_per_pair"] == 3.0
+    assert got["k7<0,1>"]["sass_per_pair"] == 3.0
     # the megakernels' slot loop report leaves K7 out
     assert sass.slot_loops(LISTING) == {}
 
 
-def test_k7_first_version_is_told_by_its_exports():
-    """A build without `rtw_k7_consts` is K7's first version's
-    interface."""
-    class Lib:
-        rtw_k7_consts = object()
+def test_surface_loops_count_rect_and_light_loops():
+    """A surfaces instantiation's rect row loop (bounds tests, no MUFU),
+    its light loop (a root and a division) and its loads by kind; a slab
+    loop (min / max) is no rect loop."""
+    assert sass.kernel_name(
+        "_ZN12_GLOBAL__N_120mega_kernel_surfacesILi0ELb0ELi3EEEv6Params8"
+        "Surfaces6Texels") == "surfaces<0,0,3>"
+    got = sass.surface_loops(SURFACES)["surfaces<0,0,3>"]
+    assert got["rect_loops"] == [10] and got["light_loops"] == [5]
+    assert got["MUFU"] == {"RCP": 1, "RSQ": 1}
+    assert (got["LDS"], got["LD"], got["LDG"], got["LDL"]) == (4, 1, 1, 0)
+    assert got["instructions"] == 25
+    assert sass.surface_loops(LISTING) == {}
 
-    assert not culled_ab._k7_first_version(Lib())
-    assert culled_ab._k7_first_version(object())
 
-
-def test_bind_gives_each_k7_interface_its_own_argtypes():
-    """A build is bound to the K7 interface it exports: the shipped one
-    (19 arguments, with `rtw_k7_consts`) or the first version's (9), so no
-    build is called through the other's signature."""
+def test_bind_binds_every_kernel():
+    """A build is bound to every interface the tool calls: the
+    megakernel's launch (46 arguments), K7's (19), K8's and K9's."""
     from types import SimpleNamespace
 
     class Lib:
-        """Every entry point a build exports, `rtw_k7_consts` if asked."""
-
-        def __init__(self, consts):
-            if consts:
-                self.rtw_k7_consts = SimpleNamespace()
+        """Every entry point a build exports."""
 
         def __getattr__(self, name):
-            if name == "rtw_k7_consts":
-                raise AttributeError(name)
             setattr(self, name, SimpleNamespace())
             return getattr(self, name)
 
-    new = culled_ab.bind(Lib(True))
-    first = culled_ab.bind(Lib(False))
-    assert len(new.rtw_hit_spheres_launch.argtypes) == 19
-    assert len(first.rtw_hit_spheres_launch.argtypes) == 9
+    lib = culled_ab.bind(Lib())
+    assert len(lib.rtw_mega_launch.argtypes) == 46
+    assert len(lib.rtw_hit_spheres_launch.argtypes) == 19
+    assert lib.rtw_sweep_twin_launch.argtypes
+    assert lib.rtw_microbench_launch.argtypes
+
+
+def test_grid_tail_is_the_share_with_an_idle_sm():
+    """grid_tail: the share of the launch during which fewer than all SMs
+    hold a block, with an SM's back-to-back blocks one busy stretch, and
+    the most blocks an SM held at once."""
+    rec = [[0, 100, 0], [0, 100, 1], [100, 150, 0], [0, 50, 1],
+           [50, 100, 1]]
+    got = culled_ab.grid_tail(rec, 2)
+    assert got["tail_share"] == pytest.approx(50 / 150)
+    assert got["most_blocks_an_sm"] == 2
+    assert (got["blocks"], got["sms"]) == (5, 2)
+    assert got["longest_block_ms"] == 100 / 1e6
+    assert got["mean_block_ms"] == pytest.approx(70 / 1e6)
+    # three SMs, one never used: the whole launch is tail
+    assert culled_ab.grid_tail(rec, 3)["tail_share"] == 1.0
+
+
+def test_surface_split_parts_are_the_kernels():
+    """The split's part names follow csrc/megakernel.cu's kSs* parts, in
+    order."""
+    src = (_build.CSRC / "megakernel.cu").read_text()
+    enum = src[src.index("enum { kSsTotal"):]
+    parts = enum[:enum.index("kSurfParts")].replace("enum {", "")
+    names = [p.strip() for p in parts.split(",") if p.strip()]
+    assert len(names) == len(culled_ab.SURF_KEYS)
+    assert [n[3:].lower() for n in names] == [
+        k.replace("_", "") for k in culled_ab.SURF_KEYS]
 
 
 def test_k7_and_k9_cells_are_cells(monkeypatch):
@@ -149,13 +208,22 @@ def test_cells_plan_the_culled_kernels(cell, surfaces, exact, moving,
     ("dense_shutter", False, False, 7, False),
     ("dense_static", False, False, 0, True),
     ("dense_exact", False, True, 2, True),
-    ("cornell", True, False, 0, True), ("earth", True, False, 0, True)])
+    ("cornell", True, False, 0, True), ("earth", True, False, 0, True),
+    ("cornell_smoke", True, False, 0, False),
+    ("cornell_exact", True, True, 0, True),
+    ("perlin", True, False, 0, True), ("checker", True, False, 0, True)])
 def test_cells_plan_the_dense_kernels(cell, surfaces, exact, axes,
                                       uniform_time):
     """A dense cell's launch at a small size plans a dense kernel (K1, or
     K2-K4 with surfaces) with its spp a launch, its mode and its slot
-    loop's moving-axis mask."""
+    loop's moving-axis mask; the surfaces cells are the ones --split
+    takes, cornell_exact the gradient path's tape plan (T = 1024, no
+    roulette, depth 8)."""
     name, args, plan = culled_ab.cell_inputs(cell, 32, 32, 4, device="cpu")
+    assert (cell in culled_ab.SURFACE_CELLS) == surfaces
+    if cell == "cornell_exact":
+        assert (plan.T, plan.rr_depth, culled_ab.DEPTHS[cell]) == (1024,
+                                                                   None, 8)
     assert name.startswith(culled_ab.CELLS[cell][0])
     assert not plan.cull and plan.surfaces == surfaces
     assert plan.exact == exact and plan.uniform_time == uniform_time

@@ -195,12 +195,15 @@ def test_shared_bytes_count_the_staged_layout(name):
 
 
 def test_shared_bytes_add_the_surfaces_tables_after_the_slots():
-    """A dense surfaces plan stages its slots first, then the rect, light
-    and medium rows and their codes (cornell_box: 8 static slots, 12
-    rects of 19 lanes, one light of 15, no medium)."""
+    """A dense surfaces plan stages its slots first, then the rect runs
+    (two float4 a rect) and their group headers (an int4 a rect at most),
+    the camera vector, the rect, light and medium rows and their codes
+    (cornell_box: 8 static slots, 12 rects of 19 lanes, two lights of 15,
+    no medium)."""
     _, plan = tk.make_plan(make_scene("cornell_box", 1.0), 32, 32, 2)
     assert plan.surfaces and tk.sweep_axes(plan) == tk.AXES_STATIC
-    words = (4 * plan.S + plan.R * (tk.RT_RIDX + 1)
+    words = (4 * plan.S + plan.R * (8 + 4) + (tk.CAM_T1 + 1)
+             + plan.R * (tk.RT_RIDX + 1)
              + plan.L * (tk.LT_RAD + 1) + plan.V * (tk.MD_ALBZ + 1)
              + plan.R + plan.L + plan.V)
     assert tk.shared_bytes(plan) == 4 * words

@@ -28,7 +28,7 @@ TEXTURES = ("light_sample", "two_perlin_spheres", "checker_spheres",
 
 def _scene(name):
     from raytracingweekend_tpu_torch.models import builder, scene_types
-    if name in ("shutter", "nested", "texture_mix"):
+    if name in ("shutter", "nested", "texture_mix", "rect_tie"):
         return getattr(probe_scenes, f"{name}_scene")(builder, scene_types)
     if name in CORNELL:
         base, kw = CORNELL[name]
@@ -310,6 +310,97 @@ def test_culled_surfaces_kernel_equals_dense_kernel(variant, exact,
         assert torch.equal(culled.tape, dense.tape)
     assert 0 < culled.blocks.item() < dense.blocks.item()
     assert 0 < culled.lane_need.item() <= culled.blocks.item()
+
+
+# the surfaces form (features, tk.F_*) each scene plans
+SURFACE_FORM_OF = {
+    "earth": tk.F_IMAGE, "earth_rect": tk.F_RECTS | tk.F_IMAGE,
+    "two_perlin_spheres": tk.F_NOISE, "light_sample": tk.F_RECTS | tk.F_NOISE,
+    "checker_spheres": tk.F_CHECKER, "cornell_box": tk.F_RECTS | tk.F_LIGHTS,
+    "cornell_smoke": tk.F_SURF, "texture_mix": tk.F_ALL}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SURFACE_FORM_OF))
+@pytest.mark.parametrize("exact", [True, False])
+def test_surface_forms_match_plain_version_on_card(exact, name):
+    """Every static surfaces form the library builds, on the scene that
+    plans it: the library exports the forms `make_plan` picks from
+    (SURFACE_FORMS, each taking DENSE_MAX_T lanes), and the kernel agrees
+    with its plain version (exact: tapes on >= 99% of lanes and their
+    radiance; overdraw: every output row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lib = tk._kernel_lib()
+    rows = tk.surface_forms(lib)
+    assert [(a, bool(u), f) for a, u, f, *_ in rows] == list(
+        tk.SURFACE_FORMS)
+    assert {r[3] for r in rows} == {tk.DENSE_MAX_T}
+    scene = _scene(name)
+    _, plan = tk.make_plan(scene, 64, 64, 4, max_depth=8, T=256,
+                           exact=exact)
+    assert plan.feat == SURFACE_FORM_OF[name]
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    out_k = tk.mega_kernel(*args, 2024, plan)
+    out_r = tk.trace_mega_reference(*args, 2024, plan)
+    torch.cuda.synchronize()
+    valid = args[0][:, 2] > 0
+    if exact:
+        same = (out_k[:, 8:] == out_r[:, 8:]).all(dim=1)
+        assert (same & valid).sum().item() >= 0.99 * valid.sum().item()
+        a = out_k[:, 0:3].transpose(1, 2)[same]
+        b = out_r[:, 0:3].transpose(1, 2)[same]
+        assert torch.allclose(a, b, rtol=RTOL, atol=ATOL)
+    else:
+        close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                              atol=ATOL).all(dim=1)
+        assert close.float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_rect_tie_keeps_the_lower_row_on_card():
+    """rect_tie's coplanar rects tie on every ray that reaches them; the
+    kernel tests group 0 (row 2) before group 1 (row 1) and must still
+    record row 1, as the plain version does: the tapes are equal on every
+    lane, and row 2 never wins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = _scene("rect_tie")
+    _, plan = tk.make_plan(scene, 64, 64, 4, max_depth=5, rr_depth=None,
+                           T=256, exact=True)
+    assert tk.rect_runs(plan.rect_codes)[1:4] == (2, 0, 1)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    out_k = tk.mega_kernel(*args, 99, plan)
+    out_r = tk.trace_mega_reference(*args, 99, plan)
+    tape_k, tape_r = out_k[:, 8:], out_r[:, 8:]
+    assert torch.equal(tape_k, tape_r)
+    assert (tape_k == plan.S + 1).sum().item() > 1000
+    assert (tape_k == plan.S + 2).sum().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_box", "earth"])
+def test_block_order_renders_the_same_tiles_on_card(name):
+    """The dense surfaces kernel renders block b's tile from the layout's
+    pad row (1 + tile; 0: tile b): in the layout's order, in a random
+    order and in the longest-first order the wrapper learns, every output
+    row is the same bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene = _scene(name)
+    _, plan = tk.make_plan(scene, 96, 64, 4, max_depth=8, T=128)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    pixf = args[0]
+    pixf[:, 3, :] = 0.0
+    ref = tk.mega_kernel(*args, 7, plan)           # layout order
+    learned = pixf[:, 3, 0].clone()
+    assert sorted(learned.long().tolist()) == list(
+        range(1, pixf.shape[0] + 1))
+    assert torch.equal(tk.mega_kernel(*args, 7, plan), ref)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    pixf[:, 3, 0] = (torch.randperm(pixf.shape[0], generator=gen) + 1).to(
+        pixf)
+    assert torch.equal(tk.mega_kernel(*args, 7, plan), ref)
 
 
 @pytest.mark.cuda
