@@ -65,8 +65,12 @@ its plain version, its registers and spills). Then the Mosaic repros
 csrc/mosaic_repros.cu): every one of their ten formulations at its
 repro's shapes, held to its plain version, each pair's forms to each
 other and K13's probes to the repro's expected arrays, with K10's I2F
-counts from the build and the spread of K11's two forms against
-torch.mul on the device clock over several profiles; and the sixth
+counts from the build, the launch floor (an empty kernel launched
+through the repros' launcher: its CUDA-event mean and device time), the
+spread of K11's two forms against torch.mul on the device clock over
+several profiles, the host spread of K11's and K14's forms against their
+yardsticks (torch.mul, TF32 torch.matmul) in rounds of CUDA-event means,
+and where the host time of a K11 call goes; and the sixth
 repro, the port's tiled integrator at the T = 32768 tile the TPU faults on
 (random_balls 1200x800, 16 spp, depth 8), against T = 65536.
 It prints one line per phase and each phase's seconds.
@@ -76,9 +80,11 @@ device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -104,7 +110,9 @@ from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import mosaic_repros
 from raytracingweekend_tpu_torch.tools import sass
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
-from raytracingweekend_tpu_torch.tools.mosaic_repros import tile_32768
+from raytracingweekend_tpu_torch.tools.mosaic_repros import (launch_floor,
+                                                             tile_32768)
+from raytracingweekend_tpu_torch.tools.mosaic_repros._common import launch_us
 from raytracingweekend_tpu_torch.utils import image as image_mod
 from raytracingweekend_tpu_torch.utils import prng
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
@@ -1739,6 +1747,7 @@ MOSAIC_KERNELS = {
     ("cull_d", None): "K13 D scalar-compaction-smem",
     ("dot_k3", "128"): "K14 subslice",
     ("dot_k3", "3"): "K14 dense",
+    ("empty", None): "floor",
 }
 MOSAIC_PAIRS = {"K10": ("f32 iota", "int iota + cast"),
                 "K11": ("register slice", "ref load"),
@@ -1751,12 +1760,14 @@ def _device_us(ev) -> float:
 
 
 def _mosaic_device_us() -> dict:
-    """Device µs a launch of each repro kernel: one run of the tool at 20
-    launches a formulation under torch.profiler (CUDA activity); {} if
-    the profiler saw no device time."""
+    """Device µs a launch of each repro kernel and of the empty kernel
+    ("floor"): one run of the tool at 20 launches a formulation, then 20
+    timed launches of the empty kernel, under torch.profiler (CUDA
+    activity); {} if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         mosaic_repros.run("cuda", launches=20)
+        launch_floor.run("cuda", 20)
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
@@ -1771,23 +1782,26 @@ def _mosaic_device_us() -> dict:
 def _library_device_us(launches: int = 20) -> dict:
     """Device µs a call of the library yardsticks of K11 and K14 on their
     repros' inputs, as `_mosaic_device_us` takes the kernels': each call
-    alone under torch.profiler, `launches` times, all its device time over
-    the count ({kernel: µs}; a kernel missing if the profiler saw no
-    device time)."""
+    alone under torch.profiler, `launches` times (K14's with TF32 allowed
+    once around them all, `k14.tf32`), all its device time over the count
+    ({kernel: µs}; a kernel missing if the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     from raytracingweekend_tpu_torch.tools.mosaic_repros import (
         repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
     row, col = k11.inputs(0, "cuda")
     tab, rays = k14.inputs(0, "cuda")
     out = {}
-    for key, fn in (("K11", lambda: torch.mul(row, col)),
-                    ("K14", k14.library(tab, rays))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
-                fn()
+    for key, fn, under in (("K11", lambda: torch.mul(row, col),
+                            contextlib.nullcontext),
+                           ("K14", k14.library(tab, rays), k14.tf32)):
+        with under():
+            fn()
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(launches):
+                    fn()
+                torch.cuda.synchronize()
         dev_us = sum(_device_us(ev) for ev in prof.key_averages())
         if dev_us > 0:
             out[key] = dev_us / launches
@@ -1824,6 +1838,99 @@ def _k11_spread(rounds: int = K11_ROUNDS, launches: int = 20) -> dict:
     return dict(us=us, ratio=ratio)
 
 
+def _host_spread(rounds: int = K11_ROUNDS,
+                 launches: int = launch_floor.LAUNCHES) -> dict:
+    """K11's and K14's forms and their yardsticks (torch.mul; TF32
+    torch.matmul, with TF32 allowed once around its timing) on the repros'
+    inputs, µs a call as the tool's rows take them (the CUDA-event mean of
+    `launches` calls in a row), `rounds` rounds in turns, each form then
+    its yardstick; the ratio of each form to its yardstick a round."""
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+    row, col = k11.inputs(0, "cuda")
+    tab, rays = k14.inputs(0, "cuda")
+    lhs = tab[:, 0:k14.K].contiguous()
+    mul, matmul = (lambda: torch.mul(row, col)), k14.library(tab, rays)
+    forms = {"K11 register slice": (lambda: k11.reg_slice(row, col), mul,
+                                    contextlib.nullcontext),
+             "K11 ref load": (lambda: k11.ref_load(row, col), mul,
+                              contextlib.nullcontext),
+             "K14 subslice": (lambda: k14.subslice(tab, rays), matmul,
+                              k14.tf32),
+             "K14 dense": (lambda: k14.dense(lhs, rays), matmul, k14.tf32)}
+    us = {k: [] for k in forms}
+    lib = {k: [] for k in forms}
+    for _ in range(rounds):
+        for key, (fn, yardstick, under) in forms.items():
+            us[key].append(launch_us(fn, "cuda", launches))
+            with under():
+                lib[key].append(launch_us(yardstick, "cuda", launches))
+    return dict(us=us, library_us=lib,
+                ratio={k: [a / b for a, b in zip(us[k], lib[k])]
+                       for k in forms})
+
+
+def _host_split(n: int = 2000) -> dict:
+    """Where the host time of a K11 register-slice call goes: µs a call on
+    the host clock, the mean of n calls in a row (the device synchronised
+    after). The wrapper's parts: the whole wrapper; its output's
+    allocation (new_empty; torch.empty with dtype and device, as the
+    first version made it); the launcher with the output made (argument
+    block, stream handle, ctypes, the CUDA launch, the count); the entry
+    alone on a packed block (ctypes and the CUDA launch); a ctypes call
+    that launches nothing (rtw_error_string); the two stream-handle
+    readers and the current-device read; the rest of the wrapper (checks,
+    pointers, calls). Beside them: the empty kernel's launch, torch.mul,
+    torch.mul into a given output, PyTorch's own launch of a kernel
+    (torch._C._cuda_sleep(0)), an empty call (the loop's own cost)."""
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_slice_broadcast_layout as k11)
+    row, col = k11.inputs(0, "cuda")
+    dev, shape = row.get_device(), (k11.SB, k11.T)
+    out = torch.empty(shape, device="cuda")
+    args = (0, row.data_ptr(), col.data_ptr(), out.data_ptr(), *shape, k11.W)
+    lib = _build.load()
+    k11.reg_slice_kernel(row, col)          # binds the entry
+    block = struct.pack("8q", *args, torch.cuda.current_stream().cuda_stream)
+    parts = {
+        "wrapper": lambda: k11.reg_slice_kernel(row, col),
+        "new_empty": lambda: row.new_empty(shape),
+        "torch.empty": lambda: torch.empty(shape, dtype=torch.float32,
+                                           device=row.device),
+        "launcher": lambda: k11._SLICE.launch("K11 register slice", dev,
+                                              *args),
+        "entry alone": lambda: lib.rtw_repro_slice_launch(block),
+        "ctypes no-op": lambda: lib.rtw_error_string(0),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "stream object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "device read": lambda: torch._C._cuda_getDevice(),
+        "empty kernel": lambda: launch_floor.empty_kernel(dev),
+        "torch.mul": lambda: torch.mul(row, col),
+        "torch.mul out=": lambda: torch.mul(row, col, out=out),
+        "PyTorch launch": lambda: torch._C._cuda_sleep(0),
+        "empty call": lambda: None}
+    us = {}
+    for key, fn in parts.items():
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us[key] = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+    us["rest of the wrapper"] = (us["wrapper"] - us["new_empty"]
+                                 - us["launcher"])
+    return us
+
+
+def _spread_line(values: list) -> str:
+    """The values in order taken, then their min, median and max."""
+    v = sorted(values)
+    return (f"{', '.join(f'{x:.4f}' for x in values)} (min {v[0]:.4f}, "
+            f"median {v[len(v) // 2]:.4f}, max {v[-1]:.4f})")
+
+
 def phase_mosaic_repros(i2f: dict) -> list:
     """The Mosaic repros (K10-K14): the tool's path
     (`mosaic_repros.run`, every formulation at its repro's shapes, 200
@@ -1841,6 +1948,16 @@ def phase_mosaic_repros(i2f: dict) -> list:
     torch.cuda.synchronize()
     device_us = _mosaic_device_us()
     lib_device_us = _library_device_us()
+    launch_floor.KERNEL_LAUNCHES["empty"] = 0
+    floor_us = launch_floor.run("cuda")
+    floor_dev = device_us.get("floor")
+    dev_text = "not measured" if floor_dev is None else f"{floor_dev:.4f} us"
+    print(f"phase 26 floor (the empty kernel, one warp, through the repros' "
+          f"launcher; launches {launch_floor.KERNEL_LAUNCHES['empty']}): "
+          f"{floor_us:.4f} us a launch (mean of {launch_floor.LAUNCHES}; "
+          f"device {dev_text})", flush=True)
+    if launch_floor.KERNEL_LAUNCHES["empty"] < 1:
+        fail("the launch floor launched no empty kernel")
     tab, rays = k14.inputs(0, "cuda")
     tol14 = k14.tolerance(tab, rays)
     expect13 = k13.expected()
@@ -1864,7 +1981,9 @@ def phase_mosaic_repros(i2f: dict) -> list:
         lib_dev = lib_device_us.get(row["kernel"]) if lib is not None else None
         print(f"phase 26 {key} ({row['shape']}; launches {launches[key]}): "
               f"{row['us']:.4f} us a launch (mean of 200; device "
-              f"{'not measured' if dev is None else f'{dev:.4f} us'}), plain "
+              f"{'not measured' if dev is None else f'{dev:.4f} us'}; floor "
+              f"{floor_us:.4f} / "
+              f"{'-' if floor_dev is None else f'{floor_dev:.4f}'}), plain "
               f"{row['plain_us']:.4f} us, bound {row['bound_us']:.6f} us by "
               f"{row['bound_by']} (share {row['bound_us'] / row['us']:.6f}), "
               f"library {'-' if lib is None else f'{lib:.4f} us'} "
@@ -1890,6 +2009,8 @@ def phase_mosaic_repros(i2f: dict) -> list:
             library_ms=None if lib is None else lib * 1e-3,
             library_device_ms=None if lib_dev is None else lib_dev * 1e-3,
             max_abs_err=err.max().item(), launches=launches[key],
+            floor_ms=floor_us * 1e-3,
+            floor_device_ms=None if floor_dev is None else floor_dev * 1e-3,
             replaces=(MOSAIC_REPLACES.get(key)
                       or MOSAIC_REPLACES[row["kernel"]])))
     print(f"phase 26 K10 I2F in SASS {i2f} (the f32 iota should convert "
@@ -1900,30 +2021,49 @@ def phase_mosaic_repros(i2f: dict) -> list:
             us, mul = spread["us"][k], spread["us"]["torch.mul"]
             print(f"phase 26 K11 {k} / torch.mul on the device clock, "
                   f"{K11_ROUNDS} profiles of 20 calls in turns: "
-                  f"{', '.join(f'{x:.4f}' for x in r)} (min {min(r):.4f}, "
-                  f"median {sorted(r)[len(r) // 2]:.4f}, max {max(r):.4f}); "
+                  f"{_spread_line(r)}; "
                   f"device us {', '.join(f'{x:.4f}' for x in us)}, "
                   f"torch.mul {', '.join(f'{x:.4f}' for x in mul)}",
                   flush=True)
     else:
         print("phase 26 K11 spread: not measured (the profiler saw no "
               "device time)", flush=True)
+    host = _host_spread()
+    for key, r in host["ratio"].items():
+        yardstick = "torch.mul" if key.startswith("K11") else \
+            "TF32 torch.matmul"
+        print(f"phase 26 host {key} / {yardstick}, CUDA-event means of "
+              f"{launch_floor.LAUNCHES} calls, {K11_ROUNDS} rounds in turns: "
+              f"{_spread_line(r)}; us "
+              f"{', '.join(f'{x:.4f}' for x in host['us'][key])}, yardstick "
+              f"{', '.join(f'{x:.4f}' for x in host['library_us'][key])}",
+              flush=True)
+    split = _host_split()
+    print("phase 26 host split of a K11 register-slice call (host clock, us "
+          "a call, mean of 2000): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items()), flush=True)
     for line in [v for key, m in mosaic_repros.REPROS.items()
                  for v in m.verdict([r for r in rows
                                      if r["kernel"] == f"K{key[1:]}"])]:
         print(f"phase 26 verdict: {line}", flush=True)
     names = {"K10": "K10 f32 iota vs int iota + cast (24, 256)",
              "K11": "K11 register slice vs ref load, (1, 512) x (64, 1), "
-                    "W = 256",
+                    "W = 256; redesigned: its launch path",
              "K12": "K12 scalar min / max reduce driving a while loop, "
                     "(8, 128)",
              "K13": "K13 dynamic-cull probes A-D (every probe under rows)",
-             "K14": "K14 (64, 3) x (3, 256) TF32 wmma, sub-slice vs dense"}
+             "K14": "K14 (64, 3) x (3, 256) TF32 mma.sync, sub-slice vs "
+                    "dense; redesigned: its launch path, fragments loaded "
+                    "from global memory into registers"}
     entries = []
     for kernel, forms in by_kernel.items():
         first = forms[0]
         if kernel == "K11" and spread:
             first["device_ratio_to_library"] = spread["ratio"]
+        if kernel in ("K11", "K14"):
+            first["host_ratio_to_library"] = {
+                f["name"]: host["ratio"][f"{kernel} {f['name']}"]
+                for f in forms}
         entries.append(dict(
             name=f"{names[kernel]}; per launch, {first['name']} timings",
             route="cuda",
@@ -1933,7 +2073,8 @@ def phase_mosaic_repros(i2f: dict) -> list:
             max_abs_err=max(f["max_abs_err"] for f in forms),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-            library_ms=first["library_ms"], rows=forms))
+            library_ms=first["library_ms"], rows=forms,
+            redesigned=kernel in ("K11", "K14")))
     return entries
 
 

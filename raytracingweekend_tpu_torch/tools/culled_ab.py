@@ -37,11 +37,16 @@ first regen iteration of random_balls (S = 512), random_balls_large
 (1200x800x8: N = 524,288 rays), ms a call. The K9 cell: its nine rows at
 the tool's S = 512, T = 2048, µs a step (the tool's slope between N and
 4 N steps), rows 0-7 after 8 steps beside the shipped build's (bit-equal
-where the sum order is the same). All nvcc builds start together. Card
-only:
+where the sum order is the same). The K11 and K14 cells (`k11`, `k14`):
+each Mosaic repro's two forms on its repro's inputs, device µs a launch
+read by torch.profiler (`--reps` launches a turn), beside the launch floor
+(the shipped build's empty kernel, profiled in the same turns), each
+build held to the plain version (K11 bit for bit, K14 within its
+tolerance) and set beside the shipped build's bits. All nvcc builds start
+together. Card only:
 
     python -m raytracingweekend_tpu_torch.tools.culled_ab \\
-        [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9] \\
+        [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9,k11] \\
         [--reps 3] [--parent DIR]... [--split]
 
 One JSON row a measurement on stdout, the card's name and power limit
@@ -69,6 +74,9 @@ from raytracingweekend_tpu_torch.ops.packing import device_scene
 from raytracingweekend_tpu_torch.tools import card_line, sass
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
+from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+    repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+from raytracingweekend_tpu_torch.tools.mosaic_repros._common import Entry
 
 NX, NY, DEPTH, SEED = 1200, 800, 50, 20240601
 RTWI = str(Path(__file__).resolve().parents[2] / "tools" /
@@ -112,7 +120,11 @@ K7_SPP, K7_SEED, K7_REPS = 8, 2, 20
 # K9's cell: the tool's S and T, the slope's N, rows compared after
 # K9_CHECK steps
 K9_S, K9_T, K9_N, K9_CHECK = 512, 2048, 64, 8
-ALL_CELLS = (*CELLS, *K7_CELLS, "k9")
+# the Mosaic repros' cells: (module, C entry, its arguments before the
+# stream, their ctypes types in a build older than the argument block)
+REPRO_CELLS = {"k11": (k11, "rtw_repro_slice_launch", 7, "ipppiii"),
+               "k14": (k14, "rtw_repro_dot_k3_launch", 6, "ipppii")}
+ALL_CELLS = (*CELLS, *K7_CELLS, "k9", *REPRO_CELLS)
 # the instrumented build's defines
 SPLIT = ("RTW_SPLIT",)
 SPLIT_KEYS = ("total", "keys", "visits", "broadcast", "compacted",
@@ -431,6 +443,96 @@ def _k9_rows(libs: dict, reps: int) -> list:
     return rows
 
 
+def _repro_launcher(lib, name: str, slots: int, old: str):
+    """A build's launch of a repro entry on the current stream: f(*args).
+    A build older than the argument block (no `rtw_repro_empty_launch`)
+    takes the arguments positionally, typed by `old` (i int, p pointer)."""
+    if hasattr(lib, "rtw_repro_empty_launch"):
+        entry = Entry(name, name, slots, {"a/b": 0}, lib=lambda: lib)
+        return lambda *a: entry.launch("a/b", torch.cuda.current_device(), *a)
+    fn = getattr(lib, name)
+    fn.argtypes = [{"i": ctypes.c_int, "p": ctypes.c_void_p}[c]
+                   for c in old] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(*a):
+        _check(fn(*a, torch.cuda.current_stream().cuda_stream), lib)
+    return call
+
+
+def _profiled_us(fn, reps: int, kernel: str) -> float:
+    """Device µs a launch of the kernels named `kernel` in `reps` calls of
+    fn() under torch.profiler (CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    dev = sum(getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) for e in evs)
+    n = sum(e.count for e in evs)
+    if not n or dev <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {kernel}")
+    return dev / n
+
+
+def _repro_rows(cell: str, libs: dict, reps: int) -> list:
+    """The repro's two forms (K11, K14) on its seed-0 inputs, every build in
+    turns, device µs a launch by torch.profiler (`reps` launches a turn),
+    the launch floor (the shipped build's empty kernel) profiled in the
+    same turns; each build's output held to the plain version (K11 bit
+    for bit, K14 within its tolerance) and set beside the shipped
+    build's: one row a build and form."""
+    mod, name, slots, old = REPRO_CELLS[cell]
+    if cell == "k11":
+        row, col = mod.inputs(0, "cuda")
+        ins, dims, kname = [(row, col)] * 2, (mod.SB, mod.T, mod.W), \
+            "repro_slice_kernel"
+        out_shape, want, tol = (mod.SB, mod.T), mod.slice_reference(row,
+                                                                    col), 0.0
+    else:
+        tab, rays = mod.inputs(0, "cuda")
+        ins = [(tab, rays), (tab[:, 0:mod.K].contiguous(), rays)]
+        dims, kname = (mod.S, mod.T), "repro_dot_k3_kernel"
+        out_shape, want = (mod.S, mod.T), mod.subslice_reference(tab, rays)
+        tol = mod.tolerance(tab, rays)
+    calls = {k: _repro_launcher(lib, name, slots, old)
+             for k, lib in libs.items()}
+    floor = Entry("the empty kernel", "rtw_repro_empty_launch", 0,
+                  {"floor": 0}, lib=lambda: libs["shipped"])
+    floor_us = []
+    rows = []
+    for form, form_name in enumerate(mod.FORMS):
+        a, b = ins[form]
+        outs = {k: torch.empty(out_shape, device="cuda") for k in libs}
+        args = {k: (form, a.data_ptr(), b.data_ptr(), outs[k].data_ptr(),
+                    *dims) for k in libs}
+        times = {k: [] for k in libs}
+        for k in [*libs, *reversed(libs)]:
+            times[k].append(_profiled_us(lambda: calls[k](*args[k]), reps,
+                                         kname))
+            floor_us.append(_profiled_us(lambda: floor.launch("floor", 0),
+                                         reps, "repro_empty_kernel"))
+        torch.cuda.synchronize()
+        ref = outs["shipped"]
+        for k, out in outs.items():
+            if not bool(torch.all((out - want).abs() <= tol)):
+                raise RuntimeError(f"the {k} build's {cell} {form_name} "
+                                   "disagrees with its plain version")
+        for k, t in times.items():
+            rows.append(dict(cell=cell, kernel=cell.upper(), form=form_name,
+                             build=k, device_us=sum(t) / len(t), turns=t,
+                             equal_to_shipped=torch.equal(outs[k], ref),
+                             max_abs_diff=(outs[k] - ref).abs().max().item()))
+    for r in rows:
+        r["floor_device_us"] = sum(floor_us) / len(floor_us)
+        r["floor_turns"] = floor_us
+    return rows
+
+
 def run(cells=ALL_CELLS, reps: int = 3, parents=(),
         with_split: bool = False) -> list:
     """Build, then time the shipped kernels (and each parent's, labelled
@@ -454,10 +556,11 @@ def run(cells=ALL_CELLS, reps: int = 3, parents=(),
         libs[k] = bind(_build.load((), d))
     rows = []
     for cell in cells:
-        if cell in ("twin", "k9", *K7_CELLS):
+        if cell in ("twin", "k9", *K7_CELLS, *REPRO_CELLS):
             got = (_twin_rows(libs, reps) if cell == "twin" else
                    _k9_rows(libs, reps) if cell == "k9" else
-                   _k7_rows(cell, libs))
+                   _repro_rows(cell, libs, reps) if cell in REPRO_CELLS
+                   else _k7_rows(cell, libs))
             for row in got:
                 rows.append(row)
                 print(json.dumps(row), flush=True)

@@ -2,7 +2,11 @@
 for the H100: K10 `repro_f32_iota`, K11 `repro_slice_broadcast_layout`,
 K12 `repro_scalar_reduce`, K13 `repro_dynamic_cull` (probes A-D), K14
 `repro_dot_k3_subslice`, all in csrc/mosaic_repros.cu, and `tile_32768`,
-the tiled integrator at the tile width the TPU faults on.
+the tiled integrator at the tile width the TPU faults on. Their kernels
+launch through one launcher, `_common.Entry` (each C entry bound once; a
+call packs its arguments and the current stream's raw handle into one
+block); `launch_floor` launches an empty kernel through it, the floor of
+a launch that the rows are read against.
 
 Each repro module holds, for each of its formulations, a `*_kernel` (the
 CUDA kernel, counted in the module's KERNEL_LAUNCHES), a `*_reference`

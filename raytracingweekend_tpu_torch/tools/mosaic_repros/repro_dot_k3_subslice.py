@@ -5,17 +5,19 @@ the port of tools/mosaic_repros/repro_dot_k3_subslice.py.
 On the TPU the sub-slice form "picked up neighbouring lanes". Default
 precision on the H100 is the TF32 tensor cores, as the port's
 dot-formulation microbenchmark maps the TPU's "f32 default": both forms
-are wmma m16n16k8 with float32 accumulation, K padded from 3 to 8 with
-zeros, one warp a 16 x 16 tile (csrc/mosaic_repros.cu). The sub-slice form
-reads the table with leading dimension 128 and zeroes lanes 3..7 before
-the fragment load; the repro's table has nonzero lanes there, so a kernel
-that read them would fail.
+are two mma.sync m16n8k8 products with float32 accumulation, K padded
+from 3 to 8 with zeros, one warp a 16 x 16 tile (csrc/mosaic_repros.cu).
+The sub-slice form reads the table with leading dimension 128, each lane
+loading only its elements of lanes 0..2 into its fragment registers and
+holding zeros for lanes 3..7; the repro's table has nonzero lanes there,
+so a kernel that read them would fail.
 
 The plain versions round the inputs to TF32 (`dot_microbench.round_tf32`,
 as __float_to_tf32) and sum the three products in float32: products of
 TF32 inputs are exact in float32, so kernel and plain version differ only
 in how the three-term sum is rounded, at most 2 ulp of sum |a| |b|
-(`tolerance`).
+(`tolerance`). The yardstick, one TF32 torch.matmul (`library`), is timed
+with TF32 allowed once around its whole timing (`tf32`).
 """
 from __future__ import annotations
 
@@ -23,13 +25,15 @@ import numpy as np
 import torch
 
 from ..dot_microbench import _matmul_tf32, round_tf32
-from ._common import LAUNCHES, TF32_PEAK, launch, make_row, need_cuda
+from ._common import F32, LAUNCHES, TF32_PEAK, Entry, make_row, refuse
 
 S, T, LANES, K = 64, 256, 128, 3
-K_PAD = 8              # wmma's depth for TF32
+K_PAD = 8              # mma.sync's depth for TF32
 TILE = 16
 FORMS = ("subslice", "dense")
 KERNEL_LAUNCHES = {"K14 subslice": 0, "K14 dense": 0}
+_KEYS = tuple(KERNEL_LAUNCHES)
+_DOT = Entry("K14", "rtw_repro_dot_k3_launch", 6, KERNEL_LAUNCHES)
 
 
 def inputs(seed: int = 0, device="cpu") -> tuple:
@@ -72,15 +76,20 @@ def dense_reference(lhs: torch.Tensor, rays: torch.Tensor):
 
 
 def _dot_kernel(form: int, lhs, rays, width: int) -> torch.Tensor:
-    _check(lhs, rays, width)
-    need_cuda("K14", lhs, rays)
-    s, t = lhs.shape[0], rays.shape[1]
-    if s % TILE or t % TILE:
-        raise ValueError(f"S={s} and T={t} must be multiples of {TILE}")
-    out = torch.empty((s, t), dtype=torch.float32, device=lhs.device)
-    launch("K14", "rtw_repro_dot_k3_launch", form, lhs.data_ptr(),
-           rays.data_ptr(), out.data_ptr(), s, t, device=lhs.device)
-    KERNEL_LAUNCHES[f"K14 {FORMS[form]}"] += 1
+    ls, rs, dev = lhs.shape, rays.shape, lhs.get_device()
+    if not (dev >= 0 and rays.get_device() == dev and lhs.dtype is F32
+            and rays.dtype is F32 and len(ls) == 2 and len(rs) == 2
+            and ls[1] == width and rs[0] == K and ls[0] % TILE == 0
+            and rs[1] % TILE == 0 and lhs.is_contiguous()
+            and rays.is_contiguous()):
+        _check(lhs, rays, width)
+        if ls[0] % TILE or rs[1] % TILE:
+            raise ValueError(f"S={ls[0]} and T={rs[1]} must be multiples of "
+                             f"{TILE}")
+        refuse("K14", lhs, rays)
+    out = lhs.new_empty((ls[0], rs[1]))
+    _DOT.launch(_KEYS[form], dev, form, lhs.data_ptr(), rays.data_ptr(),
+                out.data_ptr(), ls[0], rs[1])
     return out
 
 
@@ -118,11 +127,16 @@ def tolerance(lhs: torch.Tensor, rays: torch.Tensor) -> torch.Tensor:
 
 
 def library(tab, rays):
-    """One torch.matmul of the sub-slice's product, TF32 allowed."""
-    def call():
-        with _matmul_tf32(True):
-            return torch.matmul(tab[:, 0:K], rays)
-    return call
+    """One torch.matmul of the sub-slice's product; the yardstick is timed
+    inside `tf32()`."""
+    return lambda: torch.matmul(tab[:, 0:K], rays)
+
+
+def tf32():
+    """TF32 allowed for float32 matmuls (cuBLAS's tensor-core path), the
+    flag restored on exit; entered once around a whole timing of
+    `library`, as K9's yardstick is."""
+    return _matmul_tf32(True)
 
 
 def run(device="cuda", launches: int = LAUNCHES, outputs=None) -> list:
@@ -156,7 +170,8 @@ def run(device="cuda", launches: int = LAUNCHES, outputs=None) -> list:
             nbytes=4 * (S * K + K * T + S * T), ops=2 * S * K_PAD * T,
             peak=TF32_PEAK, got=out, want=want, tol=tol,
             library=(library(tab, rays),
-                     "torch.matmul(tab[:, 0:3], rays), allow_tf32"),
+                     "torch.matmul(tab[:, 0:3], rays), allow_tf32 set once"),
+            library_under=tf32,
             forms_equal=same,
             as_expected=bool(torch.all((out.double() - exact).abs()
                                        <= slack))))

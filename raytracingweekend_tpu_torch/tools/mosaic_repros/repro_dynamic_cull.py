@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import LAUNCHES, launch, make_row, need_cuda
+from ._common import LAUNCHES, Entry, make_row, need_cuda
 
 S, LANES, ATT_COLS, N_IDS, MAX_VOTERS = 64, 128, 512, 8, 32
 SCALARS = (3, 2, 3, 0)     # the repro's _SCALARS
@@ -33,6 +33,8 @@ VOTERS = (1, 4, 6)         # the repro's voting rows of its (8, 128) votes
 FORMS = ("A dynamic-sublane-slice", "B dynamic-lane-slice",
          "C dynamic-trip-fori+smem", "D scalar-compaction-smem")
 KERNEL_LAUNCHES = {f"K13 {f}": 0 for f in FORMS}
+_KEYS = tuple(KERNEL_LAUNCHES)
+_CULL = Entry("K13", "rtw_repro_cull_launch", 6, KERNEL_LAUNCHES)
 
 
 def inputs(scalars=SCALARS, device="cpu") -> dict:
@@ -129,10 +131,9 @@ def compaction_reference(votes):
 
 def _cull_kernel(probe: int, s, tab, out) -> torch.Tensor:
     need_cuda("K13", tab, out, *([] if s is None else [s]))
-    launch("K13", "rtw_repro_cull_launch", probe,
-           None if s is None else s.data_ptr(), tab.data_ptr(),
-           out.data_ptr(), tab.shape[0], tab.shape[1], device=tab.device)
-    KERNEL_LAUNCHES[f"K13 {FORMS[probe]}"] += 1
+    _CULL.launch(_KEYS[probe], tab.get_device(), probe,
+                 0 if s is None else s.data_ptr(), tab.data_ptr(),
+                 out.data_ptr(), tab.shape[0], tab.shape[1])
     return out
 
 

@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from ._common import FP32_PEAK, LAUNCHES, launch, make_row, where
+from ._common import FP32_PEAK, LAUNCHES, Entry, make_row, where
 
 ROWS, T = 24, 256
 FORMS = ("f32 iota", "int iota + cast")
 KERNEL_LAUNCHES = {"K10 f32 iota": 0, "K10 int iota + cast": 0}
+_KEYS = tuple(KERNEL_LAUNCHES)
+_IOTA = Entry("K10", "rtw_repro_iota_launch", 4, KERNEL_LAUNCHES)
 
 
 def _check(rows: int, cols: int) -> None:
@@ -37,9 +39,8 @@ def _iota_kernel(form: int, rows: int, cols: int, device) -> torch.Tensor:
         raise ValueError(f"the K10 kernels run on a CUDA device, not "
                          f"{device}")
     out = torch.empty((rows, cols), dtype=torch.float32, device=device)
-    launch("K10", "rtw_repro_iota_launch", form, out.data_ptr(), rows, cols,
-           device=out.device)
-    KERNEL_LAUNCHES[f"K10 {FORMS[form]}"] += 1
+    _IOTA.launch(_KEYS[form], out.get_device(), form, out.data_ptr(), rows,
+                 cols)
     return out
 
 

@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from ._common import LAUNCHES, launch, make_row, need_cuda
+from ._common import LAUNCHES, Entry, make_row, need_cuda
 
 R, C = 8, 128
 OUT_ROWS = 3           # the rows the kernel writes: min, max, trips
 TRIP_STEP, TRIP_CAP = 13.0, 100
 FORMS = ("scalar reduce",)
 KERNEL_LAUNCHES = {"K12 scalar reduce": 0}
+_REDUCE = Entry("K12", "rtw_repro_scalar_reduce_launch", 4, KERNEL_LAUNCHES)
 
 
 def repro_input(device="cpu") -> torch.Tensor:
@@ -55,9 +56,8 @@ def scalar_reduce_kernel(x: torch.Tensor) -> torch.Tensor:
     _check(x)
     need_cuda("K12", x)
     out = torch.empty_like(x)
-    launch("K12", "rtw_repro_scalar_reduce_launch", x.data_ptr(),
-           out.data_ptr(), x.numel(), x.shape[1], device=x.device)
-    KERNEL_LAUNCHES["K12 scalar reduce"] += 1
+    _REDUCE.launch("K12 scalar reduce", x.get_device(), x.data_ptr(),
+                   out.data_ptr(), x.numel(), x.shape[1])
     return out
 
 

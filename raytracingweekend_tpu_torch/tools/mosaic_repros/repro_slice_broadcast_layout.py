@@ -14,12 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import LAUNCHES, launch, make_row, need_cuda, where
+from ._common import F32, LAUNCHES, Entry, make_row, refuse, where
 
 SB, T, W = 64, 512, 256
 MAX_CHUNKS = 8
 FORMS = ("register slice", "ref load")
 KERNEL_LAUNCHES = {"K11 register slice": 0, "K11 ref load": 0}
+_KEYS = tuple(KERNEL_LAUNCHES)
+_SLICE = Entry("K11", "rtw_repro_slice_launch", 7, KERNEL_LAUNCHES)
 
 
 def inputs(seed: int = 0, device="cpu") -> tuple:
@@ -56,12 +58,17 @@ def slice_reference(row: torch.Tensor, col: torch.Tensor,
 
 
 def _slice_kernel(form: int, row, col, w: int) -> torch.Tensor:
-    sb, t = _check(row, col, w)
-    need_cuda("K11", row, col)
-    out = torch.empty((sb, t), dtype=torch.float32, device=row.device)
-    launch("K11", "rtw_repro_slice_launch", form, row.data_ptr(),
-           col.data_ptr(), out.data_ptr(), sb, t, w, device=row.device)
-    KERNEL_LAUNCHES[f"K11 {FORMS[form]}"] += 1
+    rs, cs, dev = row.shape, col.shape, row.get_device()
+    if not (dev >= 0 and col.get_device() == dev and row.dtype is F32
+            and col.dtype is F32 and len(rs) == 2 and len(cs) == 2
+            and rs[0] == 1 and cs[1] == 1 and 0 < w and rs[1] % w == 0
+            and rs[1] // w <= MAX_CHUNKS and row.is_contiguous()
+            and col.is_contiguous()):
+        _check(row, col, w)
+        refuse("K11", row, col)
+    out = row.new_empty((cs[0], rs[1]))
+    _SLICE.launch(_KEYS[form], dev, form, row.data_ptr(), col.data_ptr(),
+                  out.data_ptr(), cs[0], rs[1], w)
     return out
 
 

@@ -172,12 +172,14 @@ def test_surface_split_parts_are_the_kernels():
 
 
 def test_k7_and_k9_cells_are_cells(monkeypatch):
-    """The K7 cells name the three K7 scenes, the K9 cell its nine rows;
-    all are taken by --cells and run by default."""
+    """The K7 cells name the three K7 scenes, the K9 cell its nine rows,
+    the K11 and K14 cells their repros' two forms; all are taken by --cells
+    and run by default."""
     assert set(culled_ab.K7_CELLS.values()) == {
         "random_balls", "random_balls_large", "random_balls_huge"}
     assert set(culled_ab.ALL_CELLS) == {*culled_ab.CELLS,
-                                        *culled_ab.K7_CELLS, "k9"}
+                                        *culled_ab.K7_CELLS, "k9", "k11",
+                                        "k14"}
     seen = {}
     monkeypatch.setattr(culled_ab, "run", lambda *a: seen.update(args=a))
     culled_ab.main(["--cells", "k7_huge,k9"])
@@ -249,3 +251,35 @@ def test_run_refuses_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         culled_ab.run(cells=("large",))
+
+
+class _ReproLib:
+    """A stub build: `entries` are the symbols it exports."""
+
+    def __init__(self, entries):
+        self.entries = {n: type("Fn", (), {})() for n in entries}
+
+    def __getattr__(self, name):
+        if name == "entries" or name not in self.entries:
+            raise AttributeError(name)
+        return self.entries[name]
+
+
+def test_repro_cells_launch_old_builds_positionally():
+    """A build older than the argument block (no rtw_repro_empty_launch)
+    gets its K11 / K14 entry typed positionally, the stream last; a newer
+    one launches through the repros' launcher, bound at its first call."""
+    c_int, c_void_p = culled_ab.ctypes.c_int, culled_ab.ctypes.c_void_p
+    for cell, types in (("k11", [c_int, c_void_p, c_void_p, c_void_p, c_int,
+                                 c_int, c_int]),
+                        ("k14", [c_int, c_void_p, c_void_p, c_void_p, c_int,
+                                 c_int])):
+        _, name, slots, old = culled_ab.REPRO_CELLS[cell]
+        assert len(old) == slots
+        lib = _ReproLib([name])
+        culled_ab._repro_launcher(lib, name, slots, old)
+        fn = lib.entries[name]
+        assert fn.argtypes == types + [c_void_p] and fn.restype is c_int
+        new = _ReproLib([name, "rtw_repro_empty_launch"])
+        culled_ab._repro_launcher(new, name, slots, old)
+        assert not hasattr(new.entries[name], "argtypes")

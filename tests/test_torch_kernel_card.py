@@ -920,3 +920,66 @@ def test_mosaic_repro_kernels_raise_on_refused_launches():
     out = k11.ref_load_kernel(row, col, 1024)
     torch.cuda.synchronize()
     assert torch.equal(out, row * col)
+
+
+# K11's and K14's forms: (repro module, form index)
+STREAM_FORMS = [("repro_slice_broadcast_layout", 0),
+                ("repro_slice_broadcast_layout", 1),
+                ("repro_dot_k3_subslice", 0), ("repro_dot_k3_subslice", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repro,form", STREAM_FORMS)
+def test_mosaic_launcher_reads_the_current_stream_on_card(repro, form):
+    """A form launched on the default stream, then on a side stream made
+    current, whose inputs are written there behind a sleep of the card
+    (NaN until then): each launch reads the stream current at its call,
+    so after that stream is synchronised the output equals the plain
+    version (K11 bit for bit, K14 within 2 ulp of sum |a||b|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    mod = importlib.import_module(
+        f"raytracingweekend_tpu_torch.tools.mosaic_repros.{repro}")
+    if repro == "repro_slice_broadcast_layout":
+        a, b = mod.inputs(2, "cuda")
+        fn = (mod.reg_slice_kernel, mod.ref_load_kernel)[form]
+        want, tol = mod.slice_reference(a, b), 0.0
+    else:
+        tab, b = mod.inputs(2, "cuda")
+        a = tab if form == 0 else tab[:, 0:3].contiguous()
+        fn = (mod.subslice_kernel, mod.dense_kernel)[form]
+        want, tol = mod.subslice_reference(tab, b), mod.tolerance(tab, b)
+    first = fn(a, b)
+    late = torch.full_like(a, float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        late.copy_(a)
+        got = fn(late, b)
+    side.synchronize()
+    torch.cuda.synchronize()
+    for out in (first, got):
+        assert torch.all((out - want).abs() <= tol)
+
+
+@pytest.mark.cuda
+def test_launch_floor_empty_kernel_on_card():
+    """The empty kernel launches through the repros' launcher, counts, and
+    leaves no error behind: the floor's timing and a K11 launch after it
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        launch_floor, repro_slice_broadcast_layout as k11)
+    before = launch_floor.KERNEL_LAUNCHES["empty"]
+    launch_floor.empty_kernel(torch.cuda.current_device())
+    torch.cuda.synchronize()
+    assert launch_floor.KERNEL_LAUNCHES["empty"] == before + 1
+    assert launch_floor.run("cuda", 5) > 0
+    assert launch_floor.KERNEL_LAUNCHES["empty"] == before + 1 + 2 + 5
+    row, col = k11.inputs(0, "cuda")
+    out = k11.reg_slice_kernel(row, col)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k11.slice_reference(row, col))

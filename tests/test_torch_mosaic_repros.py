@@ -12,9 +12,11 @@ inputs to TF32 (2^-11 relative each), so they lie within 3 2^-11 sum |a||b|
 of JAX's float32 product. K12's kernel writes rows 0..2 only, so rows 0..2
 are compared, as the repro's `out[:3, 0]` reads.
 """
+import contextlib
 import importlib.util
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -29,9 +31,10 @@ from raytracingweekend_tpu_torch.ops.integrator import (  # noqa: E402
     _tile_width)
 from raytracingweekend_tpu_torch.tools import mosaic_repros  # noqa: E402
 from raytracingweekend_tpu_torch.tools.mosaic_repros import (  # noqa: E402
-    __main__ as cli, repro_dot_k3_subslice as k14, repro_dynamic_cull as k13,
-    repro_f32_iota as k10, repro_scalar_reduce as k12,
-    repro_slice_broadcast_layout as k11, tile_32768)
+    __main__ as cli, _common, launch_floor, repro_dot_k3_subslice as k14,
+    repro_dynamic_cull as k13, repro_f32_iota as k10,
+    repro_scalar_reduce as k12, repro_slice_broadcast_layout as k11,
+    tile_32768)
 
 REPRO_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "tools",
                          "mosaic_repros")
@@ -314,3 +317,221 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mosaic_repros.run("cuda", ["k10"], 1)
+
+
+# ---- the launcher (_common.Entry) against a stub library -------------------
+
+class _StubFn:
+    """A ctypes function of the stub library: records its argument blocks,
+    returns `rc`."""
+
+    def __init__(self, rc=0):
+        self.rc, self.blocks = rc, []
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        self.blocks.append(args)
+        return self.rc
+
+
+class _StubLib:
+    """Stands in for the kernel library's CDLL: counts each look-up of an
+    entry by name; `rtw_error_string` names the error as CUDA would."""
+
+    def __init__(self):
+        self.looked_up = {}
+        self.entry = _StubFn()
+
+    def __getattr__(self, name):
+        self.looked_up[name] = self.looked_up.get(name, 0) + 1
+        if name == "rtw_error_string":
+            return _ErrorString()
+        return self.entry
+
+
+class _ErrorString:
+    argtypes = restype = None
+
+    def __call__(self, rc):
+        return {9: b"invalid configuration argument"}.get(rc, b"?")
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    """A launcher over a stub library, on one stub card (device 0), each
+    device's current stream handle 0x5000 + its index. Returns (entry,
+    library, counts, loads)."""
+    monkeypatch.setattr(_common, "cuda_state", lambda: (
+        1, lambda: 0, lambda dev: 0x5000 + dev))
+    lib, counts, loads = _StubLib(), {"K99 a": 0, "K99 b": 0}, []
+
+    def load():
+        loads.append(1)
+        return lib
+    entry = _common.Entry("K99", "rtw_stub_launch", 3, counts, lib=load)
+    return entry, lib, counts, loads
+
+
+def test_launcher_binds_each_entry_once(stub):
+    """The library is loaded, the entry looked up and its argtypes set at
+    the first launch only."""
+    entry, lib, _, loads = stub
+    assert loads == [] and lib.looked_up == {}     # nothing before a launch
+    for _ in range(3):
+        entry.launch("K99 a", 0, 1, 2, 3)
+    assert loads == [1]
+    assert lib.looked_up["rtw_stub_launch"] == 1
+    assert lib.entry.restype is not None
+    assert len(lib.entry.argtypes) == 1             # the argument block
+    assert len(lib.entry.blocks) == 3
+
+
+def test_launcher_passes_the_stream_handle_last(stub):
+    """The argument block: every argument as an int64 slot, in order
+    (addresses past 32 bits uncut), then the current stream's raw handle
+    of the tensor's device."""
+    entry, lib, _, _ = stub
+    addr = (1 << 40) + 12345
+    entry.launch("K99 a", 0, 7, addr, -2)
+    (block,), = lib.entry.blocks
+    assert struct.unpack("<4q", block) == (7, addr, -2, 0x5000)
+    with pytest.raises(struct.error):               # three slots, not two
+        entry.launch("K99 a", 0, 7, addr)
+
+
+def test_launcher_raises_with_the_kernel_and_the_error_string(stub):
+    """A non-zero return (the card refused the launch) raises
+    RuntimeError naming the kernel and the library's error string, and
+    counts nothing."""
+    entry, lib, counts, _ = stub
+    lib.entry.rc = 9
+    with pytest.raises(RuntimeError, match=r"K99 launch failed: CUDA error "
+                       r"9 \(invalid configuration argument\)"):
+        entry.launch("K99 a", 0, 1, 2, 3)
+    assert counts == {"K99 a": 0, "K99 b": 0}
+
+
+def test_launcher_counts_each_launch(stub):
+    entry, _, counts, _ = stub
+    for key in ("K99 a", "K99 b", "K99 a"):
+        entry.launch(key, 0, 1, 2, 3)
+    assert counts == {"K99 a": 2, "K99 b": 1}
+
+
+def test_launcher_switches_the_device_only_when_not_current(monkeypatch):
+    """On a machine of two cards, a launch on the current card reads the
+    current device and switches nothing; one on the other card launches
+    inside torch.cuda.device(that card), on that card's stream."""
+    reads, switched = [], []
+
+    def current():
+        reads.append(1)
+        return 0
+
+    @contextlib.contextmanager
+    def device(dev):
+        switched.append(dev)
+        yield
+
+    monkeypatch.setattr(_common, "cuda_state", lambda: (
+        2, current, lambda dev: 0x5000 + dev))
+    monkeypatch.setattr(torch.cuda, "device", device)
+    lib, counts = _StubLib(), {"K99 a": 0}
+    entry = _common.Entry("K99", "rtw_stub_launch", 1, counts,
+                          lib=lambda: lib)
+    entry.launch("K99 a", 0, 5)
+    assert switched == [] and len(reads) == 1
+    entry.launch("K99 a", 1, 6)
+    assert switched == [1] and len(reads) == 2
+    assert [struct.unpack("<2q", b)[1] for (b,) in lib.entry.blocks] == [
+        0x5000, 0x5001]
+    assert counts == {"K99 a": 2}
+
+
+def test_every_wrapper_launches_through_one_entry_each():
+    """K10-K14 and the floor each bind one entry of the library, counting
+    into its own module's KERNEL_LAUNCHES."""
+    entries = {k10._IOTA: k10, k11._SLICE: k11, k12._REDUCE: k12,
+               k13._CULL: k13, k14._DOT: k14, launch_floor._EMPTY:
+               launch_floor}
+    assert len({e.name for e in entries}) == 6
+    for e, mod in entries.items():
+        assert isinstance(e, _common.Entry)
+        assert e.counts is mod.KERNEL_LAUNCHES
+    assert not hasattr(_common, "launch")
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("float64", "float32"), ("row shape", "expected"),
+    ("width", "divide"), ("k14 cpu", "CUDA"), ("k14 tile", "multiples"),
+    ("k14 width", r"\(S, 3\)")])
+def test_k11_k14_wrappers_refuse_after_one_combined_check(case, match):
+    """Past the one combined condition, the K11 and K14 wrappers raise
+    what their first versions raised: the plain version's shape and type
+    check first, then the tile rule, then the device."""
+    row, col = k11.inputs(0)
+    tab, rays = k14.inputs(0)
+    call = {"cpu": lambda: k11.reg_slice_kernel(row, col),
+            "float64": lambda: k11.ref_load_kernel(row.double(), col),
+            "row shape": lambda: k11.reg_slice_kernel(row.T, col),
+            "width": lambda: k11.ref_load_kernel(row, col, 100),
+            "k14 cpu": lambda: k14.subslice_kernel(tab, rays),
+            "k14 tile": lambda: k14.dense_kernel(
+                tab[:40, 0:3].contiguous(), rays),
+            "k14 width": lambda: k14.dense_kernel(tab, rays)}[case]
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_launch_floor_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA device"):
+        launch_floor.run("cpu")
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_k14_yardstick_leaves_tf32_as_it_found_it(flag):
+    """The K14 rows time TF32 torch.matmul with allow_tf32 set on inside
+    `tf32()` and restore the flag after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        with k14.tf32():
+            assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32 == flag
+        rows = k14.run("cpu", launches=1)
+        assert torch.backends.cuda.matmul.allow_tf32 == flag
+        assert all("set once" in r["library"] for r in rows)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_k14_yardstick_is_timed_inside_one_tf32_context(monkeypatch):
+    """Each K14 row enters `tf32()` once, around every call of its
+    yardstick (warm-ups and timed calls), not once a call."""
+    state = {"inside": False, "enters": 0, "calls": 0, "outside": 0}
+
+    @contextlib.contextmanager
+    def counting():
+        state["enters"] += 1
+        state["inside"] = True
+        try:
+            yield
+        finally:
+            state["inside"] = False
+
+    real = k14.library
+
+    def library(tab, rays):
+        fn = real(tab, rays)
+
+        def call():
+            state["calls"] += 1
+            state["outside"] += not state["inside"]
+            return fn()
+        return call
+
+    monkeypatch.setattr(k14, "tf32", counting)
+    monkeypatch.setattr(k14, "library", library)
+    rows = k14.run("cpu", launches=3)
+    assert len(rows) == 2 and state["enters"] == 2
+    assert state["calls"] == 2 * (2 + 3) and state["outside"] == 0
