@@ -69,8 +69,10 @@ counts from the build, the launch floor (an empty kernel launched
 through the repros' launcher: its CUDA-event mean and device time), the
 spread of K11's two forms against torch.mul on the device clock over
 several profiles, the host spread of K11's and K14's forms against their
-yardsticks (torch.mul, TF32 torch.matmul) in rounds of CUDA-event means,
-and where the host time of a K11 call goes; and the sixth
+yardsticks (torch.mul, TF32 torch.matmul) and of K10's and K13's against
+the floor and K11's register slice in rounds of CUDA-event means, and
+where the host time of a K11, a K13 C and a K10 f32 iota call goes; and
+the sixth
 repro, the port's tiled integrator at the T = 32768 tile the TPU faults on
 (random_balls 1200x800, 16 spp, depth 8), against T = 65536.
 It prints one line per phase and each phase's seconds.
@@ -438,17 +440,19 @@ def phase_device() -> None:
 
 def repro_i2f(lib: str) -> dict:
     """The integer-to-float conversions (I2F*, I2FP*) in the SASS of K10's
-    two kernels: {'f32 iota': [opcodes], 'int iota + cast': [opcodes]}."""
+    two kernels, over all their instantiations (float4 and single-float
+    stores): {'f32 iota': [opcodes], 'int iota + cast': [opcodes]}."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        name = sass.kernel_name(func.split(None, 1)[0])
+        name = (sass.kernel_name(func.split(None, 1)[0]) or "").split("<")[0]
         form = {"repro:iota_f32": "f32 iota",
                 "repro:iota_int_cast": "int iota + cast"}.get(name)
         if form:
-            out[form] = sorted(re.findall(r"\bI2FP?\b[.\w]*", func))
+            out[form] = sorted(out.get(form, []) + re.findall(
+                r"\bI2FP?\b[.\w]*", func))
     return out
 
 
@@ -1734,7 +1738,8 @@ MOSAIC_REPLACES = {
     "K14 dense": "tools/mosaic_repros/repro_dot_k3_subslice.py:64",
 }
 # the repro kernels' names in csrc/mosaic_repros.cu (and template
-# argument) -> the formulation
+# argument, where it tells the formulation; K10's and K13's float4 and
+# single-float instantiations go by the name) -> the formulation
 MOSAIC_KERNELS = {
     ("iota_f32", None): "K10 f32 iota",
     ("iota_int_cast", None): "K10 int iota + cast",
@@ -1769,14 +1774,16 @@ def _mosaic_device_us() -> dict:
         mosaic_repros.run("cuda", launches=20)
         launch_floor.run("cuda", 20)
         torch.cuda.synchronize()
-    out = {}
+    out, counts = {}, {}
     for ev in prof.key_averages():
         dev_us = _device_us(ev)
         m = re.search(r"repro_(\w+?)_kernel(?:<(\w+)>)?", ev.key)
-        key = MOSAIC_KERNELS.get(m.groups()) if m else None
+        key = (MOSAIC_KERNELS.get(m.groups())
+               or MOSAIC_KERNELS.get((m.group(1), None))) if m else None
         if key and dev_us > 0 and ev.count:
-            out[key] = dev_us / ev.count
-    return out
+            out[key] = out.get(key, 0.0) + dev_us
+            counts[key] = counts.get(key, 0) + ev.count
+    return {k: v / counts[k] for k, v in out.items()}
 
 
 def _library_device_us(launches: int = 20) -> dict:
@@ -1844,9 +1851,14 @@ def _host_spread(rounds: int = K11_ROUNDS,
     torch.matmul, with TF32 allowed once around its timing) on the repros'
     inputs, µs a call as the tool's rows take them (the CUDA-event mean of
     `launches` calls in a row), `rounds` rounds in turns, each form then
-    its yardstick; the ratio of each form to its yardstick a round."""
+    its yardstick; the ratio of each form to its yardstick a round. In the
+    same rounds, K10's and K13's forms through their kernel wrappers (on
+    the repros' inputs), the empty kernel (the floor) and K11's register
+    slice through its kernel wrapper: `floor_ratio` and `k11_ratio`, a
+    form's µs over the floor's and over K11's in its round."""
     from raytracingweekend_tpu_torch.tools.mosaic_repros import (
-        repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+        repro_dot_k3_subslice as k14, repro_dynamic_cull as k13,
+        repro_f32_iota as k10, repro_slice_broadcast_layout as k11)
     row, col = k11.inputs(0, "cuda")
     tab, rays = k14.inputs(0, "cuda")
     lhs = tab[:, 0:k14.K].contiguous()
@@ -1858,16 +1870,56 @@ def _host_spread(rounds: int = K11_ROUNDS,
              "K14 subslice": (lambda: k14.subslice(tab, rays), matmul,
                               k14.tf32),
              "K14 dense": (lambda: k14.dense(lhs, rays), matmul, k14.tf32)}
+    a13 = k13.inputs(k13.SCALARS, "cuda")
+    dev = row.get_device()
+    others = {"floor": lambda: launch_floor.empty_kernel(dev),
+              "K11 register slice kernel": lambda: k11.reg_slice_kernel(
+                  row, col),
+              "K10 f32 iota": lambda: k10.f32_iota_kernel(
+                  k10.ROWS, k10.T, "cuda"),
+              "K10 int iota + cast": lambda: k10.int_iota_cast_kernel(
+                  k10.ROWS, k10.T, "cuda")}
+    for k, name in enumerate(k13.FORMS):
+        kern, _, table = k13.PROBES[k]
+        others[f"K13 {name}"] = (
+            (lambda kern=kern, t=a13[table]: kern(t)) if k == 3 else
+            (lambda kern=kern, t=a13[table]: kern(a13["s"], t)))
     us = {k: [] for k in forms}
     lib = {k: [] for k in forms}
+    other_us = {k: [] for k in others}
     for _ in range(rounds):
         for key, (fn, yardstick, under) in forms.items():
             us[key].append(launch_us(fn, "cuda", launches))
             with under():
                 lib[key].append(launch_us(yardstick, "cuda", launches))
+        for key, fn in others.items():
+            other_us[key].append(launch_us(fn, "cuda", launches))
+    floor, k11_us = other_us["floor"], other_us["K11 register slice kernel"]
+    redesigned = [k for k in others if k.startswith(("K10", "K13"))]
     return dict(us=us, library_us=lib,
                 ratio={k: [a / b for a, b in zip(us[k], lib[k])]
-                       for k in forms})
+                       for k in forms},
+                other_us=other_us,
+                floor_ratio={k: [a / b for a, b in zip(other_us[k], floor)]
+                             for k in redesigned},
+                k11_ratio={k: [a / b for a, b in zip(other_us[k], k11_us)]
+                           for k in redesigned})
+
+
+def _split_us(parts: dict, n: int) -> dict:
+    """µs a call of each part on the host clock, the mean of n calls in a
+    row after two warm-ups, the device synchronised after."""
+    us = {}
+    for key, fn in parts.items():
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us[key] = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+    return us
 
 
 def _host_split(n: int = 2000) -> dict:
@@ -1909,19 +1961,47 @@ def _host_split(n: int = 2000) -> dict:
         "torch.mul out=": lambda: torch.mul(row, col, out=out),
         "PyTorch launch": lambda: torch._C._cuda_sleep(0),
         "empty call": lambda: None}
-    us = {}
-    for key, fn in parts.items():
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        us[key] = (time.perf_counter() - t0) * 1e6 / n
-        torch.cuda.synchronize()
+    us = _split_us(parts, n)
     us["rest of the wrapper"] = (us["wrapper"] - us["new_empty"]
                                  - us["launcher"])
     return us
+
+
+def _host_split_k10_k13(n: int = 2000) -> dict:
+    """Where the host time of a K13 C call and of a K10 f32 iota call goes
+    (as `_host_split` takes a K11 call's): the whole wrapper, its output's
+    allocation (`new_empty`), the launcher with the output made, K10's
+    device resolution (a hit in its cache), and the rest of the wrapper
+    (the one combined check, pointers, calls)."""
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dynamic_cull as k13, repro_f32_iota as k10)
+    a = k13.inputs(k13.SCALARS, "cuda")
+    s_, tab = a["s"], a["tab"]
+    dev, shape = tab.get_device(), (8, tab.shape[1])
+    out = tab.new_empty(shape)
+    args13 = (2, s_.data_ptr(), tab.data_ptr(), out.data_ptr(), *tab.shape)
+    key13 = "K13 " + k13.FORMS[2]
+    empty, index = k10._target("cuda")
+    shape10 = (k10.ROWS, k10.T)
+    out10 = empty.new_empty(shape10)
+    args10 = (0, out10.data_ptr(), *shape10)
+    split = {}
+    for name, parts in (
+            (key13, {"wrapper": lambda: k13.fori_smem_kernel(s_, tab),
+                     "new_empty": lambda: tab.new_empty(shape),
+                     "launcher": lambda: k13._CULL.launch(key13, dev,
+                                                          *args13)}),
+            ("K10 f32 iota", {
+                "wrapper": lambda: k10.f32_iota_kernel(*shape10, "cuda"),
+                "new_empty": lambda: empty.new_empty(shape10),
+                "device resolution": lambda: k10._target("cuda"),
+                "launcher": lambda: k10._IOTA.launch("K10 f32 iota", index,
+                                                     *args10)})):
+        us = _split_us(parts, n)
+        us["rest of the wrapper"] = (us["wrapper"] - us["new_empty"]
+                                     - us["launcher"])
+        split[name] = us
+    return split
 
 
 def _spread_line(values: list) -> str:
@@ -2038,20 +2118,40 @@ def phase_mosaic_repros(i2f: dict) -> list:
               f"{', '.join(f'{x:.4f}' for x in host['us'][key])}, yardstick "
               f"{', '.join(f'{x:.4f}' for x in host['library_us'][key])}",
               flush=True)
+    print(f"phase 26 host floor {_spread_line(host['other_us']['floor'])} "
+          f"us, K11 register slice kernel "
+          f"{_spread_line(host['other_us']['K11 register slice kernel'])} us "
+          f"(CUDA-event means of {launch_floor.LAUNCHES} calls, the rounds "
+          "of the lines above and below)", flush=True)
+    for key, r in host["k11_ratio"].items():
+        print(f"phase 26 host {key} (kernel wrapper) / K11 register slice "
+              f"kernel, {K11_ROUNDS} rounds in turns: {_spread_line(r)}; / "
+              f"floor {_spread_line(host['floor_ratio'][key])}; us "
+              f"{', '.join(f'{x:.4f}' for x in host['other_us'][key])}",
+              flush=True)
     split = _host_split()
     print("phase 26 host split of a K11 register-slice call (host clock, us "
           "a call, mean of 2000): " + ", ".join(
               f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    for key, parts in _host_split_k10_k13().items():
+        print(f"phase 26 host split of a {key} call (host clock, us a "
+              "call, mean of 2000): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
     for line in [v for key, m in mosaic_repros.REPROS.items()
                  for v in m.verdict([r for r in rows
                                      if r["kernel"] == f"K{key[1:]}"])]:
         print(f"phase 26 verdict: {line}", flush=True)
-    names = {"K10": "K10 f32 iota vs int iota + cast (24, 256)",
+    names = {"K10": "K10 f32 iota vs int iota + cast (24, 256); "
+                    "redesigned: its launch path, a grid of column blocks "
+                    "and row runs storing float4s, 64-bit indices",
              "K11": "K11 register slice vs ref load, (1, 512) x (64, 1), "
                     "W = 256; redesigned: its launch path",
              "K12": "K12 scalar min / max reduce driving a while loop, "
                     "(8, 128)",
-             "K13": "K13 dynamic-cull probes A-D (every probe under rows)",
+             "K13": "K13 dynamic-cull probes A-D (every probe under "
+                    "rows); redesigned: its launch path, A-C a float4 of "
+                    "the output a thread, one wave of loads, wrapped int32 "
+                    "starts",
              "K14": "K14 (64, 3) x (3, 256) TF32 mma.sync, sub-slice vs "
                     "dense; redesigned: its launch path, fragments loaded "
                     "from global memory into registers"}
@@ -2064,6 +2164,11 @@ def phase_mosaic_repros(i2f: dict) -> list:
             first["host_ratio_to_library"] = {
                 f["name"]: host["ratio"][f"{kernel} {f['name']}"]
                 for f in forms}
+        if kernel in ("K10", "K13"):
+            for ratio in ("k11_ratio", "floor_ratio"):
+                first[f"host_{ratio}"] = {
+                    f["name"]: host[ratio][f"{kernel} {f['name']}"]
+                    for f in forms}
         entries.append(dict(
             name=f"{names[kernel]}; per launch, {first['name']} timings",
             route="cuda",
@@ -2074,7 +2179,7 @@ def phase_mosaic_repros(i2f: dict) -> list:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], rows=forms,
-            redesigned=kernel in ("K11", "K14")))
+            redesigned=kernel in ("K10", "K11", "K13", "K14")))
     return entries
 
 

@@ -16,8 +16,11 @@
 //
 // Each repro keeps the TPU formulations apart, so each becomes its own
 // kernel here, with the difference the repro is about written into it:
-//   K10 the f32 iota adds 1.0f per row (no integer-to-float conversion);
-//       the int iota converts the row index with __int2float_rn (I2F).
+//   K10 the f32 iota makes its first row's value from the row's bits (an
+//       OR and an FADD) and adds 1.0f a row after it (no integer-to-float
+//       conversion); the int iota converts the row index with
+//       __int2float_rn (I2F). Both store float4s where the width allows,
+//       from a grid over columns and runs of rows.
 //   K11 the register slice loads a thread's lanes of the (1, T) row once,
 //       into registers, and slices them per W-lane chunk; the ref load
 //       re-reads the chunk's lanes inside each chunk. Both apply the lane
@@ -28,13 +31,17 @@
 //       fmaxf, not the unsigned-bits min of csrc/megakernel.cu, whose
 //       order holds for non-negative floats only.
 //   K13 the runtime scalars are read inside the kernel from a device int32
-//       array (never launch arguments), as the repro's SMEM input; dynamic
-//       slice starts are clamped into the table as lax.dynamic_slice
-//       clamps them. C writes its id list to __shared__ memory (entries it
-//       does not write are 0) and loops over min(max(n, 0), 8) of them,
-//       each id read with a dynamic index. D compacts with one warp's
-//       __ballot_sync and a __popc prefix, in ascending row order, the
-//       rest filled with -1.
+//       array (never launch arguments), as the repro's SMEM input; a
+//       dynamic slice start is the int32 product k * size, wrapped as
+//       JAX's is, then clamped into the table as lax.dynamic_slice clamps
+//       it. C writes its id list to __shared__ memory (entries it does
+//       not write are 0) and takes min(max(n, 0), 8) of them, each id read
+//       with a dynamic index. A-C run a thread a float4 of the output (a
+//       float where the width is not a multiple of 4), so a thread's chain
+//       is the scalars, then one wave of independent loads (C: all its
+//       blocks, added after in id order). D compacts with one
+//       warp's __ballot_sync and a __popc prefix, in ascending row order,
+//       the rest filled with -1.
 //   K14 (S, 3) x (3, T) at the TPU's default precision, which is the
 //       H100's TF32 tensor cores (mma.sync m16n8k8, float32
 //       accumulation), K padded from 3 to 8 with zeros, one warp a 16 x 16
@@ -55,6 +62,7 @@
 // launched the same way, measures the floor of a launch.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -62,25 +70,70 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxChunks = 8;  // K11's register slice holds T / W <= 8
 constexpr int kIds = 8;        // K13 C's id list, the repro's SMEM (8,)
+constexpr long long kMaxGridY = 65535;  // a grid's y extent
 
-// ---- K10 ----------------------------------------------------------------
+// ---- K10: out (rows, T) as units of kVec floats, U units a row --------
+//
+// Block (x, y) covers units x * blockDim.x ... of rows y * R ... y * R +
+// R - 1 (R from the host, so that the grid's y fits), one unit a thread a
+// row, indexed in 64 bits: every shape the wrapper admits (rows <= 2^24,
+// any T) is written, and no thread divides (an integer division would
+// convert to float). kVec = 4 (a float4 store) where T % 4 == 0 and the
+// output is 16-byte aligned.
 
-__global__ void repro_iota_f32_kernel(float* __restrict__ out, int rows,
-                                      int T) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= T) return;
-  float v = 0.f;
-  for (int r = 0; r < rows; ++r) {
-    out[(size_t)r * T + j] = v;
-    v += 1.0f;
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T splat(float v) { return v; }
+  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T splat(float v) {
+    return make_float4(v, v, v, v);
+  }
+  static __device__ __forceinline__ T add(T a, T b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+
+// Row r < 2^24 as a float with no integer-to-float conversion: its low 23
+// bits under 2^23's exponent, less 2^23 (an OR and one FADD, exact), and
+// bit 23 added back as 2^23 (exact below 2^24).
+__device__ __forceinline__ float row_value(int r) {
+  const float low = __int_as_float(0x4B000000 | (r & 0x7FFFFF)) - 8388608.0f;
+  return (r & 0x800000) ? low + 8388608.0f : low;
+}
+
+template <bool kCast, int kVec>
+__device__ __forceinline__ void iota_rows(float* __restrict__ out, int rows,
+                                          size_t units, int per_block) {
+  using V = typename Vec<kVec>::T;
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= units) return;
+  const int r0 = blockIdx.y * per_block, r1 = min(r0 + per_block, rows);
+  V* dst = reinterpret_cast<V*>(out) + (size_t)r0 * units + j;
+  float v = kCast ? 0.f : row_value(r0);
+  for (int r = r0; r < r1; ++r, dst += units, v += 1.0f) {
+    *dst = Vec<kVec>::splat(kCast ? __int2float_rn(r) : v);
   }
 }
 
-__global__ void repro_iota_int_cast_kernel(float* __restrict__ out, int rows,
-                                           int T) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows * T) return;
-  out[idx] = __int2float_rn(idx / T);
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_iota_f32_kernel(float* __restrict__ out, int rows, size_t units,
+                          int per_block) {
+  iota_rows<false, kVec>(out, rows, units, per_block);
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_iota_int_cast_kernel(float* __restrict__ out, int rows,
+                               size_t units, int per_block) {
+  iota_rows<true, kVec>(out, rows, units, per_block);
 }
 
 // ---- K11: block i writes out row i, thread j lanes j + ch W -------------
@@ -153,54 +206,92 @@ repro_scalar_reduce_kernel(const float* __restrict__ x,
 }
 
 // ---- K13: the four dynamic-cull probes ----------------------------------
+//
+// A-C: one thread a unit (kVec floats, Vec above) of the output, units
+// over the grid; kVec = 4 where the table's width is a multiple of 4 and
+// both arrays are 16-byte aligned. A thread's chain is two round trips to
+// memory: the scalars, then one wave of independent table loads.
 
-__device__ __forceinline__ int clamp_start(int start, int size, int extent) {
-  return min(max(start, 0), extent - size);
+// Block k's slice start, k * size as JAX's int32 product (wrapping; the
+// product is taken in unsigned, where wrapping is defined), clamped into
+// the extent as lax.dynamic_slice clamps.
+__device__ __forceinline__ long long block_start(int k, int size,
+                                                 long long extent) {
+  const int start = (int)((unsigned)k * (unsigned)size);
+  return min(max((long long)start, 0ll), extent - size);
 }
 
-// A: out (8, cols) = tab[8 k : 8 k + 8], k = s[0]
-__global__ void repro_cull_a_kernel(const int* __restrict__ s,
-                                    const float* __restrict__ tab,
-                                    float* __restrict__ out, int rows,
-                                    int cols) {
-  const int r0 = clamp_start(s[0] * 8, 8, rows);
-  for (int i = threadIdx.x; i < 8 * cols; i += blockDim.x) {
-    out[i] = tab[(size_t)r0 * cols + i];
-  }
+__device__ __forceinline__ size_t unit_index() {
+  return (size_t)blockIdx.x * kThreads + threadIdx.x;
+}
+
+// A: out (8, cols) = tab[8 k : 8 k + 8], k = s[0]; cu = cols / kVec
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_cull_a_kernel(const int* __restrict__ s,
+                        const float* __restrict__ tab,
+                        float* __restrict__ out, long long rows,
+                        long long cu) {
+  using V = typename Vec<kVec>::T;
+  const size_t u = unit_index();
+  if (u >= 8 * (size_t)cu) return;
+  const long long r0 = block_start(s[0], 8, rows);
+  reinterpret_cast<V*>(out)[u] =
+      reinterpret_cast<const V*>(tab)[(size_t)r0 * cu + u];
 }
 
 // B: out (rows, 128) = att[:, 128 k : 128 k + 128], k = s[1]
-__global__ void repro_cull_b_kernel(const int* __restrict__ s,
-                                    const float* __restrict__ att,
-                                    float* __restrict__ out, int rows,
-                                    int cols) {
-  const int c0 = clamp_start(s[1] * 128, 128, cols);
-  for (int i = threadIdx.x; i < rows * 128; i += blockDim.x) {
-    out[i] = att[(size_t)(i >> 7) * cols + c0 + (i & 127)];
-  }
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_cull_b_kernel(const int* __restrict__ s,
+                        const float* __restrict__ att,
+                        float* __restrict__ out, long long rows,
+                        long long cols) {
+  using V = typename Vec<kVec>::T;
+  constexpr int kRow = 128 / kVec;  // units an output row
+  const size_t u = unit_index();
+  if (u >= (size_t)rows * kRow) return;
+  const long long c0 = block_start(s[1], 128, cols);
+  const float* src = att + (u / kRow) * cols + c0 + (u % kRow) * kVec;
+  reinterpret_cast<V*>(out)[u] = *reinterpret_cast<const V*>(src);
 }
 
-// C: ids (s0 - 2, s0, s1 + s2) to shared memory, then the sum of the n
-// 8-row blocks they name, n = s[2], in id order
-__global__ void repro_cull_c_kernel(const int* __restrict__ s,
-                                    const float* __restrict__ tab,
-                                    float* __restrict__ out, int rows,
-                                    int cols) {
+// C: ids (s0 - 2, s0, s1 + s2) to shared memory (the rest 0), then the sum
+// of the n = s[2] 8-row blocks they name, in id order. Each lane reads the
+// id of its lane index (a dynamic index into the shared list) and clamps
+// its start; the warp shares the starts by shuffle, and a thread issues
+// its loads of all n blocks at once, then adds them in id order.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_cull_c_kernel(const int* __restrict__ s,
+                        const float* __restrict__ tab,
+                        float* __restrict__ out, long long rows,
+                        long long cu) {
+  using V = typename Vec<kVec>::T;
   __shared__ int ids[kIds];
-  if (threadIdx.x < kIds) {
-    const int k = threadIdx.x;
-    ids[k] = k == 0 ? s[0] - 2 : (k == 1 ? s[0] : (k == 2 ? s[1] + s[2] : 0));
+  const int t = threadIdx.x;
+  if (t < kIds) {
+    ids[t] = t == 0 ? s[0] - 2 : (t == 1 ? s[0] : (t == 2 ? s[1] + s[2] : 0));
   }
   const int n = min(max(s[2], 0), kIds);
   __syncthreads();
-  for (int e = threadIdx.x; e < 8 * cols; e += blockDim.x) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const int r0 = clamp_start(ids[i] * 8, 8, rows);
-      acc = acc + tab[(size_t)r0 * cols + e];
-    }
-    out[e] = acc;
+  const long long mine = block_start(ids[t & (kIds - 1)], 8, rows);
+  const size_t u = unit_index();
+  const bool live = u < 8 * (size_t)cu;
+  const V* src = reinterpret_cast<const V*>(tab) + u;
+  V v[kIds];
+#pragma unroll
+  for (int i = 0; i < kIds; ++i) {
+    const long long r0 = __shfl_sync(0xffffffffu, mine, i);
+    if (live && i < n) v[i] = src[(size_t)r0 * cu];
   }
+  if (!live) return;
+  V acc = Vec<kVec>::splat(0.f);
+#pragma unroll
+  for (int i = 0; i < kIds; ++i) {
+    if (i < n) acc = Vec<kVec>::add(acc, v[i]);
+  }
+  reinterpret_cast<V*>(out)[u] = acc;
 }
 
 // D: one warp; row c votes when votes[c, 0] > 0; the voters' ids in
@@ -275,14 +366,63 @@ __global__ void repro_dot_k3_kernel(const float* __restrict__ lhs,
 // device, the floor their rows are read against.
 __global__ void repro_empty_kernel() {}
 
-int blocks(int n, int per) { return (n + per - 1) / per; }
-
 template <class T>
 T* ptr(long long v) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(v));
 }
 
 cudaStream_t stream_of(long long v) { return ptr<CUstream_st>(v); }
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K10's launch of form kCast (1: the int iota + cast) on out (rows, T)
+template <bool kCast, int kVec>
+int launch_iota(float* out, long long rows, long long T, cudaStream_t st) {
+  const long long units = T / kVec;
+  const long long warps = (units + 31) / 32;  // a block: U rounded to warps
+  const int threads = warps < kThreads / 32 ? (int)warps * 32 : kThreads;
+  const long long per_block = (rows + kMaxGridY - 1) / kMaxGridY;
+  const dim3 grid((unsigned)((units + threads - 1) / threads),
+                  (unsigned)((rows + per_block - 1) / per_block));
+  if (kCast) {
+    repro_iota_int_cast_kernel<kVec><<<grid, threads, 0, st>>>(
+        out, (int)rows, (size_t)units, (int)per_block);
+  } else {
+    repro_iota_f32_kernel<kVec><<<grid, threads, 0, st>>>(
+        out, (int)rows, (size_t)units, (int)per_block);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kCast>
+int launch_iota_form(float* out, long long rows, long long T,
+                     cudaStream_t st) {
+  return T % 4 == 0 && aligned16(out)
+             ? launch_iota<kCast, 4>(out, rows, T, st)
+             : launch_iota<kCast, 1>(out, rows, T, st);
+}
+
+// K13's launch of probe A-C (see rtw_repro_cull_launch)
+template <int kVec>
+int launch_cull(int probe, const int* s, const float* tab, float* o,
+                long long rows, long long cols, cudaStream_t st) {
+  const long long units = (probe == 1 ? rows * 128 : 8 * cols) / kVec;
+  const long long grid = (units + kThreads - 1) / kThreads;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const unsigned g = (unsigned)grid;
+  if (probe == 0) {
+    repro_cull_a_kernel<kVec><<<g, kThreads, 0, st>>>(s, tab, o, rows,
+                                                      cols / kVec);
+  } else if (probe == 1) {
+    repro_cull_b_kernel<kVec><<<g, kThreads, 0, st>>>(s, tab, o, rows, cols);
+  } else {
+    repro_cull_c_kernel<kVec><<<g, kThreads, 0, st>>>(s, tab, o, rows,
+                                                      cols / kVec);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -304,19 +444,11 @@ int rtw_repro_empty_launch(const long long* a) {
 // K10: [form, out, rows, T, stream], out (rows, T); form 0 f32 iota, 1 int
 // iota + cast.
 int rtw_repro_iota_launch(const long long* a) {
-  const int form = (int)a[0], rows = (int)a[2], T = (int)a[3];
   float* out = ptr<float>(a[1]);
   cudaStream_t st = stream_of(a[4]);
-  if (form == 0) {
-    repro_iota_f32_kernel<<<blocks(T, kThreads), kThreads, 0, st>>>(out, rows,
-                                                                    T);
-  } else if (form == 1) {
-    repro_iota_int_cast_kernel<<<blocks(rows * T, kThreads), kThreads, 0,
-                                 st>>>(out, rows, T);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (a[0] == 0) return launch_iota_form<false>(out, a[2], a[3], st);
+  if (a[0] == 1) return launch_iota_form<true>(out, a[2], a[3], st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K11: [form, row, col, out, SB, T, W, stream], row (1, T), col (SB, 1),
@@ -348,30 +480,24 @@ int rtw_repro_scalar_reduce_launch(const long long* a) {
 
 // K13: [probe, s, tab, out, rows, cols, stream], probe 0..3 = A..D. s: the
 // (4,) int32 scalars (A, B, C); tab: the table (rows, cols); out: float32
-// (A, B, C) or int32 (D).
+// (A, B, C) or int32 (D). A-C take float4 units where cols % 4 == 0 and
+// tab and out are 16-byte aligned, else single floats.
 int rtw_repro_cull_launch(const long long* a) {
-  const int probe = (int)a[0], rows = (int)a[4], cols = (int)a[5];
+  const int probe = (int)a[0];
+  const long long rows = a[4], cols = a[5];
   const int* s = ptr<const int>(a[1]);
   const float* tab = ptr<const float>(a[2]);
   float* o = ptr<float>(a[3]);
   cudaStream_t st = stream_of(a[6]);
-  switch (probe) {
-    case 0:
-      repro_cull_a_kernel<<<1, kThreads, 0, st>>>(s, tab, o, rows, cols);
-      break;
-    case 1:
-      repro_cull_b_kernel<<<1, kThreads, 0, st>>>(s, tab, o, rows, cols);
-      break;
-    case 2:
-      repro_cull_c_kernel<<<1, kThreads, 0, st>>>(s, tab, o, rows, cols);
-      break;
-    case 3:
-      repro_cull_d_kernel<<<1, 32, 0, st>>>(tab, ptr<int>(a[3]), rows, cols);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (probe == 3) {
+    repro_cull_d_kernel<<<1, 32, 0, st>>>(tab, ptr<int>(a[3]), (int)rows,
+                                          (int)cols);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (probe < 0 || probe > 3) return (int)cudaErrorInvalidValue;
+  return cols % 4 == 0 && aligned16(tab) && aligned16(o)
+             ? launch_cull<4>(probe, s, tab, o, rows, cols, st)
+             : launch_cull<1>(probe, s, tab, o, rows, cols, st);
 }
 
 // K14: [form, lhs, rays, out, S, T, stream], lhs (S, 128) table (form 0,

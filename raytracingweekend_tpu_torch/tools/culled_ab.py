@@ -37,16 +37,16 @@ first regen iteration of random_balls (S = 512), random_balls_large
 (1200x800x8: N = 524,288 rays), ms a call. The K9 cell: its nine rows at
 the tool's S = 512, T = 2048, µs a step (the tool's slope between N and
 4 N steps), rows 0-7 after 8 steps beside the shipped build's (bit-equal
-where the sum order is the same). The K11 and K14 cells (`k11`, `k14`):
-each Mosaic repro's two forms on its repro's inputs, device µs a launch
-read by torch.profiler (`--reps` launches a turn), beside the launch floor
-(the shipped build's empty kernel, profiled in the same turns), each
-build held to the plain version (K11 bit for bit, K14 within its
-tolerance) and set beside the shipped build's bits. All nvcc builds start
-together. Card only:
+where the sum order is the same). The Mosaic repro cells (`k10`, `k11`,
+`k13`, `k14`): each repro's forms (K13: its four probes) on its repro's
+inputs, device µs a launch read by torch.profiler (`--reps` launches a
+turn), beside the launch floor (the shipped build's empty kernel,
+profiled in the same turns), each build held to the plain version (bit
+for bit, K14 within its tolerance) and set beside the shipped build's
+bits. All nvcc builds start together. Card only:
 
     python -m raytracingweekend_tpu_torch.tools.culled_ab \\
-        [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9,k11] \\
+        [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9,k10,...] \\
         [--reps 3] [--parent DIR]... [--split]
 
 One JSON row a measurement on stdout, the card's name and power limit
@@ -75,7 +75,8 @@ from raytracingweekend_tpu_torch.tools import card_line, sass
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
 from raytracingweekend_tpu_torch.tools.mosaic_repros import (
-    repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+    repro_dot_k3_subslice as k14, repro_dynamic_cull as k13,
+    repro_f32_iota as k10, repro_slice_broadcast_layout as k11)
 from raytracingweekend_tpu_torch.tools.mosaic_repros._common import Entry
 
 NX, NY, DEPTH, SEED = 1200, 800, 50, 20240601
@@ -122,7 +123,9 @@ K7_SPP, K7_SEED, K7_REPS = 8, 2, 20
 K9_S, K9_T, K9_N, K9_CHECK = 512, 2048, 64, 8
 # the Mosaic repros' cells: (module, C entry, its arguments before the
 # stream, their ctypes types in a build older than the argument block)
-REPRO_CELLS = {"k11": (k11, "rtw_repro_slice_launch", 7, "ipppiii"),
+REPRO_CELLS = {"k10": (k10, "rtw_repro_iota_launch", 4, "ipii"),
+               "k11": (k11, "rtw_repro_slice_launch", 7, "ipppiii"),
+               "k13": (k13, "rtw_repro_cull_launch", 6, "ipppii"),
                "k14": (k14, "rtw_repro_dot_k3_launch", 6, "ipppii")}
 ALL_CELLS = (*CELLS, *K7_CELLS, "k9", *REPRO_CELLS)
 # the instrumented build's defines
@@ -479,37 +482,67 @@ def _profiled_us(fn, reps: int, kernel: str) -> float:
     return dev / n
 
 
+def repro_forms(cell: str, device: str = "cuda") -> list:
+    """The forms of a repro cell on its repro's inputs on `device` (K11,
+    K14 seed 0; K13 the repro's scalars and tables): one (name, kernel
+    name, output (shape, dtype), the entry's arguments before the output's
+    address (tensors stand for their addresses), those after it, plain
+    output, tolerance) a form."""
+    mod = REPRO_CELLS[cell][0]
+    f32 = torch.float32
+    if cell == "k10":
+        want = mod.iota_reference(mod.ROWS, mod.T, device)
+        return [(name, f"repro_{k}_kernel", ((mod.ROWS, mod.T), f32),
+                 (form,), (mod.ROWS, mod.T), want, 0.0)
+                for form, (name, k) in enumerate(zip(
+                    mod.FORMS, ("iota_f32", "iota_int_cast")))]
+    if cell == "k11":
+        row, col = mod.inputs(0, device)
+        want = mod.slice_reference(row, col)
+        return [(name, "repro_slice_kernel", ((mod.SB, mod.T), f32),
+                 (form, row, col), (mod.SB, mod.T, mod.W), want, 0.0)
+                for form, name in enumerate(mod.FORMS)]
+    if cell == "k13":
+        a = mod.inputs(mod.SCALARS, device)
+        forms = []
+        for probe, (name, (_, _, table)) in enumerate(zip(mod.FORMS,
+                                                          mod.PROBES)):
+            t = a[table]
+            out = (((8,), torch.int32) if probe == 3 else
+                   ((t.shape[0], mod.LANES) if probe == 1 else
+                    (8, t.shape[1]), f32))
+            forms.append((name, f"repro_cull_{'abcd'[probe]}_kernel", out,
+                          (probe, 0 if probe == 3 else a["s"], t),
+                          tuple(t.shape), mod.reference(probe, a), 0))
+        return forms
+    tab, rays = mod.inputs(0, device)
+    want, tol = mod.subslice_reference(tab, rays), mod.tolerance(tab, rays)
+    return [(name, "repro_dot_k3_kernel", ((mod.S, mod.T), f32),
+             (form, lhs, rays), (mod.S, mod.T), want, tol)
+            for form, (name, lhs) in enumerate(zip(
+                mod.FORMS, (tab, tab[:, 0:mod.K].contiguous())))]
+
+
 def _repro_rows(cell: str, libs: dict, reps: int) -> list:
-    """The repro's two forms (K11, K14) on its seed-0 inputs, every build in
+    """The repro's forms (K10, K11, K13, K14; `repro_forms`), every build in
     turns, device µs a launch by torch.profiler (`reps` launches a turn),
     the launch floor (the shipped build's empty kernel) profiled in the
-    same turns; each build's output held to the plain version (K11 bit
-    for bit, K14 within its tolerance) and set beside the shipped
-    build's: one row a build and form."""
-    mod, name, slots, old = REPRO_CELLS[cell]
-    if cell == "k11":
-        row, col = mod.inputs(0, "cuda")
-        ins, dims, kname = [(row, col)] * 2, (mod.SB, mod.T, mod.W), \
-            "repro_slice_kernel"
-        out_shape, want, tol = (mod.SB, mod.T), mod.slice_reference(row,
-                                                                    col), 0.0
-    else:
-        tab, rays = mod.inputs(0, "cuda")
-        ins = [(tab, rays), (tab[:, 0:mod.K].contiguous(), rays)]
-        dims, kname = (mod.S, mod.T), "repro_dot_k3_kernel"
-        out_shape, want = (mod.S, mod.T), mod.subslice_reference(tab, rays)
-        tol = mod.tolerance(tab, rays)
+    same turns; each build's output held to the plain version (bit for
+    bit, K14 within its tolerance) and set beside the shipped build's:
+    one row a build and form."""
+    _, name, slots, old = REPRO_CELLS[cell]
+    forms = repro_forms(cell)
     calls = {k: _repro_launcher(lib, name, slots, old)
              for k, lib in libs.items()}
     floor = Entry("the empty kernel", "rtw_repro_empty_launch", 0,
                   {"floor": 0}, lib=lambda: libs["shipped"])
     floor_us = []
     rows = []
-    for form, form_name in enumerate(mod.FORMS):
-        a, b = ins[form]
-        outs = {k: torch.empty(out_shape, device="cuda") for k in libs}
-        args = {k: (form, a.data_ptr(), b.data_ptr(), outs[k].data_ptr(),
-                    *dims) for k in libs}
+    for form_name, kname, (shape, dtype), head, tail, want, tol in forms:
+        outs = {k: torch.empty(shape, dtype=dtype, device="cuda")
+                for k in libs}
+        ptrs = [x.data_ptr() if torch.is_tensor(x) else x for x in head]
+        args = {k: (*ptrs, outs[k].data_ptr(), *tail) for k in libs}
         times = {k: [] for k in libs}
         for k in [*libs, *reversed(libs)]:
             times[k].append(_profiled_us(lambda: calls[k](*args[k]), reps,

@@ -13,19 +13,28 @@ port of tools/mosaic_repros/repro_dynamic_cull.py.
 The scalars s (4,) int32 live on the device and are read inside the
 kernels (csrc/mosaic_repros.cu), never passed as launch arguments, so
 nothing is constant; the plain versions read no scalar on the host either.
-Where the TPU leaves a case undefined the port picks the interpreter's
-answer or a fixed one: slice starts are clamped into the table, as
-lax.dynamic_slice clamps them; C's id list has 8 entries, those it does
-not write are 0, and it takes min(max(n, 0), 8) of them. D compacts with
-one warp's __ballot_sync and a __popc prefix (csrc/megakernel.cu's
-survivor-list form), so it takes at most 32 rows.
+A slice start is the int32 start, wrapped as JAX's is (k * 8 or k * 128 in
+int32), then clamped into the table, as lax.dynamic_slice clamps it:
+where the wrapped start lies in the table that is the interpreter's
+answer, and where it wraps to a negative value (the interpreter raises)
+the clamp is the port's fixed choice. C's id list has 8 entries, those it
+does not write are 0, and it takes min(max(n, 0), 8) of them, summed in
+id order. D compacts with one warp's __ballot_sync and a __popc prefix
+(csrc/megakernel.cu's survivor-list form), so it takes at most 32 rows.
+
+On the card A-C run a thread a float4 of the output (a float where the
+table's width is not a multiple of 4, or a pointer not 16-byte aligned:
+the C entry picks by shape and alignment), so a thread reads the scalars,
+then issues its table loads in one wave; C's threads load all n blocks
+before adding them in id order. The wrappers check device, type, shape
+and contiguity in one combined condition and allocate with `new_empty`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ._common import LAUNCHES, Entry, make_row, need_cuda
+from ._common import F32, LAUNCHES, Entry, make_row, refuse
 
 S, LANES, ATT_COLS, N_IDS, MAX_VOTERS = 64, 128, 512, 8, 32
 SCALARS = (3, 2, 3, 0)     # the repro's _SCALARS
@@ -35,6 +44,7 @@ FORMS = ("A dynamic-sublane-slice", "B dynamic-lane-slice",
 KERNEL_LAUNCHES = {f"K13 {f}": 0 for f in FORMS}
 _KEYS = tuple(KERNEL_LAUNCHES)
 _CULL = Entry("K13", "rtw_repro_cull_launch", 6, KERNEL_LAUNCHES)
+I32 = torch.int32
 
 
 def inputs(scalars=SCALARS, device="cpu") -> dict:
@@ -79,10 +89,16 @@ def _check(s: torch.Tensor, tab: torch.Tensor, rows_at_least: int,
                          f"{tuple(tab.shape)}")
 
 
+def _start(k: torch.Tensor, size: int, extent: int) -> torch.Tensor:
+    """The slice start of block k, an int32 device scalar (no host read):
+    k * size in int32, wrapping as JAX's product does, then widened and
+    clamped into [0, extent - size]."""
+    return (k * size).long().clamp(0, extent - size)
+
+
 def _block_rows(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """tab[8 k : 8 k + 8] with the start clamped into the table, k a device
-    scalar (no host read)."""
-    start = (k.long() * 8).clamp(0, tab.shape[0] - 8)
+    """tab[8 k : 8 k + 8], its start as `_start` makes it."""
+    start = _start(k, 8, tab.shape[0])
     return tab.index_select(0, start + torch.arange(8, device=tab.device))
 
 
@@ -95,7 +111,7 @@ def sublane_slice_reference(s, tab):
 def lane_slice_reference(s, att):
     """B's plain version."""
     _check(s, att, 1, 128)
-    start = (s[1].long() * 128).clamp(0, att.shape[1] - 128)
+    start = _start(s[1], 128, att.shape[1])
     return att.index_select(1, start + torch.arange(128, device=att.device))
 
 
@@ -129,40 +145,51 @@ def compaction_reference(votes):
     return torch.where(key < rows, key, -1).int()
 
 
-def _cull_kernel(probe: int, s, tab, out) -> torch.Tensor:
-    need_cuda("K13", tab, out, *([] if s is None else [s]))
-    _CULL.launch(_KEYS[probe], tab.get_device(), probe,
-                 0 if s is None else s.data_ptr(), tab.data_ptr(),
-                 out.data_ptr(), tab.shape[0], tab.shape[1])
+def _cull_kernel(probe: int, s, tab, rows_at_least: int,
+                 cols_at_least: int) -> torch.Tensor:
+    """Probe A, B or C (0..2) on the card: out (8, cols) or, for B,
+    (rows, 128)."""
+    ss, ts, dev = s.shape, tab.shape, tab.get_device()
+    if not (dev >= 0 and s.get_device() == dev and s.dtype is I32
+            and tab.dtype is F32 and len(ss) == 1 and ss[0] >= 3
+            and len(ts) == 2 and ts[0] >= rows_at_least
+            and ts[1] >= cols_at_least and s.is_contiguous()
+            and tab.is_contiguous()):
+        _check(s, tab, rows_at_least, cols_at_least)
+        refuse("K13", tab, s)
+    out = tab.new_empty((ts[0], LANES) if probe == 1 else (8, ts[1]))
+    _CULL.launch(_KEYS[probe], dev, probe, s.data_ptr(), tab.data_ptr(),
+                 out.data_ptr(), ts[0], ts[1])
     return out
 
 
 def sublane_slice_kernel(s, tab):
-    """A on the card."""
-    _check(s, tab, 8, 1)
-    return _cull_kernel(0, s, tab, torch.empty(
-        (8, tab.shape[1]), dtype=torch.float32, device=tab.device))
+    """A on the card: (8, cols), a thread a float4."""
+    return _cull_kernel(0, s, tab, 8, 1)
 
 
 def lane_slice_kernel(s, att):
-    """B on the card."""
-    _check(s, att, 1, 128)
-    return _cull_kernel(1, s, att, torch.empty(
-        (att.shape[0], 128), dtype=torch.float32, device=att.device))
+    """B on the card: (rows, 128), a thread a float4."""
+    return _cull_kernel(1, s, att, 1, LANES)
 
 
 def fori_smem_kernel(s, tab):
-    """C on the card."""
-    _check(s, tab, 8, 1)
-    return _cull_kernel(2, s, tab, torch.empty(
-        (8, tab.shape[1]), dtype=torch.float32, device=tab.device))
+    """C on the card: (8, cols), a thread a float4 of the sum."""
+    return _cull_kernel(2, s, tab, 8, 1)
 
 
 def compaction_kernel(votes):
     """D on the card: one warp."""
-    _check_votes(votes)
-    return _cull_kernel(3, None, votes, torch.empty(
-        (votes.shape[0],), dtype=torch.int32, device=votes.device))
+    vs, dev = votes.shape, votes.get_device()
+    if not (dev >= 0 and votes.dtype is F32 and len(vs) == 2
+            and 1 <= vs[0] <= MAX_VOTERS and vs[1] >= 1
+            and votes.is_contiguous()):
+        _check_votes(votes)
+        refuse("K13", votes)
+    out = votes.new_empty((vs[0],), dtype=I32)
+    _CULL.launch(_KEYS[3], dev, 3, 0, votes.data_ptr(), out.data_ptr(),
+                 vs[0], vs[1])
+    return out
 
 
 PROBES = ((sublane_slice_kernel, sublane_slice_reference, "tab"),

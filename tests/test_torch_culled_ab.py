@@ -173,13 +173,13 @@ def test_surface_split_parts_are_the_kernels():
 
 def test_k7_and_k9_cells_are_cells(monkeypatch):
     """The K7 cells name the three K7 scenes, the K9 cell its nine rows,
-    the K11 and K14 cells their repros' two forms; all are taken by --cells
-    and run by default."""
+    the K10, K11, K13 and K14 cells their repros' forms; all are taken by
+    --cells and run by default."""
     assert set(culled_ab.K7_CELLS.values()) == {
         "random_balls", "random_balls_large", "random_balls_huge"}
     assert set(culled_ab.ALL_CELLS) == {*culled_ab.CELLS,
-                                        *culled_ab.K7_CELLS, "k9", "k11",
-                                        "k14"}
+                                        *culled_ab.K7_CELLS, "k9", "k10",
+                                        "k11", "k13", "k14"}
     seen = {}
     monkeypatch.setattr(culled_ab, "run", lambda *a: seen.update(args=a))
     culled_ab.main(["--cells", "k7_huge,k9"])
@@ -267,11 +267,15 @@ class _ReproLib:
 
 def test_repro_cells_launch_old_builds_positionally():
     """A build older than the argument block (no rtw_repro_empty_launch)
-    gets its K11 / K14 entry typed positionally, the stream last; a newer
+    gets its K10 / K11 / K13 / K14 entry typed positionally, the stream
+    last; a newer
     one launches through the repros' launcher, bound at its first call."""
     c_int, c_void_p = culled_ab.ctypes.c_int, culled_ab.ctypes.c_void_p
-    for cell, types in (("k11", [c_int, c_void_p, c_void_p, c_void_p, c_int,
+    for cell, types in (("k10", [c_int, c_void_p, c_int, c_int]),
+                        ("k11", [c_int, c_void_p, c_void_p, c_void_p, c_int,
                                  c_int, c_int]),
+                        ("k13", [c_int, c_void_p, c_void_p, c_void_p, c_int,
+                                 c_int]),
                         ("k14", [c_int, c_void_p, c_void_p, c_void_p, c_int,
                                  c_int])):
         _, name, slots, old = culled_ab.REPRO_CELLS[cell]
@@ -283,3 +287,21 @@ def test_repro_cells_launch_old_builds_positionally():
         new = _ReproLib([name, "rtw_repro_empty_launch"])
         culled_ab._repro_launcher(new, name, slots, old)
         assert not hasattr(new.entries[name], "argtypes")
+
+
+@pytest.mark.parametrize("cell,forms", [("k10", 2), ("k11", 2), ("k13", 4),
+                                        ("k14", 2)])
+def test_repro_cells_launch_every_form_with_the_entrys_slots(cell, forms):
+    """Each repro cell takes each of its repro's forms (K13: its four
+    probes) with as many arguments as its entry has slots, the output's
+    address among them, a kernel name the source defines, and an output of
+    its plain version's shape and type (built here on the CPU)."""
+    mod, name, slots, _ = culled_ab.REPRO_CELLS[cell]
+    got = culled_ab.repro_forms(cell, "cpu")
+    assert [f[0] for f in got] == list(mod.FORMS) and len(got) == forms
+    src = (culled_ab._build.CSRC / "mosaic_repros.cu").read_text()
+    for _, kname, (shape, dtype), head, tail, want, _ in got:
+        assert len(head) + 1 + len(tail) == slots
+        assert f"{kname}(" in src
+        assert tuple(want.shape) == tuple(shape) and want.dtype == dtype
+    assert [f[3][0] for f in got] == list(range(forms))   # form / probe

@@ -922,10 +922,35 @@ def test_mosaic_repro_kernels_raise_on_refused_launches():
     assert torch.equal(out, row * col)
 
 
-# K11's and K14's forms: (repro module, form index)
-STREAM_FORMS = [("repro_slice_broadcast_layout", 0),
+# K10's, K11's, K13's and K14's forms: (repro module, form index)
+STREAM_FORMS = [("repro_f32_iota", 0), ("repro_f32_iota", 1),
+                ("repro_slice_broadcast_layout", 0),
                 ("repro_slice_broadcast_layout", 1),
+                ("repro_dynamic_cull", 0), ("repro_dynamic_cull", 1),
+                ("repro_dynamic_cull", 2), ("repro_dynamic_cull", 3),
                 ("repro_dot_k3_subslice", 0), ("repro_dot_k3_subslice", 1)]
+
+
+def _iota_on_side_stream(mod, form: int) -> None:
+    """K10 has no input: the default stream sleeps while a side stream,
+    made current, takes a NaN fill of the output's size (its block, freed,
+    is what the wrapper's allocation gets back there), the launch and a
+    copy of the output. The launch reads the current stream, so after the
+    side stream is synchronised the copy equals the plain version; a
+    launch on the default stream would still sit behind the sleep."""
+    fn = (mod.f32_iota_kernel, mod.int_iota_cast_kernel)[form]
+    want = mod.iota_reference(device="cuda")
+    first = fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    torch.cuda._sleep(20_000_000)
+    with torch.cuda.stream(side):
+        poison = torch.full_like(want, float("nan"))
+        del poison
+        got = fn().clone()
+    side.synchronize()
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -935,16 +960,27 @@ def test_mosaic_launcher_reads_the_current_stream_on_card(repro, form):
     current, whose inputs are written there behind a sleep of the card
     (NaN until then): each launch reads the stream current at its call,
     so after that stream is synchronised the output equals the plain
-    version (K11 bit for bit, K14 within 2 ulp of sum |a||b|)."""
+    version (K10, K11, K13 bit for bit, K14 within 2 ulp of sum |a||b|;
+    K10, which has no input, as `_iota_on_side_stream` says)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import importlib
     mod = importlib.import_module(
         f"raytracingweekend_tpu_torch.tools.mosaic_repros.{repro}")
+    if repro == "repro_f32_iota":
+        _iota_on_side_stream(mod, form)
+        return
     if repro == "repro_slice_broadcast_layout":
         a, b = mod.inputs(2, "cuda")
         fn = (mod.reg_slice_kernel, mod.ref_load_kernel)[form]
         want, tol = mod.slice_reference(a, b), 0.0
+    elif repro == "repro_dynamic_cull":
+        inputs = mod.inputs((5, 1, 2, 0), "cuda")
+        kern, ref, table = mod.PROBES[form]
+        a, b = inputs[table], inputs["s"]
+        fn = (lambda t, s: kern(t)) if form == 3 else \
+            (lambda t, s: kern(s, t))
+        want, tol = (ref(a) if form == 3 else ref(b, a)), 0
     else:
         tab, b = mod.inputs(2, "cuda")
         a = tab if form == 0 else tab[:, 0:3].contiguous()
@@ -962,6 +998,137 @@ def test_mosaic_launcher_reads_the_current_stream_on_card(repro, form):
     torch.cuda.synchronize()
     for out in (first, got):
         assert torch.all((out - want).abs() <= tol)
+
+
+# K13's scalar sets: the repro's, a second in range, starts that wrap in
+# int32 (k * 8 = 2^32 + 16, k * 128 = 2^36 + 128: inside the table), starts
+# clamped high and low, n = 0, n = 8 (five ids the kernel did not write,
+# 0) and negative n
+K13_SCALARS = {"repro": (3, 2, 3, 0), "second": (5, 1, 2, 0),
+               "wrapped": (2 ** 29 + 2, 2 ** 29 + 1, 3, 0),
+               "wrapped negative": (2 ** 28, 2 ** 25, 2, 0),
+               "clamped high": (100, 9, 3, 0),
+               "clamped low": (-4, -2, 2, 0), "n 0": (3, 2, 0, 0),
+               "n 8": (4, -3, 8, 0), "n negative": (3, 2, -5, 0)}
+# (tab, att) shapes: the repro's, widths that are not multiples of 4, the
+# narrowest tables the probes take, and the repro's shapes in a storage
+# one float off 16-byte alignment (the single-float form)
+K13_TABLES = {"repro": ((64, 128), (8, 512)), "odd": ((61, 130), (7, 515)),
+              "narrow": ((9, 3), (3, 129)),
+              "misaligned": ((64, 128), (8, 512))}
+
+
+def _normal(rng, shape, misaligned: bool):
+    """A float32 normal table (numpy rng) on the card, contiguous; one float
+    into a larger storage where misaligned."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype("float32"))
+    if not misaligned:
+        return x.cuda()
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    flat[1:] = x.flatten().cuda()
+    return flat[1:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", list(K13_TABLES))
+@pytest.mark.parametrize("scalars", list(K13_SCALARS))
+def test_k13_probes_match_plain_versions_on_card(scalars, tables):
+    """K13's probes A-C against their plain versions on normal tables
+    (numpy seed), bit for bit, at every scalar set and table shape: the
+    float4 form and the single-float form (widths not a multiple of 4, a
+    table off 16-byte alignment); one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dynamic_cull as k13)
+    rng = np.random.default_rng(list(K13_SCALARS).index(scalars))
+    tab_shape, att_shape = K13_TABLES[tables]
+    odd = tables == "misaligned"
+    tab, att = _normal(rng, tab_shape, odd), _normal(rng, att_shape, odd)
+    assert (tab.data_ptr() % 16 != 0) == odd
+    s = torch.tensor(K13_SCALARS[scalars], dtype=torch.int32, device="cuda")
+    before = sum(k13.KERNEL_LAUNCHES.values())
+    for k, table in enumerate((tab, att, tab)):
+        kern, ref, _ = k13.PROBES[k]
+        got, want = kern(s, table), ref(s, table)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), k
+    assert sum(k13.KERNEL_LAUNCHES.values()) - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 1), (8, 128), (32, 3),
+                                       (17, 130), (32, 1)])
+def test_k13_compaction_matches_plain_version_on_card(rows, cols):
+    """D against its plain version on vote tables of -1, 0 and 1 (numpy
+    seed), up to the warp's 32 rows, widths not a multiple of 4 too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dynamic_cull as k13)
+    rng = np.random.default_rng(rows * 1000 + cols)
+    for _ in range(4):
+        v = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], size=(rows, cols))
+                             .astype("float32")).cuda()
+        got = k13.compaction_kernel(v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k13.compaction_reference(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 1), (24, 256), (24, 257),
+                                       (4097, 129), (70000, 4),
+                                       ((1 << 23) + 7, 2)])
+@pytest.mark.parametrize("form", [0, 1])
+def test_k10_forms_match_plain_version_on_card(form, rows, cols):
+    """Both K10 forms against the plain version, bit for bit: one element,
+    the repro's shape, widths not a multiple of 4, rows past the grid's y
+    extent (runs of rows a block) and past 2^23 (the f32 form's bit-23
+    row values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_f32_iota as k10)
+    fn = (k10.f32_iota_kernel, k10.int_iota_cast_kernel)[form]
+    got = fn(rows, cols, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, k10.iota_reference(rows, cols, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+def test_k10_writes_every_element_past_2_31_on_card(form):
+    """(2^24, 129): 2^24 x 129 > 2^31 elements (8.7 GB), which a 32-bit
+    element count wraps to 2^24. The output's storage is NaN before the
+    launch (a freed NaN fill of its size, which the allocation gets back);
+    every element is checked in runs of 2^20 rows against arange, the last
+    row and sampled rows once more by value, with no plain copy of the
+    whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_f32_iota as k10)
+    rows, cols = 1 << 24, 129
+    assert rows * cols >= 1 << 31
+    fn = (k10.f32_iota_kernel, k10.int_iota_cast_kernel)[form]
+    poison = torch.full((rows, cols), float("nan"), device="cuda")
+    del poison
+    out = fn(rows, cols, "cuda")
+    torch.cuda.synchronize()
+    step = 1 << 20
+    for r0 in range(0, rows, step):
+        col = torch.arange(r0, r0 + step, dtype=torch.float32,
+                           device="cuda")[:, None]
+        assert bool((out[r0:r0 + step] == col).all()), r0
+    gen = torch.Generator(device="cpu").manual_seed(form)
+    sample = torch.cat([torch.randint(0, rows, (64,), generator=gen),
+                        torch.tensor([0, (1 << 23) - 1, 1 << 23, rows - 1])])
+    got = out[sample.cuda()].cpu()
+    assert torch.equal(got, sample.float()[:, None].expand(-1, cols))
+    del out
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -184,6 +184,92 @@ def test_k13_plain_versions_equal_jax_probes(repro, monkeypatch, scalars):
             np.testing.assert_array_equal(want_np[name], expect)
 
 
+# F4's scalars: every start wraps in int32 (k * 8 = 2^32 + 16, k * 128 =
+# 2^36 + 128; C's ids 2^29, 2^29 + 2, 2^29 + 4 times 8 = 0, 16, 32 mod 2^32)
+# and lands inside the table, so the interpreter's answer is defined
+WRAPPED = (2 ** 29 + 2, 2 ** 29 + 1, 3, 0)
+
+
+def test_k13_plain_versions_wrap_their_starts_as_jax_does(repro,
+                                                          monkeypatch):
+    """The slice starts are JAX's int32 products, wrapped, then clamped:
+    A is tab[16:24], B att[:, 128:256], C tab[0:8] + tab[16:24] +
+    tab[32:40], bit for bit with the repro's probes in interpret mode (a
+    start computed in 64 bits clamps to tab[56:64] and att[:, 384:512])."""
+    mod = repro["repro_dynamic_cull"]
+    got_jax = _jax_probes(mod, monkeypatch, WRAPPED)
+    a = k13.inputs(WRAPPED)
+    tab, att = a["tab"].numpy(), a["att"].numpy()
+    want = {k13.FORMS[0]: tab[16:24], k13.FORMS[1]: att[:, 128:256],
+            k13.FORMS[2]: (tab[0:8] + tab[16:24]) + tab[32:40]}
+    for k, name in enumerate(k13.FORMS):
+        port = k13.reference(k, a).numpy()
+        np.testing.assert_array_equal(port, got_jax[name][0])
+        assert port.dtype == got_jax[name][0].dtype
+        if name in want:
+            np.testing.assert_array_equal(port, want[name])
+    assert [k13.reference(k, a).numpy().flat[0] for k in range(3)] == [
+        2048.0, 128.0, 6144.0]
+
+
+@pytest.mark.parametrize("k,size,extent,start", [
+    (2 ** 29 + 2, 8, 64, 16), (2 ** 28, 8, 64, 0), (2 ** 28 - 1, 8, 64, 56),
+    (-1, 8, 64, 0), (3, 128, 512, 384), (2 ** 25, 128, 512, 0),
+    (2 ** 29 + 1, 128, 512, 128)])
+def test_k13_start_is_the_wrapped_int32_product_clamped(k, size, extent,
+                                                        start):
+    """2^28 * 8 wraps to -2^31 (clamped to 0, where the interpreter
+    raises); (2^28 - 1) * 8 stays positive and clamps to the last block."""
+    got = k13._start(torch.tensor(k, dtype=torch.int32), size, extent)
+    assert got.dtype == torch.int64 and got.item() == start
+
+
+def test_k13_fori_sums_normal_tables_in_id_order():
+    """On random normal tables (numpy seed) C's plain version is the
+    float32 sum ((0 + b0) + b1) + b2 of the blocks the ids name, bit for
+    bit; another order gives other bits, so the order is pinned."""
+    rng = np.random.default_rng(11)
+    tab = rng.standard_normal((k13.S, k13.LANES)).astype(np.float32)
+    s = (5, 1, 3, 0)                    # ids 3, 5, 4
+    got = k13.fori_smem_reference(torch.tensor(s, dtype=torch.int32),
+                                  torch.from_numpy(tab)).numpy()
+    acc = np.zeros((8, k13.LANES), np.float32)
+    for i in (3, 5, 4):
+        acc = acc + tab[8 * i:8 * i + 8]
+    np.testing.assert_array_equal(got, acc)
+    backwards = (tab[32:40] + tab[40:48]) + tab[24:32]
+    assert not np.array_equal(got, backwards)
+
+
+@pytest.mark.parametrize("scalars", [(3, 2, 0, 0), (3, 2, -1, 0),
+                                     (3, 2, -(2 ** 31), 0)])
+def test_k13_fori_takes_no_block_at_n_zero_or_below(repro, monkeypatch,
+                                                    scalars):
+    """n = 0 and negative n: no block is summed, as the repro's fori_loop
+    with that trip count runs no iteration (zeros, bit for bit)."""
+    mod = repro["repro_dynamic_cull"]
+    got_jax = _jax_probes(mod, monkeypatch, scalars)
+    a = k13.inputs(scalars)
+    port = k13.reference(2, a).numpy()
+    np.testing.assert_array_equal(port, got_jax[k13.FORMS[2]][0])
+    np.testing.assert_array_equal(port, np.zeros((8, k13.LANES),
+                                                 np.float32))
+
+
+def test_k13_fori_at_n_eight_reads_the_unwritten_ids_as_zero():
+    """n = 8: the three written ids, then five ids the kernel did not
+    write, 0 (block 0), summed in order; on normal tables (numpy seed)."""
+    rng = np.random.default_rng(12)
+    tab = rng.standard_normal((k13.S, 20)).astype(np.float32)
+    got = k13.fori_smem_reference(torch.tensor((4, -3, 8, 0),
+                                               dtype=torch.int32),
+                                  torch.from_numpy(tab)).numpy()
+    acc = np.zeros((8, 20), np.float32)
+    for i in (2, 4, 5, 0, 0, 0, 0, 0):
+        acc = acc + tab[8 * i:8 * i + 8]
+    np.testing.assert_array_equal(got, acc)
+
+
 def test_k13_compaction_on_other_votes():
     """D keeps ascending order and the -1 fill for any vote pattern (a
     threshold of > 0: zero and negative votes do not count)."""
@@ -464,13 +550,21 @@ def test_every_wrapper_launches_through_one_entry_each():
 @pytest.mark.parametrize("case,match", [
     ("cpu", "CUDA"), ("float64", "float32"), ("row shape", "expected"),
     ("width", "divide"), ("k14 cpu", "CUDA"), ("k14 tile", "multiples"),
-    ("k14 width", r"\(S, 3\)")])
+    ("k14 width", r"\(S, 3\)"), ("k10 cpu", "CUDA"),
+    ("k10 no rows", r"rows in \[1, 2\^24\]"),
+    ("k10 rows past 2^24", r"2\^24"), ("k10 no cols", "cols >= 1"),
+    ("k13 cpu", "CUDA"), ("k13 int64", "int32"),
+    ("k13 two scalars", r"\(>= 3,\)"), ("k13 narrow", ">= 128 columns"),
+    ("k13 short", ">= 8 rows"), ("k13 float64", "float32"),
+    ("k13 votes", "votes"), ("k13 votes cpu", "CUDA")])
 def test_k11_k14_wrappers_refuse_after_one_combined_check(case, match):
-    """Past the one combined condition, the K11 and K14 wrappers raise
-    what their first versions raised: the plain version's shape and type
-    check first, then the tile rule, then the device."""
+    """Past the one combined condition, the K10, K11, K13 and K14 wrappers
+    raise what their first versions raised: the plain version's shape and
+    type check first, then the tile rule, then the device (K10: a device
+    that is not CUDA)."""
     row, col = k11.inputs(0)
     tab, rays = k14.inputs(0)
+    a = k13.inputs()
     call = {"cpu": lambda: k11.reg_slice_kernel(row, col),
             "float64": lambda: k11.ref_load_kernel(row.double(), col),
             "row shape": lambda: k11.reg_slice_kernel(row.T, col),
@@ -478,9 +572,51 @@ def test_k11_k14_wrappers_refuse_after_one_combined_check(case, match):
             "k14 cpu": lambda: k14.subslice_kernel(tab, rays),
             "k14 tile": lambda: k14.dense_kernel(
                 tab[:40, 0:3].contiguous(), rays),
-            "k14 width": lambda: k14.dense_kernel(tab, rays)}[case]
+            "k14 width": lambda: k14.dense_kernel(tab, rays),
+            "k10 cpu": lambda: k10.f32_iota_kernel(device="cpu"),
+            "k10 no rows": lambda: k10.int_iota_cast_kernel(0, 4, "cpu"),
+            "k10 rows past 2^24": lambda: k10.f32_iota_kernel(
+                2 ** 24 + 1, 1, "cuda"),
+            "k10 no cols": lambda: k10.int_iota_cast_kernel(4, 0, "cuda"),
+            "k13 cpu": lambda: k13.fori_smem_kernel(a["s"], a["tab"]),
+            "k13 int64": lambda: k13.sublane_slice_kernel(a["s"].long(),
+                                                          a["tab"]),
+            "k13 two scalars": lambda: k13.fori_smem_kernel(a["s"][:2],
+                                                            a["tab"]),
+            "k13 narrow": lambda: k13.lane_slice_kernel(a["s"],
+                                                        a["att"][:, :100]),
+            "k13 short": lambda: k13.sublane_slice_kernel(a["s"],
+                                                          a["tab"][:7]),
+            "k13 float64": lambda: k13.fori_smem_kernel(a["s"],
+                                                        a["tab"].double()),
+            "k13 votes": lambda: k13.compaction_kernel(torch.zeros((40, 2))),
+            "k13 votes cpu": lambda: k13.compaction_kernel(a["votes"])}[case]
     with pytest.raises(ValueError, match=match):
         call()
+
+
+def test_k10_wrapper_allocates_from_its_resolved_device(monkeypatch):
+    """The K10 wrapper resolves its device argument once (a CUDA device is
+    kept; a CPU one raises every call and is never kept), allocates its
+    output from the resolved device's empty tensor and launches on its
+    index, with the form, the output's address and the shape."""
+    launched = []
+
+    class Stub:
+        def launch(self, key, dev, *args):
+            launched.append((key, dev, args))
+
+    monkeypatch.setattr(k10, "_IOTA", Stub())
+    monkeypatch.setattr(k10, "_TARGETS", {"cuda:7": (torch.empty(0), 7)})
+    out = k10.int_iota_cast_kernel(3, 5, "cuda:7")
+    assert out.shape == (3, 5) and out.dtype == torch.float32
+    ((key, dev, args),) = launched
+    assert (key, dev) == ("K10 int iota + cast", 7)
+    assert args == (1, out.data_ptr(), 3, 5)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="CUDA"):
+            k10.f32_iota_kernel(device="cpu")
+    assert list(k10._TARGETS) == ["cuda:7"]
 
 
 def test_launch_floor_refuses_the_cpu():
