@@ -69,9 +69,12 @@ counts from the build, the launch floor (an empty kernel launched
 through the repros' launcher: its CUDA-event mean and device time), the
 spread of K11's two forms against torch.mul on the device clock over
 several profiles, the host spread of K11's and K14's forms against their
-yardsticks (torch.mul, TF32 torch.matmul) and of K10's and K13's against
-the floor and K11's register slice in rounds of CUDA-event means, and
-where the host time of a K11, a K13 C and a K10 f32 iota call goes; and
+yardsticks (torch.mul, TF32 torch.matmul) and of K10's, K12's and K13's
+against the floor and K11's register slice in rounds of CUDA-event means,
+where the host time of a K11, a K13 C and a K10 f32 iota call goes, K12
+against its plain version on the NaN, infinity and signed-zero inputs and
+on a grid-path input of 2^22 elements, and torch.aminmax's device time
+beside K12's (the reduction alone); and
 the sixth
 repro, the port's tiled integrator at the T = 32768 tile the TPU faults on
 (random_balls 1200x800, 16 spp, depth 8), against T = 65536.
@@ -1788,30 +1791,38 @@ def _mosaic_device_us() -> dict:
 
 def _library_device_us(launches: int = 20) -> dict:
     """Device µs a call of the library yardsticks of K11 and K14 on their
-    repros' inputs, as `_mosaic_device_us` takes the kernels': each call
-    alone under torch.profiler, `launches` times (K14's with TF32 allowed
-    once around them all, `k14.tf32`), all its device time over the count
-    ({kernel: µs}; a kernel missing if the profiler saw no device
-    time)."""
+    repros' inputs, and of torch.aminmax on K12's (the reduction alone: no
+    loop, no stores; not K12's function), as `_mosaic_device_us` takes the
+    kernels': each call alone under torch.profiler, `launches` times
+    (K14's with TF32 allowed once around them all, `k14.tf32`), all its
+    device time over the count ({kernel: µs}; a session that recorded no
+    device time is taken again, at most three times, and the kernel is
+    missing if none did)."""
     from torch.profiler import ProfilerActivity, profile
     from raytracingweekend_tpu_torch.tools.mosaic_repros import (
-        repro_dot_k3_subslice as k14, repro_slice_broadcast_layout as k11)
+        repro_dot_k3_subslice as k14, repro_scalar_reduce as k12,
+        repro_slice_broadcast_layout as k11)
     row, col = k11.inputs(0, "cuda")
     tab, rays = k14.inputs(0, "cuda")
+    x12 = k12.repro_input("cuda")
     out = {}
     for key, fn, under in (("K11", lambda: torch.mul(row, col),
                             contextlib.nullcontext),
-                           ("K14", k14.library(tab, rays), k14.tf32)):
-        with under():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(launches):
-                    fn()
+                           ("K14", k14.library(tab, rays), k14.tf32),
+                           ("K12 aminmax", lambda: torch.aminmax(x12),
+                            contextlib.nullcontext)):
+        for _ in range(3):
+            with under():
+                fn()
                 torch.cuda.synchronize()
-        dev_us = sum(_device_us(ev) for ev in prof.key_averages())
-        if dev_us > 0:
-            out[key] = dev_us / launches
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(launches):
+                        fn()
+                    torch.cuda.synchronize()
+            dev_us = sum(_device_us(ev) for ev in prof.key_averages())
+            if dev_us > 0:
+                out[key] = dev_us / launches
+                break
     return out
 
 
@@ -1852,15 +1863,18 @@ def _host_spread(rounds: int = K11_ROUNDS,
     inputs, µs a call as the tool's rows take them (the CUDA-event mean of
     `launches` calls in a row), `rounds` rounds in turns, each form then
     its yardstick; the ratio of each form to its yardstick a round. In the
-    same rounds, K10's and K13's forms through their kernel wrappers (on
-    the repros' inputs), the empty kernel (the floor) and K11's register
-    slice through its kernel wrapper: `floor_ratio` and `k11_ratio`, a
-    form's µs over the floor's and over K11's in its round."""
+    same rounds, K10's, K12's and K13's forms through their kernel
+    wrappers (on the repros' inputs), the empty kernel (the floor) and
+    K11's register slice through its kernel wrapper: `floor_ratio` and
+    `k11_ratio`, a form's µs over the floor's and over K11's in its
+    round."""
     from raytracingweekend_tpu_torch.tools.mosaic_repros import (
         repro_dot_k3_subslice as k14, repro_dynamic_cull as k13,
-        repro_f32_iota as k10, repro_slice_broadcast_layout as k11)
+        repro_f32_iota as k10, repro_scalar_reduce as k12,
+        repro_slice_broadcast_layout as k11)
     row, col = k11.inputs(0, "cuda")
     tab, rays = k14.inputs(0, "cuda")
+    x12 = k12.repro_input("cuda")
     lhs = tab[:, 0:k14.K].contiguous()
     mul, matmul = (lambda: torch.mul(row, col)), k14.library(tab, rays)
     forms = {"K11 register slice": (lambda: k11.reg_slice(row, col), mul,
@@ -1878,7 +1892,8 @@ def _host_spread(rounds: int = K11_ROUNDS,
               "K10 f32 iota": lambda: k10.f32_iota_kernel(
                   k10.ROWS, k10.T, "cuda"),
               "K10 int iota + cast": lambda: k10.int_iota_cast_kernel(
-                  k10.ROWS, k10.T, "cuda")}
+                  k10.ROWS, k10.T, "cuda"),
+              "K12 scalar reduce": lambda: k12.scalar_reduce_kernel(x12)}
     for k, name in enumerate(k13.FORMS):
         kern, _, table = k13.PROBES[k]
         others[f"K13 {name}"] = (
@@ -1895,7 +1910,7 @@ def _host_spread(rounds: int = K11_ROUNDS,
         for key, fn in others.items():
             other_us[key].append(launch_us(fn, "cuda", launches))
     floor, k11_us = other_us["floor"], other_us["K11 register slice kernel"]
-    redesigned = [k for k in others if k.startswith(("K10", "K13"))]
+    redesigned = [k for k in others if k.startswith(("K10", "K12", "K13"))]
     return dict(us=us, library_us=lib,
                 ratio={k: [a / b for a, b in zip(us[k], lib[k])]
                        for k in forms},
@@ -1904,6 +1919,35 @@ def _host_spread(rounds: int = K11_ROUNDS,
                              for k in redesigned},
                 k11_ratio={k: [a / b for a, b in zip(other_us[k], k11_us)]
                            for k in redesigned})
+
+
+def _k12_edge_inputs() -> dict:
+    """K12 against its plain version on F6's and F8's edge inputs at the
+    repro's shape (NaN, infinities, signed zeros:
+    `repro_scalar_reduce.EDGE_CASES`) and on one grid-path input of 2^22
+    elements (16 MB of normals around -3, numpy seed 0): rows 0..2, NaN by
+    position, every other element bit for bit (`rows_equal`). These
+    launches are not the path's. Prints the count that match and fails
+    unless all do; returns {"matching": n, "of": inputs}."""
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_scalar_reduce as k12)
+    inputs = {case: k12.edge_input(case, device="cuda")
+              for case in k12.EDGE_CASES}
+    rng = np.random.default_rng(0)
+    inputs["grid (8, 2^19) normals"] = torch.from_numpy(
+        (rng.standard_normal((8, 1 << 19)) * 40.0 - 3.0).astype(
+            np.float32)).cuda()
+    match = {name: k12.rows_equal(k12.scalar_reduce_kernel(x),
+                                  k12.scalar_reduce_reference(x))
+             for name, x in inputs.items()}
+    n = sum(match.values())
+    print(f"phase 26 K12 edge inputs (rows 0..2 against the plain version, "
+          f"NaN by position, zeros by sign bit): {n} of {len(match)} match; "
+          + ", ".join(f"{k} {v}" for k, v in match.items()), flush=True)
+    if n != len(match):
+        fail("K12 disagrees with its plain version on "
+             f"{[k for k, v in match.items() if not v]}")
+    return {"matching": n, "of": len(match)}
 
 
 def _split_us(parts: dict, n: int) -> dict:
@@ -2017,8 +2061,9 @@ def phase_mosaic_repros(i2f: dict) -> list:
     timed launches each), with every count set to 0 just before and read
     just after; then every formulation held to its plain version (bit for
     bit, K14 within 2 ulp of sum |a||b|), each pair's forms to each other
-    and K13's probes to the repro's expected arrays. Returns the kernels
-    line's K10-K14 entries."""
+    and K13's probes to the repro's expected arrays, and K12 on its edge
+    inputs (`_k12_edge_inputs`). Returns the kernels line's K10-K14
+    entries."""
     from raytracingweekend_tpu_torch.tools.mosaic_repros import (
         repro_dot_k3_subslice as k14, repro_dynamic_cull as k13)
     mosaic_repros.reset_launches()
@@ -2095,6 +2140,12 @@ def phase_mosaic_repros(i2f: dict) -> list:
                       or MOSAIC_REPLACES[row["kernel"]])))
     print(f"phase 26 K10 I2F in SASS {i2f} (the f32 iota should convert "
           f"nothing, the int iota its row index)", flush=True)
+    edge = _k12_edge_inputs()
+    amm = lib_device_us.get("K12 aminmax")
+    print(f"phase 26 K12 torch.aminmax on the repro's x (the reduction "
+          f"alone: no loop, no stores): device "
+          f"{'not measured' if amm is None else f'{amm:.4f} us'}",
+          flush=True)
     spread = _k11_spread()
     if spread:
         for k, r in spread["ratio"].items():
@@ -2147,7 +2198,11 @@ def phase_mosaic_repros(i2f: dict) -> list:
              "K11": "K11 register slice vs ref load, (1, 512) x (64, 1), "
                     "W = 256; redesigned: its launch path",
              "K12": "K12 scalar min / max reduce driving a while loop, "
-                    "(8, 128)",
+                    "(8, 128); redesigned: one warp's wave of float4 "
+                    "loads, NaN-propagating min / max, a butterfly, the "
+                    "pair through a shared scratch, the trip count in "
+                    "closed form, float4 stores; past 8192 elements a grid "
+                    "whose last block (an atomic ticket) combines",
              "K13": "K13 dynamic-cull probes A-D (every probe under "
                     "rows); redesigned: its launch path, A-C a float4 of "
                     "the output a thread, one wave of loads, wrapped int32 "
@@ -2164,7 +2219,12 @@ def phase_mosaic_repros(i2f: dict) -> list:
             first["host_ratio_to_library"] = {
                 f["name"]: host["ratio"][f"{kernel} {f['name']}"]
                 for f in forms}
-        if kernel in ("K10", "K13"):
+        if kernel == "K12":
+            first["edge_inputs_matching"] = edge
+            first["aminmax_device_ms"] = (
+                None if "K12 aminmax" not in lib_device_us
+                else lib_device_us["K12 aminmax"] * 1e-3)
+        if kernel in ("K10", "K12", "K13"):
             for ratio in ("k11_ratio", "floor_ratio"):
                 first[f"host_{ratio}"] = {
                     f["name"]: host[ratio][f"{kernel} {f['name']}"]
@@ -2179,7 +2239,7 @@ def phase_mosaic_repros(i2f: dict) -> list:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], rows=forms,
-            redesigned=kernel in ("K10", "K11", "K13", "K14")))
+            redesigned=True))
     return entries
 
 

@@ -25,11 +25,21 @@
 //       into registers, and slices them per W-lane chunk; the ref load
 //       re-reads the chunk's lanes inside each chunk. Both apply the lane
 //       offset ch * W to the load and to the store alike.
-//   K12 min and max of the block by warp shuffles, then shared memory, into
-//       one __shared__ scalar pair (the SMEM scratch); every thread runs
-//       the repro's while loop on the span read back from it. fminf /
-//       fmaxf, not the unsigned-bits min of csrc/megakernel.cu, whose
-//       order holds for non-negative floats only.
+//   K12 min and max as jnp.min / jnp.max take them: NaN if any element is
+//       NaN (PTX min.NaN / max.NaN), and of +0.0 and -0.0 the min -0.0,
+//       the max +0.0 (PTX's order, XLA's). Up to 8192 elements one block
+//       (at the repro's (8, 128) one warp, each lane's eight float4 loads
+//       in flight at once): a tree in each thread, a butterfly shuffle
+//       that leaves the pair in every lane, the pair written by one lane
+//       to a __shared__ scratch (the SMEM scratch) and read back after
+//       __syncwarp (one __syncthreads for more warps). The repro's while
+//       loop in closed form: ceil(span / 13) clamped to [0, 100], then
+//       corrected by one against the exact i * 13 comparison. Rows 0..2
+//       stored with no integer division, float4s where the width allows.
+//       Past 8192 elements a grid: each block reduces a grid-stride share
+//       into per-call partials, and the last block to take an atomic
+//       ticket combines them, counts and stores, in one launch. Indices
+//       are 64-bit.
 //   K13 the runtime scalars are read inside the kernel from a device int32
 //       array (never launch arguments), as the repro's SMEM input; a
 //       dynamic slice start is the int32 product k * size, wrapped as
@@ -41,7 +51,7 @@
 //       is the scalars, then one wave of independent loads (C: all its
 //       blocks, added after in id order). D compacts with one
 //       warp's __ballot_sync and a __popc prefix, in ascending row order,
-//       the rest filled with -1.
+//       the rest filled with -1; its column count is 64-bit.
 //   K14 (S, 3) x (3, T) at the TPU's default precision, which is the
 //       H100's TF32 tensor cores (mma.sync m16n8k8, float32
 //       accumulation), K padded from 3 to 8 with zeros, one warp a 16 x 16
@@ -56,12 +66,14 @@
 // operations, nanoseconds of the card's memory and arithmetic rates; a
 // launch costs microseconds, so every kernel here is launch-bound. They
 // are checks of what the TPU's compiler refused or miscompiled, not hot
-// paths: one block (K12, K13 C / D) or a few dozen. What a design can
+// paths: one block or warp (K12, K13 D) or a few dozen (K12's grid, for
+// inputs past 8192 elements, is bound by their bytes). What a design can
 // still cut is the launch's own cost: each entry takes one argument block
 // (below), which the host packs in one call, and an empty kernel,
 // launched the same way, measures the floor of a launch.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -162,47 +174,195 @@ __global__ void repro_slice_kernel(const float* __restrict__ row,
   }
 }
 
-// ---- K12: one block over the n elements, rows 0..2 of width `cols` ------
+// ---- K12: min, max and the trip count of x's n elements, rows 0..2 -----
+//
+// A thread's share is read in waves of kPer units (kVec floats, Vec
+// above), all kPer loads of a wave issued before any is used; the
+// one-block form's shapes (n <= 8192 at kVec = 4) take one wave.
 
-__global__ void __launch_bounds__(kThreads)
-repro_scalar_reduce_kernel(const float* __restrict__ x,
-                           float* __restrict__ out, int n, int cols) {
-  __shared__ float wmin[kThreads / 32], wmax[kThreads / 32];
-  __shared__ float s_ref[4];  // the repro's SMEM scratch (4,)
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  float lo = x[t < n ? t : 0], hi = lo;
-  for (int i = t + kThreads; i < n; i += kThreads) {
-    lo = fminf(lo, x[i]);
-    hi = fmaxf(hi, x[i]);
+constexpr int kPer = 8;
+
+// min / max that return NaN when either operand is NaN (jnp.min's rule;
+// fminf / fmaxf drop it); of +0.0 and -0.0 PTX's min is -0.0, its max
+// +0.0, as XLA's
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// (lo, hi) and a (min, max) pair
+__device__ __forceinline__ void take(float& lo, float& hi, float2 p) {
+  lo = min_nan(lo, p.x);
+  hi = max_nan(hi, p.y);
+}
+
+// the identities of min and max: +inf, -inf
+__device__ __forceinline__ float2 no_pair() {
+  return make_float2(__int_as_float(0x7f800000),
+                     __int_as_float((int)0xff800000));
+}
+
+// a unit's (min, max)
+__device__ __forceinline__ float2 unit_pair(float v) {
+  return make_float2(v, v);
+}
+__device__ __forceinline__ float2 unit_pair(float4 v) {
+  return make_float2(min_nan(min_nan(v.x, v.y), min_nan(v.z, v.w)),
+                     max_nan(max_nan(v.x, v.y), max_nan(v.z, v.w)));
+}
+
+// The block's thread t takes units base + k T (k < kPer, T threads) of
+// each wave, the waves gridDim.x blocks apart; a unit past the end reads
+// the wave's first (min and max are idempotent), so every load of a wave
+// is unconditional. A wave reduces as a tree (depth 2 in a float4, then 3
+// over the kPer units), not as a chain through each float; every loop
+// here has a constant trip count, so the arrays stay in registers.
+template <int kVec>
+__device__ __forceinline__ void reduce_share(const float* __restrict__ x,
+                                             size_t units, float& lo,
+                                             float& hi) {
+  using V = typename Vec<kVec>::T;
+  static_assert(kPer == 8, "the tree below has three levels");
+  const V* src = reinterpret_cast<const V*>(x);
+  const size_t T = blockDim.x, wave = T * kPer;
+  const size_t stride = wave * gridDim.x;
+  for (size_t base = blockIdx.x * wave + threadIdx.x; base < units;
+       base += stride) {
+    V v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const size_t u = base + k * T;
+      v[k] = __ldg(src + (u < units ? u : base));
+    }
+    float2 p[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) p[k] = unit_pair(v[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) take(p[k].x, p[k].y, p[k + 4]);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) take(p[k].x, p[k].y, p[k + 2]);
+    take(p[0].x, p[0].y, p[1]);
+    take(lo, hi, p[0]);
   }
+}
+
+// Every thread's (lo, hi) to the block's, in every thread: a butterfly
+// leaves each warp's pair in all its lanes; lane 0 of each warp writes it
+// to the scratch s (the repro's SMEM scratch) and every thread reads the
+// pairs back, after __syncwarp for one warp, after one __syncthreads for
+// more.
+__device__ __forceinline__ void block_minmax(float& lo, float& hi,
+                                             float2* s) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
-  if (lane == 0) {
-    wmin[w] = lo;
-    wmax[w] = hi;
+  const int warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = make_float2(lo, hi);
+  if (warps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
-  if (t == 0) {
-    for (int k = 1; k < kThreads / 32; ++k) {
-      lo = fminf(lo, wmin[k]);
-      hi = fmaxf(hi, wmax[k]);
+  lo = s[0].x;
+  hi = s[0].y;
+  for (int w = 1; w < warps; ++w) take(lo, hi, s[w]);
+}
+
+// The repro's while loop in closed form: the least i in [0, 100] with
+// i * 13 >= span (i * 13 is exact), as a float. ceil(span / 13) by a
+// multiply is at most one off the exact quotient's ceiling; the exact
+// comparisons correct it. NaN gives 0 (fmaxf drops it), +inf 100.
+__device__ __forceinline__ float trips_of(float span) {
+  float i = fminf(fmaxf(ceilf(span * (1.0f / 13.0f)), 0.0f), 100.0f);
+  if (i > 0.0f && (i - 1.0f) * 13.0f >= span) {
+    i -= 1.0f;
+  } else if (i < 100.0f && i * 13.0f < span) {
+    i += 1.0f;
+  }
+  return i;
+}
+
+// Rows 0..2 of out (width cols) = lo, hi, trips: the block's thread t
+// writes columns t, t + T, ... of each row, float4s where `vec` (cols % 4
+// == 0 and out 16-byte aligned); no integer division.
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           long long cols, bool vec,
+                                           float lo, float hi,
+                                           float trips) {
+  const float v[3] = {lo, hi, trips};
+  const size_t T = blockDim.x, t = threadIdx.x;
+  if (vec) {
+    const size_t c4 = (size_t)cols / 4;
+    float4* o = reinterpret_cast<float4*>(out);
+#pragma unroll
+    for (int r = 0; r < 3; ++r, o += c4) {
+      const float4 s = Vec<4>::splat(v[r]);
+      for (size_t c = t; c < c4; c += T) o[c] = s;
     }
-    s_ref[0] = lo;
-    s_ref[1] = hi;
+  } else {
+    float* o = out;
+#pragma unroll
+    for (int r = 0; r < 3; ++r, o += cols) {
+      for (size_t c = t; c < (size_t)cols; c += T) o[c] = v[r];
+    }
+  }
+}
+
+// One block: its threads reduce x, the pair goes through the scratch, and
+// every thread counts the trips and stores its columns. One block an SM at
+// most (the bound's 1) frees ptxas to keep a lane's kPer loads in flight
+// at once: under the bare bound it issued half of them, then waited on the
+// first (two round trips; 1.66 against 1.53 µs on the H100).
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+    repro_scalar_reduce_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, long long n,
+                               long long cols, bool vec) {
+  __shared__ float2 s_ref[kThreads / 32];
+  float lo = no_pair().x, hi = no_pair().y;
+  reduce_share<kVec>(x, (size_t)n / kVec, lo, hi);
+  block_minmax(lo, hi, s_ref);
+  store_rows(out, cols, vec, lo, hi, trips_of(hi - lo));
+}
+
+// The grid: each block reduces its grid-stride share to part[blockIdx.x];
+// the block that takes the last ticket (after a __threadfence, so every
+// partial is visible) combines them, counts the trips and stores.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    repro_scalar_reduce_grid_kernel(const float* __restrict__ x,
+                                    float* __restrict__ out, long long n,
+                                    long long cols, bool vec,
+                                    float2* __restrict__ part,
+                                    unsigned* __restrict__ ticket) {
+  __shared__ float2 s_ref[kThreads / 32];
+  __shared__ bool last;
+  float lo = no_pair().x, hi = no_pair().y;
+  reduce_share<kVec>(x, (size_t)n / kVec, lo, hi);
+  block_minmax(lo, hi, s_ref);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = make_float2(lo, hi);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  lo = s_ref[0];
-  hi = s_ref[1];
-  const float span = hi - lo;
-  int trips = 0;
-  while (__int2float_rn(trips) * 13.0f < span && trips < 100) ++trips;
-  for (int i = t; i < 3 * cols; i += kThreads) {
-    const int r = i / cols;
-    out[i] = r == 0 ? lo : (r == 1 ? hi : __int2float_rn(trips));
+  if (!last) return;
+  lo = no_pair().x;
+  hi = no_pair().y;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
+    take(lo, hi, __ldcg(part + b));
   }
+  block_minmax(lo, hi, s_ref);
+  store_rows(out, cols, vec, lo, hi, trips_of(hi - lo));
 }
 
 // ---- K13: the four dynamic-cull probes ----------------------------------
@@ -298,7 +458,7 @@ __global__ void __launch_bounds__(kThreads)
 // ascending order, then -1
 __global__ void repro_cull_d_kernel(const float* __restrict__ votes,
                                     int* __restrict__ out, int rows,
-                                    int cols) {
+                                    long long cols) {
   const int lane = threadIdx.x;
   const bool vote = lane < rows && votes[(size_t)lane * cols] > 0.f;
   const unsigned ballot = __ballot_sync(0xffffffffu, vote);
@@ -404,6 +564,48 @@ int launch_iota_form(float* out, long long rows, long long T,
              : launch_iota<kCast, 1>(out, rows, T, st);
 }
 
+// K12's one block: a warp for every 32 kPer units, up to kThreads threads
+// (at (8, 128) one warp: a block of one float4 a thread, eight warps, ran
+// slower on its barrier)
+template <int kVec>
+int launch_reduce(const float* x, float* out, long long n, long long cols,
+                  bool vec, cudaStream_t st) {
+  const long long per_warp = 32 * kPer;
+  const long long warps = (n / kVec + per_warp - 1) / per_warp;
+  const int threads = warps < kThreads / 32 ? (int)warps * 32 : kThreads;
+  repro_scalar_reduce_kernel<kVec><<<1, threads, 0, st>>>(x, out, n, cols,
+                                                          vec);
+  return (int)cudaGetLastError();
+}
+
+// K12's grid: as many blocks of kThreads as the card holds at once (a
+// grid-stride loop with blocks waiting for a slot would run their shares
+// after the rest), at most `blocks` (the partials' slots) and no more than
+// the units fill; its ticket zeroed on the stream first.
+template <int kVec>
+int launch_reduce_grid(const float* x, float* out, long long n,
+                       long long cols, bool vec, float2* part,
+                       long long blocks, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, repro_scalar_reduce_grid_kernel<kVec>, kThreads, 0);
+  }
+  unsigned* ticket = reinterpret_cast<unsigned*>(part + blocks);
+  if (e == cudaSuccess) e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const long long fill = (n / kVec + kThreads * kPer - 1) / (kThreads * kPer);
+  const long long grid =
+      std::min(std::min(blocks, fill), (long long)std::max(sms * per_sm, 1));
+  repro_scalar_reduce_grid_kernel<kVec><<<(unsigned)grid, kThreads, 0, st>>>(
+      x, out, n, cols, vec, part, ticket);
+  return (int)cudaGetLastError();
+}
+
 // K13's launch of probe A-C (see rtw_repro_cull_launch)
 template <int kVec>
 int launch_cull(int probe, const int* s, const float* tab, float* o,
@@ -471,11 +673,34 @@ int rtw_repro_slice_launch(const long long* a) {
 }
 
 // K12: [x, out, n, cols, stream], x of n elements, out of n elements whose
-// rows 0..2 (width cols) are written: min, max, trips.
+// rows 0..2 (width cols) are written: min, max, trips; one block (the
+// wrapper takes it up to 8192 elements). Loads are float4s where n % 4 ==
+// 0 and x is 16-byte aligned, stores where cols % 4 == 0 and out is.
 int rtw_repro_scalar_reduce_launch(const long long* a) {
-  repro_scalar_reduce_kernel<<<1, kThreads, 0, stream_of(a[4])>>>(
-      ptr<const float>(a[0]), ptr<float>(a[1]), (int)a[2], (int)a[3]);
-  return (int)cudaGetLastError();
+  const float* x = ptr<const float>(a[0]);
+  float* out = ptr<float>(a[1]);
+  const long long n = a[2], cols = a[3];
+  const bool vec = cols % 4 == 0 && aligned16(out);
+  cudaStream_t st = stream_of(a[4]);
+  return n % 4 == 0 && aligned16(x)
+             ? launch_reduce<4>(x, out, n, cols, vec, st)
+             : launch_reduce<1>(x, out, n, cols, vec, st);
+}
+
+// K12's grid: [x, out, n, cols, work, blocks, stream], as above; work: a
+// float32 scratch of 2 blocks + 1 slots (`blocks` (min, max) partials,
+// then the ticket), blocks >= 1.
+int rtw_repro_scalar_reduce_grid_launch(const long long* a) {
+  const float* x = ptr<const float>(a[0]);
+  float* out = ptr<float>(a[1]);
+  const long long n = a[2], cols = a[3], blocks = a[5];
+  float2* part = ptr<float2>(a[4]);
+  const bool vec = cols % 4 == 0 && aligned16(out);
+  cudaStream_t st = stream_of(a[6]);
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  return n % 4 == 0 && aligned16(x)
+             ? launch_reduce_grid<4>(x, out, n, cols, vec, part, blocks, st)
+             : launch_reduce_grid<1>(x, out, n, cols, vec, part, blocks, st);
 }
 
 // K13: [probe, s, tab, out, rows, cols, stream], probe 0..3 = A..D. s: the
@@ -491,7 +716,7 @@ int rtw_repro_cull_launch(const long long* a) {
   cudaStream_t st = stream_of(a[6]);
   if (probe == 3) {
     repro_cull_d_kernel<<<1, 32, 0, st>>>(tab, ptr<int>(a[3]), (int)rows,
-                                          (int)cols);
+                                          cols);
     return (int)cudaGetLastError();
   }
   if (probe < 0 || probe > 3) return (int)cudaErrorInvalidValue;

@@ -273,7 +273,7 @@ def _earth_pixels(image_path: Optional[str] = None) -> np.ndarray:
     """The texels of `image_path` (`utils.image.load_image`), else the JAX
     package's procedural stand-in (latitude bands, 256x512), which is also
     what the JAX package renders while the repo holds no earth.jpg. The
-    port reads no JPEG (ROADMAP Queue 1 item 9)."""
+    port reads no JPEG (ROADMAP Queue 1, Image I/O)."""
     if image_path:
         return image_mod.load_image(image_path)
     v = np.linspace(0.0, 1.0, 256)[:, None]

@@ -28,7 +28,7 @@ the plain version's tape image bit for bit, and the kernel's to float
 round-off. The JAX package's one-hot MXU extraction is a gather here (its
 backward an index_add), and its float64 twin (`ctx["f64"]`) and sharded
 value-and-grad (`make_sharded_value_and_grad`) are not ported (ROADMAP
-Queue 1 items 4 and 5).
+Queue 1, "Image I/O, validation and extras" and "Parallel").
 
 Entry points take `device` ("cuda" by default: the kernel makes the tape;
 "cpu" runs the plain version).
@@ -178,7 +178,7 @@ def fit_scene_params_mega(scene: st.Scene, target, *, get_params,
     if mesh is not None:
         raise NotImplementedError(
             "the sharded gradient (mesh=) waits for the port of "
-            "parallel/ (ROADMAP Queue 1 item 5)")
+            "parallel/ (ROADMAP Queue 1, Parallel)")
     ctx = plan_tape(scene, nx, ny, spp, max_depth=max_depth, T=T,
                     device=device)
     dev, plan, meta, pixf = ctx["device"], ctx["plan"], ctx["meta"], \

@@ -37,13 +37,14 @@ first regen iteration of random_balls (S = 512), random_balls_large
 (1200x800x8: N = 524,288 rays), ms a call. The K9 cell: its nine rows at
 the tool's S = 512, T = 2048, µs a step (the tool's slope between N and
 4 N steps), rows 0-7 after 8 steps beside the shipped build's (bit-equal
-where the sum order is the same). The Mosaic repro cells (`k10`, `k11`,
-`k13`, `k14`): each repro's forms (K13: its four probes) on its repro's
-inputs, device µs a launch read by torch.profiler (`--reps` launches a
-turn), beside the launch floor (the shipped build's empty kernel,
-profiled in the same turns), each build held to the plain version (bit
-for bit, K14 within its tolerance) and set beside the shipped build's
-bits. All nvcc builds start together. Card only:
+where the sum order is the same). The Mosaic repro cells (`k10`-`k14`):
+each repro's forms (K13: its four probes) on its repro's inputs, device
+µs a launch read by torch.profiler (`--reps` launches a turn), beside the
+launch floor (the shipped build's empty kernel, profiled in the same
+turns), each build held to the plain version (bit for bit, K14 within
+its tolerance, K12 on the rows it writes with NaN by position) and set
+beside the shipped build's bits. All nvcc builds start together. Card
+only:
 
     python -m raytracingweekend_tpu_torch.tools.culled_ab \\
         [--cells large,huge,...,cornell,earth,...,twin,k7_book1,k9,k10,...] \\
@@ -76,7 +77,8 @@ from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
 from raytracingweekend_tpu_torch.tools.mosaic_repros import (
     repro_dot_k3_subslice as k14, repro_dynamic_cull as k13,
-    repro_f32_iota as k10, repro_slice_broadcast_layout as k11)
+    repro_f32_iota as k10, repro_scalar_reduce as k12,
+    repro_slice_broadcast_layout as k11)
 from raytracingweekend_tpu_torch.tools.mosaic_repros._common import Entry
 
 NX, NY, DEPTH, SEED = 1200, 800, 50, 20240601
@@ -125,6 +127,7 @@ K9_S, K9_T, K9_N, K9_CHECK = 512, 2048, 64, 8
 # stream, their ctypes types in a build older than the argument block)
 REPRO_CELLS = {"k10": (k10, "rtw_repro_iota_launch", 4, "ipii"),
                "k11": (k11, "rtw_repro_slice_launch", 7, "ipppiii"),
+               "k12": (k12, "rtw_repro_scalar_reduce_launch", 4, "ppii"),
                "k13": (k13, "rtw_repro_cull_launch", 6, "ipppii"),
                "k14": (k14, "rtw_repro_dot_k3_launch", 6, "ipppii")}
 ALL_CELLS = (*CELLS, *K7_CELLS, "k9", *REPRO_CELLS)
@@ -351,21 +354,24 @@ def _same(out, ref, dense: bool) -> bool:
 
 
 def build_report(label: str, path: Path) -> dict:
-    """One build's megakernel, sweep twin, K7 and K9 instantiations:
+    """One build's megakernel, sweep twin, K7, K9 and K12 instantiations:
     registers, spill and stack bytes (nvcc's ptxas report beside the
     library, when it was built here), their slot loops' SASS
-    (sass.slot_loops; K7's a ray-slot pair, sass.k7_loops) and the
-    surfaces kernels' loops and loads (sass.surface_loops)."""
+    (sass.slot_loops; K7's a ray-slot pair, sass.k7_loops), the
+    surfaces kernels' loops and loads (sass.surface_loops) and K12's
+    opcode counts (sass.repro_ops)."""
     log = path.with_name(path.name + ".log")
     regs = sass.registers(log.read_text()) if log.exists() else {}
-    mine = ("<", "surfaces<", "culled", "twin<", "k7", "k9")
+    mine = ("<", "surfaces<", "culled", "twin<", "k7", "k9",
+            "repro:scalar_reduce")
     listing = sass.cuobjdump(str(path))
     return {"build": label,
             "registers": {k: v for k, v in regs.items()
                           if k.startswith(mine)},
             "sweep_sass": sass.slot_loops(listing),
             "k7_sass": sass.k7_loops(listing),
-            "surfaces_sass": sass.surface_loops(listing)}
+            "surfaces_sass": sass.surface_loops(listing),
+            "k12_sass": sass.repro_ops(listing, "scalar_reduce")}
 
 
 def _twin_rows(libs: dict, reps: int) -> list:
@@ -487,7 +493,8 @@ def repro_forms(cell: str, device: str = "cuda") -> list:
     K14 seed 0; K13 the repro's scalars and tables): one (name, kernel
     name, output (shape, dtype), the entry's arguments before the output's
     address (tensors stand for their addresses), those after it, plain
-    output, tolerance) a form."""
+    output, tolerance) a form. K12's plain output is rows 0..2, the rows
+    its kernel writes."""
     mod = REPRO_CELLS[cell][0]
     f32 = torch.float32
     if cell == "k10":
@@ -502,6 +509,12 @@ def repro_forms(cell: str, device: str = "cuda") -> list:
         return [(name, "repro_slice_kernel", ((mod.SB, mod.T), f32),
                  (form, row, col), (mod.SB, mod.T, mod.W), want, 0.0)
                 for form, name in enumerate(mod.FORMS)]
+    if cell == "k12":
+        x = mod.repro_input(device)
+        want = mod.scalar_reduce_reference(x)[:mod.OUT_ROWS]
+        return [(mod.FORMS[0], "repro_scalar_reduce_kernel",
+                 ((mod.R, mod.C), f32), (x,), (mod.R * mod.C, mod.C), want,
+                 0.0)]
     if cell == "k13":
         a = mod.inputs(mod.SCALARS, device)
         forms = []
@@ -524,19 +537,22 @@ def repro_forms(cell: str, device: str = "cuda") -> list:
 
 
 def _repro_rows(cell: str, libs: dict, reps: int) -> list:
-    """The repro's forms (K10, K11, K13, K14; `repro_forms`), every build in
-    turns, device µs a launch by torch.profiler (`reps` launches a turn),
-    the launch floor (the shipped build's empty kernel) profiled in the
-    same turns; each build's output held to the plain version (bit for
-    bit, K14 within its tolerance) and set beside the shipped build's:
-    one row a build and form."""
+    """The repro's forms (K10-K14; `repro_forms`), every build in turns,
+    device µs a launch by torch.profiler (`reps` launches a turn), the
+    launch floor (the shipped build's empty kernel) profiled in the same
+    turns; each build's output held to the plain version (bit for bit,
+    K14 within its tolerance; K12 on rows 0..2, NaN by position) and set
+    beside the shipped build's: one row a build and form. The k12 cell
+    also profiles torch.aminmax on its x in the same turns (the reduction
+    alone: no loop, no stores), `aminmax_device_us` on its rows (over the
+    turns whose session recorded its kernel)."""
     _, name, slots, old = REPRO_CELLS[cell]
     forms = repro_forms(cell)
     calls = {k: _repro_launcher(lib, name, slots, old)
              for k, lib in libs.items()}
     floor = Entry("the empty kernel", "rtw_repro_empty_launch", 0,
                   {"floor": 0}, lib=lambda: libs["shipped"])
-    floor_us = []
+    floor_us, aminmax_us = [], []
     rows = []
     for form_name, kname, (shape, dtype), head, tail, want, tol in forms:
         outs = {k: torch.empty(shape, dtype=dtype, device="cuda")
@@ -549,20 +565,34 @@ def _repro_rows(cell: str, libs: dict, reps: int) -> list:
                                          kname))
             floor_us.append(_profiled_us(lambda: floor.launch("floor", 0),
                                          reps, "repro_empty_kernel"))
+            if cell == "k12":
+                try:
+                    aminmax_us.append(_profiled_us(
+                        lambda: torch.aminmax(head[0]), reps,
+                        "reduce_kernel"))
+                except RuntimeError:        # the profiler saw no kernel
+                    pass
         torch.cuda.synchronize()
+        outs = {k: out[:want.shape[0]] for k, out in outs.items()}
         ref = outs["shipped"]
+        same = k12.rows_equal if cell == "k12" else torch.equal
         for k, out in outs.items():
-            if not bool(torch.all((out - want).abs() <= tol)):
+            agree = (same(out, want) if cell == "k12"
+                     else bool(torch.all((out - want).abs() <= tol)))
+            if not agree:
                 raise RuntimeError(f"the {k} build's {cell} {form_name} "
                                    "disagrees with its plain version")
         for k, t in times.items():
             rows.append(dict(cell=cell, kernel=cell.upper(), form=form_name,
                              build=k, device_us=sum(t) / len(t), turns=t,
-                             equal_to_shipped=torch.equal(outs[k], ref),
+                             equal_to_shipped=same(outs[k], ref),
                              max_abs_diff=(outs[k] - ref).abs().max().item()))
     for r in rows:
         r["floor_device_us"] = sum(floor_us) / len(floor_us)
         r["floor_turns"] = floor_us
+        if aminmax_us:
+            r["aminmax_device_us"] = sum(aminmax_us) / len(aminmax_us)
+            r["aminmax_turns"] = aminmax_us
     return rows
 
 

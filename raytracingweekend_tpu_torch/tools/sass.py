@@ -217,6 +217,35 @@ def surface_loops(text: str) -> dict:
     return out
 
 
+def repro_ops(text: str, repro: str) -> dict:
+    """The opcode counts of each instantiation of one Mosaic repro kernel
+    (`repro_<repro>[_grid]_kernel`) in the SASS listing `text`: its
+    instructions, its backward branches (loops), and its shuffles (SHFL),
+    float min / max (FMNMX), barriers (BAR), warp syncs (WARPSYNC, NOP
+    excluded), global loads and stores (LDG, STG), shared loads and
+    stores (LDS, STS), local loads and stores (LDL, STL: the stack),
+    atomics (ATOM, RED), rounding (FRND: a ceil), float compares (FSETP)
+    and integer-to-float conversions (I2F), and the global loads issued
+    before the first FMNMX (`LDG_before_use`: the loads in flight at
+    once before the reduction's first wait). {name: dict}."""
+    keys = ("SHFL", "FMNMX", "BAR", "WARPSYNC", "LDG", "STG", "LDS", "STS",
+            "LDL", "STL", "ATOM", "RED", "FRND", "FSETP", "I2F")
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(func.split(None, 1)[0])
+        if name is None or name.split("<")[0] not in (
+                f"repro:{repro}", f"repro:{repro}_grid"):
+            continue
+        ins, loops = _loops(func)
+        ops = [o for o in _opcodes(ins) if o != "NOP"]
+        heads = [o.split(".")[0] for o in ops]
+        first = heads.index("FMNMX") if "FMNMX" in heads else len(heads)
+        out[name] = dict(instructions=len(ops), loops=len(loops),
+                         **{k: heads.count(k) for k in keys},
+                         LDG_before_use=heads[:first].count("LDG"))
+    return out
+
+
 def _opcodes(ins) -> list:
     """The opcodes of SASS instructions, predicates (@P0, @!P1) dropped."""
     ops = []

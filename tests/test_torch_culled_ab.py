@@ -124,6 +124,34 @@ def test_surface_loops_count_rect_and_light_loops():
     assert sass.surface_loops(LISTING) == {}
 
 
+K12_LISTING = """
+\t\tFunction : _ZN12_GLOBAL__N_126repro_scalar_reduce_kernelILi4EEEvPKfPfxxb
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR8][R2.64] ;
+        /*0010*/                   LDG.E.128.CONSTANT R8, desc[UR8][R2.64+0x200] ;
+        /*0020*/                   FMNMX.NAN R12, R4, R5, PT ;
+        /*0030*/                   LDG.E.128.CONSTANT R4, desc[UR8][R2.64+0x400] ;
+        /*0040*/                   SHFL.BFLY PT, R13, R12, 0x10, 0x1f ;
+        /*0050*/                   FRND.CEIL R14, R12 ;
+        /*0060*/              @P0  BRA 0x0040 ;
+        /*0070*/                   NOP ;
+        /*0080*/                   STG.E.128 desc[UR8][R2.64], R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_118repro_cull_d_kernelEPKfPiix
+        /*0000*/                   LDG.E R4, desc[UR8][R2.64] ;
+"""
+
+
+def test_repro_ops_counts_k12_opcodes():
+    """K12's instantiations (the one-block and grid kernels, not the other
+    repros'): opcode counts, NOPs left out, loops, and the loads issued
+    before the first FMNMX."""
+    got = sass.repro_ops(K12_LISTING, "scalar_reduce")
+    assert list(got) == ["repro:scalar_reduce<4>"]
+    k = got["repro:scalar_reduce<4>"]
+    assert (k["instructions"], k["loops"], k["LDG"], k["LDG_before_use"],
+            k["FMNMX"], k["SHFL"], k["FRND"], k["STG"]) == (
+                8, 1, 3, 2, 1, 1, 1, 1)
+
+
 def test_bind_binds_every_kernel():
     """A build is bound to every interface the tool calls: the
     megakernel's launch (46 arguments), K7's (19), K8's and K9's."""
@@ -173,13 +201,13 @@ def test_surface_split_parts_are_the_kernels():
 
 def test_k7_and_k9_cells_are_cells(monkeypatch):
     """The K7 cells name the three K7 scenes, the K9 cell its nine rows,
-    the K10, K11, K13 and K14 cells their repros' forms; all are taken by
-    --cells and run by default."""
+    the K10-K14 cells their repros' forms; all are taken by --cells and
+    run by default."""
     assert set(culled_ab.K7_CELLS.values()) == {
         "random_balls", "random_balls_large", "random_balls_huge"}
     assert set(culled_ab.ALL_CELLS) == {*culled_ab.CELLS,
                                         *culled_ab.K7_CELLS, "k9", "k10",
-                                        "k11", "k13", "k14"}
+                                        "k11", "k12", "k13", "k14"}
     seen = {}
     monkeypatch.setattr(culled_ab, "run", lambda *a: seen.update(args=a))
     culled_ab.main(["--cells", "k7_huge,k9"])
@@ -267,13 +295,14 @@ class _ReproLib:
 
 def test_repro_cells_launch_old_builds_positionally():
     """A build older than the argument block (no rtw_repro_empty_launch)
-    gets its K10 / K11 / K13 / K14 entry typed positionally, the stream
+    gets its K10-K14 entry typed positionally, the stream
     last; a newer
     one launches through the repros' launcher, bound at its first call."""
     c_int, c_void_p = culled_ab.ctypes.c_int, culled_ab.ctypes.c_void_p
     for cell, types in (("k10", [c_int, c_void_p, c_int, c_int]),
                         ("k11", [c_int, c_void_p, c_void_p, c_void_p, c_int,
                                  c_int, c_int]),
+                        ("k12", [c_void_p, c_void_p, c_int, c_int]),
                         ("k13", [c_int, c_void_p, c_void_p, c_void_p, c_int,
                                  c_int]),
                         ("k14", [c_int, c_void_p, c_void_p, c_void_p, c_int,
@@ -289,13 +318,15 @@ def test_repro_cells_launch_old_builds_positionally():
         assert not hasattr(new.entries[name], "argtypes")
 
 
-@pytest.mark.parametrize("cell,forms", [("k10", 2), ("k11", 2), ("k13", 4),
-                                        ("k14", 2)])
+@pytest.mark.parametrize("cell,forms", [("k10", 2), ("k11", 2), ("k12", 1),
+                                        ("k13", 4), ("k14", 2)])
 def test_repro_cells_launch_every_form_with_the_entrys_slots(cell, forms):
     """Each repro cell takes each of its repro's forms (K13: its four
     probes) with as many arguments as its entry has slots, the output's
     address among them, a kernel name the source defines, and an output of
-    its plain version's shape and type (built here on the CPU)."""
+    its plain version's shape and type (built here on the CPU; K12's plain
+    output is the rows its kernel writes, 0..2, and its entry takes no
+    form index, x first)."""
     mod, name, slots, _ = culled_ab.REPRO_CELLS[cell]
     got = culled_ab.repro_forms(cell, "cpu")
     assert [f[0] for f in got] == list(mod.FORMS) and len(got) == forms
@@ -303,5 +334,12 @@ def test_repro_cells_launch_every_form_with_the_entrys_slots(cell, forms):
     for _, kname, (shape, dtype), head, tail, want, _ in got:
         assert len(head) + 1 + len(tail) == slots
         assert f"{kname}(" in src
-        assert tuple(want.shape) == tuple(shape) and want.dtype == dtype
+        rows = mod.OUT_ROWS if cell == "k12" else shape[0]
+        assert tuple(want.shape) == (rows, *shape[1:])
+        assert want.dtype == dtype
+    if cell == "k12":
+        (x,) = got[0][3]
+        assert torch.equal(x, mod.repro_input())
+        assert got[0][4] == (x.numel(), x.shape[1])
+        return
     assert [f[3][0] for f in got] == list(range(forms))   # form / probe

@@ -1131,6 +1131,161 @@ def test_k10_writes_every_element_past_2_31_on_card(form):
     torch.cuda.empty_cache()
 
 
+# K12's shapes: the repro's (one warp, float4 loads and stores), widths
+# and element counts not a multiple of 4 (single floats), the repro's shape
+# one float off 16-byte alignment, the largest one-block input (8192
+# elements), the smallest grid input (8193) and grid inputs of 2^22
+# elements (float4), of an odd count and one float off alignment
+K12_SHAPES = {"repro": (8, 128), "odd": (7, 129), "misaligned": (8, 128),
+              "one block": (8, 1024), "grid past one block": (3, 2731),
+              "grid": (8, 1 << 19), "grid odd": (9, 100003),
+              "grid misaligned": (8, 1 << 19)}
+
+
+def _on_card(x, misaligned: bool):
+    """x on the card, contiguous; one float into a larger storage where
+    misaligned."""
+    if not misaligned:
+        return x.cuda()
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    flat[1:] = x.flatten().cuda()
+    return flat[1:].view(x.shape)
+
+
+def _k12_rows_agree(k12, got, want) -> None:
+    """Rows 0..2: NaN at the same places (torch.equal counts NaN unequal),
+    every other element bit for bit, zeros by their sign bit (torch.equal
+    counts -0.0 equal to +0.0)."""
+    g, w = got[:k12.OUT_ROWS], want[:k12.OUT_ROWS]
+    assert torch.equal(g.isnan(), w.isnan())
+    num = ~w.isnan()
+    assert torch.equal(g[num], w[num])
+    assert torch.equal(torch.signbit(g[num]), torch.signbit(w[num]))
+    assert k12.rows_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K12_SHAPES))
+@pytest.mark.parametrize("case", ["repro", "seed", "nan first", "nan middle",
+                                  "nan last", "inf", "all inf",
+                                  "+0 with -0 first", "+0 with -0 last",
+                                  "-0 with +0 first", "-0 with +0 last",
+                                  "all +0", "all -0"])
+def test_k12_matches_plain_version_on_edge_inputs_on_card(case, shape):
+    """K12 against its plain version on F6's NaN and infinities and F8's
+    signed zeros (the CPU test's edge inputs: NaN first, at (3, 5), last;
+    -inf and +inf; all +inf; one zero of the other sign first or last),
+    the repro's pattern and normals around -3 (numpy seed), on the
+    one-block form and on the grid (the NaN or zero of the other sign in
+    its last block where it is last), float4 and single-float loads and
+    stores: rows 0..2 as `_k12_rows_agree` compares them; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_scalar_reduce as k12)
+    rows, cols = K12_SHAPES[shape]
+    if case == "repro":
+        x = k12.base_input(rows, cols)
+    elif case == "seed":
+        rng = np.random.default_rng(rows * cols)
+        x = torch.from_numpy((rng.standard_normal((rows, cols)) * 40.0
+                              - 3.0).astype("float32"))
+    else:
+        x = k12.edge_input(case, rows, cols)
+    x = _on_card(x, "misaligned" in shape)
+    assert (x.data_ptr() % 16 != 0) == ("misaligned" in shape)
+    before = k12.KERNEL_LAUNCHES["K12 scalar reduce"]
+    got = k12.scalar_reduce_kernel(x)
+    torch.cuda.synchronize()
+    assert k12.KERNEL_LAUNCHES["K12 scalar reduce"] == before + 1
+    _k12_rows_agree(k12, got, k12.scalar_reduce_reference(x))
+
+
+@pytest.mark.cuda
+def test_k12_trip_count_matches_plain_version_on_card():
+    """The closed-form trip count against the plain version's count of the
+    loop on every span 13 k - 1 ulp, 13 k and 13 k + 1 ulp (k = 0..101;
+    13 k - 1 ulp from k = 1: a span is never negative), and on 0, the
+    least denormal, 1e30, +inf and NaN: x all 0 but one element, the span,
+    at (3, 17); one launch a span, rows 0..2 compared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_scalar_reduce as k12)
+    f32 = np.float32
+    spans = [f32(0.0), np.nextafter(f32(0), f32(1)), f32(1e30), f32(np.inf),
+             f32(np.nan)]
+    for k in range(102):
+        s = f32(13 * k)
+        spans += [s, np.nextafter(s, f32(np.inf))]
+        if k:
+            spans.append(np.nextafter(s, f32(-np.inf)))
+    trips = set()
+    for span in spans:
+        x = torch.zeros((8, 128), device="cuda")
+        x[3, 17] = float(span)
+        got = k12.scalar_reduce_kernel(x)
+        want = k12.scalar_reduce_reference(x)
+        torch.cuda.synchronize()
+        _k12_rows_agree(k12, got, want)
+        trips.add(got[2, 0].item())
+    assert trips == set(range(101))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1 << 24, 129), (3, 715827883)])
+def test_k12_reads_every_element_past_2_31_on_card(rows, cols):
+    """F7: rows x cols > 2^31 elements (8.7 GB, and as much again for the
+    output), which a 32-bit element count wraps negative (the first
+    version then read x[0] alone). x is 1.0 but for its max in its last
+    row and its min at its last element, element 2^31 or past it; rows
+    0..2 = [min, max, trips] are checked
+    in runs of 2^26 columns, with no plain copy of the whole. The output's
+    storage is NaN before the launch (a freed NaN fill of its size, which
+    the allocation gets back). Both are freed after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_scalar_reduce as k12)
+    assert rows * cols > 1 << 31
+    lo, hi = -3.0, 40.0                      # span 43: trips ceil(43 / 13)
+    x = torch.ones((rows, cols), device="cuda")
+    x[-1, -1], x[-1, cols // 3] = lo, hi
+    assert rows * cols - 1 >= 1 << 31
+    poison = torch.full((rows, cols), float("nan"), device="cuda")
+    del poison
+    out = k12.scalar_reduce_kernel(x)
+    torch.cuda.synchronize()
+    step = 1 << 26
+    for r, v in enumerate((lo, hi, 4.0)):
+        for c0 in range(0, cols, step):
+            assert bool((out[r, c0:c0 + step] == v).all()), (r, c0)
+    del x, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_k13_compaction_reads_past_2_31_columns_on_card():
+    """F7: votes (2, 2^31) (17 GB), row 1 voting: lane 1 reads element
+    2^31, which a 32-bit column count wraps to -2^31, before the table.
+    ids [1, -1], as the plain version orders them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.tools.mosaic_repros import (
+        repro_dynamic_cull as k13)
+    votes = torch.zeros((2, 1 << 31), device="cuda")
+    votes[0, 0], votes[1, 0] = -1.0, 1.0
+    got = k13.compaction_kernel(votes)
+    torch.cuda.synchronize()
+    want = k13.compaction_reference(votes)
+    assert torch.equal(got, want)
+    assert got.tolist() == [1, -1]
+    del votes
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_launch_floor_empty_kernel_on_card():
     """The empty kernel launches through the repros' launcher, counts, and

@@ -324,7 +324,7 @@ def test_fit_scene_params_mega_converges():
 
 def test_fit_scene_params_mega_mesh_is_not_ported():
     scene = make_scene("cornell_box", 1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Parallel"):
         mg.fit_scene_params_mega(
             scene, np.zeros((4, 4, 3), np.float32),
             get_params=lambda sc: sc.textures.color,

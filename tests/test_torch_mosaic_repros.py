@@ -10,7 +10,8 @@ JAX's arrays. Inputs are made with numpy from a seed and handed to both
 sides. Everything is bit for bit but K14, whose plain versions round the
 inputs to TF32 (2^-11 relative each), so they lie within 3 2^-11 sum |a||b|
 of JAX's float32 product. K12's kernel writes rows 0..2 only, so rows 0..2
-are compared, as the repro's `out[:3, 0]` reads.
+are compared, as the repro's `out[:3, 0]` reads, with NaN by position and
+zeros by sign bit.
 """
 import contextlib
 import importlib.util
@@ -118,6 +119,8 @@ def _jax_scalar_reduce(mod, x: np.ndarray) -> np.ndarray:
 def _k12_input(case: str) -> np.ndarray:
     if case == "repro":
         return k12.repro_input().numpy()
+    if case in k12.EDGE_CASES:          # F6 / F8: NaN, inf, signed zeros
+        return k12.edge_input(case).numpy()
     if case.startswith("seed"):         # normals around -3: negative mins
         rng = np.random.default_rng(int(case[4:]))
         return (rng.standard_normal((8, 128)) * 40.0 - 3.0).astype(
@@ -128,19 +131,59 @@ def _k12_input(case: str) -> np.ndarray:
     return x
 
 
+# rows 0..2 (min, max, trips) of the edge inputs (JAX's, in interpret mode)
+K12_EDGE = {"nan first": ("nan", "nan", 0), "nan middle": ("nan", "nan", 0),
+            "nan last": ("nan", "nan", 0), "inf": ("-inf", "inf", 100),
+            "all inf": ("inf", "inf", 0),
+            "+0 with -0 first": ("-0", "0", 0),
+            "+0 with -0 last": ("-0", "0", 0),
+            "-0 with +0 first": ("-0", "0", 0),
+            "-0 with +0 last": ("-0", "0", 0), "all +0": ("0", "0", 0),
+            "all -0": ("-0", "-0", 0)}
+
+
 @pytest.mark.parametrize("case", ["repro", "seed1", "seed2", "seed3",
-                                  "trips0", "trips3", "trips100"])
+                                  "trips0", "trips3", "trips100",
+                                  *k12.EDGE_CASES])
 def test_k12_plain_version_equals_jax_kernel(repro, case):
+    """Bit for bit with the repro's kernel in interpret mode, signed zeros
+    by their sign bits (assert_array_equal counts -0.0 equal to +0.0), NaN
+    by position only (torch's NaN has its sign bit set, JAX's not): F6's
+    NaN and infinities, F8's zeros (XLA's min of +0.0 and -0.0 is -0.0,
+    its max +0.0, in either order)."""
     x = _k12_input(case)
     want = _jax_scalar_reduce(repro["repro_scalar_reduce"], x)[:3]
     got = k12.scalar_reduce_reference(torch.from_numpy(x))[:3].numpy()
     np.testing.assert_array_equal(got, want)
+    num = ~np.isnan(want)
+    np.testing.assert_array_equal(np.signbit(got[num]), np.signbit(want[num]))
+    assert k12.rows_equal(torch.from_numpy(got), torch.tensor(want))
+    if case in K12_EDGE:
+        expect = np.array(K12_EDGE[case], np.float32)[:, None]
+        assert k12.rows_equal(torch.from_numpy(got), torch.from_numpy(
+            np.repeat(expect, got.shape[1], axis=1)))
+        return
     assert got[0, 0] == x.min() and got[1, 0] == x.max()
     if case.startswith("seed"):
         assert x.min() < 0
     trips = {"repro": 3, "trips0": 0, "trips3": 3, "trips100": 100}
     if case in trips:
         assert got[2, 0] == trips[case]
+
+
+def test_k12_rows_equal_counts_nan_by_position_and_zeros_by_sign():
+    """`rows_equal` compares rows 0..2 only: NaN of any sign or payload at
+    the same places, -0.0 unequal to +0.0."""
+    a = torch.zeros((8, 4))
+    b = a.clone()
+    b[5] = 7.0                                  # row 5: not compared
+    assert k12.rows_equal(a, b)
+    a[1, 2], b[1, 2] = float("nan"), -float("nan")
+    assert k12.rows_equal(a, b)
+    b[0, 0] = -0.0
+    assert not k12.rows_equal(a, b)
+    b[0, 0] = float("nan")
+    assert not k12.rows_equal(a, b)
 
 
 # ---- K13 -------------------------------------------------------------------
@@ -535,12 +578,13 @@ def test_launcher_switches_the_device_only_when_not_current(monkeypatch):
 
 
 def test_every_wrapper_launches_through_one_entry_each():
-    """K10-K14 and the floor each bind one entry of the library, counting
-    into its own module's KERNEL_LAUNCHES."""
+    """K10-K14 and the floor each bind one entry of the library (K12 two:
+    its one block and its grid), counting into its own module's
+    KERNEL_LAUNCHES."""
     entries = {k10._IOTA: k10, k11._SLICE: k11, k12._REDUCE: k12,
-               k13._CULL: k13, k14._DOT: k14, launch_floor._EMPTY:
-               launch_floor}
-    assert len({e.name for e in entries}) == 6
+               k12._REDUCE_GRID: k12, k13._CULL: k13, k14._DOT: k14,
+               launch_floor._EMPTY: launch_floor}
+    assert len({e.name for e in entries}) == 7
     for e, mod in entries.items():
         assert isinstance(e, _common.Entry)
         assert e.counts is mod.KERNEL_LAUNCHES
@@ -556,15 +600,19 @@ def test_every_wrapper_launches_through_one_entry_each():
     ("k13 cpu", "CUDA"), ("k13 int64", "int32"),
     ("k13 two scalars", r"\(>= 3,\)"), ("k13 narrow", ">= 128 columns"),
     ("k13 short", ">= 8 rows"), ("k13 float64", "float32"),
-    ("k13 votes", "votes"), ("k13 votes cpu", "CUDA")])
+    ("k13 votes", "votes"), ("k13 votes cpu", "CUDA"), ("k12 cpu", "CUDA"),
+    ("k12 float64", "float32"), ("k12 two rows", r"rows >= 3"),
+    ("k12 one dim", r"\(rows >= 3, cols\)"),
+    ("k12 not contiguous", "CUDA")])
 def test_k11_k14_wrappers_refuse_after_one_combined_check(case, match):
-    """Past the one combined condition, the K10, K11, K13 and K14 wrappers
-    raise what their first versions raised: the plain version's shape and
-    type check first, then the tile rule, then the device (K10: a device
-    that is not CUDA)."""
+    """Past the one combined condition, the K10-K14 wrappers raise what
+    their first versions raised: the plain version's shape and type check
+    first, then the tile rule, then the device (K10: a device that is not
+    CUDA)."""
     row, col = k11.inputs(0)
     tab, rays = k14.inputs(0)
     a = k13.inputs()
+    x12 = k12.repro_input()
     call = {"cpu": lambda: k11.reg_slice_kernel(row, col),
             "float64": lambda: k11.ref_load_kernel(row.double(), col),
             "row shape": lambda: k11.reg_slice_kernel(row.T, col),
@@ -590,7 +638,13 @@ def test_k11_k14_wrappers_refuse_after_one_combined_check(case, match):
             "k13 float64": lambda: k13.fori_smem_kernel(a["s"],
                                                         a["tab"].double()),
             "k13 votes": lambda: k13.compaction_kernel(torch.zeros((40, 2))),
-            "k13 votes cpu": lambda: k13.compaction_kernel(a["votes"])}[case]
+            "k13 votes cpu": lambda: k13.compaction_kernel(a["votes"]),
+            "k12 cpu": lambda: k12.scalar_reduce_kernel(x12),
+            "k12 float64": lambda: k12.scalar_reduce_kernel(x12.double()),
+            "k12 two rows": lambda: k12.scalar_reduce_kernel(x12[:2]),
+            "k12 one dim": lambda: k12.scalar_reduce_kernel(x12.flatten()),
+            "k12 not contiguous": lambda: k12.scalar_reduce_kernel(
+                x12.T)}[case]
     with pytest.raises(ValueError, match=match):
         call()
 
