@@ -85,7 +85,20 @@ ms to write one 11,520,020-byte checkpoint), the texture input (earth at
 write_png made of earth.rtwi, equal to the .rtwi-fed render bit for bit)
 and the utilities (denoise of the book-1 image, the nine Monte Carlo
 studies, the float64 twin and render_f64, each on the card against the
-same call on the CPU).
+same call on the CPU). Then the mesh path (raytracingweekend_tpu_torch/
+parallel/, torch.distributed): at (1, 1) on NCCL in this process, book 1
+through render_sharded_mega (K1) equal to trace_mega with the same seed
+bit for bit and timed beside it, render_sharded (the lockstep wavefront,
+K7) at 1200x800x8, the sharded value and gradient (K2+K3 and the replay)
+at the gradient path's workload against render_diff_mega's, and the
+single-card rate tools/scaling_report.py takes; four gloo ranks sharing
+the card at (2, 2) (NCCL takes one card a rank), render_sharded_mega and
+the sharded gradient held to their sequential emulations
+(parallel/emulate.py) on the card, and dryrun_multichip(4); and the
+gradient path's two timing tools (tools/grad_bench.py,
+tools/inverse_render_bench.py) at their workloads, cut to one repeat and
+four steps. The kernels line gives K1's, K2+K3's and K7's launches on
+the mesh path (phase 30) beside their own paths'.
 It prints one line per phase and each phase's seconds.
 Any failure exits non-zero; without a CUDA device it exits non-zero
 before printing any result. The last line is one JSON object naming the
@@ -105,6 +118,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from raytracingweekend_tpu_torch import grad as tgrad
 from raytracingweekend_tpu_torch import montecarlo, native
@@ -117,10 +131,16 @@ from raytracingweekend_tpu_torch.ops import intersect as k7
 from raytracingweekend_tpu_torch.ops import mega_grad as mg
 from raytracingweekend_tpu_torch.ops import megakernel as mk
 from raytracingweekend_tpu_torch.ops.syncs import CHECK_EVERY, SYNCS
+from raytracingweekend_tpu_torch.parallel import distributed as pdist
+from raytracingweekend_tpu_torch.parallel import emulate as pemulate
+from raytracingweekend_tpu_torch.parallel import mesh as pmesh
+from raytracingweekend_tpu_torch.parallel.dryrun import dryrun_multichip
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
 from raytracingweekend_tpu_torch.tools import culled_ab
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
+from raytracingweekend_tpu_torch.tools import (grad_bench,
+                                               inverse_render_bench)
 from raytracingweekend_tpu_torch.tools import mosaic_repros
 from raytracingweekend_tpu_torch.tools import sass
 from raytracingweekend_tpu_torch.tools import sweep_twin as k8
@@ -1375,10 +1395,13 @@ def phase_mega_grad() -> dict:
     fwd_mem = torch.cuda.max_memory_allocated()
     col0 = np.asarray(scene.textures.color, np.float32)
     col = torch.tensor(col0, device="cuda", requires_grad=True)
+    # the public closure: the same tape (key) and replay; phase 30 holds
+    # the sharded value and gradient to this one
+    _, diff = mg.render_diff_mega(scene, key, GNX, GNY, GSPP,
+                                  max_depth=GDEPTH, T=GT)
 
     def value_and_grad():
-        loss = torch.mean(replay(_with(scene, "textures", color=col), tape,
-                                 seed) ** 2)
+        loss = torch.mean(diff(_with(scene, "textures", color=col)) ** 2)
         loss.backward()
         return loss
 
@@ -1431,7 +1454,8 @@ def phase_mega_grad() -> dict:
              "the kernel")
     _replay_profile()
     return dict(tape_ms=tape_ms, fwd_ms=fwd_ms, vg_ms=vg_ms, vg_mem=vg_mem,
-                launches=counts["K2+K3"], max_abs_err=err)
+                launches=counts["K2+K3"], max_abs_err=err,
+                loss=loss.detach(), grad=col.grad.detach().clone())
 
 
 def _replay_profile() -> None:
@@ -2481,6 +2505,238 @@ def phase_utilities(book1: torch.Tensor) -> dict:
     return dict(denoise_ms=card_ms, denoise_cpu_ms=cpu_ms)
 
 
+# the mesh path (raytracingweekend_tpu_torch/parallel/): phase 30 on NCCL
+# at (1, 1): book 1 through render_sharded_mega against trace_mega,
+# MESH_TURNS rounds of (trace_mega, sharded, sharded, trace_mega) on the
+# host clock; render_sharded (the wavefront, K7) at 1200x800x8 against the
+# megakernel's mean; the sharded value and gradient at the gradient path's
+# workload against render_diff_mega's. Phase 31: four gloo ranks on the
+# one card at (2, 2), at the CPU tests' sizes (tests/_torch_parallel_ranks.py)
+MESH_TURNS = 2
+MESH_KEY = 7
+MESH_MEGA = ("dielectric", 16, 16, 8, 5, 128, 5)
+MESH_GRAD = ("cornell_box", 12, 12, 4, 3, 128, 0)
+MESH_WORLD = 4
+MESH_TIMEOUT = 300.0
+MESH_LOSS_RTOL = 1e-5    # phase 30: the same replay, sums in other orders
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 1e-4, 1e-7
+
+
+def _set_colors(scene, p):
+    return _with(scene, "textures", color=p)
+
+
+def phase_mesh_nccl(ref_grad: dict) -> dict:
+    """The mesh path at (1, 1) on NCCL (one rank, this process): book 1
+    through render_sharded_mega equal to trace_mega with the same seed bit
+    for bit, both timed in turns; render_sharded at 1200x800x8, depth 50,
+    its mean within 2% of the sharded megakernel's; the sharded value and
+    gradient (make_sharded_value_and_grad) at the gradient path's workload
+    against render_diff_mega's loss and gradient (phase 18's `ref_grad`,
+    the same key, target 0, loss mean(img^2)). Each path's launch
+    counts are set to 0 just before it and read just after; the single-
+    card rate (samples/s of the sharded book-1 launch) is what
+    tools/scaling_report.py takes as --rate."""
+    tmp = tempfile.mkdtemp(prefix="rtw_nccl_")
+    pdist.initialize("file://" + os.path.join(tmp, "store"), 1, 0,
+                     device="cuda")
+    try:
+        mesh = pmesh.make_mesh(1, 1, device="cuda")
+        backend = tdist.get_backend()
+        scene = make_scene("random_balls", NX / NY)
+        key = prng.key(MESH_KEY)
+        seed = pmesh.shard_seed(key, 0, 0)
+
+        def trace():
+            return mk.trace_mega(seed, scene, NX, NY, SPP,
+                                 max_depth=DEPTH).image / SPP
+
+        def sharded():
+            return pmesh.render_sharded_mega(scene, mesh, key, NX, NY, SPP,
+                                             max_depth=DEPTH)
+
+        ref = trace()
+        _reset_counts()
+        img = sharded()
+        torch.cuda.synchronize()
+        k1 = _launch_counts()["K1"]
+        equal = _bits_equal(img, ref)
+        t_trace, t_sharded = [], []
+        for _ in range(MESH_TURNS):
+            for fn, acc in ((trace, t_trace), (sharded, t_sharded),
+                            (sharded, t_sharded), (trace, t_trace)):
+                acc.append(_host_ms(fn)[0])
+        ms_trace, ms_sharded = np.median(t_trace), np.median(t_sharded)
+        rate = NX * NY * SPP / (ms_sharded / 1e3)
+        print(f"phase 30 render_sharded_mega ({backend}, mesh (1, 1); "
+              f"random_balls {NX}x{NY}, {SPP} spp, depth {DEPTH}; "
+              f"one all-reduce of {NX * NY} lanes x 16 B): equal to trace_mega bit for bit: "
+              f"{equal}; K1 launches {k1}; host ms a launch (median of "
+              f"{len(t_sharded)}, in turns) sharded {ms_sharded:.4f} "
+              f"[{', '.join(f'{v:.4f}' for v in t_sharded)}] vs trace_mega "
+              f"{ms_trace:.4f} [{', '.join(f'{v:.4f}' for v in t_trace)}] "
+              f"= {ms_sharded / ms_trace:.4f}x", flush=True)
+        print(f"phase 30 single-card rate {rate:.6e} samples/s (the sharded "
+              f"book-1 launch; tools/scaling_report.py --rate)", flush=True)
+        if not equal:
+            fail("render_sharded_mega at (1, 1) differs from trace_mega")
+        if k1 < 1:
+            fail("render_sharded_mega launched no K1 kernel")
+
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        w_ms, wave = _host_ms(lambda: pmesh.render_sharded(
+            scene, mesh, prng.key(MESH_KEY + 1), WNX, WNY, WSPP,
+            max_depth=WDEPTH))
+        k7_launches = _launch_counts()["K7"]
+        w_mem = torch.cuda.max_memory_allocated()
+        rel = abs(wave.mean().item() - img.mean().item()) / img.mean().item()
+        print(f"phase 30 render_sharded (lockstep wavefront, while; "
+              f"random_balls {WNX}x{WNY}, {WSPP} spp, depth {WDEPTH}): "
+              f"{w_ms:.1f} ms, peak {w_mem / 2**30:.3f} GiB, K7 launches "
+              f"{k7_launches}; mean {wave.mean().item():.6f} vs the sharded "
+              f"megakernel's {img.mean().item():.6f} (rel {rel:.5f} < 0.02)",
+              flush=True)
+        if k7_launches < 1:
+            fail("render_sharded launched no K7 kernel")
+        if (not torch.isfinite(wave).all() or wave.shape != (WNY, WNX, 3)
+                or rel >= 0.02):
+            fail("render_sharded's image is wrong")
+
+        gscene = make_scene("cornell_box", GNX / GNY)
+        gkey = prng.key(3)
+        vg, _ = mg.make_sharded_value_and_grad(
+            gscene, mesh, np.zeros((GNY, GNX, 3), np.float32), nx=GNX,
+            ny=GNY, spp=GSPP, max_depth=GDEPTH, T=GT, set_params=_set_colors)
+        _reset_counts()
+        vg_ms, (loss, g) = _host_ms(lambda: vg(gscene.textures.color,
+                                               mg.tape_seed(gkey, "cpu")))
+        k23 = _launch_counts()["K2+K3"]
+        ref_ms, ref_loss, ref_g = (ref_grad["vg_ms"], ref_grad["loss"],
+                                   ref_grad["grad"])
+        l_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        g_ok = torch.allclose(g, ref_g, rtol=MESH_GRAD_RTOL,
+                              atol=MESH_GRAD_ATOL)
+        g_err = (g - ref_g).abs().max().item()
+        print(f"phase 30 sharded value and gradient (cornell_box {GNX}x{GNY}"
+              f", {GSPP} spp, depth {GDEPTH}, T={GT}, w.r.t. textures.color; "
+              f"target 0): {vg_ms:.1f} ms (render_diff_mega's value and "
+              f"gradient, phase 18: {ref_ms:.1f} ms), K2+K3 launches {k23}; "
+              f"loss "
+              f"{loss.item():.8e} vs {ref_loss.item():.8e} (rel {l_err:.3e}"
+              f" < {MESH_LOSS_RTOL}), gradient max abs diff {g_err:.3e} "
+              f"(rtol {MESH_GRAD_RTOL}, atol {MESH_GRAD_ATOL}): "
+              f"{'ok' if g_ok and l_err < MESH_LOSS_RTOL else 'FAIL'}",
+              flush=True)
+        if k23 < 1:
+            fail("the sharded gradient launched no megakernel")
+        if not g_ok or l_err >= MESH_LOSS_RTOL:
+            fail("the sharded value and gradient differ from "
+                 "render_diff_mega's")
+    finally:
+        tdist.destroy_process_group()
+    return dict(k1=k1, k7=k7_launches, k23=k23, ms_sharded=ms_sharded,
+                ms_trace=ms_trace, rate=rate)
+
+
+def _mesh_rank() -> dict:
+    """Phase 31's work in each spawned rank (gloo, this card) at (2, 2):
+    MESH_MEGA through render_sharded_mega and MESH_GRAD's sharded value
+    and gradient, with the rank's launch counts."""
+    mesh = pmesh.make_mesh(2, 2, device="cuda")
+    _reset_counts()
+    name, nx, ny, spp, depth, T, k = MESH_MEGA
+    tile = pmesh.render_sharded_mega(make_scene(name, 1.0), mesh,
+                                     prng.key(k), nx, ny, spp,
+                                     max_depth=depth, T=T)
+    name, nx, ny, spp, depth, T, k = MESH_GRAD
+    scene = make_scene(name, 1.0)
+    vg, _ = mg.make_sharded_value_and_grad(
+        scene, mesh, np.zeros((ny, nx, 3), np.float32), nx=nx, ny=ny,
+        spp=spp, max_depth=depth, T=T, set_params=_set_colors)
+    loss, g = vg(scene.textures.color, mg.tape_seed(prng.key(k), "cpu"))
+    return dict(coord=tuple(int(c) for c in mesh.get_coordinate()),
+                tile=tile.cpu().numpy(), loss=float(loss),
+                g=g.cpu().numpy(), launches=_launch_counts())
+
+
+def phase_mesh_gloo() -> dict:
+    """Four gloo ranks on this card at (2, 2) (NCCL takes one card a
+    rank): render_sharded_mega equal to its sequential emulation bit for
+    bit, the sharded gradient to its emulation (loss rtol 1e-6, gradient
+    rtol 1e-5 / atol 1e-8), both emulations on the card in this process;
+    then dryrun_multichip(4) on gloo ranks of the card."""
+    t0 = time.perf_counter()
+    res = pdist.spawn(_mesh_rank, MESH_WORLD, device="cuda", backend="gloo",
+                      timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    tiles = {r["coord"][0]: r["tile"] for r in res}
+    canvas = np.concatenate([tiles[0], tiles[1]])
+    mega_name, nx, ny, spp, depth, T, k = MESH_MEGA
+    mega_cell = f"{mega_name} {nx}x{ny}x{spp}"
+    emu = pemulate.render_sharded_mega(make_scene(mega_name, 1.0), 2, 2,
+                                       prng.key(k), nx, ny, spp,
+                                       max_depth=depth, T=T,
+                                       device="cuda").cpu().numpy()
+    mega_equal = (canvas.shape == emu.shape
+                  and bool(np.array_equal(canvas.view(np.int32),
+                                          emu.view(np.int32)))
+                  and all(np.array_equal(r["tile"], tiles[r["coord"][0]])
+                          for r in res))
+    name, nx, ny, spp, depth, T, k = MESH_GRAD
+    scene = make_scene(name, 1.0)
+    e_loss, e_g, _ = pemulate.value_and_grad(
+        scene, np.zeros((ny, nx, 3), np.float32), 2, 2, scene.textures.color,
+        mg.tape_seed(prng.key(k), "cpu"), nx=nx, ny=ny, spp=spp,
+        max_depth=depth, T=T, set_params=_set_colors, device="cuda")
+    l_err = abs(res[0]["loss"] - e_loss.item()) / abs(e_loss.item())
+    g_ok = all(np.allclose(r["g"], e_g.cpu().numpy(), rtol=1e-5, atol=1e-8)
+               for r in res)
+    launches = {n: sum(r["launches"][n] for r in res)
+                for n in ("K1", "K2+K3")}
+    print(f"phase 31 mesh (2, 2) on {MESH_WORLD} gloo ranks of this card "
+          f"({spawn_s:.3f} s with the ranks' start): render_sharded_mega "
+          f"({mega_cell}) equal to its emulation bit for bit: "
+          f"{mega_equal}; sharded gradient loss {res[0]['loss']:.8e} vs "
+          f"emulation {e_loss.item():.8e} (rel {l_err:.3e} < 1e-6), "
+          f"gradient within rtol 1e-5 on every rank: {g_ok}; the ranks' "
+          f"launches {launches}", flush=True)
+    if not mega_equal:
+        fail("render_sharded_mega on four ranks differs from its emulation")
+    if l_err >= 1e-6 or not g_ok:
+        fail("the sharded gradient on four ranks differs from its emulation")
+    if launches["K1"] < MESH_WORLD or launches["K2+K3"] < MESH_WORLD:
+        fail("a rank launched no megakernel")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_WORLD, device="cuda", backend="gloo",
+                           timeout=MESH_TIMEOUT)
+    k7_dry = sum(r["launches"]["K7"] for r in dry)
+    print(f"phase 31 dryrun_multichip: {time.perf_counter() - t0:.3f} s, "
+          f"the ranks' K7 launches {k7_dry}", flush=True)
+    if k7_dry < MESH_WORLD:
+        fail("the dry run's wavefront step launched no K7 kernel")
+    return dict(launches=launches)
+
+
+def phase_mesh_tools() -> dict:
+    """The gradient path's two timing tools at their workloads, cut:
+    grad_bench with one repeat, inverse_render_bench with 4 steps."""
+    _reset_counts()
+    row = grad_bench.run("cornell_box", GNX, GNY, GSPP, GDEPTH, 1, False,
+                         "cuda")
+    print(f"phase 32 grad_bench {json.dumps(row)}", flush=True)
+    fit = inverse_render_bench.run("cornell_box", 64, 64, 16, 8, 1024, 4,
+                                   0.08, "cuda")
+    print(f"phase 32 inverse_render_bench {json.dumps(fit)}", flush=True)
+    k23 = _launch_counts()["K2+K3"]
+    print(f"phase 32 K2+K3 launches {k23}", flush=True)
+    if not row["grad_finite"] or not np.isfinite(fit["loss_final"]):
+        fail("a timing tool's gradient is not finite")
+    if k23 < 1:
+        fail("the timing tools launched no megakernel")
+    return dict(row=row, fit=fit)
+
+
 def _timed(label: str, fn, *args, **kw):
     """fn(*args, **kw), then one line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -2551,12 +2807,16 @@ def main() -> int:
     ck = _timed("phase 27", phase_checkpoint)
     _timed("phase 28", phase_texture_input)
     _timed("phase 29", phase_utilities, ck["canvas"])
+    mesh_run = _timed("phase 30", phase_mesh_nccl, mega_grad)
+    _timed("phase 31", phase_mesh_gloo)
+    _timed("phase 32", phase_mesh_tools)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls; "
                   f"redesigned: {REDESIGN_DENSE})",
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:371",
              launches=main_run["launches"],
+             mesh_path_launches=mesh_run["k1"],
              max_abs_err=max(k1["max_abs_err"], parity["K1"],
                              widths["max_abs_err"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -2566,6 +2826,7 @@ def main() -> int:
              source="raytracingweekend_tpu_torch/csrc/megakernel.cu",
              replaces="raytracingweekend_tpu/ops/megakernel.py:1022",
              launches=cornell_run["launches"],
+             mesh_path_launches=mesh_run["k23"],
              grad_path_launches=mega_grad["launches"],
              max_abs_err=max([parity["K2+K3"]]
                              + [r["max_abs_err"] for r in k23]),
@@ -2614,6 +2875,7 @@ def main() -> int:
         source="raytracingweekend_tpu_torch/csrc/intersect.cu",
         replaces="raytracingweekend_tpu/ops/pallas_intersect.py:139",
         launches=wave_run["launches"],
+        mesh_path_launches=mesh_run["k7"],
         grad_path_launches=wave_grad["launches"],
         max_abs_err=max([r["max_abs_err"] for r in k7_rows]
                         + [k7_vjp["max_abs_err"]]),

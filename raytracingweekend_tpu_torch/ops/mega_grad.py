@@ -26,9 +26,9 @@ CUDA kernel has no reverse mode, so the gradient path splits in two:
 The replay is the plain version op for op, so on one device it reproduces
 the plain version's tape image bit for bit, and the kernel's to float
 round-off. The JAX package's one-hot MXU extraction is a gather here (its
-backward an index_add), and its sharded value-and-grad
-(`make_sharded_value_and_grad`) is not ported (ROADMAP Queue 1,
-"Parallel").
+backward an index_add). `make_sharded_value_and_grad` and
+`fit_scene_params_mega(mesh=)` run the same step over a (dp, sp) mesh of
+torch.distributed ranks (parallel/mesh.py).
 
 The float64 twin (`make_replay(dict(ctx, f64=True))`, the JAX package's
 `ctx["f64"]`): the replay with float64 tables, the scene cast by
@@ -46,7 +46,9 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import scene_types as st
 from ..utils import prng
@@ -189,32 +191,47 @@ def fit_scene_params_mega(scene: st.Scene, target, *, get_params,
     the parameters, e.g. a clamp). `log_fn(i, loss)` is called for each
     step after the fit (the loop reads no loss on the host). Returns
     (fitted scene, final loss); the fitted scene holds the parameters as a
-    CPU tensor."""
+    CPU tensor.
+
+    With `mesh` (a (dp, sp) DeviceMesh, parallel/mesh.py::make_mesh) the
+    step is sharded: each rank of the mesh takes its value and gradient
+    from make_sharded_value_and_grad (its row tile, its sample shard, the
+    gradient of the global loss replicated on every rank) and one Adam
+    step on it, so every rank holds the same parameters. Every rank of
+    the mesh calls it; `device` is then the rank's (the mesh's type)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded gradient (mesh=) waits for the port of "
-            "parallel/ (ROADMAP Queue 1, Parallel)")
-    ctx = plan_tape(scene, nx, ny, spp, max_depth=max_depth, T=T,
-                    device=device)
-    dev, plan, meta, pixf = ctx["device"], ctx["plan"], ctx["meta"], \
-        ctx["pixf"]
-    replay = make_replay(ctx)
+        from ..parallel.mesh import rank_device
+
+        dev = rank_device(mesh)
+        vg, _ = make_sharded_value_and_grad(
+            scene, mesh, target, nx=nx, ny=ny, spp=spp,
+            max_depth=max_depth, T=T, set_params=set_params)
+    else:
+        dev = torch.device(device)
+        ctx = plan_tape(scene, nx, ny, spp, max_depth=max_depth, T=T,
+                        device=dev)
+        plan, meta, pixf = ctx["plan"], ctx["meta"], ctx["pixf"]
+        replay = make_replay(ctx)
+        target = leaf_tensor(target, dev)
     seed_arr = tape_seed(key, dev)
     seed = int(seed_arr[0, 0])
     params = leaf_tensor(get_params(scene), dev).detach().clone()
     params.requires_grad_(True)
     opt = torch.optim.Adam([params], lr=lr)
-    target = leaf_tensor(target, dev)
     losses = []
     for _ in range(steps):
-        with torch.no_grad():
-            args = build_tables_traced(set_params(scene, params), scene,
-                                       meta, dev, plan)
-            tape = _tape_launch(args, pixf, seed, plan)[:, mk.OUT_ROWS:, :]
         opt.zero_grad()
-        img = replay(set_params(scene, params), tape, seed_arr)
-        loss = torch.mean((img - target) ** 2)
-        loss.backward()
+        if mesh is not None:
+            loss, params.grad = vg(params.detach(), seed_arr)
+        else:
+            with torch.no_grad():
+                args = build_tables_traced(set_params(scene, params), scene,
+                                           meta, dev, plan)
+                tape = _tape_launch(args, pixf, seed, plan)[
+                    :, mk.OUT_ROWS:, :]
+            img = replay(set_params(scene, params), tape, seed_arr)
+            loss = torch.mean((img - target) ** 2)
+            loss.backward()
         opt.step()
         if postprocess is not None:
             with torch.no_grad():
@@ -225,6 +242,127 @@ def fit_scene_params_mega(scene: st.Scene, target, *, get_params,
         for i, v in enumerate(losses):
             log_fn(i, v)
     return set_params(scene, params.detach().cpu()), losses[-1]
+
+
+# distinct per-shard RNG stream offsets, the JAX package's (any odd
+# constants work: the kernel's lowbias32 hash avalanches the seed)
+_DP_SEED = 7919
+_SP_SEED = 104729
+
+
+def shard_tape_seed(seed, di: int, si: int) -> int:
+    """The tape seed of shard (di, si): seed + di * 7919 + si * 104729 in
+    wrapping int32 arithmetic, as the JAX package's np.int32 arithmetic
+    wraps (a seed near 2^31 - 1 turns negative; the kernel hashes the
+    int32's bits). `seed` is an int or a (1, 1) int32 tensor."""
+    x = int(torch.as_tensor(seed).reshape(-1)[0]) + di * _DP_SEED \
+        + si * _SP_SEED
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def sharded_setup(scene: st.Scene, target, dp: int, sp: int, *, nx: int,
+                  ny: int, spp: int, max_depth: int = 8, T: int = 1024,
+                  device="cuda") -> dict:
+    """What every shard of a (dp, sp) sharded value and gradient shares,
+    under the JAX package's `aux` keys: the exact-mode plan of the whole
+    image at spp / sp samples ("cfg", "meta", in "ctx" with the replay's
+    other inputs), the replay, the pixel layout of one ny / dp row tile
+    ("pixf_l", (n_tiles_l, 4, T)), the per-dp targets in lane layout
+    ("tgt", (dp, n_tiles_l, T, 3), pad lanes zeroed) and the valid lanes
+    ("valid"), "rows", "spp_shard", "dp", "sp", "n_tiles_l"."""
+    if ny % dp:
+        raise ValueError(f"ny={ny} must divide by dp={dp}")
+    if spp % sp:
+        raise ValueError(f"spp={spp} must divide by sp={sp}")
+    rows, spp_shard = ny // dp, spp // sp
+    device = torch.device(device)
+    tabs, plan = mk.make_plan(scene, nx, ny, spp_shard, max_depth=max_depth,
+                              rr_depth=None, T=T, exact=True)
+    pix, _ = mk._pixel_layout(nx, rows, plan.T)
+    pixf_l = torch.tensor(pix, device=device)
+    n_tiles_l = pixf_l.shape[0]
+    ctx = dict(scene=scene, tabs=tabs, plan=plan, meta=tabs[-1],
+               pixf=pixf_l, inv=None, n_tiles=n_tiles_l, T=plan.T, nx=nx,
+               ny=ny, spp=spp_shard, max_depth=max_depth, device=device)
+    ii = pix[:, 0, :].astype(np.int64)
+    jj = pix[:, 1, :].astype(np.int64)
+    val = pix[:, 2, :] > 0
+    tgt_np = leaf_tensor(target, "cpu").detach().numpy()
+    tgt = np.zeros((dp, n_tiles_l, plan.T, 3), np.float32)
+    for di in range(dp):
+        tl = tgt_np[np.clip(jj + di * rows, 0, ny - 1), np.clip(ii, 0, nx - 1)]
+        tgt[di] = np.where(val[..., None], tl, 0.0)
+    return dict(ctx=ctx, replay=make_replay(ctx), pixf_l=pixf_l,
+                tgt=torch.tensor(tgt, device=device),
+                valid=torch.tensor(val, device=device), rows=rows,
+                spp_shard=spp_shard, dp=dp, sp=sp, cfg=plan, meta=tabs[-1],
+                n_tiles_l=n_tiles_l)
+
+
+def shard_tape(aux: dict, scene: st.Scene, di: int, si: int, seed):
+    """Shard (di, si)'s tape launch at the parameters of `scene` (no
+    graph): returns (its seed as a (1, 1) int32 tensor, its row tile's
+    pixel layout, its (n_tiles_l, n_iters, T) tape)."""
+    seed_dev = shard_tape_seed(seed, di, si)
+    pixf = aux["pixf_l"].clone()
+    pixf[:, 1, :] += float(di * aux["rows"])
+    with torch.no_grad():
+        args = build_tables_traced(scene, aux["ctx"]["scene"], aux["meta"],
+                                   pixf.device, aux["cfg"])
+        tape = _tape_launch(args, pixf, seed_dev, aux["cfg"])
+    return (torch.tensor([[seed_dev]], dtype=torch.int32), pixf,
+            tape[:, mk.OUT_ROWS:, :])
+
+
+def make_sharded_value_and_grad(scene: st.Scene, mesh, target, *, nx: int,
+                                ny: int, spp: int, max_depth: int = 8,
+                                T: int = 1024, set_params):
+    """The (dp, sp)-sharded tape + replay value and gradient over `mesh`
+    (parallel/mesh.py::make_mesh): vg(params, seed) -> (loss, grads), both
+    replicated on every rank of the mesh, on the rank's device. Per rank:
+    one tape launch on its row tile (spp / sp samples, seed
+    `shard_tape_seed(seed, di, si)`), the replay of its own lanes, one
+    all-reduce of the lanes over "sp" (the sample-shard accumulation), the
+    loss sum over dp of the squared error / (ny nx 3), and the gradient of
+    that global loss: each rank backpropagates into its own lanes only
+    (its image is the detached all-reduced sum plus its lanes minus
+    themselves, exactly the sum in value), and one sum of the gradients
+    over both axes gives the whole. `seed` is an int or the (1, 1) int32
+    tensor of tape_seed. Also returns the aux dict of `sharded_setup`.
+    Every rank of the mesh calls it and vg; raises on a rank outside it."""
+    from ..parallel.mesh import mesh_shape, rank_device
+
+    dp, sp = mesh_shape(mesh)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    di, si = (int(c) for c in coord)
+    dev = rank_device(mesh)
+    aux = sharded_setup(scene, target, dp, sp, nx=nx, ny=ny, spp=spp,
+                        max_depth=max_depth, T=T, device=dev)
+    replay, valid, tgt = aux["replay"], aux["valid"], aux["tgt"][di]
+    sp_group, dp_group = mesh.get_group("sp"), mesh.get_group("dp")
+    denom = float(ny * nx * 3)
+
+    def vg(params, seed):
+        p = leaf_tensor(params, dev).detach().clone().requires_grad_(True)
+        seed_dev, pixf, tape = shard_tape(aux, set_params(scene, p.detach()),
+                                          di, si, seed)
+        lanes = replay.lanes(set_params(scene, p), tape, seed_dev, pixf)
+        total = lanes.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total, group=sp_group)
+        img = (total + (lanes - lanes.detach())) / float(spp)
+        diff = torch.where(valid[..., None], img - tgt, 0.0)
+        sq = torch.sum(diff * diff)
+        (sq / denom).backward()
+        loss = sq.detach().clone().reshape(1)
+        dist.all_reduce(loss, group=dp_group)
+        g = p.grad
+        dist.all_reduce(g, group=sp_group)
+        dist.all_reduce(g, group=dp_group)
+        return loss[0] / denom, g
+
+    return vg, aux
 
 
 # meta fields the launch plan was specialised on: a re-tape whose rebuilt

@@ -1137,7 +1137,8 @@ def _device_layout(nx: int, ny: int, T: int, device: str):
             torch.from_numpy(inv.astype(np.int64)).to(device))
 
 
-def device_inputs(scene: st.Scene, plan: MegaPlan, device):
+def device_inputs(scene: st.Scene, plan: MegaPlan, device,
+                  rows: Optional[int] = None, row0: int = 0):
     """The launch's tensors on `device`, in the kernel's argument order:
     (pixf, cam_vec, sph_tab, attr_tab, clus_tab, rect_tab, light_tab,
     med_tab, perm, ranvec, images), plus the inverse pixel permutation.
@@ -1147,17 +1148,29 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device):
     the launch reads none. Tables are copied once per (scene, device),
     layouts once per shape; a dense surfaces overdraw plan gets its own
     copy of the layout per scene, whose pad row carries the tile order its
-    launches learn (`_longest_first`)."""
+    launches learn (`_longest_first`).
+
+    With `rows`, the layout covers the `rows` image rows from row `row0`
+    on (a row tile of a sharded launch, parallel/mesh.py; the plan keeps
+    the whole image's ny for the camera's v), and the inverse permutation
+    is the tile's. A tile off row 0 gets its own copy of the layout per
+    scene, its j row offset by row0."""
     device = torch.device(device)
     tabs = _scene_memo(
         _TABLE_CACHE, scene, ("device", plan.SB, str(device)),
         lambda: table_tensors(build_tables_cached(scene, plan.SB), scene,
                               plan, device))
-    pixf, inv = _device_layout(plan.nx, plan.ny, plan.T, str(device))
-    if _orders_tiles(plan):
+    rows = plan.ny if rows is None else int(rows)
+    pixf, inv = _device_layout(plan.nx, rows, plan.T, str(device))
+    if row0 or _orders_tiles(plan):
+        def own_copy():
+            tile = pixf.clone()
+            tile[:, 1, :] += float(row0)
+            return tile
+
         pixf = _scene_memo(_TABLE_CACHE, scene,
-                           ("tile order", plan.nx, plan.ny, plan.T,
-                            str(device)), pixf.clone)
+                           ("tile order", plan.nx, rows, row0, plan.T,
+                            str(device)), own_copy)
     return (pixf, *tabs), inv
 
 

@@ -90,15 +90,18 @@ def launch_seed(seed: int, launch: int) -> int:
 
 
 def _camera_rays(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
-                 device):
+                 device, rows: int | None = None, row0: int = 0):
     """chunk_spp jittered camera rays per pixel (cpp:227-228), ray k on
-    pixel k % (nx ny), and the trace key."""
+    pixel k % (nx rows), and the trace key. `rows` image rows from row
+    `row0` on (default: all ny), v taken over the whole image's ny (a row
+    tile of parallel/mesh.py's sharded render)."""
     ds = device_scene(scene, device)
-    n_pix = nx * ny
+    n_pix = nx * (ny if rows is None else rows)
     n_rays = n_pix * chunk_spp
     pix = torch.arange(n_pix, dtype=torch.int64, device=ds.device)
     i = (pix % nx).repeat(chunk_spp).float()
-    j = torch.div(pix, nx, rounding_mode="floor").repeat(chunk_spp).float()
+    j = (torch.div(pix, nx, rounding_mode="floor").repeat(chunk_spp)
+         + row0).float()
     k_u, k_v, k_cam, k_trace = prng.split(key, 4)
     u = (i + sampling.uniform(k_u, (n_rays,), device=ds.device)) / nx
     v = (j + sampling.uniform(k_v, (n_rays,), device=ds.device)) / ny
@@ -107,13 +110,17 @@ def _camera_rays(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
 
 
 def render_chunk(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,
-                 max_depth: int = 100, mode: str = "while", device="cuda"):
+                 max_depth: int = 100, mode: str = "while", device="cuda",
+                 rows: int | None = None, row0: int = 0):
     """Radiance *sum* (ny, nx, 3) over chunk_spp samples per pixel through
     the lockstep wavefront (`trace` in "while" or "scan" mode); row 0 is
-    the image bottom, like the reference canvas (cpp:247)."""
-    o, d, t, k_trace = _camera_rays(scene, key, nx, ny, chunk_spp, device)
+    the image bottom, like the reference canvas (cpp:247). With `rows`,
+    the (rows, nx, 3) tile of image rows row0 .. row0 + rows - 1."""
+    rows = ny if rows is None else rows
+    o, d, t, k_trace = _camera_rays(scene, key, nx, ny, chunk_spp, device,
+                                    rows, row0)
     rad = trace(k_trace, o, d, t, scene, max_depth=max_depth, mode=mode)
-    return rad.reshape(chunk_spp, ny, nx, 3).sum(dim=0)
+    return rad.reshape(chunk_spp, rows, nx, 3).sum(dim=0)
 
 
 def render_chunk_with_stats(scene: st.Scene, key, nx: int, ny: int,

@@ -1,6 +1,8 @@
-"""The port's measurement instruments: the sweep twin (K8) and the
-dot-formulation microbenchmark (K9), each with its CLI
-(`python -m raytracingweekend_tpu_torch.tools.<name>`)."""
+"""The port's measurement instruments: the sweep twin (K8), the
+dot-formulation microbenchmark (K9), the Mosaic repros (K10-K14), the
+kernel A/B, the gradient path's timing tools (grad_bench,
+inverse_render_bench) and the mesh path's scaling report, each with its
+CLI (`python -m raytracingweekend_tpu_torch.tools.<name>`)."""
 from __future__ import annotations
 
 import subprocess

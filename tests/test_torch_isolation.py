@@ -30,9 +30,13 @@ def test_port_module_list_is_complete():
                      "ops.intersect", "ops.linalg", "ops.materials",
                      "ops.mega_grad", "ops.megakernel", "ops.noise", "ops.packing",
                      "ops.pdfs", "ops.rounding", "ops.sampling",
-                     "ops.syncs", "ops.textures", "render", "tools",
+                     "ops.syncs", "ops.textures", "parallel",
+                     "parallel.distributed", "parallel.dryrun",
+                     "parallel.emulate", "parallel.mesh",
+                     "parallel.scaling", "render", "tools",
                      "tools.culled_ab", "tools.dot_microbench",
-                     "tools.sweep_twin",
+                     "tools.grad_bench", "tools.inverse_render_bench",
+                     "tools.scaling_report", "tools.sweep_twin",
                      "tools.mosaic_repros", "tools.mosaic_repros.__main__",
                      "tools.mosaic_repros._common",
                      "tools.mosaic_repros.repro_dot_k3_subslice",

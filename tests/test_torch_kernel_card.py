@@ -1343,3 +1343,131 @@ def test_checkpoint_resume_is_bitwise_on_card(mode, kernel, tmp_path):
     else:
         assert torch.isfinite(resumed).all()
         assert torch.isclose(full, resumed, rtol=1e-5, atol=1e-6).all()
+
+
+# the mesh path (raytracingweekend_tpu_torch/parallel/): ranks spawned by
+# parallel/distributed.py::spawn run the functions below (importable by
+# name: this module imports no JAX); NCCL takes one card a rank, so the
+# four-rank checks take gloo ranks sharing the card
+MESH_TIMEOUT = 300.0
+
+
+def _mesh_colors(scene, p):
+    import dataclasses
+    return dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, color=p))
+
+
+def _mesh_nccl_rank() -> dict:
+    """At (1, 1) on NCCL: render_sharded_mega against trace_mega with the
+    same seed, the sharded value and gradient against render_diff_mega's."""
+    import numpy as np
+    import torch.distributed as dist
+    from raytracingweekend_tpu_torch.ops import mega_grad as mg
+    from raytracingweekend_tpu_torch.parallel import mesh as pmesh
+    from raytracingweekend_tpu_torch.utils import prng
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    scene = make_scene("random_balls", 1.5)
+    key = prng.key(3)
+    before = tk.KERNEL_LAUNCHES["K1"]
+    img = pmesh.render_sharded_mega(scene, mesh, key, 96, 64, 8,
+                                    max_depth=8)
+    k1 = tk.KERNEL_LAUNCHES["K1"] - before
+    ref = tk.trace_mega(pmesh.shard_seed(key, 0, 0), scene, 96, 64, 8,
+                        max_depth=8).image / 8
+    cornell = make_scene("cornell_box", 1.0)
+    vg, _ = mg.make_sharded_value_and_grad(
+        cornell, mesh, np.zeros((16, 16, 3), np.float32), nx=16, ny=16,
+        spp=4, max_depth=3, T=256, set_params=_mesh_colors)
+    loss, g = vg(cornell.textures.color, mg.tape_seed(key, "cpu"))
+    _, diff = mg.render_diff_mega(cornell, key, 16, 16, 4, max_depth=3,
+                                  T=256)
+    col = torch.tensor(np.asarray(cornell.textures.color, np.float32),
+                       device="cuda", requires_grad=True)
+    ref_loss = torch.mean(diff(_mesh_colors(cornell, col)) ** 2)
+    ref_loss.backward()
+    return dict(backend=dist.get_backend(), k1=k1,
+                equal=torch.equal(img.view(torch.int32),
+                                  ref.view(torch.int32)),
+                loss=(loss.item(), ref_loss.item()),
+                g=(g.cpu().numpy(), col.grad.cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_mesh_path_at_1x1_on_nccl_on_card():
+    """One NCCL rank on the card: render_sharded_mega (K1) equals
+    trace_mega bit for bit, and the sharded value and gradient meet
+    render_diff_mega's (loss rtol 1e-5; gradient rtol 1e-4 / atol 1e-7:
+    the same replay, summed in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.parallel import distributed
+    r, = distributed.spawn(_mesh_nccl_rank, 1, device="cuda",
+                           timeout=MESH_TIMEOUT)
+    assert r["backend"] == "nccl" and r["equal"] and r["k1"] >= 1
+    np.testing.assert_allclose(*r["loss"], rtol=1e-5)
+    np.testing.assert_allclose(*r["g"], rtol=1e-4, atol=1e-7)
+
+
+def _mesh_gloo_rank() -> dict:
+    """At (2, 2) on gloo ranks of the card: a render_sharded_mega tile and
+    the sharded value and gradient."""
+    import numpy as np
+    from raytracingweekend_tpu_torch.ops import mega_grad as mg
+    from raytracingweekend_tpu_torch.parallel import mesh as pmesh
+    from raytracingweekend_tpu_torch.utils import prng
+    mesh = pmesh.make_mesh(2, 2, device="cuda")
+    tile = pmesh.render_sharded_mega(make_scene("dielectric", 1.0), mesh,
+                                     prng.key(5), 16, 16, 8, max_depth=5,
+                                     T=128)
+    scene = make_scene("cornell_box", 1.0)
+    vg, _ = mg.make_sharded_value_and_grad(
+        scene, mesh, np.zeros((12, 12, 3), np.float32), nx=12, ny=12, spp=4,
+        max_depth=3, T=128, set_params=_mesh_colors)
+    loss, g = vg(scene.textures.color, mg.tape_seed(prng.key(0), "cpu"))
+    return dict(di=int(mesh.get_coordinate()[0]), tile=tile.cpu().numpy(),
+                loss=loss.item(), g=g.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_mesh_path_on_gloo_ranks_equals_emulation_on_card():
+    """Four gloo ranks on the card at (2, 2): render_sharded_mega equals
+    its sequential emulation on the card bit for bit, the sharded value
+    and gradient its emulation (loss rtol 1e-6, gradient rtol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+    from raytracingweekend_tpu_torch.ops import mega_grad as mg
+    from raytracingweekend_tpu_torch.parallel import distributed, emulate
+    from raytracingweekend_tpu_torch.utils import prng
+    res = distributed.spawn(_mesh_gloo_rank, 4, device="cuda",
+                            backend="gloo", timeout=MESH_TIMEOUT)
+    tiles = {r["di"]: r["tile"] for r in res}
+    emu = emulate.render_sharded_mega(make_scene("dielectric", 1.0), 2, 2,
+                                      prng.key(5), 16, 16, 8, max_depth=5,
+                                      T=128, device="cuda").cpu().numpy()
+    np.testing.assert_array_equal(np.concatenate([tiles[0], tiles[1]]), emu)
+    scene = make_scene("cornell_box", 1.0)
+    e_loss, e_g, _ = emulate.value_and_grad(
+        scene, np.zeros((12, 12, 3), np.float32), 2, 2, scene.textures.color,
+        mg.tape_seed(prng.key(0), "cpu"), nx=12, ny=12, spp=4, max_depth=3,
+        T=128, set_params=_mesh_colors, device="cuda")
+    for r in res:
+        np.testing.assert_allclose(r["loss"], e_loss.item(), rtol=1e-6)
+        np.testing.assert_allclose(r["g"], e_g.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_gloo_ranks_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from raytracingweekend_tpu_torch.parallel.dryrun import dryrun_multichip
+    res = dryrun_multichip(4, device="cuda", backend="gloo",
+                           timeout=MESH_TIMEOUT)
+    assert all(r["device"].startswith("cuda") for r in res)
+    assert all(r["launches"]["K7"] > 0 and r["launches"]["K2+K3"] > 0
+               for r in res)
+    with pytest.raises(ValueError, match="one card a rank"):
+        dryrun_multichip(torch.cuda.device_count() + 1)

@@ -323,8 +323,11 @@ def test_fit_scene_params_mega_converges():
 
 
 def test_fit_scene_params_mega_mesh_is_not_ported():
+    """The sharded fit (mesh=) is ported (tests/test_torch_parallel.py
+    runs it on four ranks); what it does not take is a mesh other than
+    parallel/mesh.py's (dp, sp) DeviceMesh."""
     scene = make_scene("cornell_box", 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Parallel"):
+    with pytest.raises(TypeError, match=r"\(dp, sp\) DeviceMesh"):
         mg.fit_scene_params_mega(
             scene, np.zeros((4, 4, 3), np.float32),
             get_params=lambda sc: sc.textures.color,
