@@ -98,7 +98,22 @@ the sharded gradient held to their sequential emulations
 gradient path's two timing tools (tools/grad_bench.py,
 tools/inverse_render_bench.py) at their workloads, cut to one repeat and
 four steps. The kernels line gives K1's, K2+K3's and K7's launches on
-the mesh path (phase 30) beside their own paths'.
+the mesh path (phase 30) beside their own paths'. Then the golden, A/B
+and timing tools (raytracingweekend_tpu_torch/tools), each through its
+run(): bench_all's seven scenes (2 warm-ups and 5 timed launches each);
+mega_perf --stats on cornell_box 400x400x256 and random_balls_huge
+1200x800x16; cull_sweep on random_balls_large 1200x800x32 over T in
+{128, 256, 512} x near-to-far buckets {0, 16} at SB 128, on
+random_balls_huge x16 and large_mixed n = 60 x32 over T in {128, 256} x
+{0, 16}, and on book 1 1200x800x64 over T in {128, 256, 512} and SB 128
+(C = 4), each list forward then backward, 5 timed launches a config;
+dyn_ab_check on both stress scenes (every culled
+variant equal to the dense sweep bit for bit); bvh_bench at 2^20 rays,
+S = 512, 4096, 32768 (K7 and the BVH held to its agreement gate);
+sampling_gallery at 200x200x64 into a temporary directory; and
+mega_golden_check on the 32x32 and the 128x128 goldens. Phases 4 and 16
+take tools/golden_report.py's check and gate. The kernels line gives
+each kernel's launches on each tool's path (`tool_path_launches`).
 It prints one line per phase and each phase's seconds.
 Any failure exits non-zero; without a CUDA device it exits non-zero
 before printing any result. The last line is one JSON object naming the
@@ -137,7 +152,11 @@ from raytracingweekend_tpu_torch.parallel import mesh as pmesh
 from raytracingweekend_tpu_torch.parallel.dryrun import dryrun_multichip
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
-from raytracingweekend_tpu_torch.tools import culled_ab
+from raytracingweekend_tpu_torch.tools import (bench_all, bvh_bench,
+                                               cull_sweep, culled_ab,
+                                               dyn_ab_check, golden_report,
+                                               mega_golden_check, mega_perf,
+                                               sampling_gallery)
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
 from raytracingweekend_tpu_torch.tools import (grad_bench,
                                                inverse_render_bench)
@@ -153,7 +172,6 @@ from raytracingweekend_tpu_torch.utils import prng, validation
 from raytracingweekend_tpu_torch.utils.config import RenderConfig
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 # kernel vs plain version: the replay gate of tests/test_mega_grad.py
 RTOL, ATOL = 1e-3, 5e-5
 MIN_SAME = 0.99       # fraction of lanes / pixels that must agree
@@ -211,6 +229,18 @@ K7_FORMS = ((0, 1), (2, 1), (7, 1), (7, 0))
 # (OPS_AXIS_MOTION) for each axis the centres move along
 OPS_K7_PAIR = 22
 HBM_PEAK = 3.35e12            # H100 SXM bytes/s
+# the goldens of phases 4 and 16, in tools/golden_report.py's tables:
+# random_balls at 128x128 (several megakernel tiles), then the 32x32 set
+# with cornell_box at both sizes
+SMOKE_GOLDENS = (
+    ("random_balls", golden_report.GOLDENS_MULTITILE["random_balls"]),
+    ("dielectric", golden_report.GOLDENS["dielectric"]),
+    ("cornell_box", golden_report.GOLDENS_MULTITILE["cornell_box"]),
+    ("cornell_box", golden_report.GOLDENS["cornell_box"]),
+    ("cornell_smoke", golden_report.GOLDENS["cornell_smoke"]),
+    ("light_sample", golden_report.GOLDENS["light_sample"]),
+    ("earth", golden_report.GOLDENS["earth"]),
+    ("earth_rect", golden_report.GOLDENS["earth_rect"]))
 # the goldens through regen, their spp cut to keep the script's time
 # (the wavefront is host-bound: ~2,500 small kernels an iteration)
 REGEN_GOLDEN_SPP = {"random_balls_128x128_2048spp.bin": 512,
@@ -661,14 +691,6 @@ def phase_exact_parity() -> dict:
     return errs
 
 
-def _load_golden(name):
-    with open(os.path.join(GOLDEN_DIR, name), "rb") as f:
-        m = re.match(r"RTWO (\d+) (\d+)", f.readline().decode())
-        nx, ny = int(m.group(1)), int(m.group(2))
-        data = np.frombuffer(f.read(), dtype="<f8")
-    return data.reshape(ny, nx, 3)
-
-
 def phase_goldens() -> None:
     """The pixelwise criterion of tests/test_golden.py through render()."""
     _goldens("phase 4 golden", "mega", 64)
@@ -676,39 +698,14 @@ def phase_goldens() -> None:
 
 def _goldens(label: str, mode: str, launch_spp: int,
              max_spp: dict | None = None) -> None:
-    """Every golden through render() in `mode`, launches of launch_spp, at
-    the golden's spp or at most max_spp[golden] (the tolerance takes the
-    spp rendered)."""
-    rtwi = {"image_path": RTWI}
-    for name, golden, spp, kw in (
-            ("random_balls", "random_balls_128x128_2048spp.bin", 2048, {}),
-            ("dielectric", "dielectric_32x32_4096spp.bin", 4096, {}),
-            ("cornell_box", "cornell_box_128x128_8192spp.bin", 8192, {}),
-            ("cornell_box", "cornell_box_32x32_8192spp.bin", 8192, {}),
-            ("cornell_smoke", "cornell_smoke_32x32_8192spp.bin", 8192, {}),
-            ("light_sample", "light_sample_32x32_4096spp.bin", 4096, {}),
-            ("earth", "earth_32x32_4096spp.bin", 4096, rtwi),
-            ("earth_rect", "earth_rect_32x32_4096spp.bin", 4096, rtwi)):
-        g = _load_golden(golden)
-        ny, nx, _ = g.shape
-        spp = min(spp, (max_spp or {}).get(golden, spp))
-        cfg = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=50,
-                           samples_per_launch=launch_spp, seed=7,
-                           loop_mode=mode, device="cuda")
-        t0 = time.perf_counter()
-        o = render(make_scene(name, nx / ny, **kw),
-                   cfg).double().cpu().numpy()
-        secs = time.perf_counter() - t0
-        mean_rel = abs(o.mean() - g.mean()) / max(g.mean(), 1e-6)
-        err = np.abs(o - g)
-        tol = 0.05 + 4.0 * np.sqrt(np.maximum(g, 0.0) / spp)
-        frac_ok = float((err <= tol).mean())
-        ok = np.isfinite(o).all() and mean_rel < 0.02 and frac_ok > 0.995
-        print(f"{label} {name} {nx}x{ny} {spp} spp: mean {o.mean():.6f}"
-              f" vs {g.mean():.6f} (rel {mean_rel:.5f} < 0.02), pixels in "
-              f"tolerance {frac_ok:.5f} > 0.995, {secs:.3f} s: "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
+    """Every golden of SMOKE_GOLDENS through render() in `mode`, launches
+    of launch_spp, at the golden's spp or at most max_spp[golden] (the
+    tolerance takes the spp rendered): tools/golden_report.py's check."""
+    for name, golden in SMOKE_GOLDENS:
+        row = golden_report.check(name, golden, mode, launch_spp,
+                                  (max_spp or {}).get(golden), device="cuda")
+        print(golden_report.line(label, row), flush=True)
+        if not row["passed"]:
             fail(f"golden parity failed for {golden}")
 
 
@@ -2737,6 +2734,172 @@ def phase_mesh_tools() -> dict:
     return dict(row=row, fit=fit)
 
 
+# the tools' phases (33-39), at their CLIs' defaults but where noted:
+# cull_sweep over T x visit order at SB 128 on the large-S scenes (K5;
+# large_mixed: K5s), and over T plus SB 128 (C = 4) on book 1, each list
+# run forward then backward (turns), in CULL_LAUNCHES timed launches a
+# config (the CLI's 2, raised: these rows answer which T and order the
+# culled kernels prefer); mega_perf on the Cornell and huge cells;
+# sampling_gallery at its default shape into a temporary directory
+CULL_SWEEPS = (
+    ("random_balls_large", LNX, LNY, 32,
+     [f"128:{T}::{dord}" for T in (128, 256, 512) for dord in (0, 16)]),
+    ("random_balls_huge", LNX, LNY, 16,
+     [f"128:{T}::{dord}" for T in (128, 256) for dord in (0, 16)]),
+    ("large_mixed", LNX, LNY, 32,
+     [f"128:{T}::{dord}" for T in (128, 256) for dord in (0, 16)]),
+    ("random_balls", NX, NY, SPP, [":128", ":256", ":512", "128"]))
+CULL_LAUNCHES = 5
+MEGA_PERF_CELLS = (("cornell_box", CNX, CNY, 256),
+                   ("random_balls_huge", LNX, LNY, 16))
+DYN_AB_SCENES = ("random_balls_large", "random_balls_huge")
+BVH_SIZES = (512, 4096, 32768)
+
+
+def _tool_counts(fn, *args) -> tuple:
+    """fn(*args) with every kernel's count set to 0 just before and read
+    just after: (its result, the counts)."""
+    _reset_counts()
+    out = fn(*args)
+    return out, _launch_counts()
+
+
+def _rows_line(label: str, rows: list) -> None:
+    for row in rows:
+        print(f"{label} {json.dumps(row)}", flush=True)
+
+
+def phase_bench_all() -> dict:
+    """tools/bench_all.py: the seven scenes, 2 warm-ups and 5 timed
+    launches each."""
+    rows, counts = _tool_counts(bench_all.run, bench_all.SCENES, 5, DEPTH,
+                                "cuda")
+    _rows_line("phase 33 bench_all", rows)
+    print(f"phase 33 bench_all launches {counts}", flush=True)
+    for row in rows:
+        if not (min(row["segments_all"]) > 0
+                and np.isfinite(row["rays_per_s_median"])):
+            fail(f"bench_all traced nothing on {row['scene']}")
+    for kernel in ("K1", "K2+K3", "K4", "K5"):
+        if counts[kernel] < 1:
+            fail(f"bench_all launched no {kernel} kernel")
+    return counts
+
+
+def phase_mega_perf() -> dict:
+    """tools/mega_perf.py --stats on the Cornell and huge cells."""
+    rows, counts = _tool_counts(lambda: [
+        mega_perf.run(name, nx, ny, spp, DEPTH, 2, {}, True, "cuda")
+        for name, nx, ny, spp in MEGA_PERF_CELLS])
+    _rows_line("phase 34 mega_perf", rows)
+    print(f"phase 34 mega_perf launches {counts}", flush=True)
+    for row in rows:
+        if not (0 < row["util"] <= 1 and 0 < row["lane_survival"]
+                <= row["cull_survival"] <= 1):
+            fail(f"mega_perf's counters are off on {row['scene']}")
+    return counts
+
+
+def phase_cull_sweep() -> dict:
+    """tools/cull_sweep.py over CULL_SWEEPS in turns: each scene's mean
+    rate a config and its fastest config."""
+    rows, counts = _tool_counts(lambda: [
+        cull_sweep.run(name, nx, ny, spp, DEPTH, CULL_LAUNCHES,
+                       configs + configs[::-1], "cuda")
+        for name, nx, ny, spp, configs in CULL_SWEEPS])
+    for scene_rows in rows:
+        _rows_line("phase 35 cull_sweep", scene_rows)
+        rate = {}
+        for r in scene_rows:
+            rate.setdefault(r["spec"], []).append(r["m_seg_per_s"])
+        mean = {spec: sum(v) / len(v) for spec, v in rate.items()}
+        best = max(mean, key=mean.get)
+        print(f"phase 35 cull_sweep {scene_rows[0]['scene']} M seg/s, mean "
+              f"of the two turns: "
+              + ", ".join(f"{spec} {m:.3f}" for spec, m in mean.items())
+              + f"; fastest {best}", flush=True)
+    print(f"phase 35 cull_sweep launches {counts}", flush=True)
+    for kernel in ("K1", "K5", "K5s"):
+        if counts[kernel] < 1:
+            fail(f"cull_sweep launched no {kernel} kernel")
+    return counts
+
+
+def phase_dyn_ab() -> dict:
+    """tools/dyn_ab_check.py on both stress scenes: every culled variant
+    equal to the dense sweep bit for bit."""
+    rows, counts = _tool_counts(dyn_ab_check.run, DYN_AB_SCENES, 64, 64, 8,
+                                8, "cuda")
+    _rows_line("phase 36 dyn_ab_check", rows)
+    print(f"phase 36 dyn_ab_check launches {counts}", flush=True)
+    bad = [f"{r['scene']} {r['variant']}" for r in rows if not r["passed"]]
+    if bad:
+        fail(f"dyn_ab_check: culled variants differ from dense: {bad}")
+    return counts
+
+
+def phase_bvh_bench() -> dict:
+    """tools/bvh_bench.py at 2^20 rays, S in BVH_SIZES: k7 and
+    bvh-skiplink held to its agreement gate."""
+    rows, counts = _tool_counts(bvh_bench.run, 1 << 20, BVH_SIZES, 3,
+                                "cuda")
+    _rows_line("phase 37 bvh_bench", rows)
+    for S in BVH_SIZES:
+        r = {row["path"]: row for row in rows if row["S"] == S}
+        k7_s, bvh_s = r["k7"]["seconds"], r["bvh-skiplink"]["seconds"]
+        exact = r["k7"]["same_index"] == 1 and r["k7"]["max_abs_dt"] == 0
+        print(f"phase 37 bvh_bench S={S}: k7 {k7_s * 1e3:.3f} ms, "
+              f"bvh-skiplink {bvh_s * 1e3:.3f} ms: bvh / k7 "
+              f"{bvh_s / k7_s:.3f}"
+              + (f"; k7 bit-equal to plain-brute: {exact}"
+                 if "plain-brute" in r else ""), flush=True)
+    print(f"phase 37 bvh_bench launches {counts}", flush=True)
+    bad = [f"S={r['S']} {r['path']}" for r in rows
+           if not r.get("passed", True)]
+    if bad:
+        fail(f"bvh_bench: k7 and bvh-skiplink disagree past the gate: {bad}")
+    if counts["K7"] < 1:
+        fail("bvh_bench launched no K7 kernel")
+    return counts
+
+
+def phase_sampling_gallery() -> dict:
+    """tools/sampling_gallery.py at 200x200x64 (regen), into a temporary
+    directory: six finite frames, six PNGs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, counts = _tool_counts(sampling_gallery.run, tmp, "cornell_box",
+                                    200, 64, DEPTH, "regen", "cuda")
+        pngs = sorted(os.listdir(tmp))
+    _rows_line("phase 38 sampling_gallery", rows)
+    print(f"phase 38 sampling_gallery launches {counts}, pngs {pngs}",
+          flush=True)
+    if not all(r["finite"] for r in rows) or len(pngs) != 6:
+        fail("sampling_gallery: a frame is not finite or was not written")
+    if counts["K7"] < 1:
+        fail("sampling_gallery launched no K7 kernel")
+    return counts
+
+
+def phase_mega_goldens() -> dict:
+    """tools/mega_golden_check.py on the 32x32 and the 128x128 goldens
+    (launches of 512 spp, each golden's spp)."""
+    rows, counts = _tool_counts(lambda: mega_golden_check.run(
+        sorted(golden_report.GOLDENS), False, 512, None, None, "cuda")
+        + mega_golden_check.run(sorted(golden_report.GOLDENS_MULTITILE),
+                                True, 512, None, None, "cuda"))
+    _rows_line("phase 39 mega_golden_check", rows)
+    print(f"phase 39 mega_golden_check launches {counts}", flush=True)
+    bad = [r["golden"] for r in rows if not r["passed"]]
+    if bad:
+        fail(f"mega_golden_check failed the gate on {bad}")
+    return counts
+
+
+def _tool_launches(tools: dict, kernel: str) -> dict:
+    """A kernel's launches on each tool's path that launched it."""
+    return {tool: c[kernel] for tool, c in tools.items() if c.get(kernel)}
+
+
 def _timed(label: str, fn, *args, **kw):
     """fn(*args, **kw), then one line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -2751,7 +2914,7 @@ def main() -> int:
     sweep, i2f = _timed("phase 2", phase_build)
     widths = _timed("phase 2b", phase_dense_widths)
     parity = _timed("phase 3", phase_exact_parity)
-    _timed("phase 4", phase_goldens)
+    _, golden4 = _tool_counts(_timed, "phase 4", phase_goldens)
     main_run = _timed("phase 5", phase_main_path)
     cornell_run = _timed("phase 6", phase_cornell_path)
     texture_run = _timed("phase 8", phase_texture_path)
@@ -2795,7 +2958,7 @@ def main() -> int:
     k7_rows = _timed("phase 13", phase_k7_vs_plain)
     wave_run = _timed("phase 14", phase_wavefront_main)
     _timed("phase 15", phase_wavefront_paths)
-    _timed("phase 16", phase_wavefront_goldens)
+    _, golden16 = _tool_counts(_timed, "phase 16", phase_wavefront_goldens)
     k7_vjp = _timed("phase 17", phase_k7_vjp)
     mega_grad = _timed("phase 18", phase_mega_grad)
     _timed("phase 19", phase_mega_fit)
@@ -2810,6 +2973,14 @@ def main() -> int:
     mesh_run = _timed("phase 30", phase_mesh_nccl, mega_grad)
     _timed("phase 31", phase_mesh_gloo)
     _timed("phase 32", phase_mesh_tools)
+    tools = {"golden_report": {k: golden4[k] + golden16[k] for k in golden4},
+             "bench_all": _timed("phase 33", phase_bench_all),
+             "mega_perf": _timed("phase 34", phase_mega_perf),
+             "cull_sweep": _timed("phase 35", phase_cull_sweep),
+             "dyn_ab_check": _timed("phase 36", phase_dyn_ab),
+             "bvh_bench": _timed("phase 37", phase_bvh_bench),
+             "sampling_gallery": _timed("phase 38", phase_sampling_gallery),
+             "mega_golden_check": _timed("phase 39", phase_mega_goldens)}
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls; "
                   f"redesigned: {REDESIGN_DENSE})",
@@ -2865,8 +3036,9 @@ def main() -> int:
              ms=k5s[0]["ms"], plain_ms=k5s[0]["plain_ms"],
              bound_ms=k5s[0]["bound_ms"], redesigned=True),
     ]
-    for e in entries:
-        e.update(route="cuda", bound_by="operations", library_ms=None)
+    for e, kernel in zip(entries, ("K1", "K2+K3", "K4", "K5", "K5s")):
+        e.update(route="cuda", bound_by="operations", library_ms=None,
+                 tool_path_launches=_tool_launches(tools, kernel))
     k7_main = k7_rows[0]
     entries.append(dict(
         name="K7 wavefront closest sphere hit (random_balls regen rays "
@@ -2877,6 +3049,7 @@ def main() -> int:
         launches=wave_run["launches"],
         mesh_path_launches=mesh_run["k7"],
         grad_path_launches=wave_grad["launches"],
+        tool_path_launches=_tool_launches(tools, "K7"),
         max_abs_err=max([r["max_abs_err"] for r in k7_rows]
                         + [k7_vjp["max_abs_err"]]),
         ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],

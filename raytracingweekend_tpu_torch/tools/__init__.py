@@ -1,14 +1,48 @@
 """The port's measurement instruments: the sweep twin (K8), the
 dot-formulation microbenchmark (K9), the Mosaic repros (K10-K14), the
 kernel A/B, the gradient path's timing tools (grad_bench,
-inverse_render_bench) and the mesh path's scaling report, each with its
+inverse_render_bench), the mesh path's scaling report, the golden checks
+(golden_report, mega_golden_check), the culled-path A/B (dyn_ab_check),
+the launch-plan timers (mega_perf, cull_sweep, bench_all), the
+closest-hit timer (bvh_bench) and the sampling gallery, each with its
 CLI (`python -m raytracingweekend_tpu_torch.tools.<name>`)."""
 from __future__ import annotations
 
+import os
 import subprocess
 import time
 
 import torch
+
+from ..models import scene_types as st
+from ..models.scenes import make_scene
+from ..render import cli_scene
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# the reference oracle's earth texels, which made the earth goldens
+RTWI = os.path.join(REPO, "tools", "reference_oracle", "earth.rtwi")
+
+
+def tool_scene(name: str, aspect: float) -> st.Scene:
+    """A scene by its CLI name (render.cli_scene); the earth scenes on the
+    oracle's texels (RTWI), not the package's stand-in."""
+    if name in ("earth", "earth_rect"):
+        return make_scene(name, aspect, image_path=RTWI)
+    return cli_scene(name, aspect)
+
+
+def pick(names: str | None, choices: list) -> list:
+    """The comma-separated `names` (all of `choices` when None or empty);
+    an unknown name is a SystemExit that lists the choices."""
+    if not names:
+        return list(choices)
+    picked = names.split(",")
+    unknown = sorted(set(picked) - set(choices))
+    if unknown:
+        raise SystemExit(f"unknown scene(s): {unknown}; choices: "
+                         f"{list(choices)}")
+    return picked
 
 
 def card_line(device: str) -> str:

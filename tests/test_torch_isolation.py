@@ -34,8 +34,12 @@ def test_port_module_list_is_complete():
                      "parallel.distributed", "parallel.dryrun",
                      "parallel.emulate", "parallel.mesh",
                      "parallel.scaling", "render", "tools",
-                     "tools.culled_ab", "tools.dot_microbench",
-                     "tools.grad_bench", "tools.inverse_render_bench",
+                     "tools.bench_all", "tools.bvh_bench",
+                     "tools.cull_sweep", "tools.culled_ab",
+                     "tools.dot_microbench", "tools.dyn_ab_check",
+                     "tools.golden_report", "tools.grad_bench",
+                     "tools.inverse_render_bench", "tools.mega_golden_check",
+                     "tools.mega_perf", "tools.sampling_gallery",
                      "tools.scaling_report", "tools.sweep_twin",
                      "tools.mosaic_repros", "tools.mosaic_repros.__main__",
                      "tools.mosaic_repros._common",
