@@ -153,8 +153,10 @@ from raytracingweekend_tpu_torch.parallel.dryrun import dryrun_multichip
 from raytracingweekend_tpu_torch.render import (RenderStats, render,
                                                 resolve_mode)
 from raytracingweekend_tpu_torch.tools import (bench_all, bvh_bench,
-                                               cull_sweep, culled_ab,
-                                               dyn_ab_check, golden_report,
+                                               coherence_sweep, cull_sweep,
+                                               culled_ab, dyn_ab_check,
+                                               export_texture_raw,
+                                               golden_report,
                                                mega_golden_check, mega_perf,
                                                sampling_gallery)
 from raytracingweekend_tpu_torch.tools import dot_microbench as k9
@@ -565,9 +567,11 @@ def phase_build() -> tuple:
     forms = mk.surface_forms(mk._kernel_lib())
     print(f"phase 2 surfaces forms (axes, uniform shutter, features, block "
           f"limit, registers, local bytes): {forms}", flush=True)
-    if spills or len(surf) != len(forms) + 6:
+    # the dense forms, then the six culled surfaces forms and their six
+    # plan-mode instantiations
+    if spills or len(surf) != len(forms) + 12:
         fail(f"surfaces instantiations spill {spills} or are not all "
-             f"listed ({len(surf)} of {len(forms)} + 6 culled)")
+             f"listed ({len(surf)} of {len(forms)} + 12 culled)")
     return sweep, i2f
 
 
@@ -979,7 +983,7 @@ def _lane_means(out: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
-                     scene=None, **kw) -> dict:
+                     scene=None, plan_kw=None, **kw) -> dict:
     """One launch at a path's shape: the kernel and its plain version on
     the same inputs, timed with CUDA events and compared pixel by pixel;
     the bound from the launch's segments and the measured hit mix. With
@@ -990,10 +994,12 @@ def _kernel_vs_plain(name, nx, ny, spp, label, tile_stride=1,
     compares the swept- and needed-block counts (rows 6, 7) lane by lane,
     and its bound counts the slots its rays need (row 7), beside the
     warp-vote bound (row 6's slots), printed. `scene`, when given,
-    replaces make_scene(name, keywords `kw`)."""
+    replaces make_scene(name, keywords `kw`); `plan_kw`, when given, goes
+    to make_plan (the plan modes)."""
     if scene is None:
         scene = make_scene(name, nx / ny, **kw)
-    _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH)
+    _, plan = mk.make_plan(scene, nx, ny, spp,
+                           **{"max_depth": DEPTH, **(plan_kw or {})})
     args, _ = mk.device_inputs(scene, plan, "cuda")
     pixf = args[0]
     sel = torch.zeros(pixf.shape[0], dtype=torch.bool, device=pixf.device)
@@ -2895,6 +2901,258 @@ def phase_mega_goldens() -> dict:
     return counts
 
 
+# the megakernel's plan modes (phases 40-43; make_plan's slots_per_pixel,
+# coherent, super_group, batch_votes, unroll, every one off by default).
+# Phase 40: each kernel in each mode it takes against its plain version on
+# a cut (MODE_CUT: 64x64, 4 spp, depth 8, T = 256: the card tests'; K5 and
+# K5s on the n = 30 probes, C = 8 clusters of 128, ascending order), and
+# the culled modes against the dense kernel over the same slot table
+MODE_CUT = (64, 64, 4, 8)
+MODE_KERNELS = (("K1", "random_balls", {}), ("K2+K3", "cornell_box", {}),
+                ("K4", "two_perlin_spheres", {}),
+                ("K5", "random_balls_large", dict(SB=128, dyn_order=0)),
+                ("K5s", "large_mixed", dict(SB=128, dyn_order=0)))
+PLAN_MODES = (("k2", dict(slots_per_pixel=2)), ("unroll4", dict(unroll=4)),
+              ("sg4", dict(super_group=4)), ("bv", dict(batch_votes=True)),
+              ("sg4_bv", dict(super_group=4, batch_votes=True)))
+CULL_ONLY = ("sg4", "bv", "sg4_bv")     # the modes of the culled kernels
+# then the culling modes at the path's shapes against the plain version on
+# every LARGE_TILE_STRIDE-th tile: K5 on random_balls_huge (C = 113, Cg 29
+# union rows at sg 4, 113 vote slots a warp), K5s on large_mixed n = 120,
+# and K5s's moving form on large_mixed's untextured moving variant: the
+# path's frames, tables and shared-memory layouts, at 2 spp and depth
+# MODE_DEPTH. The plain version of these modes votes every cluster for
+# every lane a bounce, so its time goes with the iterations, not the tiles
+# checked: 1200x800x16 at depth 50 took 62-94 s a launch, too long for the
+# script's time limit
+MODE_SPP, MODE_DEPTH = 2, 8
+# (name, nx, ny, large_mixed's keywords or None for make_scene(name), mode)
+MODE_PATH = (("random_balls_huge", LNX, LNY, None, "bv"),
+             ("random_balls_huge", LNX, LNY, None, "sg4_bv"),
+             ("large_mixed n=120", LNX, LNY, dict(n=120), "sg4_bv"),
+             ("large_mixed n=60 untextured moving", *MSMALL[:2],
+              dict(n=60, textured=False, moving=True), "sg4_bv"))
+# phase 41, in turns (forward, then backward): k = 1, 2, 4 lanes a pixel
+# on small frames (128x128: 64 blocks of 256 lanes for the 132 SMs at
+# k = 1); super-groups of 4 and 8 clusters and batched votes against the
+# ascending order on the large-S cells (1200x800, x32 / x16, SB 128; K5s
+# on large_mixed n = 120), each mode's rows 0-5 held bit for bit to the
+# others' over the same slot table (SAME_TABLE); the unroll U = 1, 4, 16
+# on cornell_box 400x400x64 and book 1 1200x800x64
+K_FRAMES = (("random_balls", 128, 128, 64), ("cornell_box", 128, 128, 64),
+            ("random_balls_large", 128, 128, 32))
+K_TURNS = (1, 2, 4)
+CULL_MODES = (("ascending", {}), ("sg4", dict(super_group=4)),
+              ("sg8", dict(super_group=8)),
+              ("bv", dict(batch_votes=True)),
+              ("sg4_bv", dict(super_group=4, batch_votes=True)))
+CULL_CELLS = (("random_balls_large", 32, None), ("random_balls_huge", 16, None),
+              ("large_mixed", 16, 120))
+# the modes whose plans share a slot table: the kd table's (ascending,
+# batched votes) and the Morton table's (the super-groups)
+SAME_TABLE = (("ascending", "bv"), ("sg4", "sg8", "sg4_bv"))
+UNROLL_CELLS = (("cornell_box", CNX, CNY, CLAUNCH, 20),
+                ("random_balls", NX, NY, SPP, 3))
+UNROLL_TURNS = (1, 4, 16)
+MODE_REPS = 2      # timed launches a turn of the large-S cells
+
+
+def _mode_scene(name, nx, ny, n=None):
+    if name == "large_mixed":
+        return large_mixed(60 if n is None else n, nx / ny)
+    return make_scene(name, nx / ny, **({} if n is None else {"n": n}))
+
+
+def phase_plan_modes() -> dict:
+    """Each kernel in each plan mode it takes against its plain version on
+    MODE_CUT (dense kernels: rows 0-5 within RTOL / ATOL; culled: rows
+    0-7 equal, swept and needed blocks included, on >= MIN_SAME of the
+    valid lanes), and each culled mode against the dense kernel over the
+    same slot table (rows 0-5 equal bit for bit); then the culling modes
+    of MODE_PATH at the path's shapes (_kernel_vs_plain). Returns each
+    kernel's max abs error of its lanes' means and its launches here."""
+    nx, ny, spp, depth = MODE_CUT
+    err = {k: 0.0 for k, *_ in MODE_KERNELS}
+    _reset_counts()
+    for kernel, name, kw in MODE_KERNELS:
+        culled = kernel in ("K5", "K5s")
+        scene = _mode_scene(name, nx, ny, 30 if culled else None)
+        for mode, mkw in PLAN_MODES:
+            if mode in CULL_ONLY and not culled:
+                continue
+            _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=depth,
+                                   T=256, **kw, **mkw)
+            args, _ = mk.device_inputs(scene, plan, "cuda")
+            out_k = mk.mega_kernel(*args, SEED, plan)
+            out_r = mk.trace_mega_reference(*args, SEED, plan)
+            valid = args[0][:, 2] > 0
+            rows = 8 if culled else 6
+            same = (out_k[:, :rows] == out_r[:, :rows]).all(dim=1) & valid
+            close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                                  atol=ATOL).all(dim=1) & valid
+            frac = ((same if culled else close).sum()
+                    / valid.sum()).item()
+            e = (_lane_means(out_k) - _lane_means(out_r)).abs()[
+                valid].max().item()
+            err[kernel] = max(err[kernel], e)
+            line = (f"phase 40 {kernel} {mode} ({name} {nx}x{ny}x{spp}, "
+                    f"depth {depth}, T={plan.T}, k={plan.k}, "
+                    f"unroll={plan.unroll}, C={plan.C}, sg={plan.sg}, "
+                    f"batch_votes={plan.batch_votes}): kernel vs plain "
+                    f"{'equal' if culled else 'close'} on {frac:.6f} of "
+                    f"lanes, max abs err {e:.3e}")
+            if mode in CULL_ONLY:
+                dense, dargs = mk.dense_over(plan, args)
+                out_d = mk.mega_kernel(*dargs, SEED, dense)
+                eq = torch.equal(out_k[:, :6], out_d[:, :6])
+                blocks = out_k[:, 6].sum().item()
+                iters = out_k[:, 4].sum().item() * plan.C
+                line += (f"; equal to the dense kernel over the same slots "
+                         f"bit for bit {eq}; warp survival "
+                         f"{blocks / iters:.6f}, per-lane survival "
+                         f"{out_k[:, 7].sum().item() / iters:.6f}")
+                if not eq:
+                    fail(f"{kernel} {mode} differs from the dense kernel")
+            print(line, flush=True)
+            if frac < MIN_SAME:
+                fail(f"{kernel} in mode {mode} disagrees with its plain "
+                     "version")
+    print(f"phase 40 the culling modes at the path's shapes, {MODE_SPP} spp, "
+          f"depth {MODE_DEPTH}, plain version on every {LARGE_TILE_STRIDE}th "
+          f"tile", flush=True)
+    for name, nx, ny, mixed, mode in MODE_PATH:
+        scene = None if mixed is None else large_mixed(aspect=nx / ny,
+                                                       **mixed)
+        run = _kernel_vs_plain(name, nx, ny, MODE_SPP, f"phase 40 {mode}",
+                               tile_stride=LARGE_TILE_STRIDE, scene=scene,
+                               plan_kw=dict(SB=128, dyn_order=0,
+                                            max_depth=MODE_DEPTH,
+                                            **dict(PLAN_MODES)[mode]))
+        kernel = "K5" if scene is None else "K5s"
+        err[kernel] = max(err[kernel], run["max_abs_err"])
+    counts = _launch_counts()
+    print(f"phase 40 launches {counts}", flush=True)
+    for kernel, *_ in MODE_KERNELS:
+        if counts[kernel] < 1:
+            fail(f"phase 40 launched no {kernel} kernel")
+    return dict(max_abs_err=err, launches=counts)
+
+
+def _turns(configs: list, run, reps: int) -> dict:
+    """Each (label, launch) of `configs` timed by CUDA events in turns,
+    forward then backward: one warm-up, then `reps` launches a turn.
+    Returns label -> (the turns' ms a launch, the last output)."""
+    got = {label: ([], None) for label, _ in configs}
+    for label, launch in configs + configs[::-1]:
+        run(launch)
+        ms, out = _event_ms(lambda: run(launch), reps)
+        got[label] = (got[label][0] + [ms], out)
+    return got
+
+
+def _rate_line(label: str, ms: list, out, plan) -> dict:
+    segs = out[:, 3].sum().item()
+    iters = out[:, 4].sum().item()
+    row = dict(ms=ms, m_seg_per_s=segs / (sum(ms) / len(ms)) / 1e3,
+               segments=segs, util=segs / iters)
+    if plan.cull:
+        row.update(warp_survival=out[:, 6].sum().item() / (iters * plan.C),
+                   lane_survival=out[:, 7].sum().item() / (iters * plan.C))
+    print(f"{label} {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_mode_timings() -> dict:
+    """The plan modes timed in turns (see K_FRAMES, CULL_MODES,
+    UNROLL_CELLS): ms a launch, M segments/s, util and, culled, the warp
+    and per-lane survivals, a row a config."""
+    _reset_counts()
+    rows = {}
+
+    def launch_of(scene, nx, ny, spp, **kw):
+        _, plan = mk.make_plan(scene, nx, ny, spp, max_depth=DEPTH, **kw)
+        args, _ = mk.device_inputs(scene, plan, "cuda")
+        return plan, args
+
+    def run(launch):
+        plan, args = launch
+        return mk.mega_kernel(*args, SEED, plan)
+
+    for name, nx, ny, spp in K_FRAMES:
+        scene = _mode_scene(name, nx, ny)
+        cfgs = [(f"k={k}", launch_of(scene, nx, ny, spp, slots_per_pixel=k))
+                for k in K_TURNS]
+        for label, (ms, out) in _turns(cfgs, run, 5).items():
+            plan = dict(cfgs)[label][0]
+            rows[f"{name} {nx}x{ny}x{spp} {label}"] = _rate_line(
+                f"phase 41 {name} {nx}x{ny}x{spp} {label} (blocks "
+                f"{out.shape[0]})", ms, out, plan)
+    for name, spp, n in CULL_CELLS:
+        scene = _mode_scene(name, LNX, LNY, n)
+        cell = name if n is None else f"{name} n={n}"
+        cfgs = [(label, launch_of(scene, LNX, LNY, spp, SB=128,
+                                  dyn_order=0, **kw))
+                for label, kw in CULL_MODES]
+        got = _turns(cfgs, run, MODE_REPS)
+        for label, (ms, out) in got.items():
+            plan = dict(cfgs)[label][0]
+            rows[f"{cell} {label}"] = _rate_line(
+                f"phase 41 {cell} {LNX}x{LNY}x{spp} SB 128 {label}", ms,
+                out, plan)
+        for group in SAME_TABLE:
+            first = got[group[0]][1][:, :6]
+            same = [torch.equal(first, got[m][1][:, :6]) for m in group[1:]]
+            print(f"phase 41 {cell}: rows 0-5 of {', '.join(group[1:])} "
+                  f"equal {group[0]}'s bit for bit: {same}", flush=True)
+            if not all(same):
+                fail(f"the culling modes {group} differ on {cell}")
+    for name, nx, ny, spp, reps in UNROLL_CELLS:
+        scene = _mode_scene(name, nx, ny)
+        cfgs = [(f"U={u}", launch_of(scene, nx, ny, spp, unroll=u))
+                for u in UNROLL_TURNS]
+        for label, (ms, out) in _turns(cfgs, run, reps).items():
+            plan = dict(cfgs)[label][0]
+            rows[f"{name} {label}"] = _rate_line(
+                f"phase 41 {name} {nx}x{ny}x{spp} {label}", ms, out, plan)
+    counts = _launch_counts()
+    print(f"phase 41 launches {counts}", flush=True)
+    return dict(rows=rows, launches=counts)
+
+
+def phase_coherence_sweep() -> dict:
+    """tools/coherence_sweep.py at its defaults (random_balls_large x32,
+    random_balls_huge x16, large_mixed n = 60 x32 at 1200x800, depth 50),
+    MODE_REPS timed launches a turn."""
+    rows, counts = _tool_counts(coherence_sweep.run, list(
+        coherence_sweep.SCENES), LNX, LNY, 0, DEPTH, MODE_REPS, "cuda")
+    _rows_line("phase 42 coherence_sweep", rows)
+    print(f"phase 42 coherence_sweep launches {counts}", flush=True)
+    for r in rows:
+        if not (r["segments"] > 0 and 0 < r["lane_survival"]
+                <= r["warp_survival"] <= 1):
+            fail(f"coherence_sweep's counters are off on {r['scene']}")
+    for kernel in ("K5", "K5s"):
+        if counts[kernel] < 1:
+            fail(f"coherence_sweep launched no {kernel} kernel")
+    return counts
+
+
+def phase_export_texture() -> None:
+    """tools/export_texture_raw.py on a PNG that write_png made of
+    earth.rtwi: the RTWI it writes is earth.rtwi byte for byte."""
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "earth.png")
+        image_mod.write_png(image_mod.load_image(RTWI), png)
+        out = os.path.join(tmp, "earth.rtwi")
+        nx, ny = export_texture_raw.export(out, png)
+        with open(out, "rb") as f, open(RTWI, "rb") as g:
+            same = f.read() == g.read()
+    print(f"phase 43 export_texture_raw ({nx}x{ny} from a PNG of "
+          f"earth.rtwi): the oracle's bytes {same}", flush=True)
+    if not same:
+        fail("export_texture_raw did not write the oracle's earth.rtwi")
+
+
 def _tool_launches(tools: dict, kernel: str) -> dict:
     """A kernel's launches on each tool's path that launched it."""
     return {tool: c[kernel] for tool, c in tools.items() if c.get(kernel)}
@@ -2981,6 +3239,11 @@ def main() -> int:
              "bvh_bench": _timed("phase 37", phase_bvh_bench),
              "sampling_gallery": _timed("phase 38", phase_sampling_gallery),
              "mega_golden_check": _timed("phase 39", phase_mega_goldens)}
+    modes = _timed("phase 40", phase_plan_modes)
+    mode_runs = {"phase 41 timings": _timed("phase 41",
+                                            phase_mode_timings)["launches"]}
+    tools["coherence_sweep"] = _timed("phase 42", phase_coherence_sweep)
+    _timed("phase 43", phase_export_texture)
     entries = [
         dict(name="megakernel K1 (book-1 sphere path, random_balls; "
                   f"redesigned: {REDESIGN_DENSE})",
@@ -3038,7 +3301,12 @@ def main() -> int:
     ]
     for e, kernel in zip(entries, ("K1", "K2+K3", "K4", "K5", "K5s")):
         e.update(route="cuda", bound_by="operations", library_ms=None,
-                 tool_path_launches=_tool_launches(tools, kernel))
+                 tool_path_launches=_tool_launches(tools, kernel),
+                 plan_mode_launches=dict(
+                     vs_plain=modes["launches"][kernel],
+                     **_tool_launches(mode_runs, kernel)),
+                 max_abs_err=max(e["max_abs_err"],
+                                 modes["max_abs_err"][kernel]))
     k7_main = k7_rows[0]
     entries.append(dict(
         name="K7 wavefront closest sphere hit (random_balls regen rays "

@@ -29,7 +29,8 @@
 // Two modes:
 //   overdraw (exact == 0): one block is one tile of T <= 1024 lanes; every
 //     valid lane keeps tracing samples of its own pixel until the slowest
-//     lane of the block has spp (__syncthreads_or after each bounce), and
+//     lane of the block has spp (__syncthreads_or after every `unroll`
+//     bounces: the JAX kernel's cfg.unroll; the overshoot adds samples), and
 //     the host epilogue renormalises by the per-lane sample count;
 //   exact (exact == 1): every lane traces exactly spp samples on its own
 //     and writes its winner code per iteration: -1 miss, [0, S) sphere
@@ -87,6 +88,17 @@
 // bucket slots in shared memory, and runs the surfaces bounce after the
 // sweep on the warp's active lanes.
 //
+// Plan modes (the JAX kernel's cfg.sg, cfg.batch_votes and cfg.unroll; the
+// host's make_plan, each off by default): two-level votes on the union
+// boxes of super-groups of clusters, batched votes against t_min alone,
+// and U bounce iterations between an overdraw block's checks. The culled
+// kernels compile the three in their own instantiations
+// (mega_kernel_culled_modes, mega_kernel_culled_surfaces_modes), launched
+// only for a plan that takes one, so the default plan's kernels carry none
+// of their code or registers; the dense kernels take U at run time, a
+// three-instruction divisibility test a bounce (checks). k lanes a pixel
+// and the coherent pixel layout are the host's (the pixel table).
+//
 // Textures (K4): a Perlin evaluation makes 6 permutation reads and 8
 // gradient reads per octave at data-dependent addresses (marble and turb
 // take 7 octaves), so the 256-entry permutation and the 256 float32
@@ -106,6 +118,18 @@
 #include <type_traits>
 
 #include "sweep.cuh"
+
+// The culled kernels' plan-mode instantiations' launch, compiled apart in
+// megakernel_modes.cu (this source again, with RTW_MODES_TU), so that nvcc
+// builds the two halves in parallel: `moving`, `uniform_time` the form,
+// `surfaces` -1 for K5, else K5s with (1) or without (0) textures; p, k,
+// q, x this source's Params, Clusters, Surfaces, Texels. Returns the
+// launch's CUDA error.
+extern "C" int rtw_culled_modes_launch(int moving, int uniform_time,
+                                       int surfaces, size_t smem,
+                                       const void* p, const void* k,
+                                       const void* q, const void* x,
+                                       void* stream);
 
 namespace {
 
@@ -171,7 +195,20 @@ struct Params {
   float spp, max_depth, rr_depth;  // rr_depth < 0: no roulette
   int exact, lens, bg_gradient, uniform_time;
   float inv_nx, inv_ny, t_min, ut_t0, ut_idt;
+  // overdraw: a block checks its lanes every `unroll` = U = u 2^shift
+  // iterations (u odd): after iteration it when checks(p, it)
+  uint32_t unroll, unroll_inv, unroll_lim;  // 1 / u mod 2^32, ~0u / U
+  int unroll_shift;
 };
+
+// Whether U divides it, in three ALU instructions and no divide: it * (1 /
+// u) mod 2^32, rotated right by shift, is at most ~0u / U exactly when it
+// is a multiple of U (Granlund and Montgomery's divisibility test); always
+// at U = 1.
+__device__ __forceinline__ bool checks(const Params& p, uint32_t it) {
+  const uint32_t y = it * p.unroll_inv;
+  return __funnelshift_r(y, y, p.unroll_shift) <= p.unroll_lim;
+}
 
 // The rect, light and medium tables of a surfaces launch (K2, K3).
 struct Surfaces {
@@ -1360,7 +1397,10 @@ __global__ void __launch_bounds__(kDenseMaxT)
                                   pxj);
       L.iters += 1.f;
       ++it;
-      running = __syncthreads_or(L.done < p.spp);
+      // the block's check every p.unroll iterations (it is the block's: the
+      // test is uniform); running is written every iteration, so it holds
+      // no register across the bounce
+      running = !checks(p, it) || __syncthreads_or(L.done < p.spp);
     }
   }
   out[0] = L.ax;
@@ -1557,9 +1597,12 @@ __global__ void __launch_bounds__(kDenseMaxT, 1)
           ss, live);
       L.iters += 1.f;
       ++it;
-      const long long t0 = ss.now();
-      running = __syncthreads_or(L.done < p.spp);
-      ss.add(kSsBarrier, t0);
+      running = 1;  // written every iteration, as in mega_kernel
+      if (checks(p, it)) {  // it is the block's: the branch is uniform
+        const long long t0 = ss.now();
+        running = __syncthreads_or(L.done < p.spp);
+        ss.add(kSsBarrier, t0);
+      }
     }
   }
   ss.add(kSsTotal, t_start);
@@ -1590,9 +1633,13 @@ __global__ void __launch_bounds__(kDenseMaxT, 1)
 
 // The cluster table of a culled launch.
 struct Clusters {
-  const float* tab;  // (C, 128): AABB min xyz, max xyz in lanes 0-5
+  const float* tab;  // (C + Cg, 128): AABB min xyz, max xyz in lanes 0-5
   int C, SB;         // clusters, slots per cluster
   int dord;          // near-to-far buckets of the visit order; 0: ascending id
+  int sg, Cg;        // clusters a super-group (0: none), the groups' union
+                     // boxes (rows C .. C + Cg - 1: groups of sg clusters)
+  int bv;            // batched votes: each warp votes every cluster against
+                     // t_min, before its sweeps, with no running best
 };
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -1663,6 +1710,14 @@ __device__ __forceinline__ void slab(const float* b, const Lane& L, float idx,
 
 // n rounded up to a multiple of 4 (a float4 boundary, in words)
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// Words of shared memory the culled kernels' cluster area takes, rounded up
+// to a float4 boundary: the C + Cg boxes, then with near-to-far order or
+// batched votes C key / bucket / vote slots a warp (ops/megakernel.py
+// shared_bytes).
+__host__ __device__ inline int cluster_words(const Clusters& k, int warps) {
+  return align4(kBoxLanes * (k.C + k.Cg) + (k.dord || k.bv ? k.C * warps : 0));
+}
 
 // Slot quads a slot: (cx, cy, cz, nr2), with motion (dcx, dcy, dcz, 0),
 // without a uniform shutter (t0, 1/dt, 0, 0).
@@ -1830,8 +1885,18 @@ __device__ __forceinline__ void stage_wait() {
 // buffers of centre quads, the next admitted candidate's copied in while
 // the current one is re-voted and swept. Each visited cluster adds
 // `inc` to `blocks`, and 1 to `needed` on each lane that needed it.
-// Returns the winner slot (S on a miss) and its t in best.
-template <bool kMoving, bool kUniformTime>
+// Two modes of the ascending order (the JAX kernel's cfg.batch_votes and
+// cfg.sg): with q.bv the warp first votes every cluster against t_min
+// alone and keeps the ballots in `wb`; a lane then needs a cluster when
+// its ray enters the box at all, with no running best. With q.sg, ahead of
+// each group of sg clusters the warp votes the group's union box (box row
+// C + g) as a cluster's, against the running best after every earlier
+// cluster's sweep, and visits none of the group when no lane needs it (no
+// block counted). Both are compiled only into the kModes instantiations
+// (the _modes kernels), so that the kernels of the default plan carry none
+// of their code or registers. Returns the winner slot (S on a miss) and its
+// t in best.
+template <bool kMoving, bool kUniformTime, bool kModes>
 __device__ __forceinline__ int sweep_culled(
     const Params& p, const Clusters& q, const float* box, int* wb,
     float4* stage, const Lane& L, bool active, float inc, float& best,
@@ -1851,8 +1916,15 @@ __device__ __forceinline__ int sweep_culled(
     return active && tlo <= thi && tlo * kShrink < best;
   };
   auto sweep_one = [&](int c, const float4* qa) {
-    const bool nd = needs(c);
-    const unsigned need = __ballot_sync(kFull, nd);
+    bool nd;
+    unsigned need;
+    if (kModes && q.bv) {  // the batched vote's ballot
+      need = (unsigned)wb[c];
+      nd = (need >> (threadIdx.x & 31)) & 1u;
+    } else {
+      nd = needs(c);
+      need = __ballot_sync(kFull, nd);
+    }
     if (need == 0) return;
     const float4* qg = quads + (size_t)c * SB * Q;
     const long long t0 = sp.now();
@@ -1885,7 +1957,10 @@ __device__ __forceinline__ int sweep_culled(
       sweep_one(c, nullptr);
       return;
     }
-    if (q.dord == 0 && !__any_sync(kFull, needs(c))) return;
+    if (q.dord == 0 &&
+        (kModes && q.bv ? wb[c] == 0 : !__any_sync(kFull, needs(c)))) {
+      return;
+    }
     stage_quads<Q>(stage + (n & 1) * SB, quads + (size_t)c * SB * Q, SB);
     if (pend >= 0) {
       stage_wait<1>();
@@ -1900,12 +1975,35 @@ __device__ __forceinline__ int sweep_culled(
       stage_wait<0>();
       sweep_one(pend, stage + ((n - 1) & 1) * SB);
       __syncwarp();
+      pend = -1;
     }
   };
   if (q.dord == 0) {
     const long long t0 = sp.now();
-    for (int c = 0; c < q.C; ++c) visit(c);
+    if (kModes && q.bv) {
+      for (int c = 0; c < q.C; ++c) {
+        float tlo, thi;
+        slab(box + kBoxLanes * c, L, idx, idy, idz, tmin, tlo, thi);
+        const unsigned m = __ballot_sync(kFull, active && tlo <= thi);
+        if ((threadIdx.x & 31) == 0) wb[c] = (int)m;
+      }
+      __syncwarp();
+    }
+    if (kModes && q.sg) {
+      for (int g = 0; g < q.Cg; ++g) {
+        finish();  // the union vote reads the best after every sweep so far
+        float tlo, thi;
+        slab(box + kBoxLanes * (q.C + g), L, idx, idy, idz, tmin, tlo, thi);
+        if (__any_sync(kFull, active && tlo <= thi && tlo * kShrink < best)) {
+          const int end = min(q.C, (g + 1) * q.sg);
+          for (int c = g * q.sg; c < end; ++c) visit(c);
+        }
+      }
+    } else {
+      for (int c = 0; c < q.C; ++c) visit(c);
+    }
     finish();
+    if (kModes && q.bv) __syncwarp();  // the next bounce rewrites wb
     sp.add(kSpVisits, t0);
     return bidx;
   }
@@ -1958,22 +2056,24 @@ __device__ __forceinline__ int sweep_culled(
 // sweep_culled as their closest hit. The votes need every lane of a warp
 // at one point: in overdraw mode a whole block loops until its slowest lane
 // has spp; in exact mode a warp loops until its slowest lane has spp, the
-// others idle, so T % 32 == 0 keeps a warp in one tile.
-template <bool kMoving, bool kUniformTime>
-__global__ void __launch_bounds__(kCulledMaxT, 1)
-    mega_kernel_culled(Params p, Clusters q) {
+// others idle, so T % 32 == 0 keeps a warp in one tile. kModes: the plan
+// modes (super-groups, batched votes, the unroll) compiled in.
+template <bool kMoving, bool kUniformTime, bool kModes>
+__device__ __forceinline__ void culled_lanes(const Params& p,
+                                             const Clusters& q) {
   constexpr int kAx = kMoving ? kAxesAll : kAxesStatic;  // bounce's normal
-  // (stage_words), (C, 6) cluster boxes, then with q.dord C key / bucket
-  // slots per warp
+  // (stage_words), (C + Cg, 6) cluster and union boxes, then with q.dord
+  // or q.bv C key / bucket / vote slots per warp (cluster_words)
   extern __shared__ float sm[];
   const int warps = blockDim.x >> 5, wid = threadIdx.x >> 5;
   float4* stage = reinterpret_cast<float4*>(sm) +
                   stage_words<kMoving>(q.SB, 1) / 4 * wid;
   float* box = sm + stage_words<kMoving>(q.SB, warps);
-  for (int i = threadIdx.x; i < kBoxLanes * q.C; i += blockDim.x) {
+  const int n_box = kModes ? q.C + q.Cg : q.C;
+  for (int i = threadIdx.x; i < kBoxLanes * n_box; i += blockDim.x) {
     box[i] = __ldg(q.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
   }
-  int* wb = reinterpret_cast<int*>(box + kBoxLanes * q.C) + wid * q.C;
+  int* wb = reinterpret_cast<int*>(box + kBoxLanes * n_box) + wid * q.C;
   __syncthreads();
 
   uint32_t tile, lane;
@@ -2012,7 +2112,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
     for (; it < p.n_iters && __any_sync(kFull, L.done < p.spp); ++it) {
       const bool active = L.done < p.spp;
       float best;
-      const int bidx = sweep_culled<kMoving, kUniformTime>(
+      const int bidx = sweep_culled<kMoving, kUniformTime, kModes>(
           p, q, box, wb, stage, L, active, active ? 1.f : 0.f, best,
           blocks, needed, sp);
       const int code = bounce<kAx, kUniformTime, true>(
@@ -2030,13 +2130,14 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
     int running = __syncthreads_or(valid);
     while (running) {
       float best;
-      const int bidx = sweep_culled<kMoving, kUniformTime>(
+      const int bidx = sweep_culled<kMoving, kUniformTime, kModes>(
           p, q, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
       bounce<kAx, kUniformTime, true>(p, nullptr, cam, L, valid, tile, lane,
                                       it, pxi, pxj, bidx, best);
       L.iters += 1.f;
       ++it;
-      running = __syncthreads_or(L.done < p.spp);
+      // every p.unroll iterations (it is the block's: the test is uniform)
+      running = (kModes && !checks(p, it)) || __syncthreads_or(L.done < p.spp);
     }
   }
   out[0] = L.ax;
@@ -2051,33 +2152,51 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
   sp.flush();
 }
 
+template <bool kMoving, bool kUniformTime>
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled(Params p, Clusters q) {
+  culled_lanes<kMoving, kUniformTime, false>(p, q);
+}
+
+template <bool kMoving, bool kUniformTime>
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled_modes(Params p, Clusters q) {
+  culled_lanes<kMoving, kUniformTime, true>(p, q);
+}
+
 // The culled kernel of scenes with rects, lights, media or textures (K5s):
 // mega_kernel_culled's lanes and warp votes, with bounce_surfaces after the
 // culled sphere sweep (the rects and media merge after it, strictly, as
 // after the dense sweep). Every lane of a warp calls sweep_culled; the rest
 // of the bounce, the tape rows, L.iters and the medium's stream run on
-// active lanes only.
-template <bool kMoving, bool kUniformTime, bool kTex>
-__global__ void __launch_bounds__(kCulledMaxT, 1)
-    mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q, Texels x) {
+// active lanes only. kModes as in culled_lanes.
+template <bool kMoving, bool kUniformTime, bool kTex, bool kModes>
+__device__ __forceinline__ void culled_surface_lanes(const Params& p,
+                                                     const Clusters& k,
+                                                     const Surfaces& q,
+                                                     const Texels& x) {
   constexpr int kAx = kMoving ? kAxesAll : kAxesStatic;  // bounce's normal
   constexpr int kFeat = kTex ? kFAll : kFSurf;  // every feature compiled
-  // (stage_words), (C, 6) cluster boxes, with k.dord C key / bucket slots
-  // per warp, then the surfaces tables (stage_surfaces)
+  // (stage_words), (C + Cg, 6) cluster and union boxes, with k.dord or
+  // k.bv C key / bucket / vote slots per warp (cluster_words), then the
+  // surfaces tables (stage_surfaces)
   extern __shared__ float sm[];
   const int warps = blockDim.x >> 5, wid = threadIdx.x >> 5;
   float4* stage = reinterpret_cast<float4*>(sm) +
                   stage_words<kMoving>(k.SB, 1) / 4 * wid;
   float* box = sm + stage_words<kMoving>(k.SB, warps);
-  for (int i = threadIdx.x; i < kBoxLanes * k.C; i += blockDim.x) {
+  const int n_box = kModes ? k.C + k.Cg : k.C;
+  for (int i = threadIdx.x; i < kBoxLanes * n_box; i += blockDim.x) {
     box[i] = __ldg(k.tab + (i / kBoxLanes) * kTableLanes + i % kBoxLanes);
   }
-  int* wb = reinterpret_cast<int*>(box + kBoxLanes * k.C) + wid * k.C;
+  int* wb = reinterpret_cast<int*>(box + kBoxLanes * n_box) + wid * k.C;
   Tables tb;
   TexTables tx;
   const float* cam_sm;
-  stage_surfaces<kTex>(box + align4(k.C * (kBoxLanes + (k.dord ? warps : 0))),
-                       q, x, p.cam, tb, tx, cam_sm);
+  stage_surfaces<kTex>(
+      box + (kModes ? cluster_words(k, warps)
+                    : align4(k.C * (kBoxLanes + (k.dord ? warps : 0)))),
+      q, x, p.cam, tb, tx, cam_sm);
   __syncthreads();
 
   uint32_t tile, lane;
@@ -2114,7 +2233,7 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
     for (; it < p.n_iters && __any_sync(kFull, L.done < p.spp); ++it) {
       const bool active = L.done < p.spp;
       float best;
-      const int bidx = sweep_culled<kMoving, kUniformTime>(
+      const int bidx = sweep_culled<kMoving, kUniformTime, kModes>(
           p, k, box, wb, stage, L, active, active ? 1.f : 0.f, best,
           blocks, needed, sp);
       const int code = bounce_surfaces<kAx, kUniformTime, kFeat, true>(
@@ -2133,14 +2252,15 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
     int running = __syncthreads_or(valid);
     while (running) {
       float best;
-      const int bidx = sweep_culled<kMoving, kUniformTime>(
+      const int bidx = sweep_culled<kMoving, kUniformTime, kModes>(
           p, k, box, wb, stage, L, valid, 1.f, best, blocks, needed, sp);
       bounce_surfaces<kAx, kUniformTime, kFeat, true>(
           p, nullptr, tb, tx, cam, L, valid, tile, lane, it, pxi, pxj, bidx,
           best);
       L.iters += 1.f;
       ++it;
-      running = __syncthreads_or(L.done < p.spp);
+      // every p.unroll iterations (it is the block's)
+      running = (kModes && !checks(p, it)) || __syncthreads_or(L.done < p.spp);
     }
   }
   out[0] = L.ax;
@@ -2155,11 +2275,35 @@ __global__ void __launch_bounds__(kCulledMaxT, 1)
   sp.flush();
 }
 
+template <bool kMoving, bool kUniformTime, bool kTex>
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled_surfaces(Params p, Clusters k, Surfaces q, Texels x) {
+  culled_surface_lanes<kMoving, kUniformTime, kTex, false>(p, k, q, x);
+}
+
+template <bool kMoving, bool kUniformTime, bool kTex>
+__global__ void __launch_bounds__(kCulledMaxT, 1)
+    mega_kernel_culled_surfaces_modes(Params p, Clusters k, Surfaces q,
+                                      Texels x) {
+  culled_surface_lanes<kMoving, kUniformTime, kTex, true>(p, k, q, x);
+}
+
 // The dense surfaces kernels' exact-mode blocks: their lanes are
 // independent (no warp vote), and the gradient path's tape launch holds
 // 16,384 lanes, 64 blocks of kExactBlock on 132 SMs; blocks of 128 lanes
 // spread it over every SM (64, 128 and 256 measured, PERF.md §6).
 constexpr int kSurfExactBlock = 128;
+
+// The culled kernels' plan-mode instantiations (..._modes, in
+// megakernel_modes.cu) are built into the kernels' library; a measurement
+// build (ops/_build.py defines RTW_MEASURE with any define, -DRTW_SPLIT's
+// included) compiles this source without megakernel_modes.cu, times the
+// default plan and launches no mode.
+#ifdef RTW_MEASURE
+constexpr bool kPlanModes = false;
+#else
+constexpr bool kPlanModes = true;
+#endif
 
 // Launch `kern` with `smem` bytes of dynamic shared memory: one block of T
 // lanes per tile (overdraw), or blocks of `exact_block` lanes (exact).
@@ -2248,7 +2392,18 @@ cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
     const size_t bytes =
         sizeof(float) *
         (stage_words<kMoving>(k->SB, warps) +
-         (size_t)align4(k->C * (kBoxLanes + (k->dord ? warps : 0))) + ns);
+         (size_t)cluster_words(*k, warps) + ns);
+    // the plan modes' instantiations only where a mode is on; the
+    // measurement build has none (kPlanModes)
+    if (k->sg || k->bv || p.unroll != 1) {
+      if constexpr (!kPlanModes) {
+        return cudaErrorInvalidValue;
+      } else {
+        return (cudaError_t)rtw_culled_modes_launch(
+            kMoving, kUniformTime, q == nullptr ? -1 : x != nullptr, bytes,
+            &p, k, q, x, stream);
+      }
+    }
     if (q == nullptr) {
       return launch(mega_kernel_culled<kMoving, kUniformTime>, bytes, p,
                     stream, kExactBlock, *k);
@@ -2276,6 +2431,7 @@ cudaError_t launch_one(const Params& p, const Surfaces* q, const Texels* x,
 constexpr int kDenseForm[][2] = {
     {kAxesStatic, 0}, {kAxisY, 1}, {kAxesAll, 1}, {kAxesAll, 0}};
 constexpr int kDenseForms = sizeof(kDenseForm) / sizeof(kDenseForm[0]);
+#ifndef RTW_MODES_TU
 const void* const kDenseKernels[3][kDenseForms] = {{
     (const void*)mega_kernel<kAxesStatic, false>,
     (const void*)mega_kernel<kAxisY, true>,
@@ -2289,6 +2445,7 @@ const void* const kDenseKernels[3][kDenseForms] = {{
     (const void*)mega_kernel_surfaces<kAxisY, true, kFAll>,
     (const void*)mega_kernel_surfaces<kAxesAll, true, kFAll>,
     (const void*)mega_kernel_surfaces<kAxesAll, false, kFAll>}};
+#endif
 
 // One row a surfaces instantiation of the forms' list, in order: (axes,
 // uniform shutter, kFeat, then cudaFuncGetAttributes' maxThreadsPerBlock,
@@ -2321,6 +2478,37 @@ int surface_rows(SurfaceForms<kAxes, kUniformTime, kFeats...>, int* out,
 
 }  // namespace
 
+#ifdef RTW_MODES_TU
+// The plan-mode instantiations of mega_kernel_culled and
+// mega_kernel_culled_surfaces (see rtw_culled_modes_launch above).
+extern "C" int rtw_culled_modes_launch(int moving, int uniform_time,
+                                       int surfaces, size_t smem,
+                                       const void* pv, const void* kv,
+                                       const void* qv, const void* xv,
+                                       void* stream) {
+  const Params& p = *static_cast<const Params*>(pv);
+  const Clusters& k = *static_cast<const Clusters*>(kv);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto run = [&](auto mov, auto uni) -> cudaError_t {
+    constexpr bool kMov = decltype(mov)::value, kUni = decltype(uni)::value;
+    if (surfaces < 0) {
+      return launch(mega_kernel_culled_modes<kMov, kUni>, smem, p, s,
+                    kExactBlock, k);
+    }
+    const Surfaces& q = *static_cast<const Surfaces*>(qv);
+    if (surfaces == 0) {
+      return launch(mega_kernel_culled_surfaces_modes<kMov, kUni, false>,
+                    smem, p, s, kExactBlock, k, q, Texels{});
+    }
+    return launch(mega_kernel_culled_surfaces_modes<kMov, kUni, true>, smem,
+                  p, s, kExactBlock, k, q, *static_cast<const Texels*>(xv));
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (!moving) return (int)run(F{}, F{});
+  return (int)(uniform_time ? run(T{}, T{}) : run(T{}, F{}));
+}
+#else
 extern "C" {
 
 // Launch the megakernel on `stream`. Returns cudaGetLastError() after the
@@ -2338,7 +2526,13 @@ extern "C" {
 // or with `surfaces` mega_kernel_culled_surfaces. `axes` is the slot loop's
 // moving-axis mask (ops/megakernel.py sweep_axes): 0 static, 2 y only
 // (with uniform_time), 7 all axes; the culled kernels lerp all three axes
-// for any other than 0.
+// for any other than 0. The plan modes come after the stream, so that a
+// build older than them, which reads up to the stream, takes the same call
+// at their defaults: `unroll` bounce iterations between an overdraw
+// block's checks (1 in exact mode), `sg` clusters a super-group of the
+// two-level vote (0: none; clus then holds the ceil(C / sg) union boxes
+// after the C clusters' rows) and `batch_votes`, both culled in ascending
+// order (dord 0) only.
 int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     const float* attr, const float* clus, const float* rect,
                     const float* light, const float* med, const int* codes,
@@ -2350,7 +2544,8 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
                     int lens, int bg_gradient, int axes, int uniform_time,
                     int surfaces, int has_spheres, int textures, int cull,
                     float inv_nx, float inv_ny, float t_min, float ut_t0,
-                    float ut_idt, float inv_L, void* stream) {
+                    float ut_idt, float inv_L, void* stream, int unroll,
+                    int sg, int batch_votes) {
   if (n_tiles <= 0 || T <= 0 || S <= 0 || R < 0 || L < 0 || V < 0 ||
       n_iters < 0 || (exact && n_iters <= 0) ||
       (!exact && T > (cull ? kCulledMaxT : kDenseMaxT)) ||
@@ -2364,7 +2559,10 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
       n_img < 0 ||
       img_h <= 0 || img_w <= 0 ||
       (cull && (T % 32 || C <= 0 ||
-                SB <= 0 || (long long)C * SB != S || dord < 0))) {
+                SB <= 0 || (long long)C * SB != S || dord < 0)) ||
+      unroll < 1 || (exact && unroll != 1) || sg < 0 ||
+      ((sg || batch_votes) && !(cull && dord == 0)) ||
+      (sg && C < 2) || (batch_votes != 0 && batch_votes != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -2390,11 +2588,18 @@ int rtw_mega_launch(const float* pixf, const float* cam, const float* sph,
   p.t_min = t_min;
   p.ut_t0 = ut_t0;
   p.ut_idt = ut_idt;
+  p.unroll = (uint32_t)unroll;
+  p.unroll_shift = __builtin_ctz(p.unroll);
+  const uint32_t u = p.unroll >> p.unroll_shift;
+  uint32_t inv = u;  // Newton's iteration: 5, 10, 20, 40 correct bits
+  for (int i = 0; i < 4; ++i) inv *= 2u - u * inv;
+  p.unroll_inv = inv;
+  p.unroll_lim = 0xFFFFFFFFu / p.unroll;
   Surfaces q{rect, light, med, codes, R, L, V, has_spheres, inv_L};
   const Surfaces* qp = surfaces ? &q : nullptr;
   Texels x{perm, ranvec, images, n_img, img_h, img_w};
   const Texels* xp = textures ? &x : nullptr;
-  Clusters k{clus, C, SB, dord};
+  Clusters k{clus, C, SB, dord, sg, sg ? (C + sg - 1) / sg : 0, batch_votes};
   const Clusters* kp = cull ? &k : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
@@ -2491,3 +2696,4 @@ int rtw_split_read(unsigned long long* host) {
 #endif
 
 }  // extern "C"
+#endif  // RTW_MODES_TU

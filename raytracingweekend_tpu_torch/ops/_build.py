@@ -48,6 +48,14 @@ def _nvcc() -> str:
                        "port's kernels): put it on PATH")
 
 
+# Defined with every measurement build's defines: such a build compiles
+# megakernel.cu and sweep_twin.cu alone (`_sources`), so megakernel.cu
+# leaves out what its other sources hold (the culled plan-mode kernels of
+# megakernel_modes.cu): one macro, so the source list and the kernel
+# cannot disagree.
+MEASURE = "RTW_MEASURE"
+
+
 def _sources(defines: tuple, csrc: Path) -> list:
     if not defines:
         return sorted(Path(csrc).glob("*.cu"))
@@ -55,6 +63,8 @@ def _sources(defines: tuple, csrc: Path) -> list:
 
 
 def _flags(defines: tuple) -> tuple:
+    if defines:
+        defines = (MEASURE, *defines)
     return COMPILE_FLAGS + tuple(f"-D{d}" for d in defines)
 
 

@@ -411,20 +411,30 @@ def _kd_cluster_order(centers: np.ndarray, SB: int) -> np.ndarray:
     return order
 
 
-def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
+def build_tables(scene: st.Scene, SB: int = 64, sg: int = 0,
+                 order_override=None):
     """Host packing of the scene tables, bitwise equal to the JAX
-    `build_tables` without its super-group rows and image atlas (the kernel
-    reads the scene's float32 `textures.images` as they are). Returns
-    (sph_tab (S, 128), attr_tab (24, S), rect_tab (max(R, 1), 128),
-    light_tab (max(L, 1), 128), med_tab (max(V, 1), 128), cam_vec (1, 128),
-    meta) as numpy; meta["clus_tab"] (C, 128) holds the cluster AABBs and
-    meta["clus_moving"] each cluster's per-axis any-moving flags.
+    `build_tables` without its image atlas (the kernel reads the scene's
+    float32 `textures.images` as they are). Returns (sph_tab (S, 128),
+    attr_tab (24, S), rect_tab (max(R, 1), 128), light_tab (max(L, 1),
+    128), med_tab (max(V, 1), 128), cam_vec (1, 128), meta) as numpy;
+    meta["clus_tab"] (C + Cg, 128) holds the cluster AABBs, then with
+    super-groups the Cg union boxes, meta["clus_lo"] / ["clus_hi"] (C, 3)
+    the clusters' corners, and meta["clus_moving"] each cluster's per-axis
+    any-moving flags.
 
     Live spheres are deduplicated (first of exact geometric duplicates
     wins, as the reference's strict `t < closest` list sweep), ordered
     along a Morton curve (one cluster) or a kd split with the clusters
     holding the biggest spheres first (several clusters), and padded to a
     multiple of SB with inert rows (nr2 = +1 never hits).
+
+    `sg` > 0 (super-groups of the two-level vote) keeps the Morton order
+    at any C, with no kd split and no radius reorder, so that sg
+    consecutive clusters lie close together, and appends Cg = ceil(C / sg)
+    rows to the cluster table (from C > 1): the union box of clusters
+    g sg .. g sg + sg - 1 in row C + g. meta["sg"] and meta["Cg"] give
+    the groups as built (0 at one cluster).
 
     `order_override` (an (S,) int array, a plan's meta["slot_ext"]: the
     scene sphere row of each slot, -1 for padding) pins the slot layout
@@ -448,7 +458,7 @@ def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
                          rad[live], t0[live], t1[live]], axis=1)
         _, first = np.unique(geom, axis=0, return_index=True)
         live = live[np.sort(first)]
-    if live.size > SB:
+    if live.size > SB and not sg:
         order = live[_kd_cluster_order(c0[live], SB)]
     else:
         order = (live[_morton_order(c0[live])] if live.size
@@ -463,7 +473,7 @@ def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
         S = idx_ext.size
         C = S // SB
         n = int(np.sum(idx_ext >= 0))
-    elif C > 1:
+    elif C > 1 and not sg:
         blocks = idx_ext.reshape(C, SB)
         key_r = np.array([np.abs(rad[b[b >= 0]]).max() if (b >= 0).any()
                           else -1.0 for b in blocks])
@@ -477,6 +487,17 @@ def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
                 **_medium_meta(scene))
     cam_vec, sph_tab, attr_tab, clus_tab, rect_tab, light_tab, med_tab = (
         t.numpy() for t in table_rows(scene, scene, meta, "cpu"))
+    clus_lo = clus_tab[:, K_MINX:K_MINZ + 1].copy()
+    clus_hi = clus_tab[:, K_MAXX:K_MAXZ + 1].copy()
+    sg = int(sg) if sg and C > 1 else 0
+    Cg = -(-C // sg) if sg else 0
+    if sg:
+        sup = np.zeros((Cg, CLUS_LANES), np.float32)
+        for g in range(Cg):
+            rows = clus_tab[g * sg:(g + 1) * sg]
+            sup[g, K_MINX:K_MINZ + 1] = rows[:, K_MINX:K_MINZ + 1].min(0)
+            sup[g, K_MAXX:K_MAXZ + 1] = rows[:, K_MAXX:K_MAXZ + 1].max(0)
+        clus_tab = np.concatenate([clus_tab, sup], axis=0)
 
     # the launch's static flags, read off the tables
     actm = idx_ext >= 0
@@ -514,7 +535,8 @@ def build_tables(scene: st.Scene, SB: int = 64, order_override=None):
         has_noise=bool(noise_modes),
         noise_modes=tuple(sorted(noise_modes)),
         has_image=has_image, n_img=len(img_hw), img_hw=img_hw,
-        has_iso=V > 0, clus_tab=clus_tab,
+        has_iso=V > 0, clus_tab=clus_tab, clus_lo=clus_lo, clus_hi=clus_hi,
+        sg=sg, Cg=Cg,
         # each cluster's per-axis any-moving flags
         clus_moving=tuple(
             tuple(bool(np.any(dc[c * SB:(c + 1) * SB, ax] != 0))
@@ -847,10 +869,10 @@ def _scene_memo(cache: dict, scene, sub_key, build):
     return val
 
 
-def build_tables_cached(scene: st.Scene, SB: int):
+def build_tables_cached(scene: st.Scene, SB: int, sg: int = 0):
     """Memo of build_tables per scene object."""
-    return _scene_memo(_TABLE_CACHE, scene, ("host", SB),
-                       lambda: build_tables(scene, SB))
+    return _scene_memo(_TABLE_CACHE, scene, ("host", SB, sg),
+                       lambda: build_tables(scene, SB, sg))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -861,7 +883,7 @@ class MegaPlan:
     S: int                 # sphere slots (padded)
     nx: int
     ny: int
-    spp: int
+    spp: int               # samples a lane traces: the pixel's spp / k
     max_depth: int
     rr_depth: Optional[int]  # Russian roulette from this depth; None = off
     exact: bool            # exact-spp mode with the winner tape
@@ -893,6 +915,17 @@ class MegaPlan:
     feat: int = 0               # the surfaces form's features (F_*): a
     #                             dense plan's SURFACE_FORMS entry, F_ALL
     #                             or F_SURF culled; 0 without surfaces
+    k: int = 1                  # lanes a pixel (slots_per_pixel)
+    coherent: bool = False      # pixels binned by the first cluster their
+    #                             central ray enters (C > 1), else
+    #                             block-linear
+    sg: int = 0                 # clusters a super-group of the two-level
+    #                             vote (0: none); Cg union boxes follow the
+    #                             C cluster boxes
+    Cg: int = 0
+    batch_votes: bool = False   # each warp votes every cluster against
+    #                             t_min once a bounce, before its sweeps
+    unroll: int = 1             # bounce iterations between a tile's checks
 
     @property
     def textures(self) -> bool:
@@ -923,7 +956,10 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
               max_depth: int = 50, rr_depth: Optional[int] = 4,
               T: Optional[int] = None, exact: bool = False,
               SB: Optional[int] = None, cull: Optional[bool] = None,
-              dyn_order: Optional[int] = None):
+              dyn_order: Optional[int] = None, slots_per_pixel: int = 1,
+              coherent: Optional[bool] = None, super_group: int = 0,
+              batch_votes: Optional[bool] = None,
+              unroll: Optional[int] = None):
     """Host-side launch plan: the packed tables and the static plan.
 
     Slots: one cluster of every live sphere up to 512 (the JAX package's
@@ -944,23 +980,63 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
     overdraw mode from C >= 8, else 0), near to far. The JAX package's
     `dyn_cull` switch has no counterpart: with no fused extraction to
     feed, its survivor-list sweep differs from interleaved votes only in
-    the visit order, which is `dyn_order`. Returns (tables, plan); raises
-    ValueError where a launch would not fit the card (T, or the tables a
-    block holds in shared memory)."""
+    the visit order, which is `dyn_order`.
+
+    The JAX package's layout and culling modes, each off by default (the
+    defaults launch what the port launched before them, bit for bit):
+
+    - `slots_per_pixel` k: a tile's T lanes hold T / k pixels, k lanes
+      each, and a lane traces spp / k samples (spp % k == 0; k falls back
+      to 1 where T % k; exact mode takes k = 1 only);
+    - `coherent`: pixels binned by the first cluster their central
+      primary ray enters (`_coherent_pixel_layout`, C > 1), else
+      block-linear;
+    - `super_group` sg: a warp votes the union box of sg consecutive
+      clusters (Morton order, `build_tables`) before their own boxes and
+      visits none of them when no lane's ray enters it before its running
+      best (culled, C > 1, ascending order: dyn_order 0; not in exact
+      mode, whose slot order is the tape plan's);
+    - `batch_votes`: each warp votes every cluster against t_min once a
+      bounce, before it sweeps, and sweeps the survivors in ascending id
+      with no vote against the running best (culled; off where
+      dyn_order > 0, as the JAX package's survivor-list sweep turns it
+      off);
+    - `unroll` U: an overdraw tile runs U bounce iterations between the
+      checks whether its lanes have their samples; the overshoot adds
+      samples that the epilogue renormalises (exact mode: U = 1).
+
+    Returns (tables, plan); raises ValueError where a launch would not
+    fit the card (T, or the tables a block holds in shared memory) or a
+    mode does not apply."""
     reason = unsupported_reason(scene)
     if reason is not None:
         raise NotImplementedError(f"scene {scene.name!r}: {reason}")
+    k = int(slots_per_pixel)
+    unroll = 1 if unroll is None else int(unroll)
+    sg = int(super_group)
+    if k < 1 or spp % k:
+        raise ValueError(f"slots_per_pixel={k} must divide spp={spp}")
+    if unroll < 1 or sg < 0:
+        raise ValueError(f"unroll={unroll} must be >= 1 and "
+                         f"super_group={sg} >= 0")
+    if exact and (k != 1 or unroll != 1 or sg):
+        raise ValueError("exact mode traces one lane a pixel, spp samples "
+                         "and one tape row an iteration on the tape plan's "
+                         "slot order: slots_per_pixel, unroll 1 and no "
+                         f"super_group (got {k}, {unroll}, {sg})")
     n_live = int(np.sum(np.asarray(scene.spheres.active)))
     if SB is None:
         SB = 512 if n_live <= 512 else (256 if exact else 128)
     SB = min(int(SB), max(8, -(-n_live // 8) * 8))
-    tabs = build_tables_cached(scene, SB)
+    tabs = build_tables_cached(scene, SB, sg)
     meta = tabs[-1]
     T = 256 if T is None else int(T)
     if T <= 0 or (not exact and T > 1024):
         raise ValueError(f"tile width T={T} must be in [1, 1024] "
                          "(one CUDA block per tile in overdraw mode)")
-    plan = MegaPlan(T=T, SB=SB, S=meta["S"], nx=nx, ny=ny, spp=spp,
+    if T % k:
+        k = 1
+    plan = MegaPlan(T=T, SB=SB, S=meta["S"], nx=nx, ny=ny, spp=spp // k,
                     max_depth=max_depth, rr_depth=rr_depth, exact=exact,
                     n_iters=spp * max_depth if exact else 0, t_min=0.001,
                     moving=meta["moving"], moving_axes=meta["moving_axes"],
@@ -1000,11 +1076,23 @@ def make_plan(scene: st.Scene, nx: int, ny: int, spp: int,
                          f"{DENSE_MAX_T} lanes (their launch bounds): "
                          f"T={T}")
     if dyn_order is None:
-        dyn_order = 16 if plan.C >= 8 and not exact else 0
+        dyn_order = 16 if plan.C >= 8 and not exact and not sg else 0
     if dyn_order < 0:
         raise ValueError(f"dyn_order={dyn_order} must be >= 0")
-    plan = dataclasses.replace(plan, cull=bool(cull),
-                               dyn_order=int(dyn_order) if cull else 0)
+    if sg and not (cull and plan.C > 1):
+        raise ValueError(f"super_group={sg} votes cluster unions: it needs "
+                         f"a culled plan of C > 1 clusters (cull={cull}, "
+                         f"C={plan.C})")
+    if sg and dyn_order:
+        raise ValueError(f"super_group={sg} gates clusters in ascending "
+                         f"order: dyn_order={dyn_order} must be 0")
+    if batch_votes and not cull:
+        raise ValueError("batch_votes votes the culled sweep's clusters: "
+                         "it needs a culled plan")
+    plan = dataclasses.replace(
+        plan, cull=bool(cull), dyn_order=int(dyn_order) if cull else 0,
+        k=k, coherent=bool(coherent), sg=meta["sg"], Cg=meta["Cg"],
+        batch_votes=bool(batch_votes) and not dyn_order, unroll=unroll)
     if plan.surfaces:
         plan = dataclasses.replace(plan, feat=(
             (F_ALL if plan.textures else F_SURF) if plan.cull
@@ -1076,8 +1164,9 @@ def shared_bytes(plan: MegaPlan) -> int:
     """Dynamic shared memory of the plan's launch, as the kernel lays it
     out: the dense kernels hold the staged slots (`slot_words` a slot),
     the culled ones (with static spheres) two buffers of a cluster's SB
-    centre quads for each warp, then the (C, 6) cluster boxes and, in
-    near-to-far order, C bucket slots for each warp; the surfaces kernels
+    centre quads for each warp, then the (C + Cg, 6) cluster and union
+    boxes and, in near-to-far order or with batched votes, C key / bucket
+    / vote slots for each warp; the surfaces kernels
     then, from a float4 boundary, their rect runs and group headers, the
     camera vector, their rect, light and medium rows, their codes, the
     image sizes and the Perlin tables (csrc/megakernel.cu
@@ -1088,8 +1177,9 @@ def shared_bytes(plan: MegaPlan) -> int:
         # the moving instantiations stage no quads; the surfaces tables
         # start on a float4 boundary
         moving = sweep_axes(plan) != AXES_STATIC
+        slots = warps if plan.dyn_order or plan.batch_votes else 0
         words = ((0 if moving else warps * 2 * plan.SB * 4)
-                 + -(-plan.C * (n["box"] + (warps if plan.dyn_order else 0))
+                 + -(-(n["box"] * (plan.C + plan.Cg) + plan.C * slots)
                      // 4) * 4)
     else:
         words = slot_words(sweep_axes(plan), plan.uniform_time) * plan.S
@@ -1105,14 +1195,19 @@ def shared_bytes(plan: MegaPlan) -> int:
     return 4 * words
 
 
-def _layout_from_order(order, inv, nx: int, ny: int, T: int):
-    """Split a pixel permutation into tiles of T lanes, one pixel a lane.
-    Returns (pixf (n_tiles, 4, T) float32 rows [i, j, valid, pad], inverse
-    permutation) as numpy."""
+def _layout_from_order(order, inv, nx: int, ny: int, T: int, k: int = 1):
+    """Split a pixel permutation into tiles of T lanes covering T / k
+    pixels, k lanes a pixel (lane l holds pixel l % (T / k) of the tile's:
+    the k slots of one pixel finish their spp / k samples in near
+    lockstep). Returns (pixf (n_tiles, 4, T) float32 rows [i, j, valid,
+    pad], inverse permutation) as numpy."""
+    if T % k:
+        raise ValueError(f"T={T} lanes do not hold k={k} slots a pixel")
+    Tp = T // k
     n_pix = nx * ny
-    n_tiles = -(-n_pix // T)
-    order_p = np.pad(order, (0, n_tiles * T - n_pix), constant_values=n_pix)
-    lanes = order_p.reshape(n_tiles, T)
+    n_tiles = -(-n_pix // Tp)
+    order_p = np.pad(order, (0, n_tiles * Tp - n_pix), constant_values=n_pix)
+    lanes = np.tile(order_p.reshape(n_tiles, Tp), (1, k))   # (n_tiles, T)
     pixf = np.zeros((n_tiles, 4, T), np.float32)
     valid = lanes < n_pix
     safe = np.where(valid, lanes, 0)
@@ -1123,18 +1218,81 @@ def _layout_from_order(order, inv, nx: int, ny: int, T: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _pixel_layout(nx: int, ny: int, T: int):
+def _pixel_layout(nx: int, ny: int, T: int, k: int = 1):
     """Block-linear pixel order split into tiles (see _layout_from_order).
     Callers must not modify the returned arrays (they are cached)."""
     order, inv = _block_linear_order(nx, ny)
-    return _layout_from_order(order, inv, nx, ny, T)
+    return _layout_from_order(order, inv, nx, ny, T, k)
+
+
+def _to_device(layout, device: str) -> tuple:
+    pixf, inv = layout
+    return (torch.from_numpy(pixf).to(device),
+            torch.from_numpy(inv.astype(np.int64)).to(device))
+
+
+def _device_layout(nx: int, ny: int, T: int, device: str, k: int = 1):
+    """`_pixel_layout` on `device`, copied once per (shape, k, device)."""
+    return _device_layout_of(nx, ny, T, k, device)
 
 
 @functools.lru_cache(maxsize=8)
-def _device_layout(nx: int, ny: int, T: int, device: str):
-    pixf, inv = _pixel_layout(nx, ny, T)
-    return (torch.from_numpy(pixf).to(device),
-            torch.from_numpy(inv.astype(np.int64)).to(device))
+def _device_layout_of(nx: int, ny: int, T: int, k: int, device: str):
+    return _to_device(_pixel_layout(nx, ny, T, k), device)
+
+
+_ORDER_CACHE: dict = {}
+
+
+def _coherent_pixel_layout(scene: st.Scene, meta: dict, nx: int, ny: int,
+                           T: int, k: int, t_min: float = 0.001):
+    """The JAX package's cluster-coherence pixel binning: pixels ordered by
+    the first cluster their central primary ray enters (block-linear rank
+    within a bin), so that a tile's rays start in one cluster's
+    neighbourhood, then split into tiles (`_layout_from_order`). Bitwise
+    JAX's; memoised per scene (the binning costs about a second at 14,400
+    clusters and a million pixels). Callers must not modify the arrays."""
+    sub = (nx, ny, T, k, meta["C"], meta["SB"], meta["sg"], t_min)
+    return _scene_memo(_ORDER_CACHE, scene, sub,
+                       lambda: _coherent_pixel_order(scene, meta, nx, ny,
+                                                     T, k, t_min))
+
+
+def _coherent_pixel_order(scene, meta, nx, ny, T, k, t_min):
+    """`_coherent_pixel_layout` unmemoised, in the JAX package's float32
+    numpy arithmetic, op for op."""
+    cam = scene.camera
+    o = np.asarray(cam.origin, np.float32)
+    ll = np.asarray(cam.lower_left_corner, np.float32)
+    hz = np.asarray(cam.horizontal, np.float32)
+    vt = np.asarray(cam.vertical, np.float32)
+    C = meta["C"]
+    lo = np.asarray(meta["clus_lo"], np.float32)         # (C, 3)
+    hi = np.asarray(meta["clus_hi"], np.float32)
+    n_pix = nx * ny
+    ii = (np.arange(nx, dtype=np.float32) + 0.5) / nx
+    jj = (np.arange(ny, dtype=np.float32) + 0.5) / ny
+    # (n_pix, 3) central primary directions, row-major p = j nx + i
+    d = (ll[None, :] + ii[None, :, None] * hz[None, None, :]
+         + jj[:, None, None] * vt[None, None, :]).reshape(n_pix, 3)
+    d -= o[None, :]
+    invd = 1.0 / np.where(d == 0.0, 1e-30, d)
+    best_e = np.full(n_pix, np.inf, np.float32)
+    best_c = np.full(n_pix, C, np.int32)
+    for c in range(C):
+        t0 = (lo[c][None, :] - o[None, :]) * invd
+        t1 = (hi[c][None, :] - o[None, :]) * invd
+        tn = np.minimum(t0, t1).max(axis=1)
+        tf = np.maximum(t0, t1).min(axis=1)
+        entry_t = np.maximum(tn, t_min)
+        better = (tf >= entry_t) & (entry_t < best_e)
+        best_e[better] = entry_t[better]
+        best_c[better] = c
+    _, bl_rank = _block_linear_order(nx, ny)
+    order = np.lexsort((bl_rank, best_c)).astype(np.int32)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(n_pix, dtype=np.int32)
+    return _layout_from_order(order, inv, nx, ny, T, k)
 
 
 def device_inputs(scene: st.Scene, plan: MegaPlan, device,
@@ -1146,9 +1304,11 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device,
     and ranvec (256, 3) float32 are the Perlin tables; images is the
     scene's (n_img, Hmax, Wmax, 3) float32 texels, or one zero texel when
     the launch reads none. Tables are copied once per (scene, device),
-    layouts once per shape; a dense surfaces overdraw plan gets its own
-    copy of the layout per scene, whose pad row carries the tile order its
-    launches learn (`_longest_first`).
+    layouts once per shape (k lanes a pixel: `plan.k`); a dense surfaces
+    overdraw plan gets its own copy of the layout per scene, whose pad row
+    carries the tile order its launches learn (`_longest_first`). A
+    coherent plan of C > 1 clusters takes the scene's binned layout
+    (`_coherent_pixel_layout`), copied once per scene.
 
     With `rows`, the layout covers the `rows` image rows from row `row0`
     on (a row tile of a sharded launch, parallel/mesh.py; the plan keeps
@@ -1157,11 +1317,22 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device,
     scene, its j row offset by row0."""
     device = torch.device(device)
     tabs = _scene_memo(
-        _TABLE_CACHE, scene, ("device", plan.SB, str(device)),
-        lambda: table_tensors(build_tables_cached(scene, plan.SB), scene,
-                              plan, device))
+        _TABLE_CACHE, scene, ("device", plan.SB, plan.sg, str(device)),
+        lambda: table_tensors(build_tables_cached(scene, plan.SB, plan.sg),
+                              scene, plan, device))
     rows = plan.ny if rows is None else int(rows)
-    pixf, inv = _device_layout(plan.nx, rows, plan.T, str(device))
+    if plan.coherent and plan.C > 1:
+        if rows != plan.ny or row0:
+            raise ValueError("the coherent layout bins the whole image: a "
+                             "row tile takes the block-linear one")
+        meta = build_tables_cached(scene, plan.SB, plan.sg)[-1]
+        pixf, inv = _scene_memo(
+            _TABLE_CACHE, scene, ("coherent", plan.nx, plan.ny, plan.T,
+                                  plan.k, plan.SB, plan.sg, str(device)),
+            lambda: _to_device(_coherent_pixel_layout(
+                scene, meta, plan.nx, plan.ny, plan.T, plan.k), device))
+        return (pixf, *tabs), inv
+    pixf, inv = _device_layout(plan.nx, rows, plan.T, str(device), plan.k)
     if row0 or _orders_tiles(plan):
         def own_copy():
             tile = pixf.clone()
@@ -1170,8 +1341,24 @@ def device_inputs(scene: st.Scene, plan: MegaPlan, device,
 
         pixf = _scene_memo(_TABLE_CACHE, scene,
                            ("tile order", plan.nx, rows, row0, plan.T,
-                            str(device)), own_copy)
+                            plan.k, str(device)), own_copy)
     return (pixf, *tabs), inv
+
+
+def dense_over(plan: MegaPlan, args: tuple) -> tuple:
+    """The dense plan and launch arguments over a culled plan's slot table
+    (`device_inputs`' args, the cluster rows cut to the C clusters'): what
+    a culled launch, in any culling mode, must equal on its image and
+    sample counts. Raises ValueError where the dense sweep's staged slots
+    do not fit a block."""
+    dense = dataclasses.replace(plan, cull=False, sg=0, Cg=0,
+                                batch_votes=False, dyn_order=0, feat=0)
+    if dense.surfaces:
+        dense = dataclasses.replace(dense, feat=surface_form(dense))
+    if shared_bytes(dense) > SHARED_MAX:
+        raise ValueError(f"the dense sweep over S={plan.S} slots does not "
+                         "fit a block's shared memory")
+    return dense, (*args[:4], args[4][:plan.C], *args[5:])
 
 
 def _orders_tiles(plan: MegaPlan) -> bool:
@@ -1464,7 +1651,8 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             best = torch.minimum(best, blk_min)
         return best, bidx
 
-    boxes = clus_tab[:, K_MINX:K_MAXZ + 1].t()          # (6, C)
+    boxes = clus_tab[:plan.C, K_MINX:K_MAXZ + 1].t()    # (6, C)
+    uboxes = clus_tab[plan.C:, K_MINX:K_MAXZ + 1].t()   # (6, Cg) unions
     t_min_t = torch.tensor(t_min, dtype=ft, device=dev)
     # the slot columns the culled sweep gathers
     cull_lanes = [C_CX, C_CY, C_CZ, C_NR2]
@@ -1497,15 +1685,21 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
         active lane reaches); re-vote each against the lanes' running
         best: a lane needs it when it is active and its ray enters the box
         before its best, the warp visits it when one lane needs it, and
-        sweeps it for the needing lanes. Returns (best_t, winner slot,
-        swept-block increments per lane (every lane of a visiting warp),
-        needed-block increments per lane)."""
+        sweeps it for the needing lanes. With batched votes a lane needs
+        a cluster when it is active and its ray enters the box at all
+        (the vote against t_min, no running best). With super-groups of
+        sg clusters, ahead of each group the warp votes the group's union
+        box against the running best, as a cluster's, and visits none of
+        the group's clusters when no lane needs the union (the vote adds
+        no block). Returns (best_t, winner slot, swept-block increments
+        per lane (every lane of a visiting warp), needed-block increments
+        per lane)."""
         n = ox.numel()
         best = torch.full((n,), BIG, dtype=ft, device=dev)
         bidx = torch.full((n,), S, dtype=torch.int64, device=dev)
         blocks = torch.zeros((n,), dtype=ft, device=dev)
         needed = torch.zeros((n,), dtype=ft, device=dev)
-        C, SB, NB = plan.C, plan.SB, plan.dyn_order
+        C, SB, NB, sg = plan.C, plan.SB, plan.dyn_order, plan.sg
         # whole warps per chunk, so the (C or SB, lanes) blocks stay small
         step = 32 * max(1, _CULL_ELEMS // (32 * max(C, SB)))
         j_slot = torch.arange(SB, device=dev)[:, None]
@@ -1537,12 +1731,22 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
             bi_ = bidx[sl]
             bl_ = blocks[sl]
             nd_ = needed[sl]
+            if sg:
+                ulo, uhi = slab(uboxes[:, :, None], o, inv_d)   # (Cg, m)
             for r in range(int(n_vis.max()) if W else 0):
+                if sg and r % sg == 0:     # ascending order: cl == r
+                    g = r // sg
+                    gate = ((ulo[g] <= uhi[g]) & (ulo[g] * _SHRINK < b_)
+                            & act).view(W, 32).any(1).repeat_interleave(32)
                 cl = order[r].repeat_interleave(32)           # (m,)
                 lo_l = tlo.gather(0, cl[None])[0]
                 hi_l = thi.gather(0, cl[None])[0]
-                need = ((lo_l <= hi_l) & (lo_l * _SHRINK < b_) & act
+                need = ((lo_l <= hi_l) & act
                         & (r < n_vis).repeat_interleave(32))
+                if not plan.batch_votes:
+                    need &= lo_l * _SHRINK < b_
+                if sg:
+                    need &= gate
                 nk = need.view(W, 32).sum(1)                  # (W,)
                 if need_hist is not None:
                     need_hist.add_(torch.bincount(nk[nk > 0], minlength=33))
@@ -2198,8 +2402,10 @@ def trace_mega_reference(pixf: torch.Tensor, cam_vec: torch.Tensor,
                 raise RuntimeError("exact-spp run exceeded spp * max_depth "
                                    "iterations")
             out[run, OUT_ROWS + it, :] = wcode.view(n_run, T)
-        running[run] = (done.view(n_run, T) < spp).any(dim=1)
         it += 1
+        # an overdraw tile checks its lanes every plan.unroll iterations
+        if it % plan.unroll == 0:
+            running[run] = (done.view(n_run, T) < spp).any(dim=1)
 
     # row 6: swept (cluster, lane) blocks, a dense sweep one a
     # lane-iteration; row 7: needed ones, 0 when dense
@@ -2247,7 +2453,7 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
               "cam_vec": (cam_vec, f32, (1, 128)),
               "sph_tab": (sph_tab, f32, (S, SPH_LANES)),
               "attr_tab": (attr_tab, f32, (A_ROWS, S)),
-              "clus_tab": (clus_tab, f32, (plan.C, CLUS_LANES)),
+              "clus_tab": (clus_tab, f32, (plan.C + plan.Cg, CLUS_LANES)),
               "rect_tab": (rect_tab, f32, (max(plan.R, 1), RECT_LANES)),
               "light_tab": (light_tab, f32, (max(plan.L, 1), LIGHT_LANES)),
               "med_tab": (med_tab, f32, (max(plan.V, 1), MED_LANES)),
@@ -2305,7 +2511,8 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
             plan.feat, int(plan.has_spheres), int(plan.textures),
             int(plan.cull),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
-            plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream)
+            plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream,
+            plan.unroll, plan.sg, int(plan.batch_votes))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
@@ -2411,14 +2618,20 @@ def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
                T: Optional[int] = None, exact: bool = False,
                device="cuda", SB: Optional[int] = None,
                cull: Optional[bool] = None,
-               dyn_order: Optional[int] = None) -> MegaResult:
+               dyn_order: Optional[int] = None, slots_per_pixel: int = 1,
+               coherent: Optional[bool] = None, super_group: int = 0,
+               batch_votes: Optional[bool] = None,
+               unroll: Optional[int] = None) -> MegaResult:
     """Render one launch of `spp` samples per pixel through the megakernel
     on `device`. `seed` is the launch's int32 RNG seed (the JAX package
     draws it from its key; pass that value to reproduce its streams).
-    SB, cull and dyn_order are `make_plan`'s."""
+    The other keywords are `make_plan`'s."""
     _, plan = make_plan(scene, nx, ny, spp, max_depth=max_depth,
                         rr_depth=rr_depth, T=T, exact=exact, SB=SB,
-                        cull=cull, dyn_order=dyn_order)
+                        cull=cull, dyn_order=dyn_order,
+                        slots_per_pixel=slots_per_pixel, coherent=coherent,
+                        super_group=super_group, batch_votes=batch_votes,
+                        unroll=unroll)
     args, inv = device_inputs(scene, plan, device)
     out = _mega_call(*args, seed, plan)
     return _epilogue(out, inv, plan)
@@ -2426,13 +2639,19 @@ def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
 
 def _epilogue(out: torch.Tensor, inv: torch.Tensor,
               plan: MegaPlan) -> MegaResult:
-    """Overdraw renormalisation and the inverse pixel permutation."""
+    """Overdraw renormalisation and the inverse pixel permutation: a
+    pixel's sums and sample counts are those of its k lanes."""
     n_tiles, _, T = out.shape
-    sums = out[:, 0:3, :].transpose(1, 2)                  # (n_tiles, T, 3)
+    Tp = T // plan.k
+    sums = out[:, 0:3, :].transpose(1, 2)                # (n_tiles, T, 3)
+    dones = out[:, 5, :]
+    if plan.k > 1:
+        sums = sums.reshape(n_tiles, plan.k, Tp, 3).sum(1)
+        dones = dones.reshape(n_tiles, plan.k, Tp).sum(1)
     # lanes oversample their pixel while the tile drains: rescale each
     # pixel's sum to exactly spp samples by its true count
-    scale = plan.spp / torch.clamp_min(out[:, 5, :], 1.0)
-    blocked = (sums * scale[..., None]).reshape(n_tiles * T, 3)
+    scale = plan.spp * plan.k / torch.clamp_min(dones, 1.0)
+    blocked = (sums * scale[..., None]).reshape(n_tiles * Tp, 3)
     image = blocked[inv].reshape(plan.ny, plan.nx, 3)
     tape = out[:, OUT_ROWS:, :] if plan.exact else None
     # a dense launch's row 6 counts one sweep of all C clusters, every
@@ -2453,7 +2672,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     #             image sizes, C, SB, order
                                     + [i] * 9   # mode flags
                                     + [f] * 6   # floats
-                                    + [p])      # stream
+                                    + [p]       # stream
+                                    + [i] * 3)  # unroll, super-groups,
+    #                                             batched votes
     lib.rtw_mega_launch.restype = ctypes.c_int
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     lib.rtw_error_string.restype = ctypes.c_char_p

@@ -4,8 +4,10 @@ kernel A/B, the gradient path's timing tools (grad_bench,
 inverse_render_bench), the mesh path's scaling report, the golden checks
 (golden_report, mega_golden_check), the culled-path A/B (dyn_ab_check),
 the launch-plan timers (mega_perf, cull_sweep, bench_all), the
-closest-hit timer (bvh_bench) and the sampling gallery, each with its
-CLI (`python -m raytracingweekend_tpu_torch.tools.<name>`)."""
+pixel-layout A/B (coherence_sweep), the closest-hit timer (bvh_bench),
+the sampling gallery and the oracle texture's exporter
+(export_texture_raw), each with its CLI (`python -m
+raytracingweekend_tpu_torch.tools.<name>`)."""
 from __future__ import annotations
 
 import os

@@ -8,23 +8,32 @@ segments over the summed host seconds.
 
     python -m raytracingweekend_tpu_torch.tools.mega_perf
         [--scene cornell_box --nx 400 --ny 400 --spp 256 --max-depth 50]
-        [--launches 2] [--T 0] [--SB 0] [--cull -1] [--dord -1] [--stats]
+        [--launches 2] [--T 0] [--SB 0] [--cull -1] [--dord -1]
+        [--bv -1] [--sg 0] [--unroll 0] [--k 1] [--coherent 0] [--stats]
         [--device cuda|cpu]
 
-`--T`, `--SB`, `--cull` and `--dord` are make_plan's (0 / -1 = auto).
-`--stats` adds, from the launches' own counters (read after the timed
-window): util = segments / lane iterations, the warp survival
-blocks / (lane iterations x C) and the per-lane survival
-lane_need / (lane iterations x C) (1 and 1 on a dense plan). The JAX
-tool's `--chunks`, `--idx`, `--eb`, `--fe`, `--bv`, `--sg`, `--dyn` and
-`--unroll` are TPU plan knobs (vote chunks, index extraction and its
-block, fused extraction, batched votes, super-groups, the survivor-list
-switch, the bounce unroll) with no counterpart in the port's kernels.
+`--T`, `--SB`, `--cull` and `--dord` are make_plan's (0 / -1 = auto), and
+so are the layout and culling modes: `--bv` batched votes (1 / 0, -1 =
+auto: off), `--sg` clusters a super-group of the two-level vote (0 =
+off), `--unroll` bounce iterations between a tile's checks (0 = auto:
+1), `--k` lanes a pixel (slots_per_pixel) and `--coherent` 1 for the
+cluster-binned pixel layout. `--stats` adds, from the launches' own
+counters (read after the timed window): util = segments / lane
+iterations, the warp survival blocks / (lane iterations x C) and the
+per-lane survival lane_need / (lane iterations x C) (1 and 1 on a dense
+plan). The JAX tool's `--chunks` (vote chunks of at least 128 lanes:
+the port's votes are a warp's 32 lanes, finer than any chunk), `--idx`,
+`--eb` and `--fe` (one-hot extraction on the TPU's matrix unit: the port
+gathers the winner's attributes) and `--dyn` (the survivor-list sweep,
+which differs from the interleaved votes only in the visit order that
+`--dord` sets) are TPU plan knobs with no counterpart in the port's
+kernels.
 
 It prints one line and one JSON row (the last line: the JAX tool's fields,
-the plan's T, SB, C, cull and dyn_order, and the card's name and power
-limit under "device"). On the CPU (`--device cpu`, the plain version)
-keep the shape tiny.
+the plan's T, SB, C, cull and dyn_order, the modes that are on (k,
+coherent, sg, batch_votes, unroll), and the card's name and power limit
+under "device"). On the CPU (`--device cpu`, the plain version) keep the
+shape tiny.
 """
 from __future__ import annotations
 
@@ -38,11 +47,33 @@ from ..ops import megakernel as mk
 from ..render import launch_seed
 
 
-def plan_kw(T: int = 0, SB: int = 0, cull: int = -1, dord: int = -1) -> dict:
-    """make_plan's keywords from the CLI's integers (0 / -1 = auto)."""
-    return dict(T=T or None, SB=SB or None,
-                cull=None if cull < 0 else bool(cull),
-                dyn_order=None if dord < 0 else dord)
+def plan_kw(T: int = 0, SB: int = 0, cull: int = -1, dord: int = -1,
+            bv: int = -1, sg: int = 0, unroll: int = 0, k: int = 1,
+            coherent: int = 0) -> dict:
+    """make_plan's keywords from the CLI's integers (0 / -1 = auto); the
+    modes only where one is asked for."""
+    kw = dict(T=T or None, SB=SB or None,
+              cull=None if cull < 0 else bool(cull),
+              dyn_order=None if dord < 0 else dord)
+    for key, val, off in (("batch_votes", None if bv < 0 else bool(bv),
+                           None), ("super_group", sg, 0),
+                          ("unroll", unroll or None, None),
+                          ("slots_per_pixel", k, 1),
+                          ("coherent", bool(coherent), False)):
+        if val != off:
+            kw[key] = val
+    return kw
+
+
+# the plan's layout and culling modes and their defaults
+MODES = (("k", 1), ("coherent", False), ("sg", 0), ("batch_votes", False),
+         ("unroll", 1))
+
+
+def plan_modes(plan) -> dict:
+    """The plan's modes that are not at their default."""
+    return {key: getattr(plan, key) for key, off in MODES
+            if getattr(plan, key) != off}
 
 
 def launch_series(scene, nx: int, ny: int, spp: int, max_depth: int,
@@ -82,7 +113,7 @@ def rates(series: dict) -> dict:
     total, dt = sum(series["segments"]), sum(series["seconds"])
     iters = max(series["lane_iters"], 1.0)
     return dict(T=plan.T, SB=plan.SB, C=plan.C, cull=plan.cull,
-                dyn_order=plan.dyn_order, segments=total,
+                dyn_order=plan.dyn_order, **plan_modes(plan), segments=total,
                 m_seg_per_s=total / dt / 1e6, util=total / iters,
                 cull_survival=series["blocks"] / (iters * plan.C),
                 lane_survival=series["lane_need"] / (iters * plan.C))
@@ -104,8 +135,9 @@ def run(scene_name: str, nx: int, ny: int, spp: int, max_depth: int,
     row["device"] = card
     extra = (f" util={r['util']:.3f} cull_survival={r['cull_survival']:.3f}"
              f" lane_survival={r['lane_survival']:.3f}" if stats else "")
+    modes = "".join(f" {key}={int(r[key])}" for key, _ in MODES if key in r)
     print(f"{scene_name} {nx}x{ny}@{spp}spp T={r['T']} SB={r['SB']} "
-          f"C={r['C']} cull={int(r['cull'])} dord={r['dyn_order']}: "
+          f"C={r['C']} cull={int(r['cull'])} dord={r['dyn_order']}{modes}: "
           f"{r['segments'] / 1e6:.1f}M segments in {row['seconds']:.3f}s = "
           f"{r['m_seg_per_s']:.1f} M segments/s{extra}", flush=True)
     return row
@@ -127,12 +159,26 @@ def main(argv=None) -> int:
     ap.add_argument("--dord", type=int, default=-1,
                     help="near-to-far visit order buckets (0 = ascending "
                          "cluster id, -1 = auto)")
+    ap.add_argument("--bv", type=int, default=-1,
+                    help="1 / 0: batched cluster votes (-1 = auto: off)")
+    ap.add_argument("--sg", type=int, default=0,
+                    help="clusters a super-group of the two-level vote "
+                         "(0 = off)")
+    ap.add_argument("--unroll", type=int, default=0,
+                    help="bounce iterations between a tile's checks "
+                         "(0 = auto: 1)")
+    ap.add_argument("--k", type=int, default=1,
+                    help="lanes a pixel (slots_per_pixel)")
+    ap.add_argument("--coherent", type=int, default=0,
+                    help="1: the cluster-binned pixel layout")
     ap.add_argument("--stats", action="store_true",
                     help="also report utilisation and survival")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     row = run(args.scene, args.nx, args.ny, args.spp, args.max_depth,
-              args.launches, plan_kw(args.T, args.SB, args.cull, args.dord),
+              args.launches, plan_kw(args.T, args.SB, args.cull, args.dord,
+                                     args.bv, args.sg, args.unroll, args.k,
+                                     args.coherent),
               args.stats, args.device)
     print(json.dumps(row), flush=True)
     return 0

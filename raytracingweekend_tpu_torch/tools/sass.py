@@ -21,7 +21,9 @@ def kernel_name(mangled: str):
     'culled<kMoving,kUniformTime>' or
     'culled_surfaces<kMoving,kUniformTime,kTex>' of a mangled mega_kernel /
     mega_kernel_surfaces / mega_kernel_culled / mega_kernel_culled_surfaces
-    instantiation (kAxes: the dense slot loop's moving-axis mask,
+    instantiation ('culled_modes<..>' / 'culled_surfaces_modes<..>' of the
+    culled kernels' plan-mode instantiations; kAxes: the dense slot loop's
+    moving-axis mask,
     mk.sweep_axes; kFeat: the surfaces form's features, mk.F_*; a build
     before the forms names kTex there), 'twin<kExt>' of the sweep twin's
     (K8), 'k9<body,unit>' of the microbenchmark's (K9),
@@ -41,7 +43,8 @@ def kernel_name(mangled: str):
     if k7:
         return f"k7<{k7.group(1)},{k7.group(2)}>"
     m = re.search(
-        r"mega_kernel(_surfaces|_culled_surfaces|_culled)?I((?:L[ib]\d+E)+)E",
+        r"mega_kernel(_surfaces|_culled_surfaces_modes|_culled_surfaces"
+        r"|_culled_modes|_culled)?I((?:L[ib]\d+E)+)E",
         mangled)
     if not m:
         return None

@@ -5,6 +5,7 @@ culled (K5 / K5s) kernels, K7 and K9 on the card only, so here it is held
 to its builds, its cells, its split's parts and grid tail, the loop
 counts of tools/sass.py (K7's slot loop, the surfaces kernels' rect and
 light loops) and its refusal without a card."""
+import ctypes
 from pathlib import Path
 
 import pytest
@@ -66,10 +67,14 @@ SURFACES = r"""
 
 def test_variant_defines():
     """The instrumented build is megakernel.cu and sweep_twin.cu alone
-    with -DRTW_SPLIT; the kernels' build is every source with no
+    with -DRTW_SPLIT, and RTW_MEASURE, which leaves the plan modes out
+    of megakernel.cu; the kernels' build is every source with no
     define."""
     assert culled_ab.SPLIT == ("RTW_SPLIT",)
     assert "-DRTW_SPLIT" in _build._flags(culled_ab.SPLIT)
+    assert "-DRTW_MEASURE" in _build._flags(culled_ab.SPLIT)
+    src = (_build.CSRC / "megakernel.cu").read_text()
+    assert "#ifdef RTW_MEASURE\nconstexpr bool kPlanModes = false;" in src
     assert not any(f.startswith("-D") for f in _build._flags(()))
     assert _build._sources((), _build.CSRC) == sorted(
         _build.CSRC.glob("*.cu"))
@@ -154,7 +159,8 @@ def test_repro_ops_counts_k12_opcodes():
 
 def test_bind_binds_every_kernel():
     """A build is bound to every interface the tool calls: the
-    megakernel's launch (46 arguments), K7's (19), K8's and K9's."""
+    megakernel's launch (46 arguments up to the stream, then the three
+    plan modes), K7's (19), K8's and K9's."""
     from types import SimpleNamespace
 
     class Lib:
@@ -165,7 +171,8 @@ def test_bind_binds_every_kernel():
             return getattr(self, name)
 
     lib = culled_ab.bind(Lib())
-    assert len(lib.rtw_mega_launch.argtypes) == 46
+    assert len(lib.rtw_mega_launch.argtypes) == 49
+    assert lib.rtw_mega_launch.argtypes[45] is ctypes.c_void_p   # stream
     assert len(lib.rtw_hit_spheres_launch.argtypes) == 19
     assert lib.rtw_sweep_twin_launch.argtypes
     assert lib.rtw_microbench_launch.argtypes

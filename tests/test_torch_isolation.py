@@ -35,8 +35,9 @@ def test_port_module_list_is_complete():
                      "parallel.emulate", "parallel.mesh",
                      "parallel.scaling", "render", "tools",
                      "tools.bench_all", "tools.bvh_bench",
-                     "tools.cull_sweep", "tools.culled_ab",
-                     "tools.dot_microbench", "tools.dyn_ab_check",
+                     "tools.coherence_sweep", "tools.cull_sweep",
+                     "tools.culled_ab", "tools.dot_microbench",
+                     "tools.dyn_ab_check", "tools.export_texture_raw",
                      "tools.golden_report", "tools.grad_bench",
                      "tools.inverse_render_bench", "tools.mega_golden_check",
                      "tools.mega_perf", "tools.sampling_gallery",

@@ -1471,3 +1471,87 @@ def test_dryrun_multichip_on_gloo_ranks_on_card():
                for r in res)
     with pytest.raises(ValueError, match="one card a rank"):
         dryrun_multichip(torch.cuda.device_count() + 1)
+
+
+# the megakernel's plan modes on the card: each kernel's scene (K1
+# random_balls, K2+K3 cornell_box, K4 two_perlin_spheres, K5
+# random_balls_large(n=30), K5s large_mixed(n=30); SB 128, C = 8 culled)
+# and the modes it takes: k lanes a pixel and the bounce unroll on every
+# kernel, super-groups and batched votes, alone and together, on the
+# culled ones
+MODE_SCENES = {"K1": "random_balls", "K2+K3": "cornell_box",
+               "K4": "two_perlin_spheres", "K5": "random_balls_large",
+               "K5s": "large_mixed"}
+PLAN_MODES = {"k2": dict(slots_per_pixel=2), "unroll4": dict(unroll=4),
+              "sg4": dict(super_group=4), "bv": dict(batch_votes=True),
+              "sg4_bv": dict(super_group=4, batch_votes=True)}
+CULL_ONLY = ("sg4", "bv", "sg4_bv")
+
+
+def _mode_case(kernel, mode):
+    if kernel == "K5s":
+        scene = _mixed(n=30)
+    elif kernel == "K5":
+        scene = make_scene("random_balls_large", 1.0, n=30)
+    else:
+        scene = make_scene(MODE_SCENES[kernel], 1.0)
+    kw = dict(PLAN_MODES[mode], max_depth=8, T=256)
+    if kernel in ("K5", "K5s"):
+        kw.update(SB=128, dyn_order=0)
+    _, plan = tk.make_plan(scene, 64, 64, 4, **kw)
+    args, _ = tk.device_inputs(scene, plan, "cuda")
+    return plan, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,mode", [
+    (kernel, mode) for kernel in MODE_SCENES for mode in PLAN_MODES
+    if kernel in ("K5", "K5s") or mode not in CULL_ONLY])
+def test_plan_modes_match_plain_version_on_card(kernel, mode):
+    """Each kernel in each plan mode it takes against its plain version on
+    the same tensors: every output row lane by lane on >= 99% of the valid
+    lanes (the culled kernels' swept and needed blocks included), the
+    radiance within RTOL / ATOL there, and the launch counted under its
+    kernel. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    culled = kernel in ("K5", "K5s")
+    plan, args = _mode_case(kernel, mode)
+    assert plan.cull == culled and (plan.C == 8) == culled
+    assert (plan.k, plan.unroll, plan.sg, plan.batch_votes) == (
+        2 if mode == "k2" else 1, 4 if mode == "unroll4" else 1,
+        4 if mode.startswith("sg") else 0, mode in ("bv", "sg4_bv"))
+    valid = args[0][:, 2] > 0
+    before = dict(tk.KERNEL_LAUNCHES)
+    out_k = tk.mega_kernel(*args, 31337, plan)
+    assert tk.KERNEL_LAUNCHES[kernel] == before[kernel] + 1
+    out_r = tk.trace_mega_reference(*args, 31337, plan)
+    torch.cuda.synchronize()
+    rows = slice(0, 8) if culled else slice(0, 6)
+    same = (out_k[:, rows] == out_r[:, rows]).all(dim=1) & valid
+    close = torch.isclose(out_k[:, :6], out_r[:, :6], rtol=RTOL,
+                          atol=ATOL).all(dim=1) & valid
+    assert (same if culled else close).sum().item() \
+        >= 0.99 * valid.sum().item()
+    if plan.unroll > 1:
+        assert bool((out_k[:, 4, 0] % plan.unroll == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", CULL_ONLY)
+@pytest.mark.parametrize("kernel", ["K5", "K5s"])
+def test_culling_modes_equal_dense_kernel_on_card(kernel, mode):
+    """Super-groups and batched votes, alone and together, skip only
+    clusters that cannot hold the winner: the culled kernel's image,
+    segments, lane iterations and sample counts equal the dense kernel's
+    over the same slot table bit for bit. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    plan, args = _mode_case(kernel, mode)
+    dense, dargs = tk.dense_over(plan, args)
+    out_c = tk.mega_kernel(*args, 31337, plan)
+    out_d = tk.mega_kernel(*dargs, 31337, dense)
+    torch.cuda.synchronize()
+    assert torch.equal(out_c[:, :6], out_d[:, :6])
+    blocks, iters = out_c[:, 6].sum().item(), out_c[:, 4].sum().item()
+    assert 0 < blocks < iters * plan.C
