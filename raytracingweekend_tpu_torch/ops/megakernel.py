@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..models import scene_types as st
+from ..utils import spans
 from . import _build
 from . import noise as _noise
 from .integrator import _block_linear_order
@@ -163,6 +164,33 @@ SURFACE_FORMS = tuple(
 # cluster-culled sphere kernel; "K5s" the cluster-culled kernel of scenes
 # with rects, lights, media or textures.
 KERNEL_LAUNCHES = {"K1": 0, "K2+K3": 0, "K4": 0, "K5": 0, "K5s": 0}
+# Overdraw of the launches whose epilogue ran while a profiler recorded
+# (utils/spans.py): "asked", the samples the launches' lanes were asked for
+# (plan.spp a lane, on the host), and "done", by device, the samples they
+# completed (row 5 summed in float64, on that device; never read a launch).
+# A pad lane reports its spp at once, so it adds as much to both.
+OVERDRAW = {"asked": 0, "done": {}}
+
+
+def take_overdraw() -> tuple:
+    """(samples completed, samples asked for) by the launches counted in
+    OVERDRAW since the last call, as floats (one read a device); the
+    counts then start again from 0."""
+    done = sum(float(t) for t in OVERDRAW["done"].values())
+    asked = float(OVERDRAW["asked"])
+    OVERDRAW["asked"], OVERDRAW["done"] = 0, {}
+    return done, asked
+
+
+def _count_overdraw(out: torch.Tensor, plan) -> None:
+    n_tiles, _, T = out.shape
+    OVERDRAW["asked"] += n_tiles * T * plan.spp
+    done = out[:, 5, :].sum(dtype=torch.float64)
+    key = str(out.device)
+    if key in OVERDRAW["done"]:
+        OVERDRAW["done"][key] += done
+    else:
+        OVERDRAW["done"][key] = done
 
 
 # ---------------------------------------------------------------------------
@@ -861,9 +889,11 @@ def _scene_memo(cache: dict, scene, sub_key, build):
     if entry is not None and entry[0]() is scene:
         per = entry[1]
         if sub_key not in per:
-            per[sub_key] = build()
+            with spans.span("plan.tables"):
+                per[sub_key] = build()
         return per[sub_key]
-    val = build()
+    with spans.span("plan.tables"):
+        val = build()
     ref = weakref.ref(scene, lambda _: cache.pop(key, None))
     cache[key] = (ref, {sub_key: val})
     return val
@@ -1221,8 +1251,9 @@ def _layout_from_order(order, inv, nx: int, ny: int, T: int, k: int = 1):
 def _pixel_layout(nx: int, ny: int, T: int, k: int = 1):
     """Block-linear pixel order split into tiles (see _layout_from_order).
     Callers must not modify the returned arrays (they are cached)."""
-    order, inv = _block_linear_order(nx, ny)
-    return _layout_from_order(order, inv, nx, ny, T, k)
+    with spans.span("plan.tables"):
+        order, inv = _block_linear_order(nx, ny)
+        return _layout_from_order(order, inv, nx, ny, T, k)
 
 
 def _to_device(layout, device: str) -> tuple:
@@ -1238,7 +1269,8 @@ def _device_layout(nx: int, ny: int, T: int, device: str, k: int = 1):
 
 @functools.lru_cache(maxsize=8)
 def _device_layout_of(nx: int, ny: int, T: int, k: int, device: str):
-    return _to_device(_pixel_layout(nx, ny, T, k), device)
+    with spans.span("plan.tables"):
+        return _to_device(_pixel_layout(nx, ny, T, k), device)
 
 
 _ORDER_CACHE: dict = {}
@@ -2444,59 +2476,62 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
     passed through `bind` (tools/culled_ab.py), replaces the kernels'
     own. Raises on a CPU tensor, a wrong shape or dtype, a failed build
     and a refused launch."""
-    seed = _check_seed(seed)
-    n_tiles, _, T = pixf.shape
-    S = plan.S
-    n_img = len(plan.img_hw)
-    f32, i32 = torch.float32, torch.int32
-    expect = {"pixf": (pixf, f32, (n_tiles, 4, plan.T)),
-              "cam_vec": (cam_vec, f32, (1, 128)),
-              "sph_tab": (sph_tab, f32, (S, SPH_LANES)),
-              "attr_tab": (attr_tab, f32, (A_ROWS, S)),
-              "clus_tab": (clus_tab, f32, (plan.C + plan.Cg, CLUS_LANES)),
-              "rect_tab": (rect_tab, f32, (max(plan.R, 1), RECT_LANES)),
-              "light_tab": (light_tab, f32, (max(plan.L, 1), LIGHT_LANES)),
-              "med_tab": (med_tab, f32, (max(plan.V, 1), MED_LANES)),
-              "perm": (perm, i32, (256,)),
-              "ranvec": (ranvec, f32, (256, 3)),
-              "images": (images, f32, (max(n_img, 1),) + (
-                  tuple(images.shape[1:]) if n_img else (1, 1, 3)))}
-    for name, (t, dtype, shape) in expect.items():
-        if not t.is_cuda:
-            raise ValueError(f"mega_kernel needs CUDA tensors; {name} is on "
-                             f"{t.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != pixf.device:
-            raise ValueError(f"{name} is on {t.device}, pixf on {pixf.device}")
-    img_h, img_w = images.shape[1:3]
-    if images.shape[3] != 3 or any(h > img_h or w > img_w
-                                   for h, w in plan.img_hw):
-        raise ValueError(f"images {tuple(images.shape)} do not hold the "
-                         f"plan's images {plan.img_hw}")
-    limit = CULLED_MAX_T if plan.cull else DENSE_MAX_T
-    if not plan.exact and T > limit:
-        raise ValueError(f"overdraw mode runs one tile per CUDA block of "
-                         f"at most {limit} lanes: T={T}")
-    if plan.cull and T % 32:
-        raise ValueError(f"the culled kernel needs T % 32 == 0, got T={T}")
-    lib = _kernel_lib() if lib is None else lib
-    pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab, perm, \
-        ranvec, images = (t.contiguous() for t in (
-            pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab,
-            perm, ranvec, images))
-    sph = _sweep_table(sph_tab, plan)
-    # the rect, light and medium codes, (height, width) per image, then
-    # the rect runs (`rect_runs`)
-    codes = _row_codes(plan.rect_codes + plan.light_codes + plan.med_codes
-                       + tuple(v for hw in plan.img_hw for v in hw)
-                       + rect_runs(plan.rect_codes), str(pixf.device))
-    out = torch.empty((n_tiles, OUT_ROWS + plan.n_iters, T),
-                      dtype=torch.float32, device=pixf.device)
-    with torch.cuda.device(pixf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rtw_mega_launch(
+    with spans.span("kernel.prepare"):
+        seed = _check_seed(seed)
+        n_tiles, _, T = pixf.shape
+        S = plan.S
+        n_img = len(plan.img_hw)
+        f32, i32 = torch.float32, torch.int32
+        expect = {
+            "pixf": (pixf, f32, (n_tiles, 4, plan.T)),
+            "cam_vec": (cam_vec, f32, (1, 128)),
+            "sph_tab": (sph_tab, f32, (S, SPH_LANES)),
+            "attr_tab": (attr_tab, f32, (A_ROWS, S)),
+            "clus_tab": (clus_tab, f32, (plan.C + plan.Cg, CLUS_LANES)),
+            "rect_tab": (rect_tab, f32, (max(plan.R, 1), RECT_LANES)),
+            "light_tab": (light_tab, f32, (max(plan.L, 1), LIGHT_LANES)),
+            "med_tab": (med_tab, f32, (max(plan.V, 1), MED_LANES)),
+            "perm": (perm, i32, (256,)),
+            "ranvec": (ranvec, f32, (256, 3)),
+            "images": (images, f32, (max(n_img, 1),) + (
+                tuple(images.shape[1:]) if n_img else (1, 1, 3)))}
+        for name, (t, dtype, shape) in expect.items():
+            if not t.is_cuda:
+                raise ValueError(f"mega_kernel needs CUDA tensors; {name} is "
+                                 f"on {t.device}")
+            if t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if t.device != pixf.device:
+                raise ValueError(f"{name} is on {t.device}, pixf on "
+                                 f"{pixf.device}")
+        img_h, img_w = images.shape[1:3]
+        if images.shape[3] != 3 or any(h > img_h or w > img_w
+                                       for h, w in plan.img_hw):
+            raise ValueError(f"images {tuple(images.shape)} do not hold the "
+                             f"plan's images {plan.img_hw}")
+        limit = CULLED_MAX_T if plan.cull else DENSE_MAX_T
+        if not plan.exact and T > limit:
+            raise ValueError(f"overdraw mode runs one tile per CUDA block of "
+                             f"at most {limit} lanes: T={T}")
+        if plan.cull and T % 32:
+            raise ValueError(f"the culled kernel needs T % 32 == 0, got T={T}")
+        lib = _kernel_lib() if lib is None else lib
+        pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab, med_tab, \
+            perm, ranvec, images = (t.contiguous() for t in (
+                pixf, cam_vec, attr_tab, clus_tab, rect_tab, light_tab,
+                med_tab, perm, ranvec, images))
+        sph = _sweep_table(sph_tab, plan)
+        # the rect, light and medium codes, (height, width) per image, then
+        # the rect runs (`rect_runs`)
+        codes = _row_codes(plan.rect_codes + plan.light_codes
+                           + plan.med_codes
+                           + tuple(v for hw in plan.img_hw for v in hw)
+                           + rect_runs(plan.rect_codes), str(pixf.device))
+        out = torch.empty((n_tiles, OUT_ROWS + plan.n_iters, T),
+                          dtype=torch.float32, device=pixf.device)
+        # the launch entry's arguments before the stream, and after it
+        head = (
             pixf.data_ptr(), cam_vec.data_ptr(), sph.data_ptr(),
             attr_tab.data_ptr(), clus_tab.data_ptr(), rect_tab.data_ptr(),
             light_tab.data_ptr(), med_tab.data_ptr(), codes.data_ptr(),
@@ -2511,13 +2546,18 @@ def mega_kernel(pixf: torch.Tensor, cam_vec: torch.Tensor,
             plan.feat, int(plan.has_spheres), int(plan.textures),
             int(plan.cull),
             _f32(1.0 / plan.nx), _f32(1.0 / plan.ny), plan.t_min, plan.ut_t0,
-            plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0, stream,
-            plan.unroll, plan.sg, int(plan.batch_votes))
+            plan.ut_idt, _f32(1.0 / plan.L) if plan.L else 0.0)
+        tail = (plan.unroll, plan.sg, int(plan.batch_votes))
+    with torch.cuda.device(pixf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        with spans.span("kernel.launch"):
+            rc = lib.rtw_mega_launch(*head, stream, *tail)
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc} "
                            f"({lib.rtw_error_string(rc).decode()})")
     if _orders_tiles(plan):
-        _longest_first(pixf, out)
+        with spans.span("epilogue.order"):
+            _longest_first(pixf, out)
     if plan.cull:
         KERNEL_LAUNCHES["K5s" if plan.surfaces else "K5"] += 1
         return out
@@ -2588,10 +2628,12 @@ def _row_codes(codes: tuple, device: str) -> torch.Tensor:
 
 def _mega_call(*args):
     """Dispatch one launch (the arguments of `mega_kernel`): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors (its run
+    the launch's `kernel.launch` span)."""
     if args[0].is_cuda:
         return mega_kernel(*args)
-    return trace_mega_reference(*args)
+    with spans.span("kernel.launch"):
+        return trace_mega_reference(*args)
 
 
 class MegaResult(NamedTuple):
@@ -2626,15 +2668,18 @@ def trace_mega(seed: int, scene: st.Scene, nx: int, ny: int, spp: int,
     on `device`. `seed` is the launch's int32 RNG seed (the JAX package
     draws it from its key; pass that value to reproduce its streams).
     The other keywords are `make_plan`'s."""
-    _, plan = make_plan(scene, nx, ny, spp, max_depth=max_depth,
-                        rr_depth=rr_depth, T=T, exact=exact, SB=SB,
-                        cull=cull, dyn_order=dyn_order,
-                        slots_per_pixel=slots_per_pixel, coherent=coherent,
-                        super_group=super_group, batch_votes=batch_votes,
-                        unroll=unroll)
-    args, inv = device_inputs(scene, plan, device)
+    with spans.span("plan.make"):
+        _, plan = make_plan(scene, nx, ny, spp, max_depth=max_depth,
+                            rr_depth=rr_depth, T=T, exact=exact, SB=SB,
+                            cull=cull, dyn_order=dyn_order,
+                            slots_per_pixel=slots_per_pixel,
+                            coherent=coherent, super_group=super_group,
+                            batch_votes=batch_votes, unroll=unroll)
+    with spans.span("plan.inputs"):
+        args, inv = device_inputs(scene, plan, device)
     out = _mega_call(*args, seed, plan)
-    return _epilogue(out, inv, plan)
+    with spans.span("epilogue.enqueue"):
+        return _epilogue(out, inv, plan)
 
 
 def _epilogue(out: torch.Tensor, inv: torch.Tensor,
@@ -2643,6 +2688,8 @@ def _epilogue(out: torch.Tensor, inv: torch.Tensor,
     pixel's sums and sample counts are those of its k lanes."""
     n_tiles, _, T = out.shape
     Tp = T // plan.k
+    if spans.recording():
+        _count_overdraw(out, plan)
     sums = out[:, 0:3, :].transpose(1, 2)                # (n_tiles, T, 3)
     dones = out[:, 5, :]
     if plan.k > 1:
@@ -2690,10 +2737,11 @@ def _kernel_lib() -> ctypes.CDLL:
     DENSE_FORMS, `slot_words` and DENSE_MAX_T (check_dense_consts), or
     its surfaces forms and their block limits not SURFACE_FORMS and
     DENSE_MAX_T (check_surface_forms)."""
-    lib = bind(_build.load())
-    check_culled_consts(lib)
-    check_dense_consts(lib)
-    check_surface_forms(lib)
+    with spans.span("kernel.library"):
+        lib = bind(_build.load())
+        check_culled_consts(lib)
+        check_dense_consts(lib)
+        check_surface_forms(lib)
     return lib
 
 

@@ -59,7 +59,7 @@ from .ops.integrator import (trace, trace_regenerative, trace_tiled,
                              trace_with_stats)
 from .ops.packing import device_scene
 from .utils import image as image_mod
-from .utils import prng
+from .utils import prng, spans
 from .utils.config import RenderConfig
 
 WAVEFRONT_MODES = ("regen", "tiled", "while", "scan")
@@ -233,85 +233,122 @@ def render(scene: st.Scene, cfg: RenderConfig, *, progress: bool = False,
     the render resumes at launch spp // samples_per_launch, so it draws
     the seeds an uninterrupted render draws and ends on the same bits.
     The result divides by the checkpoint's spp, as the JAX package's
-    does. Without a checkpoint nothing leaves the device a launch.
+    does. Without a checkpoint the image stays on the device until the
+    end; each launch reads its segment count (or, in the while and scan
+    modes without `stats`, one pixel) to the host, which waits for the
+    launch before the next one is enqueued.
+
+    While a torch.profiler session records, the image's host steps are
+    recorded as spans (utils/spans.py) under the root span `render`.
 
     Raises NotImplementedError for `mega` on a scene the megakernel does
     not cover, ValueError for a checkpoint of another size or one whose
     spp is not a whole number of launches short of cfg.spp."""
-    mode = resolve_mode(scene, cfg.loop_mode)
-    if mode == "mega":
-        reason = mk.unsupported_reason(scene)
-        if reason is not None:
-            raise NotImplementedError(f"scene {scene.name!r}: {reason}")
-    device = torch.device(cfg.device)
-    key = prng.key(cfg.seed)
-    chunk = min(cfg.samples_per_launch, cfg.spp)
-    want_stats = stats is not None
-    collect = stats if want_stats else RenderStats()
-    acc = torch.zeros((cfg.ny, cfg.nx, 3), dtype=torch.float32, device=device)
-    done = 0
-    if cfg.checkpoint and os.path.exists(cfg.checkpoint):
-        sums, done = native.load_checkpoint(cfg.checkpoint)
-        if sums.shape != (cfg.ny, cfg.nx, 3):
-            raise ValueError(
-                f"checkpoint is {sums.shape[1]}x{sums.shape[0]}, config "
-                f"wants {cfg.nx}x{cfg.ny}")
-        acc = torch.from_numpy(sums).to(device)
-    if done % chunk and done < cfg.spp:
-        raise ValueError(f"checkpoint spp {done} is not aligned with "
-                         f"samples_per_launch {chunk}")
-    launch = done // chunk
-    while done < cfg.spp:
-        this = min(chunk, cfg.spp - done)
-        t0 = time.perf_counter()
-        k_launch = prng.fold_in(key, launch)
-        segs = None
+    with spans.span("render", image=spans.new_image()):
+        return _render(scene, cfg, progress, stats, metrics_path)
+
+
+def _render(scene: st.Scene, cfg: RenderConfig, progress: bool,
+            stats: RenderStats | None, metrics_path: str | None):
+    """`render`'s body, inside its image's span."""
+    with spans.span("render.start"):
+        mode = resolve_mode(scene, cfg.loop_mode)
         if mode == "mega":
-            part, segs = render_chunk_mega(
-                scene, launch_seed(cfg.seed, launch), cfg.nx, cfg.ny, this,
-                cfg.max_depth, tile_lanes=cfg.tile_lanes, device=device)
-        elif mode in ("regen", "tiled"):
-            fn = render_chunk_regen if mode == "regen" else render_chunk_tiled
-            part, segs, iters = fn(scene, k_launch, cfg.nx, cfg.ny, this,
-                                   cfg.max_depth, device=device)
-            collect.iterations += iters
-        elif want_stats:
-            part, segs = render_chunk_with_stats(
-                scene, k_launch, cfg.nx, cfg.ny, this, cfg.max_depth,
-                device=device)
-        else:
-            part = render_chunk(scene, k_launch, cfg.nx, cfg.ny, this,
-                                cfg.max_depth, mode, device=device)
-        acc += part
-        if segs is not None:
-            collect.segments += float(segs)   # waits for the launch
-        else:
-            float(part[0, 0, 0])              # waits for the launch
-        launch_secs = time.perf_counter() - t0
-        collect.trace_seconds += launch_secs
-        if want_stats or metrics_path:
-            collect.update_variance(part / this)
-        done += this
-        launch += 1
-        collect.spp_done = done
-        if cfg.checkpoint:
-            native.save_checkpoint(cfg.checkpoint, acc.cpu().numpy(), done)
-        if metrics_path:
-            with open(metrics_path, "a") as mf:
-                mf.write(json.dumps({
-                    "launch": launch - 1, "spp_done": done,
-                    "launch_seconds": launch_secs,
-                    "segments": collect.segments,
-                    "rays_per_s": collect.rays_per_s,
-                    "pixel_variance": collect.pixel_variance,
-                    "mean_std_error": collect.mean_std_error,
-                    "device": str(device), "mode": mode,
-                }) + "\n")
-        if progress:
-            rate = (f", {collect.rays_per_s / 1e6:.1f} M rays/s"
-                    if want_stats else "")
-            print(f"  spp {done}/{cfg.spp}{rate}", flush=True)
-    return acc / max(done, 1)
+            reason = mk.unsupported_reason(scene)
+            if reason is not None:
+                raise NotImplementedError(f"scene {scene.name!r}: {reason}")
+        device = torch.device(cfg.device)
+        key = prng.key(cfg.seed)
+        chunk = min(cfg.samples_per_launch, cfg.spp)
+        want_stats = stats is not None
+        collect = stats if want_stats else RenderStats()
+        acc = torch.zeros((cfg.ny, cfg.nx, 3), dtype=torch.float32,
+                          device=device)
+        done = 0
+        if cfg.checkpoint and os.path.exists(cfg.checkpoint):
+            sums, done = native.load_checkpoint(cfg.checkpoint)
+            if sums.shape != (cfg.ny, cfg.nx, 3):
+                raise ValueError(
+                    f"checkpoint is {sums.shape[1]}x{sums.shape[0]}, config "
+                    f"wants {cfg.nx}x{cfg.ny}")
+            acc = torch.from_numpy(sums).to(device)
+        if done % chunk and done < cfg.spp:
+            raise ValueError(f"checkpoint spp {done} is not aligned with "
+                             f"samples_per_launch {chunk}")
+        launch = done // chunk
+    while done < cfg.spp:
+        with spans.span("loop.launch", launch=launch):
+            this = min(chunk, cfg.spp - done)
+            t0 = time.perf_counter()
+            with spans.span("loop.key"):
+                k_launch = prng.fold_in(key, launch)
+            segs = None
+            if mode == "mega":
+                with spans.span("loop.seed"):
+                    seed = launch_seed(cfg.seed, launch)
+                part, segs = render_chunk_mega(
+                    scene, seed, cfg.nx, cfg.ny, this, cfg.max_depth,
+                    tile_lanes=cfg.tile_lanes, device=device)
+            elif mode in ("regen", "tiled"):
+                fn = (render_chunk_regen if mode == "regen"
+                      else render_chunk_tiled)
+                part, segs, iters = fn(scene, k_launch, cfg.nx, cfg.ny, this,
+                                       cfg.max_depth, device=device)
+                collect.iterations += iters
+            elif want_stats:
+                part, segs = render_chunk_with_stats(
+                    scene, k_launch, cfg.nx, cfg.ny, this, cfg.max_depth,
+                    device=device)
+            else:
+                part = render_chunk(scene, k_launch, cfg.nx, cfg.ny, this,
+                                    cfg.max_depth, mode, device=device)
+            with spans.span("loop.accumulate"):
+                acc += part
+            with spans.span("loop.wait"):     # waits for the launch
+                if segs is not None:
+                    collect.segments += float(segs)
+                else:
+                    float(part[0, 0, 0])
+            launch_secs = time.perf_counter() - t0
+            collect.trace_seconds += launch_secs
+            if want_stats or metrics_path:
+                with spans.span("loop.stats"):
+                    collect.update_variance(part / this)
+            done += this
+            launch += 1
+            collect.spp_done = done
+            if cfg.checkpoint:
+                native.save_checkpoint(cfg.checkpoint, acc.cpu().numpy(),
+                                       done)
+            if metrics_path:
+                with open(metrics_path, "a") as mf:
+                    mf.write(json.dumps({
+                        "launch": launch - 1, "spp_done": done,
+                        "launch_seconds": launch_secs,
+                        "segments": collect.segments,
+                        "rays_per_s": collect.rays_per_s,
+                        "pixel_variance": collect.pixel_variance,
+                        "mean_std_error": collect.mean_std_error,
+                        "device": str(device), "mode": mode,
+                    }) + "\n")
+            if progress:
+                rate = (f", {collect.rays_per_s / 1e6:.1f} M rays/s"
+                        if want_stats else "")
+                print(f"  spp {done}/{cfg.spp}{rate}", flush=True)
+    with spans.span("render.finish"):
+        return acc / max(done, 1)
+
+
+def add_spans(path: str, recorded: list) -> None:
+    """Add `recorded` spans (utils/spans.py) to the Chrome trace that
+    torch.profiler exported to `path`, on a process row of their own,
+    aligned with the trace's events by its base time."""
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] += spans.chrome_events(
+        recorded, int(trace.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def debug_ray(scene: st.Scene, seed: int = 0, device="cuda"):
@@ -364,7 +401,8 @@ def main(argv=None):
                         "centre-pixel ray at depth 1 and print its radiance")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="record a torch.profiler trace of the render into "
-                        "DIR/trace.json (chrome trace format)")
+                        "DIR/trace.json (chrome trace format), with the "
+                        "render's host spans on a row of their own")
     args = p.parse_args(argv)
 
     cfg = RenderConfig(nx=args.nx, ny=args.ny, spp=args.spp,
@@ -390,7 +428,9 @@ def main(argv=None):
             canvas = render(scene, cfg, progress=True, stats=stats,
                             metrics_path=args.metrics)
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        path = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(path)
+        add_spans(path, spans.take())
     else:
         canvas = render(scene, cfg, progress=True, stats=stats,
                         metrics_path=args.metrics)

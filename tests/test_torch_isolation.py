@@ -52,6 +52,7 @@ def test_port_module_list_is_complete():
                      "tools.mosaic_repros.tile_32768",
                      "utils.config",
                      "utils.detrng", "utils.image", "utils.prng",
+                     "utils.spans",
                      "wavefront_profile"):
         assert f"{PKG}.{expected}" in mods, mods
 

@@ -1555,3 +1555,47 @@ def test_culling_modes_equal_dense_kernel_on_card(kernel, mode):
     assert torch.equal(out_c[:, :6], out_d[:, :6])
     blocks, iters = out_c[:, 6].sum().item(), out_c[:, 4].sum().item()
     assert 0 < blocks < iters * plan.C
+
+
+@pytest.mark.cuda
+def test_render_spans_and_launch_lag_on_card():
+    """On the card: a warm Cornell render under torch.profiler records the
+    wrapper's spans once a launch (kernel.prepare, kernel.launch,
+    epilogue.order) and no table build; each megakernel starts on the card
+    after its launch call began, on the profiler's clock; the overdraw
+    counter holds the launches' asked samples and at least as many
+    completed. Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracingweekend_tpu_torch import render as trender
+    from raytracingweekend_tpu_torch.utils import spans
+    from raytracingweekend_tpu_torch.utils.config import RenderConfig
+    scene = make_scene("cornell_box", 1.0)
+    cfg = RenderConfig(nx=64, ny=64, spp=8, max_depth=8, seed=3,
+                       samples_per_launch=4, loop_mode="mega",
+                       device="cuda")
+    trender.render(scene, cfg)
+    torch.cuda.synchronize()
+    spans.take()
+    tk.take_overdraw()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trender.render(scene, cfg)
+        torch.cuda.synchronize()
+    rec = spans.take()
+    names = [s.name for s in rec]
+    for name in ("kernel.prepare", "kernel.launch", "epilogue.order",
+                 "loop.seed", "plan.make", "loop.wait"):
+        assert names.count(name) == 2, (name, names)
+    assert "plan.tables" not in names and "kernel.library" not in names
+    calls = [s.start for s in rec if s.name == "kernel.launch"]
+    kern = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                  if "CUDA" in str(e.device_type())
+                  and "mega_kernel" in e.name())
+    assert len(kern) == 2
+    assert all(0 <= k - c < 10 ** 8 for c, k in zip(calls, kern)), \
+        (calls, kern)
+    done, asked = tk.take_overdraw()
+    assert asked == 2 * (64 * 64 // 256) * 256 * 4 and done >= asked
