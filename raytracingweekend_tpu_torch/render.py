@@ -81,12 +81,13 @@ def cli_scene(name: str, aspect: float) -> st.Scene:
 def launch_seed(seed: int, launch: int) -> int:
     """The int32 kernel seed of launch `launch` of a render seeded `seed`:
     `randint(fold_in(key(seed), launch), (1, 1), 0, 2**31 - 1)`, the value
-    the JAX package's `render` passes to the same launch. Only the seed is
-    JAX's: the pixels stay bitwise different while the port's `mega` tile
-    width (T = 256) differs from JAX's plan, because the RNG streams are
-    keyed by tile and lane."""
+    the JAX package's `render` passes to the same launch, computed in
+    scalar host arithmetic (`prng.randint_scalar`: Python ints, no torch
+    operator). Only the seed is JAX's: the pixels stay bitwise different
+    while the port's `mega` tile width (T = 256) differs from JAX's plan,
+    because the RNG streams are keyed by tile and lane."""
     k = prng.fold_in(prng.key(seed), launch)
-    return int(prng.randint(k, (1, 1), 0, 2 ** 31 - 1, device="cpu")[0, 0])
+    return prng.randint_scalar(k, 0, 2 ** 31 - 1)
 
 
 def _camera_rays(scene: st.Scene, key, nx: int, ny: int, chunk_spp: int,

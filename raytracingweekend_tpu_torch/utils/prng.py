@@ -8,9 +8,11 @@ index. This module computes the same numbers, so the port's wavefront and
 the JAX package's draw the same uniforms lane for lane from the same seed.
 
 A key is a pair of Python ints (two uint32 words): key derivation is
-scalar host work. `uniform` and `random_bits` hash one counter per element
-on a device, in int64 tensors masked to 32 bits (torch has no full uint32
-arithmetic).
+scalar host work. `uniform`, `random_bits` and `randint` hash one counter
+per element on a device, in int64 tensors masked to 32 bits (torch has no
+full uint32 arithmetic). `randint_scalar` is one `randint` draw in Python
+int arithmetic alone, with no torch operator: the megakernel's per-launch
+seed (`render.launch_seed`) is scalar host arithmetic.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -86,37 +89,52 @@ def uniform(k: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
     return torch.clamp_min(u, float(lo))
 
 
-def randint(k: Key, shape, minval: int, maxval: int,
-            device="cuda") -> torch.Tensor:
-    """`jax.random.randint(k, shape, minval, maxval, int32)`: two 32-bit
-    draws per element, from the two keys of `split(k)`, reduced onto the
-    span maxval - minval as JAX reduces them (uint32 arithmetic, wrapping):
-    ((hi % span) * (2^32 % span) + lo % span) % span, with 2^32 % span
-    taken as ((2^16 % span)^2 mod 2^32) % span (which wraps to 0 for a
-    span past 2^16, so there only the low draw counts). An empty range
-    returns minval; bounds are clipped to int32, and a maxval past the
-    int32 maximum widens the span by one (2^32 wraps to 0: the low draw
-    as it is)."""
-    shape = tuple(shape)
-    i32_min, i32_max = -(1 << 31), (1 << 31) - 1
-    out_of_range = maxval > i32_max
-    lo_v = min(max(int(minval), i32_min), i32_max)
-    hi_v = min(max(int(maxval), i32_min), i32_max)
+def _randint_reduce(higher, lower, minval: int, maxval: int):
+    """The uint32 bits of `randint`'s value from its two 32-bit draws
+    (Python ints, or int64 tensors holding uint32 values; returned alike),
+    reduced onto the span maxval - minval as JAX reduces them (uint32
+    arithmetic, wrapping): ((hi % span) * (2^32 % span) + lo % span) % span,
+    with 2^32 % span taken as ((2^16 % span)^2 mod 2^32) % span (which wraps
+    to 0 for a span past 2^16, so there only the low draw counts). An empty
+    range gives minval; bounds are clipped to int32, and a maxval past the
+    int32 maximum widens the span by one (2^32 wraps to 0: the low draw as
+    it is)."""
+    out_of_range = maxval > I32_MAX
+    lo_v = min(max(int(minval), I32_MIN), I32_MAX)
+    hi_v = min(max(int(maxval), I32_MIN), I32_MAX)
     span = (hi_v - lo_v) & MASK
     if hi_v <= lo_v:
         span = 1
     elif out_of_range:
         span = (span + 1) & MASK
-    k1, k2 = split(k)
-    higher = random_bits(k1, shape, device)
-    lower = random_bits(k2, shape, device)
     if span == 0:
         offset = lower
     else:
         mult = ((((1 << 16) % span) ** 2) & MASK) % span
         offset = (((higher % span) * mult) & MASK) + lower % span
         offset = (offset & MASK) % span
-    value = (lo_v + offset) & MASK
+    return (lo_v + offset) & MASK
+
+
+def randint(k: Key, shape, minval: int, maxval: int,
+            device="cuda") -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval, int32)`: two 32-bit
+    draws per element, from the two keys of `split(k)`, reduced as
+    `_randint_reduce` says."""
+    shape = tuple(shape)
+    k1, k2 = split(k)
+    value = _randint_reduce(random_bits(k1, shape, device),
+                            random_bits(k2, shape, device), minval, maxval)
     # the int32 whose bits are value
-    return torch.where(value > i32_max, value - (1 << 32),
+    return torch.where(value > I32_MAX, value - (1 << 32),
                        value).to(torch.int32)
+
+
+def randint_scalar(k: Key, minval: int, maxval: int) -> int:
+    """`randint(k, (1, 1), minval, maxval)[0, 0]` as a Python int, in int
+    arithmetic alone: each draw is the xor of the two words of the hash of
+    flat index 0 (what `random_bits` gives element 0)."""
+    (a1, a2), (b1, b2) = (threefry2x32(ki[0], ki[1], 0, 0)
+                          for ki in split(k))
+    value = _randint_reduce(a1 ^ a2, b1 ^ b2, minval, maxval)
+    return value - (1 << 32) if value > I32_MAX else value

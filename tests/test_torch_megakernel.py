@@ -213,11 +213,24 @@ def test_launch_seeds_are_deterministic_and_distinct():
     assert trender.launch_seed(8, 0) != seeds[0]
 
 
-@pytest.mark.parametrize("seed", [0, 7, 20240601])
-def test_launch_seed_is_jax_per_launch_seed(seed):
+LAUNCHES_PAST_2_16 = ((1 << 16), (1 << 16) + 1, (1 << 20) + 3, 2 ** 31 - 1,
+                      2 ** 32 - 1)
+
+
+@pytest.mark.parametrize("seed,launches", [
+    pytest.param(s, range(6), id=str(s))
+    for s in (0, 7, 20240601, -1, -(2 ** 31), 2 ** 31 - 1, 2 ** 32,
+              2 ** 32 + 5)
+] + [
+    pytest.param(s, LAUNCHES_PAST_2_16, id=f"{s}-past-2^16")
+    for s in (0, 20240601, 2 ** 32 + 5)
+])
+def test_launch_seed_is_jax_per_launch_seed(seed, launches):
     """Launch k of a render seeded `seed` gets the kernel seed JAX's render
-    passes it: randint(fold_in(key(seed), k), (1, 1), 0, 2**31 - 1)."""
-    for k in range(6):
+    passes it: randint(fold_in(key(seed), k), (1, 1), 0, 2**31 - 1). The
+    seeds cover the key's masking (negative, the int32 maximum, past
+    2^32), and launch indices past 2^16."""
+    for k in launches:
         jk = jax.random.fold_in(jax.random.key(seed), k)
         want = int(np.asarray(jax.random.randint(
             jk, (1, 1), 0, np.int32(2 ** 31 - 1), dtype=jnp.int32))[0, 0])

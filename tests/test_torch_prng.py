@@ -81,3 +81,21 @@ def test_randint_bitwise(lo, hi):
         j = np.asarray(jax.random.randint(k, shape, lo, hi, dtype=jnp.int32))
         t = prng.randint(_words(k), shape, lo, hi, device="cpu").numpy()
         assert t.dtype == np.int32 and np.array_equal(j, t), (s, j, t)
+
+
+@pytest.mark.parametrize("lo,hi", RANDINT_RANGES)
+def test_randint_scalar_bitwise(lo, hi):
+    """`randint_scalar` equals jax.random.randint(k, (1, 1), int32)[0, 0]
+    and the tensor `randint`'s single element, over 1,000 keys for each
+    range of `test_randint_bitwise`."""
+    seeds = jnp.arange(1000, dtype=jnp.int32)
+    keys = jax.vmap(lambda s: jax.random.fold_in(jax.random.key(s),
+                                                 7 * s + 1))(seeds)
+    draw = jax.vmap(lambda k: jax.random.randint(k, (1, 1), lo, hi,
+                                                 dtype=jnp.int32)[0, 0])
+    j = np.asarray(draw(keys))
+    for s, words in enumerate(np.asarray(jax.random.key_data(keys))):
+        k = tuple(int(w) for w in words)
+        v = prng.randint_scalar(k, lo, hi)
+        t = prng.randint(k, (1, 1), lo, hi, device="cpu")
+        assert type(v) is int and v == int(j[s]) == int(t[0, 0]), (s, v, j[s])
