@@ -3,13 +3,14 @@ cell.
 
 Everything a cell needs is found by name: the cell in `BENCHMARK.json`
 (`workloads`), its configuration file (`configs`' `file`: scene, image
-size, samples and depth, and how the output check samples the run), its
-traffic mix `traffic/<mix>.json`, and one reader a per-layer metric,
-`metrics/<metric>.py`. A run
+size, samples and depth, and how the output check samples the run), the
+configuration's own scene generator where it brings one (`scene_file`,
+under `reference/`), its traffic mix `traffic/<mix>.json`, and one reader
+a per-layer metric, `metrics/<metric>.py`. A run
 
-1. builds the scene from the configuration with the reference's own
-   generator, hands it to the program, and warms up every shape the mix
-   uses (set-up);
+1. builds the scene from the configuration with the reference's
+   generator (`make_scene`), hands it to the program, and warms up every
+   shape the mix uses (set-up);
 2. renders whole images back to back through `render()` until
    `--seconds` have passed, one closed-loop client, each image ending in
    a device synchronisation (the window, from the first image's start to
@@ -26,6 +27,7 @@ program's `RenderStats` counters) feeds the per-layer metrics.
 from __future__ import annotations
 
 import argparse
+import ast
 import gc
 import importlib.util
 import json
@@ -100,6 +102,73 @@ def metric_reader(name: str, pkg: Path = PKG):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+# what a configuration's own scene file may import: the frozen reference's
+# scene-building modules (relative, or under `<benchmark>.reference`), and
+# these libraries; never the program or JAX
+SCENE_MODULES = frozenset({"builder", "scene_types", "detrng"})
+SCENE_LIBRARIES = frozenset({"__future__", "math", "pathlib", "numpy"})
+
+
+def scene_imports_refused(path: Path) -> list:
+    """The imports of scene file `path` that it may not make (see
+    SCENE_MODULES), as written in the file; [] where it makes none."""
+    ref = f"{PKG.name}.reference"
+
+    def allowed(module: str, names=()) -> bool:
+        if module.split(".")[0] in SCENE_LIBRARIES:
+            return True
+        if module == ref:
+            return bool(names) and set(names) <= SCENE_MODULES
+        head, _, tail = module.rpartition(".")
+        return head == ref and tail in SCENE_MODULES
+
+    refused = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            refused += [a.name for a in node.names if not allowed(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            names = [a.name for a in node.names]
+            if node.level == 0:
+                ok = allowed(node.module, names)
+            elif node.level == 1:
+                ok = (node.module in SCENE_MODULES if node.module
+                      else set(names) <= SCENE_MODULES)
+            else:
+                ok = False
+            if not ok:
+                refused.append("." * node.level + (node.module or "")
+                               + f" ({', '.join(names)})")
+    return refused
+
+
+def make_scene(cell: dict, aspect: float):
+    """The scene of `cell`'s configuration at image aspect `aspect`. A
+    configuration with a `scene_file` (a path from the checkout's root,
+    under the benchmark's `reference/`) brings its own generator: that
+    file's `make_scene(aspect, **scene_args)`. Without one, `scene` names
+    a generator of the reference's `scenes.py`, given `scene_args` too."""
+    conf = cell["config"]
+    args = conf.get("scene_args", {})
+    if "scene_file" not in conf:
+        from .reference import scenes as rscenes
+        return rscenes.make_scene(conf["scene"], aspect, **args)
+    ref = (cell["pkg"] / "reference").resolve()
+    path = (cell["pkg"].parent / conf["scene_file"]).resolve()
+    if ref not in path.parents or path.suffix != ".py" or \
+            not path.is_file():
+        raise BenchError(f"scene_file {conf['scene_file']!r} is no Python "
+                         f"file under {PKG.name}/reference/")
+    refused = scene_imports_refused(path)
+    if refused:
+        raise BenchError(f"scene_file {conf['scene_file']!r} imports what "
+                         f"a scene of the reference may not: {refused}")
+    spec = importlib.util.spec_from_file_location(
+        f"{PKG.name}.reference.{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_scene(aspect, **args)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +263,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     from . import trace as trace_mod
     from .reference import megakernel as rmk
     from .reference import render as rrender
-    from .reference import scenes as rscenes
 
     t_proc = process_start_wall()
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
@@ -217,7 +285,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         torch.cuda.init()
         sync()
     marks.append(("device", time.time()))
-    scene = rscenes.make_scene(conf["scene"], nx / ny)
+    scene = make_scene(cell, nx / ny)
     knobs = adapter.plan_knobs(scene, cfg_of(0))
     marks.append(("scene and plan", time.time()))
     # set-up: every shape of the mix (each launch size) at least once

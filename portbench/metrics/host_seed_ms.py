@@ -1,7 +1,7 @@
 """Host milliseconds a launch in the launch's random-number keys: the
 render loop's `prng.fold_in(key, launch)` (`loop.key`) and the megakernel
-seed's threefry on CPU tensors (`loop.seed`), from the program's spans
-inside the window."""
+seed, `launch_seed`'s threefry in scalar host arithmetic on Python ints
+(`loop.seed`), from the program's spans inside the window."""
 from portbench import spans
 
 

@@ -7,9 +7,10 @@ import torch
 from conftest import tiny_cell
 
 from portbench import check, control, harness
+from portbench.reference import render as rrender
 from raytracingweekend_tpu_torch import render as prender
 
-CELLS = ("book1_final.converge", "cornell_box.converge")
+CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
 
 
 def _run(cell, seed=2 ** 31 + 101, render_fn=None):
@@ -24,11 +25,12 @@ def test_sound_run_is_correct(name):
     assert res["checks"]["mismatch_share"]["value"] == 0.0
 
 
-def _unchanged(orig):
-    """The first launch of each image returns the canvas unchanged."""
+def _unchanged(orig, per_image):
+    """The first launch of each image (of `per_image` launches) returns
+    the canvas unchanged."""
     def fn(scene, seed, nx, ny, chunk_spp, *a, **kw):
         part, segs = orig(scene, seed, nx, ny, chunk_spp, *a, **kw)
-        if fn.calls % 2 == 0:
+        if fn.calls % per_image == 0:
             part = torch.zeros_like(part)
         fn.calls += 1
         return part, segs
@@ -36,7 +38,7 @@ def _unchanged(orig):
     return fn
 
 
-def _half(orig):
+def _half(orig, per_image):
     """Each launch traces half its samples and scales their sum up."""
     def fn(scene, seed, nx, ny, chunk_spp, *a, **kw):
         half = max(chunk_spp // 2, 1)
@@ -45,7 +47,7 @@ def _half(orig):
     return fn
 
 
-def _altered(orig):
+def _altered(orig, per_image):
     """Each launch's radiance sums altered by a thousandth."""
     def fn(*a, **kw):
         part, segs = orig(*a, **kw)
@@ -57,8 +59,11 @@ def _altered(orig):
 @pytest.mark.parametrize("fault", [_unchanged, _half, _altered])
 def test_fault_in_the_timed_path_is_not_correct(name, fault, monkeypatch):
     cell = tiny_cell(name)
+    mix = cell["traffic"]
+    per_image = len(rrender.launches(mix.get("spp", cell["config"]["spp"]),
+                                     mix["samples_per_launch"]))
     monkeypatch.setattr(prender, "render_chunk_mega",
-                        fault(prender.render_chunk_mega))
+                        fault(prender.render_chunk_mega, per_image))
     res = _run(cell)
     assert not res["correct"]
     assert res["checks"]["mismatch_share"]["value"] > 0.5

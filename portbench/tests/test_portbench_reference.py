@@ -3,6 +3,7 @@ and the benchmark's imports: nothing a run imports is JAX or the JAX
 package, and the reference imports nothing of the program."""
 import ast
 import dataclasses
+import json
 import subprocess
 import sys
 
@@ -11,10 +12,37 @@ import pytest
 import torch
 from conftest import ROOT
 
+from portbench import harness
 from portbench.reference import render as rrender
 from portbench.reference import scenes as rscenes
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "raytracingweekend_tpu"}
+SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
+CONFIGS = [json.loads((ROOT / c["file"]).read_text())
+           for c in SPEC["configs"]]
+# the configurations whose scene is a generator of the reference's
+# scenes.py (a copy of the program's), not a scene file of their own
+BUILT_IN = [c for c in CONFIGS if "scene_file" not in c]
+
+
+def _scene(conf, aspect):
+    """The scene of configuration `conf`, as a run of its cells builds
+    it."""
+    return harness.make_scene({"config": conf, "pkg": ROOT / "portbench"},
+                              aspect)
+
+
+def _assert_tables_equal(a, b, what):
+    for tab in ("spheres", "rects", "media", "materials", "textures",
+                "camera"):
+        ta, tb = getattr(a, tab), getattr(b, tab)
+        for f in dataclasses.fields(ta):
+            x, y = getattr(ta, f.name), getattr(tb, f.name)
+            if x is None or isinstance(x, (int, float)):
+                assert x == y, (what, tab, f.name)
+            else:
+                assert np.array_equal(np.asarray(x), np.asarray(y)), \
+                    (what, tab, f.name)
 
 
 def _imports(path) -> set:
@@ -59,32 +87,37 @@ def test_a_run_holds_no_jax_module():
     assert p.stdout.split()[-2:] == ["True", "[]"], p.stdout
 
 
-def test_reference_scenes_equal_the_program_scenes():
+@pytest.mark.parametrize("conf", BUILT_IN, ids=lambda c: c["name"])
+def test_reference_scenes_equal_the_program_scenes(conf):
     from raytracingweekend_tpu_torch.models import scenes as pscenes
-    for name in rscenes.SCENES:
-        a, b = rscenes.make_scene(name, 1.5), pscenes.make_scene(name, 1.5)
-        for tab in ("spheres", "rects", "media", "materials", "textures",
-                    "camera"):
-            ta, tb = getattr(a, tab), getattr(b, tab)
-            for f in dataclasses.fields(ta):
-                x, y = getattr(ta, f.name), getattr(tb, f.name)
-                if x is None or isinstance(x, (int, float)):
-                    assert x == y, (name, tab, f.name)
-                else:
-                    assert np.array_equal(np.asarray(x), np.asarray(y)), \
-                        (name, tab, f.name)
+    args = conf.get("scene_args", {})
+    _assert_tables_equal(_scene(conf, 1.5),
+                         pscenes.make_scene(conf["scene"], 1.5, **args),
+                         conf["name"])
 
 
-@pytest.mark.parametrize("name,nx,ny,spp,depth", [
-    ("random_balls", 32, 16, 6, 5), ("cornell_box", 24, 32, 9, 8)])
-def test_reference_equals_the_program_plain_version(name, nx, ny, spp,
-                                                   depth):
+@pytest.mark.parametrize("conf", BUILT_IN, ids=lambda c: c["name"])
+def test_config_builds_the_built_in_generator_scene(conf):
+    """A configuration without a scene file of its own builds, through
+    the harness, the very tables of the reference's generator called
+    directly, at its own aspect."""
+    aspect = conf["nx"] / conf["ny"]
+    _assert_tables_equal(_scene(conf, aspect),
+                         rscenes.SCENES[conf["scene"]](aspect),
+                         conf["name"])
+
+
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: c["name"])
+def test_reference_equals_the_program_plain_version(conf):
     """render() on the CPU (the kernels' plain versions) and the
-    reference's render agree bit for bit, launches of 4 and a last one of
-    the rest included: on every tile, and on one tile of a second render
-    traced in the same calls."""
+    reference's render agree bit for bit at the configuration's
+    `cpu_case`, launches of 4 and a last one of the rest included: on
+    every tile, and on one tile of a second render traced in the same
+    calls."""
     from portbench import adapter
-    scene = rscenes.make_scene(name, nx / ny)
+    nx, ny, spp, depth = (conf["cpu_case"][k]
+                          for k in ("nx", "ny", "spp", "max_depth"))
+    scene = _scene(conf, nx / ny)
     cfg = adapter.render_config(nx, ny, spp, depth, 4, 77, device="cpu")
     img = adapter.render(scene, cfg)
     knobs = adapter.plan_knobs(scene, cfg)

@@ -64,7 +64,8 @@ def test_cell_found_by_name(cell):
     found = harness.find_cell(SPEC, cell, ROOT)
     conf = found["config"]
     assert conf["name"] == found["workload"]["config"]
-    for key in ("scene", "nx", "ny", "spp", "max_depth", "check"):
+    for key in ("scene", "nx", "ny", "spp", "max_depth", "check",
+                "cpu_case"):
         assert key in conf
     assert found["traffic"]["samples_per_launch"] > 0
     names = {m["name"] for m in found["end_to_end"]}
@@ -82,6 +83,46 @@ def test_every_config_is_used_and_lies_under_paths():
         assert c["file"].startswith("portbench/")
         assert json.loads((ROOT / c["file"]).read_text())["name"] == \
             c["name"]
+
+
+@pytest.mark.parametrize("entry", SPEC["configs"],
+                         ids=lambda c: c["name"])
+def test_every_config_scene_resolves_and_brings_its_cpu_case(entry):
+    """A configuration's scene resolves as its cells build it: a
+    generator of the reference's scenes.py, or a scene file of its own
+    under portbench/reference/ that imports only what a scene of the
+    reference may; its `cpu_case` sizes the reference's CPU test."""
+    cell = next(w["name"] for w in SPEC["workloads"]
+                if w["config"] == entry["name"])
+    found = harness.find_cell(SPEC, cell, ROOT)
+    assert harness.make_scene(found, 1.5).spheres.radius.size > 0
+    case = found["config"]["cpu_case"]
+    assert set(case) == {"nx", "ny", "spp", "max_depth"}
+    assert all(isinstance(v, int) and v > 0 for v in case.values())
+
+
+# the keys of a traffic mix that run_cell reads, and "why"
+MIX_KEYS = {"spp", "samples_per_launch", "warmup_images", "warmup_seconds",
+            "why"}
+
+
+@pytest.mark.parametrize("mix", sorted({w["traffic"]
+                                        for w in SPEC["workloads"]}))
+def test_traffic_mix_has_the_keys_run_cell_reads(mix):
+    data = json.loads((ROOT / "portbench/traffic" / f"{mix}.json")
+                      .read_text())
+    assert set(data) <= MIX_KEYS, set(data) - MIX_KEYS
+    assert isinstance(data["samples_per_launch"], int)
+    assert data["samples_per_launch"] > 0
+    assert isinstance(data.get("spp", 1), int) and data.get("spp", 1) > 0
+    assert data.get("warmup_images", 1) >= 1
+    assert data.get("warmup_seconds", 0.0) >= 0.0
+
+
+def test_preview_is_one_launch_of_4_spp_an_image():
+    data = json.loads((ROOT / "portbench/traffic/preview.json")
+                      .read_text())
+    assert data["spp"] == data["samples_per_launch"] == 4
 
 
 def test_new_config_mix_and_metric_are_files_and_entries(tmp_path):
